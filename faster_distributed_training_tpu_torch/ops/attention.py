@@ -1,0 +1,158 @@
+"""Attention numerics shared by every attention path of the port.
+
+PyTorch counterpart of ``faster_distributed_training_tpu/ops/attention.py``:
+the additive mask convention, the stateless hash dropout, the dense
+O(L²) reference and the blockwise (online-softmax) formulation.
+
+Mask convention: mask == 0 is masked out, broadcastable to
+[B, H, Lq, Lk] (typically a [B, 1, 1, Lk] padding mask).  Masked scores
+get an additive NEG_INF (-1e9) in fp32, never -inf, so a fully masked
+row comes out as the mean of V rather than NaN.  Softmax statistics are
+fp32 whatever the input dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e9
+
+_M32 = 0xFFFFFFFF
+
+
+def mask_to_bias(mask: Optional[torch.Tensor],
+                 dtype=torch.float32) -> Optional[torch.Tensor]:
+    """mask (...==0 masked) -> additive bias (0 keep, NEG_INF drop)."""
+    if mask is None:
+        return None
+    zero = torch.zeros((), dtype=dtype, device=mask.device)
+    return torch.where(mask == 0, torch.full_like(zero, NEG_INF), zero)
+
+
+# ------------------------------------------------- stateless hash dropout
+# The keep decision for score element (bh, q, k) is murmur3's 32-bit
+# finalizer chained over (seed ^ bh, q, k): a pure function of indices,
+# so a kernel and its plain version regenerate the identical mask with
+# no mask tensor.  CPU torch has no uint32 shift, so the hash runs in
+# int64 masked to 32 bits; the CUDA kernels use uint32_t.  Both give
+# the JAX package's bits exactly.
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32 on int64 tensors holding uint32 values."""
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & _M32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & _M32
+    x = x ^ (x >> 16)
+    return x
+
+
+def keep_threshold(rate: float) -> int:
+    """uint32 keep threshold: a hash below it keeps the element."""
+    return min(int((1.0 - rate) * 4294967296.0), 4294967295)
+
+
+def keep_scale(rate: float) -> float:
+    """The fp32 survivor scale 1/(1-rate), rounded as JAX rounds it."""
+    return float(torch.tensor(1.0, dtype=torch.float32)
+                 / torch.tensor(1.0 - rate, dtype=torch.float32))
+
+
+def dropout_keep(seed, bh, q_idx, k_idx, rate: float) -> torch.Tensor:
+    """fp32 keep/(1-rate) factor, broadcast over bh/q_idx/k_idx.
+
+    seed: a uint32 value (python int or integer tensor); bh / q_idx /
+    k_idx: integer index tensors broadcastable to the score block's
+    shape (GLOBAL indices); rate: python float in [0, 1)."""
+    def u32(v):
+        v = torch.as_tensor(v)
+        return v.to(torch.int64) & _M32
+
+    h = _fmix32(u32(seed) ^ u32(bh))
+    h = _fmix32(h ^ u32(q_idx))
+    h = _fmix32(h ^ u32(k_idx))
+    keep = (h < keep_threshold(rate)).to(torch.float32)
+    return keep * keep_scale(rate)
+
+
+def bh_index(B: int, H: int, device=None) -> torch.Tensor:
+    """[B,H,1,1] flattened batch*head index — the dropout stream id every
+    attention path agrees on."""
+    return (torch.arange(B, dtype=torch.int64, device=device)[:, None] * H
+            + torch.arange(H, dtype=torch.int64, device=device)[None, :]
+            )[:, :, None, None]
+
+
+def _scores(q, k, mask):
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    bias = mask_to_bias(mask)
+    return s if bias is None else s + bias
+
+
+def dense_attention_reference(q, k, v, mask=None, dropout_rate: float = 0.0,
+                              dropout_seed=None, dropout_bh=None):
+    """O(L²) reference: fp32 scores, fp32 softmax, then hash dropout
+    (softmax first, then drop and rescale), probabilities cast to v's
+    dtype for the value product.  q/k/v [B, H, L, D]."""
+    B, H, Lq, _ = q.shape
+    Lk = k.shape[2]
+    p = torch.softmax(_scores(q, k, mask), dim=-1)
+    if dropout_rate > 0.0:
+        seed = 0 if dropout_seed is None else dropout_seed
+        bh = bh_index(B, H, q.device) if dropout_bh is None else dropout_bh
+        p = p * dropout_keep(
+            seed, bh,
+            torch.arange(Lq, device=q.device)[None, None, :, None],
+            torch.arange(Lk, device=q.device)[None, None, None, :],
+            dropout_rate).to(p.device)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def blockwise_attention(q, k, v, mask=None, block_k: int = 128,
+                        causal: bool = False, dropout_rate: float = 0.0,
+                        dropout_seed=None, dropout_bh=None):
+    """Streaming attention over key blocks with running (max, sum,
+    accumulator) statistics; numerically equal to the dense softmax.
+
+    q [B,H,Lq,D], k/v [B,H,Lk,D], mask broadcastable to [B,H,Lq,Lk].
+    causal=True applies the lower-triangular constraint per key block
+    (query i sees keys <= i; Lq == Lk self-attention).  Dropout applies
+    to the value product only; the normalizer sums every probability."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    bias = mask_to_bias(mask)
+    if bias is not None:
+        bias = torch.broadcast_to(bias, (B,) + bias.shape[1:3] + (Lk,))
+    bh = bh_index(B, H, q.device) if dropout_bh is None else dropout_bh
+    seed = 0 if dropout_seed is None else dropout_seed
+    q_pos = torch.arange(Lq, device=q.device)
+    m = torch.full((B, H, Lq), -math.inf, device=q.device)
+    l = torch.zeros((B, H, Lq), device=q.device)
+    acc = torch.zeros((B, H, Lq, D), device=q.device)
+    qf = q.float()
+    for k0 in range(0, Lk, block_k):
+        k1 = min(k0 + block_k, Lk)
+        s = torch.matmul(qf, k[:, :, k0:k1].float().transpose(-1, -2)) * scale
+        if bias is not None:
+            s = s + bias[..., k0:k1]
+        k_pos = torch.arange(k0, k1, device=q.device)
+        if causal:
+            s = s + torch.where(k_pos[None, :] <= q_pos[:, None],
+                                0.0, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        if dropout_rate > 0.0:
+            p = p * dropout_keep(seed, bh, q_pos[None, None, :, None],
+                                 k_pos[None, None, None, :],
+                                 dropout_rate).to(p.device)
+        acc = acc * corr[..., None] + torch.matmul(
+            p.to(v.dtype).float(), v[:, :, k0:k1].float())
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)

@@ -1,0 +1,112 @@
+"""Fused 2-layer classifier MLP forward: the Hopper kernel and its plain
+version.
+
+Counterpart of ``faster_distributed_training_tpu/ops/fused_mlp.py``
+(``_mlp_fwd_pallas``): linear -> ReLU -> linear with weights in (out, in)
+layout like ``torch.nn.Linear``,
+
+    h   = x.w1^T + b1        (fp32 accumulation)
+    a   = relu(h) cast to x's dtype
+    out = a.w2^T + b2        (fp32 accumulation, cast once)
+
+For CUDA tensors ``fused_mlp`` launches ``csrc/fused_mlp.cu``; for CPU
+tensors it runs ``mlp_reference``, the same math with the same rounding
+points.  There is no fallback: any other device, or a CUDA input the
+kernel does not take, raises.  The recompute backward arrives with the
+training slice as a ``torch.autograd.Function``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from faster_distributed_training_tpu_torch.ops import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def mlp_reference(x, w1, b1, w2, b2):
+    """Plain PyTorch version of the kernel (x [..., d_in])."""
+    h = torch.matmul(x.float(), w1.float().T) + b1.float()
+    a = torch.relu(h).to(x.dtype)
+    return (torch.matmul(a.float(), w2.float().T) + b2.float()).to(x.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_mlp")
+    if lib.fdt_fused_mlp_fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fdt_fused_mlp_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.fdt_fused_mlp_fwd.restype = ctypes.c_int
+        lib.fdt_mlp_rows_per_block.restype = ctypes.c_int
+        lib.fdt_mlp_units_per_block.restype = ctypes.c_int
+    return lib
+
+
+def _check_inputs(x2, w1, b1, w2, b2):
+    dt = x2.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"fused_mlp kernel takes float32 or bfloat16, got "
+                        f"{dt}")
+    d_in = x2.shape[1]
+    d_h, d_out = w1.shape[0], w2.shape[0]
+    want = {"w1": (w1, (d_h, d_in)), "b1": (b1, (d_h,)),
+            "w2": (w2, (d_out, d_h)), "b2": (b2, (d_out,))}
+    for name, (t, shape) in want.items():
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"fused_mlp {name}: want {dt} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != x2.device or not t.is_contiguous():
+            raise ValueError(f"fused_mlp {name} must be contiguous on "
+                             f"{x2.device}")
+    vec = 16 // x2.element_size()
+    if d_in % vec:
+        raise ValueError(f"fused_mlp kernel needs d_in % {vec} == 0 "
+                         f"(16-byte rows), got {d_in}")
+    for name, t in (("x", x2), ("w1", w1)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_mlp {name} is not 16-byte aligned")
+
+
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
+              w2: torch.Tensor, b2: Optional[torch.Tensor]) -> torch.Tensor:
+    """x [..., d_in]; w1 (d_h, d_in); b1 (d_h,) or (1, d_h) or None;
+    w2 (d_out, d_h); b2 (d_out,) or (1, d_out) or None."""
+    d_h, d_out = w1.shape[0], w2.shape[0]
+    b1 = (torch.zeros(d_h, dtype=x.dtype, device=x.device) if b1 is None
+          else b1.reshape(d_h))
+    b2 = (torch.zeros(d_out, dtype=x.dtype, device=x.device) if b2 is None
+          else b2.reshape(d_out))
+    if x.device.type == "cpu":
+        return mlp_reference(x, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp runs on cuda (kernel) or cpu (plain "
+                         f"version), not {x.device}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    _check_inputs(x2, w1, b1, w2, b2)
+    rows, d_in = x2.shape
+    lib = _lib()
+    per_block = lib.fdt_mlp_rows_per_block()
+    n_splits = -(-d_h // lib.fdt_mlp_units_per_block())
+    out = torch.empty((rows, d_out), dtype=x.dtype, device=x.device)
+    partial = torch.empty((n_splits, rows, d_out), dtype=torch.float32,
+                          device=x.device)
+    counters = torch.zeros(-(-rows // per_block), dtype=torch.int32,
+                           device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fdt_fused_mlp_fwd(
+            x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            counters.data_ptr(), _DTYPES[x.dtype], rows, d_in, d_h, d_out,
+            stream)
+    _build.check(lib, err, "fused_mlp launch")
+    fused_mlp.launches += 1
+    return out.reshape(*lead, d_out)
+
+
+fused_mlp.launches = 0

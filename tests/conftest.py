@@ -70,6 +70,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded from the tier-1 budgeted run "
         "(ROADMAP's `-m 'not slow'`); run with `pytest -m slow`")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's kernels); "
+        "skips without one — run on the card with `pytest -m cuda "
+        "tests/test_torch_*.py`")
 
 
 # ROADMAP tier-1 wall-clock budget the suite must stay under; printed
