@@ -1,10 +1,12 @@
-"""Entry points of the port: classifier serving (slice 1).
+"""Entry points of the port: classifier training (slice 2) and serving
+(slice 1).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
-``resolve_attention``, ``build_model``, ``synth_requests``,
-``run_serving`` and ``main_serve``.  Everything runs on CUDA unless the
-caller passes ``--device cpu`` / ``device="cpu"``; ``cuda`` without a
-GPU raises, nothing falls back on its own.
+``resolve_attention``, ``build_model``, ``load_dataset`` (the synthetic
+branch), ``apply_subset``, ``make_loaders``, ``run_training``, ``main``,
+``synth_requests``, ``run_serving`` and ``main_serve``.  Everything runs
+on CUDA unless the caller passes ``--device cpu`` / ``device="cpu"``;
+``cuda`` without a GPU raises, nothing falls back on its own.
 
 Attention routing does not copy the JAX package's measured TPU surface
 (its dense/flash crossover, sequence-parallel threshold and dense
@@ -64,6 +66,8 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
     at load).  Features the port has not reached raise."""
     from faster_distributed_training_tpu_torch.models import get_model
 
+    from faster_distributed_training_tpu_torch.train.amp import compute_dtype
+
     if cfg.model != "transformer":
         raise NotImplementedError(f"the port builds the transformer only "
                                   f"so far, not {cfg.model!r}")
@@ -71,18 +75,177 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
                 "--quant": (cfg.quant or "none") != "none",
                 "--ffn_impl pallas": cfg.ffn_impl == "pallas",
                 "--tricks off (unfused qkv)": cfg.tricks == "off",
+                "--dropout_impl xla": cfg.dropout_impl == "xla",
+                "--remat": bool(cfg.remat),
                 "--mesh": any(int(s) > 1 for s in cfg.mesh_shape)}
     missing = [k for k, v in unported.items() if v]
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
-    dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
+    dtype = compute_dtype(cfg.precision)
     device = torch.device(device if device is not None else cfg.device)
+    rate = 0.0 if cfg.dropout_impl == "none" else 0.1
+    rates = {k: rate for k in (
+        "dropout_encodings", "dropout_connection_attention",
+        "dropout_connection_ffn", "dropout_attention", "dropout_ffn",
+        "dropout_pooler")}
     return get_model("transformer", cfg.num_classes,
                      vocab=vocab_size or 30522, maxlen=cfg.seq_len,
                      n_layers=cfg.n_layers, d_model=cfg.d_model,
                      d_ff=cfg.d_ff, h=cfg.n_heads, dtype=dtype,
                      param_dtype=dtype if serving else torch.float32,
-                     attention_impl=resolve_attention(cfg, device))
+                     attention_impl=resolve_attention(cfg, device), **rates)
+
+
+def unported_training_flags(cfg: TrainConfig) -> list:
+    """The flags of features the training slice does not reach."""
+    checks = {
+        "--ngd": cfg.use_ngd,
+        "--remat": bool(cfg.remat),
+        "--steps_per_dispatch > 1": int(cfg.steps_per_dispatch or 1) > 1,
+        f"--data_path {cfg.data_path}": cfg.data_path != "host",
+        f"--dataset {cfg.dataset}": cfg.dataset != "synthetic",
+        "--quant": (cfg.quant or "none") != "none",
+        "--ffn_impl pallas": cfg.ffn_impl == "pallas",
+        "--task lm": cfg.task != "cls",
+        "--mesh": any(int(s) > 1 for s in cfg.mesh_shape),
+        "--distributed": bool(cfg.distributed),
+        "--fsdp / --host_offload / --offload_opt_state": bool(
+            cfg.fsdp or cfg.host_offload or cfg.offload_opt_state),
+        f"--sentinel {cfg.sentinel}": (cfg.sentinel or "none") != "none",
+        "--supervise": bool(cfg.supervise),
+        "--auto_recover": bool(cfg.auto_recover),
+        "--profile_steps": bool(cfg.profile_steps),
+        "--precision fp16": cfg.precision == "fp16",
+    }
+    return [k for k, v in checks.items() if v]
+
+
+def load_dataset(cfg: TrainConfig, train: bool):
+    """The synthetic AG-News-shaped split (the JAX package's
+    ``--dataset synthetic`` branch: 4096 train / 1024 test rows, seeds 0
+    and 1).  Real AG News waits for its CSVs in the repository."""
+    from faster_distributed_training_tpu_torch.data.synthetic import (
+        synthetic_agnews)
+
+    if cfg.dataset != "synthetic" or cfg.model != "transformer":
+        raise NotImplementedError(f"not ported yet: --dataset "
+                                  f"{cfg.dataset} for {cfg.model}")
+    return synthetic_agnews(n=4096 if train else 1024,
+                            seed=0 if train else 1, max_len=cfg.seq_len)
+
+
+def apply_subset(ds, stride: int):
+    """1/N-stride subset of a text dataset (applied to both splits)."""
+    if stride <= 1:
+        return ds
+
+    class _Subset:
+        def __init__(self, base):
+            self._base = base
+            self._idx = np.arange(0, len(base), stride)
+
+        def __len__(self):
+            return len(self._idx)
+
+        def num_classes(self):
+            return self._base.num_classes()
+
+        def vocab_size(self):
+            return self._base.vocab_size()
+
+        def encode_batch(self, indices, max_len=512):
+            return self._base.encode_batch(self._idx[np.asarray(indices)],
+                                           max_len)
+
+    return _Subset(ds)
+
+
+def make_loaders(cfg: TrainConfig, train_ds, eval_ds):
+    """(train_loader(epoch, start), eval_loader(epoch), steps_per_epoch);
+    ``start`` is the epoch's first batch (a mid-epoch resume).  One
+    background thread prefetches batches (``--prefetch_depth``; the JAX
+    package's ``--workers`` thread pool yields the same order and is not
+    ported)."""
+    from faster_distributed_training_tpu_torch.data.loader import (
+        BatchLoader, PrefetchIterator)
+
+    def wrap(loader):
+        if cfg.prefetch_depth <= 0:
+            return loader
+        return PrefetchIterator(loader, depth=cfg.prefetch_depth)
+
+    def train_loader(epoch: int, start: int = 0):
+        return wrap(BatchLoader(train_ds, cfg.batch_size, epoch=epoch,
+                                seed=cfg.seed, shuffle=True,
+                                max_len=cfg.seq_len, start=start))
+
+    def eval_loader(epoch: int):
+        return wrap(BatchLoader(eval_ds, cfg.batch_size, epoch=0,
+                                seed=cfg.seed, shuffle=False,
+                                max_len=cfg.seq_len, pad_last=True))
+
+    steps = len(BatchLoader(train_ds, cfg.batch_size))
+    return train_loader, eval_loader, max(steps, 1)
+
+
+def run_training(cfg: TrainConfig, params=None, device=None,
+                 log: Callable[[str], None] = print) -> dict:
+    """Full training run of the transformer classifier; returns
+    {'state', 'history', 'best_acc', 'cfg', 'trainer', 'steps_per_epoch'}.
+    ``params``: a JAX-layout parameter tree to start from (seeded
+    init from ``cfg.seed`` when None).  Runs on ``cfg.device`` (cuda by
+    default) unless ``device`` says otherwise."""
+    from faster_distributed_training_tpu_torch.interop import params_from_jax
+    from faster_distributed_training_tpu_torch.optim import build_optimizer
+    from faster_distributed_training_tpu_torch.train.loop import Trainer
+    from faster_distributed_training_tpu_torch.train.state import (
+        create_train_state)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_eval_step, make_train_step)
+
+    missing = unported_training_flags(cfg)
+    if missing:
+        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    dev = resolve_device(device if device is not None else cfg.device)
+    train_ds = apply_subset(load_dataset(cfg, train=True), cfg.subset_stride)
+    eval_ds = apply_subset(load_dataset(cfg, train=False), cfg.subset_stride)
+    model = build_model(cfg, vocab_size=train_ds.vocab_size(), device=dev)
+    if params is not None:
+        model.load_state_dict(params_from_jax(params))
+    else:
+        model.init_weights(torch.Generator().manual_seed(cfg.seed))
+    model.to(dev)
+    train_loader, eval_loader, steps_per_epoch = make_loaders(
+        cfg, train_ds, eval_ds)
+    tx, _ = build_optimizer(cfg, steps_per_epoch)
+    state = create_train_state(model, tx, cfg.seed)
+    trainer = Trainer(cfg, make_train_step(cfg), make_eval_step(cfg), dev,
+                      log=log)
+    if cfg.telemetry:
+        log("[telemetry] not ported yet: this run records no telemetry "
+            "(per-step JSONL, manifest, spans come with the telemetry "
+            "slice)")
+    log(f"[train] {cfg.model} on {dev.type}: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.precision}, "
+        f"attention {model.layers[0].attn.attention_impl}, "
+        f"{steps_per_epoch} steps/epoch x {cfg.epochs} epochs, batch "
+        f"{cfg.batch_size}")
+    ckpt_name = "transformer"
+    state, start_epoch, start_step = trainer.maybe_resume(state, ckpt_name)
+    state = trainer.fit(state, train_loader, eval_loader,
+                        ckpt_name=ckpt_name, start_epoch=start_epoch,
+                        start_step_in_epoch=start_step)
+    return {"state": state, "history": trainer.history,
+            "best_acc": trainer.best_acc, "cfg": cfg, "trainer": trainer,
+            "steps_per_epoch": steps_per_epoch}
+
+
+def main(argv=None, defaults: Optional[TrainConfig] = None,
+         prog: str = "fdt") -> dict:
+    """The training CLI: the JAX package's flag surface."""
+    parser = build_parser(prog=prog, defaults=defaults)
+    cfg = config_from_args(parser.parse_args(argv), defaults=defaults)
+    return run_training(cfg)
 
 
 def synth_requests(n: int, vocab: int, buckets, seed: int = 0,

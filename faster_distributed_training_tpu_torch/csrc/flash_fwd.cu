@@ -4,7 +4,12 @@
 // flash_attention.py::_flash_fwd_pallas (kernel body :183).  Same
 // function: s = q.k^T / sqrt(D) + key bias (fp32), fp32 row softmax,
 // hash dropout on p in the p.v product only (the normaliser l sums the
-// undropped p), out = (p.v) / max(l, 1e-30), optional row lse.
+// undropped p), out = (p.v) / max(l, 1e-30), optional row lse.  The lse
+// comes as a head (lse = m + log l, rounded to fp32) and, optionally, its
+// low-order tail (lse_lo = (m - lse) + log l): at a fully masked row
+// m is near -1e9, where fp32 steps by 64 and log l vanishes from the
+// head, so the backward's p = exp((s - lse) - lse_lo) keeps the row
+// normalized (the dense VJP's mean-of-V gradient).
 //
 // What bounds it on this card: at the serving shape (B*H = 64, L = 512,
 // D = 64, bf16) the two products are 4.3 GFLOP against ~17 MB of q/k/v/out
@@ -84,6 +89,7 @@ struct Args {
   const float* bias;  // [B, Lk] additive key bias, or null
   void* out;
   float* lse;         // [B*H, Lq] or null
+  float* lse_lo;      // [B*H, Lq] low-order tail of lse, or null
   long long sq_b, sq_h, sq_l, sk_b, sk_h, sk_l, sv_b, sv_h, sv_l, so_b, so_h, so_l;
   int H, Lq, Lk;
   float scale;
@@ -295,7 +301,12 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Args a) {
     T* dst = out + qr * a.so_l + half * (D / 2);
 #pragma unroll
     for (int d = 0; d < D / 2; ++d) dst[d] = from_f<T>(orow[d] / l_c);
-    if (a.lse && half == 0) a.lse[(long long)n * a.Lq + qr] = m_i + logf(l_c);
+    if (a.lse && half == 0) {
+      const float log_l = logf(l_c);
+      const float head = m_i + log_l;
+      a.lse[(long long)n * a.Lq + qr] = head;
+      if (a.lse_lo) a.lse_lo[(long long)n * a.Lq + qr] = (m_i - head) + log_l;
+    }
   }
 }
 
@@ -329,7 +340,7 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16.  D must be 16, 32, 64 or 128.
 // Strides are in elements.
 int fdt_flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
-                  void* lse, int dtype, int B, int H, int Lq, int Lk, int D,
+                  void* lse, void* lse_lo, int dtype, int B, int H, int Lq, int Lk, int D,
                   long long sq_b, long long sq_h, long long sq_l, long long sk_b,
                   long long sk_h, long long sk_l, long long sv_b, long long sv_h,
                   long long sv_l, long long so_b, long long so_h, long long so_l,
@@ -343,6 +354,7 @@ int fdt_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
   a.bias = static_cast<const float*>(bias);
   a.out = out;
   a.lse = static_cast<float*>(lse);
+  a.lse_lo = static_cast<float*>(lse_lo);
   a.sq_b = sq_b; a.sq_h = sq_h; a.sq_l = sq_l;
   a.sk_b = sk_b; a.sk_h = sk_h; a.sk_l = sk_l;
   a.sv_b = sv_b; a.sv_h = sv_h; a.sv_l = sv_l;

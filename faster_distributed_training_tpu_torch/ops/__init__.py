@@ -1,1 +1,2 @@
-"""Kernels of the port and their plain PyTorch versions."""
+"""Kernels of the port and their plain PyTorch versions, plus the plain
+ops around them (hash dropout, LayerNorm)."""

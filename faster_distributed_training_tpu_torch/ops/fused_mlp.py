@@ -9,11 +9,16 @@ layout like ``torch.nn.Linear``,
     a   = relu(h) cast to x's dtype
     out = a.w2^T + b2        (fp32 accumulation, cast once)
 
-For CUDA tensors ``fused_mlp`` launches ``csrc/fused_mlp.cu``; for CPU
+For CUDA tensors the forward launches ``csrc/fused_mlp.cu``; for CPU
 tensors it runs ``mlp_reference``, the same math with the same rounding
 points.  There is no fallback: any other device, or a CUDA input the
-kernel does not take, raises.  The recompute backward arrives with the
-training slice as a ``torch.autograd.Function``.
+kernel does not take, raises.  Under autograd ``fused_mlp`` is a
+``torch.autograd.Function`` whose backward is the JAX package's recompute
+VJP ``_mlp_bwd``: the hidden pre-activation is recomputed (residuals are
+the inputs only) and the four gradient products are plain GEMMs, as the
+JAX package left them to XLA outside any Pallas kernel.  Bias gradients
+are sums over rows, or means with ``mean_bias_grad`` (the reference's
+reduction).
 """
 
 from __future__ import annotations
@@ -71,10 +76,55 @@ def _check_inputs(x2, w1, b1, w2, b2):
             raise ValueError(f"fused_mlp {name} is not 16-byte aligned")
 
 
+def mlp_bwd(x, w1, b1, w2, b2, g, mean_bias_grad: bool = False):
+    """JAX's ``_mlp_bwd``: (dx, dw1, db1, dw2, db2) for the cotangent g,
+    recomputing h = x.w1^T + b1 (GEMMs in x's dtype)."""
+    h = torch.matmul(x, w1.T) + (0.0 if b1 is None else b1.reshape(-1))
+    a = torch.relu(h)
+    gf = g.reshape(-1, g.shape[-1])
+    af = a.reshape(-1, a.shape[-1])
+    xf = x.reshape(-1, x.shape[-1])
+    d_w2 = torch.matmul(gf.T, af)
+    d_h = torch.where(h > 0, torch.matmul(g, w2), torch.zeros((), dtype=g.dtype))
+    d_hf = d_h.reshape(-1, d_h.shape[-1])
+    d_w1 = torch.matmul(d_hf.T, xf)
+    d_x = torch.matmul(d_h, w1)
+
+    def red(t, like):
+        if like is None:
+            return None
+        r = t.mean(dim=0) if mean_bias_grad else t.sum(dim=0)
+        return r.reshape(like.shape)
+    return d_x, d_w1, red(d_hf, b1), d_w2, red(gf, b2)
+
+
+class _FusedMLP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, mean_bias_grad: bool):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.mean_bias_grad = mean_bias_grad
+        return _mlp_fwd(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2 = ctx.saved_tensors
+        return (*mlp_bwd(x, w1, b1, w2, b2, g, ctx.mean_bias_grad), None)
+
+
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
-              w2: torch.Tensor, b2: Optional[torch.Tensor]) -> torch.Tensor:
+              w2: torch.Tensor, b2: Optional[torch.Tensor],
+              mean_bias_grad: bool = False) -> torch.Tensor:
     """x [..., d_in]; w1 (d_h, d_in); b1 (d_h,) or (1, d_h) or None;
-    w2 (d_out, d_h); b2 (d_out,) or (1, d_out) or None."""
+    w2 (d_out, d_h); b2 (d_out,) or (1, d_out) or None.  Differentiable
+    (the recompute backward) when autograd needs it."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w1, b1, w2, b2)):
+        return _FusedMLP.apply(x, w1, b1, w2, b2, bool(mean_bias_grad))
+    return _mlp_fwd(x, w1, b1, w2, b2)
+
+
+def _mlp_fwd(x, w1, b1, w2, b2) -> torch.Tensor:
+    """The forward: the kernel on CUDA, mlp_reference on the CPU."""
     d_h, d_out = w1.shape[0], w2.shape[0]
     b1 = (torch.zeros(d_h, dtype=x.dtype, device=x.device) if b1 is None
           else b1.reshape(d_h))

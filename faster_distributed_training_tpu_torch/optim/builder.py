@@ -1,0 +1,97 @@
+"""Optimizer + schedule pairing (the JAX package's ``optim/builder.py``):
+the reference's get_optimizer selection behind one function, with
+global-norm gradient clipping before the update."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from faster_distributed_training_tpu_torch.config import TrainConfig
+from faster_distributed_training_tpu_torch.optim import schedules
+from faster_distributed_training_tpu_torch.optim.madgrad import (
+    Madgrad, madgrad, mirror_madgrad)
+
+Tensors = Dict[str, torch.Tensor]
+
+
+def global_norm(grads: Tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf (optax.global_norm)."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in grads.values()))
+
+
+def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tensors:
+    """optax.clip_by_global_norm: leaves unchanged when the global norm is
+    below max_norm, else (g / norm) * max_norm.  Decided on the device
+    (no host sync)."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    return {n: torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
+            for n, g in grads.items()}
+
+
+class Optimizer:
+    """clip_by_global_norm (when ``clip_norm``) chained before the inner
+    update, as ``optax.chain`` does in the JAX builder."""
+
+    def __init__(self, inner: Madgrad, clip_norm: Optional[float] = None):
+        self.inner = inner
+        self.clip_norm = clip_norm
+
+    def init(self, params: Tensors) -> dict:
+        return self.inner.init(params)
+
+    def update(self, grads: Tensors, state: dict, params: Tensors) -> dict:
+        if self.clip_norm:
+            grads = clip_by_global_norm(grads, self.clip_norm)
+        return self.inner.update(grads, state, params)
+
+
+def _default_schedule(optimizer: str, cfg: TrainConfig) -> str:
+    if cfg.model == "transformer":
+        return "onecycle"
+    if cfg.subset_stride > 1 and optimizer == "ngd":
+        return "step"
+    if optimizer == "ngd":
+        return "multistep"
+    return "cosine"
+
+
+def build_optimizer(cfg: TrainConfig, steps_per_epoch: int,
+                    lr_scale: float = 1.0) -> Tuple[Optimizer,
+                                                    schedules.Schedule]:
+    """(optimizer, schedule).  ``lr_scale`` is the data-parallel world
+    size (1 on one card)."""
+    base_lr = cfg.lr * lr_scale
+    name = cfg.optimizer or ("ngd" if cfg.use_ngd else
+                             ("mirror_madgrad" if cfg.model == "transformer"
+                              else "madgrad"))
+    sched_name = cfg.schedule or _default_schedule(name, cfg)
+    if sched_name == "multistep":
+        schedule = schedules.multistep(base_lr, (10, 20), cfg.gamma,
+                                       steps_per_epoch)
+    elif sched_name == "cosine":
+        schedule = schedules.cosine_annealing(base_lr, 200, steps_per_epoch)
+    elif sched_name == "onecycle":
+        schedule = schedules.one_cycle(base_lr, cfg.epochs, steps_per_epoch)
+    elif sched_name == "step":
+        schedule = schedules.step_decay(base_lr, 2, cfg.gamma,
+                                        steps_per_epoch)
+    elif sched_name == "constant":
+        schedule = schedules.constant(base_lr)
+    else:
+        raise ValueError(f"unknown schedule {sched_name!r}")
+    if name == "madgrad":
+        inner = madgrad(schedule, cfg.momentum, cfg.weight_decay)
+    elif name == "mirror_madgrad":
+        inner = mirror_madgrad(schedule, cfg.momentum, cfg.weight_decay)
+    elif name in ("ngd", "sgd", "adamw"):
+        raise NotImplementedError(
+            f"not ported yet: --optimizer {name}"
+            + (" / --ngd (comes with the ResNet slice)"
+               if name in ("ngd", "sgd") else ""))
+    else:
+        raise ValueError(f"unknown optimizer {name!r}")
+    return Optimizer(inner, cfg.clip_norm or None), schedule

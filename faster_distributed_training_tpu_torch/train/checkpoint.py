@@ -1,0 +1,118 @@
+"""The port's own checkpoints of the whole train state.
+
+``<checkpoint_dir>/<name>/`` holds ``state.pt`` (model parameters,
+optimizer state, step and seed, saved with ``torch.save`` and read back
+with ``weights_only=True``), ``meta.json`` (epoch, step_in_epoch,
+best_acc, step) and a ``COMMIT`` marker.  Each file is written to a
+temporary name and renamed; the marker is removed first and written
+last, so its presence means everything before it is complete — the idiom
+of the JAX package's ``train/checkpoint.py::save_pytree_checkpoint``.
+Reading the JAX package's Orbax checkpoints is not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, Tuple
+
+import torch
+
+from faster_distributed_training_tpu_torch.train.state import TrainState
+
+_STATE = "state.pt"
+_META = "meta.json"
+_COMMIT = "COMMIT"
+
+
+def ckpt_dir(checkpoint_dir: str, name: str) -> str:
+    return os.path.join(os.path.abspath(checkpoint_dir), name)
+
+
+def has_checkpoint(checkpoint_dir: str, name: str) -> bool:
+    return os.path.exists(os.path.join(ckpt_dir(checkpoint_dir, name),
+                                       _COMMIT))
+
+
+def _replace_atomically(path: str, write) -> None:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        write(f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _write_json(path: str, obj: dict) -> None:
+    _replace_atomically(path, lambda f: f.write(json.dumps(obj).encode()))
+
+
+def _to_cpu(tree: Any) -> Any:
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree
+
+
+def save_checkpoint(checkpoint_dir: str, name: str, state: TrainState,
+                    epoch: int, best_acc: float, step_in_epoch: int = 0
+                    ) -> str:
+    """Overwrite ``<checkpoint_dir>/<name>`` with the full state."""
+    path = ckpt_dir(checkpoint_dir, name)
+    os.makedirs(path, exist_ok=True)
+    commit = os.path.join(path, _COMMIT)
+    if os.path.exists(commit):
+        os.remove(commit)
+    payload = {"model": _to_cpu(state.model.state_dict()),
+               "opt_state": _to_cpu(state.opt_state),
+               "step": int(state.step), "seed": int(state.seed)}
+    _replace_atomically(os.path.join(path, _STATE),
+                        lambda f: torch.save(payload, f))
+    _write_json(os.path.join(path, _META),
+                {"epoch": int(epoch), "step_in_epoch": int(step_in_epoch),
+                 "best_acc": float(best_acc), "step": int(state.step)})
+    _write_json(commit, {"committed_unix_time": round(time.time(), 3)})
+    return path
+
+
+def read_meta(checkpoint_dir: str, name: str) -> Dict[str, Any]:
+    """meta.json of a committed checkpoint ({} when there is none)."""
+    if not has_checkpoint(checkpoint_dir, name):
+        return {}
+    with open(os.path.join(ckpt_dir(checkpoint_dir, name), _META)) as f:
+        return json.load(f)
+
+
+def _copy_into(dst: Any, src: Any, where: str) -> Any:
+    if torch.is_tensor(dst):
+        if dst.shape != src.shape:
+            raise ValueError(f"checkpoint {where}: shape {tuple(src.shape)} "
+                             f"!= {tuple(dst.shape)}")
+        dst.copy_(src)
+        return dst
+    if isinstance(dst, dict):
+        if dst.keys() != src.keys():
+            raise ValueError(f"checkpoint {where}: keys differ")
+        return {k: _copy_into(dst[k], src[k], f"{where}/{k}") for k in dst}
+    return src
+
+
+def restore_checkpoint(checkpoint_dir: str, name: str, state: TrainState
+                       ) -> Tuple[TrainState, Dict[str, Any]]:
+    """Restore into ``state`` in place (tensors stay on their devices).
+    Returns (state, meta)."""
+    if not has_checkpoint(checkpoint_dir, name):
+        raise FileNotFoundError(f"no committed checkpoint {name!r} under "
+                                f"{checkpoint_dir}")
+    path = ckpt_dir(checkpoint_dir, name)
+    payload = torch.load(os.path.join(path, _STATE), map_location="cpu",
+                         weights_only=True)
+    with torch.no_grad():
+        state.model.load_state_dict(payload["model"])
+        state.opt_state = _copy_into(state.opt_state, payload["opt_state"],
+                                     "opt_state")
+    state.step = int(payload["step"])
+    state.seed = int(payload["seed"])
+    return state, read_meta(checkpoint_dir, name)

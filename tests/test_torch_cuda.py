@@ -6,9 +6,11 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: bf16 2e-2 max abs on outputs (p and relu(h) round to bf16
-at the same points, accumulation orders differ), lse 1e-3; fp32 1e-5
-with TF32 off (one flipped dropout keep bit would show).
+Tolerances: bf16 2e-2 max abs on forward outputs (p and relu(h) round to
+bf16 at the same points, accumulation orders differ), lse 1e-3; fp32
+1e-5 with TF32 off (one flipped dropout keep bit would show).  Backward
+gradients are held relative to the plain version's max |value|: bf16
+2e-2, fp32 1e-5 (sums of 128-512 products in another order).
 """
 
 import numpy as np
@@ -18,7 +20,9 @@ import torch
 from faster_distributed_training_tpu_torch import cli
 from faster_distributed_training_tpu_torch.interop import params_to_jax
 from faster_distributed_training_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_reference)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_recompute,
+    flash_attention_bwd_reference, flash_attention_qkv,
+    flash_attention_reference, flash_attention_stats)
 from faster_distributed_training_tpu_torch.ops.fused_mlp import (
     fused_mlp, mlp_reference)
 from faster_distributed_training_tpu_torch.serve import pad_batch
@@ -81,6 +85,121 @@ def test_flash_rejects_what_the_kernel_does_not_take(card):
     q, k, v = _qkv(card, 1, 2, 16, 16, torch.float16)
     with pytest.raises(TypeError):
         flash_attention(q, k, v)
+
+
+def _bwd_inputs(gen, B, H, L, D, dtype, rate):
+    q, k, v = _qkv(gen, B, H, L, D, dtype)
+    mask = _mask(gen, B, L)
+    out, lse, lse_lo = flash_attention_stats(q, k, v, mask, rate, 99)
+    dout = torch.randn(B, H, L, D, generator=gen, device="cuda").to(dtype)
+    return q, k, v, mask, out, (lse, lse_lo), dout
+
+
+def _rel_err(got, want):
+    return max((g.float() - w.float()).abs().max().item()
+               / max(w.float().abs().max().item(), 1e-30)
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("L,D,rate", [(40, 16, 0.1), (64, 64, 0.1),
+                                      (130, 32, 0.0), (512, 64, 0.1),
+                                      (96, 128, 0.1)])
+def test_flash_bwd_bf16_matches_plain(card, L, D, rate):
+    q, k, v, mask, out, lse, dout = _bwd_inputs(card, 2, 4, L, D,
+                                                torch.bfloat16, rate)
+    n0 = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse[0], dout, mask, rate, 99,
+                              lse[1])
+    want = flash_attention_bwd_reference(q, k, v, out, lse[0], dout, mask,
+                                         rate, 99, lse[1])
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == n0 + 1
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3
+    assert _rel_err(got, want) <= 2e-2
+    # no atomics: the same launch gives the same bits
+    again = flash_attention_bwd(q, k, v, out, lse[0], dout, mask, rate, 99,
+                                lse[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("D", [16, 64])
+def test_flash_bwd_fp32_dropout_matches_plain(card, D):
+    q, k, v, mask, out, lse, dout = _bwd_inputs(card, 2, 3, 128, D,
+                                                torch.float32, 0.1)
+    got = flash_attention_bwd(q, k, v, out, lse[0], dout, mask, 0.1, 99,
+                              lse[1])
+    want = flash_attention_bwd_reference(q, k, v, out, lse[0], dout, mask,
+                                         0.1, 99, lse[1])
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= 1e-5
+
+
+def test_flash_bwd_recompute_route_and_autograd(card):
+    q, k, v, mask, out, lse, dout = _bwd_inputs(card, 2, 4, 100, 64,
+                                                torch.bfloat16, 0.1)
+    stats = flash_attention_bwd(q, k, v, out, lse[0], dout, mask, 0.1, 99,
+                                lse[1])
+    n0 = flash_attention_bwd_recompute.launches
+    rec = flash_attention_bwd_recompute(q, k, v, dout, mask, 0.1, 99)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_recompute.launches == n0 + 1
+    assert _rel_err(rec, stats) <= 2e-2
+    qkv = torch.stack([t.transpose(1, 2) for t in (q, k, v)], dim=2)
+    for save in (True, False):
+        leaf = qkv.detach().requires_grad_(True)
+        ctx = flash_attention_qkv(leaf, mask, 0.1, 99, save_stats=save)
+        (dqkv,) = torch.autograd.grad(ctx, leaf, dout)
+        want = stats if save else rec
+        for i in range(3):
+            assert torch.equal(dqkv[:, :, i].transpose(1, 2), want[i])
+
+
+def test_flash_bwd_rejects_what_the_kernel_does_not_take(card):
+    q, k, v, mask, out, lse, dout = _bwd_inputs(card, 1, 2, 16, 128,
+                                                torch.float32, 0.0)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(q, k, v, out, lse[0], dout, mask)
+    q, k, v, mask, out, lse, dout = _bwd_inputs(card, 1, 2, 16, 16,
+                                                torch.bfloat16, 0.0)
+    with pytest.raises(ValueError, match="dout"):
+        flash_attention_bwd(q, k, v, out, lse[0], dout.float(), mask)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One fp32 train step at small width: the card's kernels against the
+    CPU's plain versions, same weights, batch and draws (loss 1e-4, grads
+    1e-3), and the step's launches (2 flash fwd, 2 flash bwd, 1 MLP)."""
+    from faster_distributed_training_tpu_torch.train.steps import (
+        loss_and_grads, step_draws, to_device)
+
+    cfg = cli.TRANSFORMER_DEFAULTS.replace(
+        n_layers=2, d_model=64, n_heads=4, d_ff=128, seq_len=64,
+        precision="fp32", attention="flash")
+    cpu = cli.build_model(cfg, vocab_size=100, device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(2))
+    gpu = cli.build_model(cfg, vocab_size=100, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.cuda()
+    rng = np.random.default_rng(1)
+    mask = (np.arange(64)[None] < rng.integers(4, 65, size=(6, 1))).astype(
+        np.int32)
+    batch = {"tokens": (rng.integers(1, 100, size=(6, 64)) * mask).astype(
+                 np.int32),
+             "mask": mask, "label": rng.integers(0, 4, size=6).astype(
+                 np.int32)}
+    draws = step_draws(0, 3, 6, cpu.n_dropout_sites(), 0.99)
+    want_loss, want, *_ = loss_and_grads(cpu, to_device(batch, "cpu"),
+                                         draws)
+    counts = (flash_attention.launches, flash_attention_bwd.launches,
+              fused_mlp.launches)
+    loss, got, *_ = loss_and_grads(gpu, to_device(batch, "cuda"), draws)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - counts[0],
+            flash_attention_bwd.launches - counts[1],
+            fused_mlp.launches - counts[2]) == (2, 2, 1)
+    assert abs(loss.item() - want_loss.item()) <= 1e-4
+    for name in want:
+        assert (got[name].cpu() - want[name]).abs().max().item() <= 1e-3, name
 
 
 @pytest.mark.parametrize("rows,dtype", [(8, torch.bfloat16),

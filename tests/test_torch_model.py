@@ -110,8 +110,33 @@ def test_positional_table_matches_jax():
 
 
 def test_train_forward_raises_until_training_slice():
-    model = get_model("transformer", N_CLASS, **SMALL)
-    with pytest.raises(NotImplementedError):
-        model(torch.ones(1, 8, dtype=torch.long), train=True)
+    """The training forward takes its randomness explicitly: without
+    draws it raises; with them it returns (logits, index, lam), its
+    dropout follows the seeds, and the gradients reach every parameter.
+    An unknown model still raises."""
+    from faster_distributed_training_tpu_torch.train.steps import step_draws
+
+    model = get_model("transformer", N_CLASS, **SMALL).init_weights(
+        torch.Generator().manual_seed(0))
+    tokens, mask = _inputs()
+    x, m = torch.from_numpy(tokens).long(), torch.from_numpy(mask)
+    with pytest.raises(ValueError, match="draws"):
+        model(x, mask=m, train=True)
+    draws = step_draws(0, 0, 3, model.n_dropout_sites(), 0.99)
+    logits, index, lam = model(x, mask=m, train=True, draws=draws)
+    assert logits.shape == (3, N_CLASS) and torch.isfinite(logits).all()
+    assert sorted(index.tolist()) == [0, 1, 2]
+    assert float(lam) == pytest.approx(draws.lam)
+    again = model(x, mask=m, train=True, draws=draws)[0]
+    assert torch.equal(logits, again)                  # seeds fix the masks
+    other = model(x, mask=m, train=True,
+                  draws=step_draws(0, 1, 3, model.n_dropout_sites(),
+                                   0.99))[0]
+    assert not torch.equal(logits, other)
+    grads = torch.autograd.grad(logits.sum(), list(model.parameters()),
+                                allow_unused=True)
+    names = [n for n, _ in model.named_parameters()]
+    missing = [n for n, g in zip(names, grads) if g is None]
+    assert missing == ["embeddings.segment_embedding"] or not missing
     with pytest.raises(ValueError):
         get_model("resnet50", 10)
