@@ -10,17 +10,24 @@ failure raises and exits non-zero):
 
   1. device  — CUDA present; the card's name and power limit;
   2. build   — every kernel of the training and serving paths from
-               csrc/ (one nvcc per source, in parallel);
+               csrc/ (five sources, one nvcc each, in parallel);
   3. check   — each kernel against its plain version at the paths'
                shapes, with the stated tolerances; the backward kernels
                also for determinism (two launches, equal bits), the
                recompute route against the saved-stats route, and the
                autograd Function against the kernels' own outputs;
+               quant_matmul at the record's four GEMM shapes and a ragged
+               row count (int8 bitwise, E4M3 2e-2 of max |plain|), fused_ffn
+               at 8192 x 512 -> 1024 -> 512 for fmt none / int8 / E4M3
+               with dropout 0.1 at both sites (outputs 2e-2 of max
+               |plain|, amaxes 1e-2), two launches equal bits;
   4. timing  — kernel, plain version, the library yardstick and the
                bound.  Two clocks: the device time per call (the sum of
                the kernels a call launches, torch.profiler over 25 calls;
                the JSON line's ms fields), and the time per call the
                caller sees (CUDA events, median of 25 after warm-up);
+               slice 3's rows 7, 8 (int8) and 9 (int8, E4M3) at the
+               record's training shape;
   5. train   — ``cli.run_training`` at the full width of the
                transformer_test.py record (6 layers, d_model 512, 8 heads,
                d_ff 1024, vocab 30522, batch 16, seq 512, bf16, mirror
@@ -32,18 +39,29 @@ failure raises and exits non-zero):
                recompute route (FDT_FLASH_SAVE_STATS=0) for 2 steps with
                its own counts, one fp32 step at reduced width on the card
                against the same step on the CPU, and a checkpoint round
-               trip on the card;
+               trip on the card; then path B (``--ffn_impl pallas --quant
+               int8``) at full width for 16 steps + 4 eval batches with
+               its exact launch counts, one step alone (exact per-step
+               launches, every amax history rolled once), its step time
+               and [profile] split, an fp32 reduced-width step card vs
+               CPU; then 4-step runs of path A (``--ffn_impl pallas``)
+               and path C (``--quant fp8``), each with its launch counts;
   6. serve   — ``cli.run_serving`` at the default width (6 layers,
                d_model 512, 8 heads, vocab 30522, buckets 64..512, serve
                batch 8, bf16) with seeded random weights; launch counts
                set to 0 just before and read just after; then the
                per-bucket split of one batch's device time (no more
                device launches a batch than slice 1's 258) and the
-               device's busy share of the host wall time;
+               device's busy share of the host wall time; then path D,
+               ``--quant int8 --ffn_impl pallas`` serving on the path-B
+               weights and histories (batched == single-request bitwise,
+               histories unchanged, card vs CPU plain logits 5e-2,
+               launches per batch);
   7. output  — p50/p99/qps, the kernels JSON line (launches from the
-               training run, the recompute route's from its own run; the
-               serving run's beside them), the card line, and last the
-               ok line.
+               training run, the recompute route's from its own run,
+               fused_ffn's from path A, fused_ffn_quant's and
+               quant_matmul's from path B; the serving runs' beside them),
+               the card line, and last the ok line.
 """
 
 from __future__ import annotations
@@ -57,8 +75,10 @@ import sys
 import time
 from types import SimpleNamespace
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 FMA, HBM3
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 FMA, int8
+# and fp8 tensor cores, HBM3
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12,
+              "fp8": 1979e12}
 PEAK_BYTES = 3.35e12
 REPEATS = 25
 # device launches per serving batch in slice 1 (eval LayerNorm in its
@@ -160,6 +180,10 @@ def kernel_group(name: str) -> str:
         return "flash_fwd"
     if "mlp_fwd" in low:
         return "fused_mlp"
+    if "ffn_kernel" in low:
+        return "fused_ffn"
+    if "qmm_" in low:
+        return "quant_matmul"
     if "memcpy" in low or "memset" in low:
         return "copies"
     if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
@@ -482,6 +506,497 @@ def train_phase(cli, fa, fused_mlp, build_dir: str) -> dict:
             "loss_last": probe_losses[-1], "test_acc": test_acc}
 
 
+# -- slice 3: the quantized GEMM and the fused FFN -------------------------
+
+# the record's quantized GEMMs at batch 16 x 512 tokens: (rows, K, N)
+QMM_SHAPES = {"qkv": (8192, 512, 1536), "out": (8192, 512, 512),
+              "Dense_0": (8192, 512, 1024), "Dense_1": (8192, 1024, 512)}
+FFN_SHAPE = (8192, 512, 1024)      # rows, d_model, d_ff
+
+
+def quant_operands(gen, M, K, N, fmt):
+    """Quantized x [M, K], w [N, K] at scales that fill the grid, as
+    device tensors."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.ops.quant import (
+        QMAX, quantize)
+
+    x = torch.randn(M, K, generator=gen, device="cuda")
+    w = torch.randn(N, K, generator=gen, device="cuda") * 0.05
+    sx = torch.tensor(QMAX[fmt] / 4.0, device="cuda")
+    sw = torch.tensor(QMAX[fmt] / 0.2, device="cuda")
+    return quantize(x, sx, fmt), quantize(w, sw, fmt), sx, sw
+
+
+def ffn_inputs(gen, rows, d, d_ff, dtype):
+    import torch
+
+    h = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    ln_s = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    ln_b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    w1 = (torch.randn(d_ff, d, generator=gen, device="cuda")
+          / d ** 0.5).to(dtype)
+    b1 = (0.1 * torch.randn(d_ff, generator=gen, device="cuda")).to(dtype)
+    w2 = (torch.randn(d, d_ff, generator=gen, device="cuda")
+          / d_ff ** 0.5).to(dtype)
+    b2 = (0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    return h, ln_s, ln_b, w1, b1, w2, b2
+
+
+FFN_SCALES = (30.0, 300.0, 60.0, 250.0)
+FFN_SEEDS = (0x1234567, 0x89ABCDE, 0, 0, 0)
+
+
+def check_quant_kernels(gen) -> dict:
+    """quant_matmul at the record's four GEMM shapes and one ragged row
+    count (int8 bitwise, E4M3 within 2e-2 of max |plain|), fused_ffn at
+    the record's shape for fmt none / int8 / E4M3 with dropout 0.1 at both
+    sites (2e-2 of max |plain|; amaxes within 1e-2); two launches give
+    equal bits.  Returns the largest absolute error of each kernel."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+        _ffn_body_reference, ffn_fwd_generalized)
+    from faster_distributed_training_tpu_torch.ops.quant import (
+        quant_dot_reference, quant_matmul)
+
+    worst = {"quant_matmul": 0.0, "quant_matmul_e4m3": 0.0, "fused_ffn": 0.0,
+             "fused_ffn_quant": 0.0}
+    bf16 = torch.bfloat16
+    shapes = dict(QMM_SHAPES, ragged=(1000, 512, 1536))
+    for fmt in ("int8", "fp8"):
+        for name, (M, K, N) in shapes.items():
+            xq, wq, sx, sw = quant_operands(gen, M, K, N, fmt)
+            got = quant_matmul(xq, wq, sx, sw, fmt, bf16)
+            again = quant_matmul(xq, wq, sx, sw, fmt, bf16)
+            want = quant_dot_reference(xq, wq, sx, sw, fmt, bf16)
+            torch.cuda.synchronize()
+            same = torch.equal(got, again)
+            e = (got.float() - want.float()).abs().max().item()
+            rel = e / max(want.float().abs().max().item(), 1e-30)
+            if fmt == "int8":
+                ok = torch.equal(got, want)
+                note = f"bitwise equal to plain: {ok}"
+            else:
+                ok = rel <= 2e-2
+                note = f"err {rel:.3g} of max |plain| (tol 2e-2)"
+            print(f"[check] quant_matmul {fmt} {name} {M}x{K}->{N} bf16: "
+                  f"{note}; abs err {e:.3g}; two launches bitwise equal: "
+                  f"{same}")
+            check(ok and same, f"quant_matmul {fmt} {name}")
+            key = "quant_matmul" if fmt == "int8" else "quant_matmul_e4m3"
+            worst[key] = max(worst[key], e)
+    rows, d, d_ff = FFN_SHAPE
+    args = ffn_inputs(gen, rows, d, d_ff, bf16)
+    scales = torch.tensor(FFN_SCALES, device="cuda")
+    for fmt in (None, "int8", "fp8"):
+        def run():
+            return ffn_fwd_generalized(*args, FFN_SEEDS, scales, 0.1, 0.1,
+                                       1e-6, 1, 1, d_ff, fmt)
+        out, amax = run()
+        out2, amax2 = run()
+        quant = None if fmt is None else (fmt, *scales.unbind(), None)
+        want, want_amax = _ffn_body_reference(
+            *args, FFN_SEEDS[0], FFN_SEEDS[1], 0.1, 0.1, 1e-6, quant=quant,
+            return_amax=True, plain_gemm=True)
+        torch.cuda.synchronize()
+        same = torch.equal(out, out2) and torch.equal(amax, amax2)
+        e = (out.float() - want.float()).abs().max().item()
+        rel = e / want.float().abs().max().item()
+        e_amax = ((amax - want_amax).abs() / want_amax.clamp(min=1e-30)
+                  ).max().item() if fmt else float(amax.abs().max())
+        print(f"[check] fused_ffn {fmt or 'none'} bf16 {rows}x{d}->{d_ff}->"
+              f"{d}, dropout 0.1 at both sites: err {rel:.3g} of max "
+              f"|plain| (tol 2e-2), abs {e:.3g}; amax {amax.tolist()} vs "
+              f"{want_amax.tolist()} (rel err {e_amax:.3g}, tol 1e-2); two "
+              f"launches bitwise equal: {same}")
+        check(rel <= 2e-2 and e_amax <= 1e-2 and same, f"fused_ffn {fmt}")
+        key = "fused_ffn" if fmt is None else "fused_ffn_quant"
+        worst[key] = max(worst[key], e)
+    return worst
+
+
+def library(fn):
+    """measure() of a library yardstick, or None (printed) when this
+    torch build refuses the call: the yardstick is no part of the port."""
+    try:
+        return measure(fn)
+    except Exception as e:
+        print(f"[timing] library yardstick unavailable: {e}")
+        return None
+
+
+def time_quant_kernels(gen) -> dict:
+    """Rows 7, 8 (int8) and 9 (int8, E4M3) at the record's training
+    shape: kernel, plain, library yardstick, bound."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+        _ffn_body_reference, ffn_fwd_generalized)
+    from faster_distributed_training_tpu_torch.ops.quant import (
+        quant_dot_reference, quant_matmul, quantize)
+
+    bf16 = torch.bfloat16
+    out = {}
+    M, K, N = QMM_SHAPES["qkv"]
+    for fmt in ("int8", "fp8"):
+        xq, wq, sx, sw = quant_operands(gen, M, K, N, fmt)
+        t = {"kernel": measure(lambda: quant_matmul(xq, wq, sx, sw, fmt,
+                                                    bf16)),
+             "plain": measure(lambda: quant_dot_reference(xq, wq, sx, sw,
+                                                          fmt, bf16))}
+        if fmt == "int8":
+            t["library"] = library(lambda: torch._int_mm(xq, wq.t()))
+        else:
+            inv_x, inv_w = (1.0 / sx).reshape(()), (1.0 / sw).reshape(())
+            t["library"] = library(lambda: torch._scaled_mm(
+                xq, wq.t(), scale_a=inv_x, scale_b=inv_w, out_dtype=bf16))
+        t["bound_ms"], t["bound_by"] = bound(M * K + N * K + 2 * M * N,
+                                             2 * M * K * N, fmt)
+        out["quant_matmul" if fmt == "int8" else "quant_matmul_e4m3"] = t
+    rows, d, d_ff = FFN_SHAPE
+    args = ffn_inputs(gen, rows, d, d_ff, bf16)
+    scales = torch.tensor(FFN_SCALES, device="cuda")
+    f = torch.randn(rows, d, generator=gen, device="cuda").to(bf16)
+    a = torch.randn(rows, d_ff, generator=gen, device="cuda").to(bf16)
+    fq = quantize(f, scales[0], "int8")
+    aq = quantize(a, scales[2], "int8")
+    w1q = quantize(args[3], scales[1], "int8")
+    w2q = quantize(args[5], scales[3], "int8")
+    for name, fmt in (("fused_ffn", None), ("fused_ffn_quant", "int8")):
+        quant = None if fmt is None else (fmt, *scales.unbind(), None)
+        t = {"kernel": measure(lambda: ffn_fwd_generalized(
+                 *args, FFN_SEEDS, scales, 0.1, 0.1, 1e-6, 1, 1, d_ff, fmt)),
+             "plain": measure(lambda: _ffn_body_reference(
+                 *args, FFN_SEEDS[0], FFN_SEEDS[1], 0.1, 0.1, 1e-6,
+                 quant=quant, return_amax=True, plain_gemm=True))}
+        # no one call computes the sublayer: the yardstick is its two
+        # cuBLAS GEMMs alone (marked so in the output)
+        if fmt is None:
+            t["library"] = library(lambda: (torch.matmul(f, args[3].t()),
+                                            torch.matmul(a, args[5].t())))
+        else:
+            t["library"] = library(lambda: (torch._int_mm(fq, w1q.t()),
+                                            torch._int_mm(aq, w2q.t())))
+        w_bytes = 2 if fmt is None else 1
+        # read h, both weight matrices, the biases and LN parameters once;
+        # write the output (and two amaxes)
+        t["bound_ms"], t["bound_by"] = bound(
+            2 * rows * d * 2 + 2 * d * d_ff * w_bytes + 2 * (d_ff + d)
+            + 8 * d + 8, 4 * rows * d * d_ff, "bf16" if fmt is None else fmt)
+        out[name] = t
+    for name, t in out.items():
+        lib = t["library"]
+        print(f"[timing] {name}: device ms per call ({t['kernel']['timer']})"
+              f": kernel {t['kernel']['ms']:.5f}, plain "
+              f"{t['plain']['ms']:.5f}, library "
+              + (f"{lib['ms']:.5f}" if lib else "n/a")
+              + (" (two cuBLAS GEMMs only)" if name.startswith("fused_ffn")
+                 else "")
+              + f"; per call incl. launch (events): kernel "
+              f"{t['kernel']['call_ms']:.5f}, plain "
+              f"{t['plain']['call_ms']:.5f}; bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']})", flush=True)
+    return out
+
+
+def counted_wrappers():
+    """Every kernel wrapper of the port and its launch count."""
+    from faster_distributed_training_tpu_torch.ops import flash_attention as fa
+    from faster_distributed_training_tpu_torch.ops import fused_ffn as ffn
+    from faster_distributed_training_tpu_torch.ops.fused_mlp import fused_mlp
+    from faster_distributed_training_tpu_torch.ops.quant import quant_matmul
+
+    return {"flash_fwd": fa.flash_attention,
+            "flash_bwd_stats": fa.flash_attention_bwd,
+            "flash_bwd_recompute": fa.flash_attention_bwd_recompute,
+            "fused_mlp": fused_mlp, "fused_ffn": ffn.ffn_fwd,
+            "fused_ffn_quant": ffn.ffn_fwd_generalized,
+            "quant_matmul": quant_matmul}
+
+
+def reset_counts():
+    for fn in counted_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in counted_wrappers().items()}
+
+
+def path_counts(n_layers: int, fwd: int, steps: int, ffn: str,
+                quant: bool) -> dict:
+    """Exact launches of ``fwd`` forwards and ``steps`` backwards on a
+    path: ffn "flax" or "pallas", quant on or off."""
+    per_fwd_q = (2 if ffn == "pallas" else 4) * n_layers if quant else 0
+    per_bwd_q = 2 * n_layers if (quant and ffn == "pallas") else 0
+    return {"flash_fwd": n_layers * fwd, "flash_bwd_stats": n_layers * steps,
+            "flash_bwd_recompute": 0, "fused_mlp": fwd,
+            "fused_ffn": n_layers * fwd if (ffn == "pallas" and not quant)
+            else 0,
+            "fused_ffn_quant": n_layers * fwd if (ffn == "pallas" and quant)
+            else 0,
+            "quant_matmul": per_fwd_q * fwd + per_bwd_q * steps}
+
+
+def run_path(cli, flags, stride: int, build_dir: str, tag: str):
+    """``cli.run_training`` at the record's full width with ``flags`` on
+    the synthetic split at ``stride``; counts set to 0 just before and
+    read just after.  Returns (out, launches, losses, steps, n_eval)."""
+    import shutil
+
+    import torch
+
+    from faster_distributed_training_tpu_torch.train import steps as steps_mod
+
+    ckdir = os.path.join(build_dir, f"smoke_ckpt_{tag}")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    defaults = cli.TRANSFORMER_DEFAULTS
+    cfg = cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
+        ["--device", "cuda", "--dataset", "synthetic", "--epoch", "1",
+         "--subset_stride", str(stride), "--checkpoint_dir", ckdir,
+         "--log_every", "8", *flags]), defaults=defaults)
+    step_losses = []
+    make_step = steps_mod.make_train_step
+
+    def recording(cfg_):
+        inner = make_step(cfg_)
+
+        def run(state_, batch, draws=None):
+            state_, metrics = inner(state_, batch, draws)
+            step_losses.append(metrics["loss"])
+            return state_, metrics
+        return run
+
+    steps_mod.make_train_step = recording
+    try:
+        reset_counts()
+        t0 = time.monotonic()
+        out = cli.run_training(cfg, log=lambda line: print(line, flush=True))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_counts()
+    finally:
+        steps_mod.make_train_step = make_step
+    shutil.rmtree(ckdir, ignore_errors=True)
+    steps = len(step_losses)
+    n_eval = -(-(1024 // stride) // cfg.batch_size)
+    losses = torch.stack(step_losses).cpu().numpy()
+    print(f"[train {tag}] {' '.join(flags)}: {steps} steps + {n_eval} eval "
+          f"batches in {wall:.1f}s wall; launches {launches}", flush=True)
+    check(bool((losses == losses).all()) and bool(abs(losses).max() < 1e4),
+          f"{tag}: non-finite train loss")
+    return out, launches, losses, steps, n_eval
+
+
+def train_quant_phase(cli, build_dir: str) -> dict:
+    """Path B (``--ffn_impl pallas --quant int8``) at full width with its
+    per-step launches, history rolls, a [profile] split and an fp32 step
+    card vs CPU; then short runs of path A (``--ffn_impl pallas``) and
+    path C (``--quant fp8``), each with its own launch counts."""
+    import numpy as np
+    import torch
+
+    from faster_distributed_training_tpu_torch.data.loader import BatchLoader
+    from faster_distributed_training_tpu_torch.train.steps import (
+        loss_and_grads, make_train_step, step_draws, to_device)
+
+    flags_b = ["--ffn_impl", "pallas", "--quant", "int8"]
+    out, launches, losses, steps, n_eval = run_path(cli, flags_b, 16,
+                                                    build_dir, "B")
+    cfg = out["cfg"]
+    L = cfg.n_layers
+    # one seeding forward (the JAX init's) + every step + every eval batch
+    want = path_counts(L, 1 + steps + n_eval, steps, "pallas", True)
+    check(launches == want, f"path B launches {launches} != {want}")
+    print(f"[train B] launches == the path's exact counts {want} (1 "
+          f"seeding forward + {steps} steps + {n_eval} eval batches); loss "
+          f"first {losses[0]:.4f}, last {losses[-1]:.4f}")
+    state = out["state"]
+    model = state.model
+    hists = {n: b for n, b in model.named_buffers() if "amax_history" in n}
+    check(len(hists) == 8 * L, f"{len(hists)} amax histories")
+    check(all(bool((h > 0).all()) for h in hists.values()),
+          "an amax history holds a zero after 16 steps")
+
+    # one more step alone: exact per-step launches, every history rolled
+    # exactly once with a nonzero amax
+    step = make_train_step(cfg)
+    train_ds = cli.apply_subset(cli.load_dataset(cfg, True), 16)
+    loader = BatchLoader(train_ds, cfg.batch_size, epoch=1, seed=cfg.seed,
+                         max_len=cfg.seq_len)
+    batches = [to_device(b, "cuda") for b in itertools.islice(loader, 8)]
+    before = {n: h.clone() for n, h in hists.items()}
+    reset_counts()
+    step(state, batches[0])
+    torch.cuda.synchronize()
+    per_step = read_counts()
+    want_step = path_counts(L, 1, 1, "pallas", True)
+    check(per_step == want_step, f"per-step launches {per_step} != "
+          f"{want_step}")
+    rolled = all(torch.equal(h[1:], before[n][:-1]) and h[0].item() > 0
+                 for n, h in hists.items())
+    check(rolled, "a history did not roll exactly once in a step")
+    print(f"[train B] one step: launches {per_step} (fused_ffn_quant "
+          f"{per_step['fused_ffn_quant']}, quant_matmul "
+          f"{per_step['quant_matmul']} = {2 * L} forward (qkv, out) + "
+          f"{2 * L} in the FFN recompute, flash fwd/bwd "
+          f"{per_step['flash_fwd']}/{per_step['flash_bwd_stats']}); all "
+          f"{len(hists)} histories rolled once, newest amax > 0")
+
+    # step time and the profile of one step
+    for b in batches[1:3]:
+        step(state, b)
+    times = []
+    for b in batches[3:7]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    med = statistics.median(times)
+    prof_batch = batches[7]
+    n = 3
+    kern = device_kernels(lambda: step(state, prof_batch), n)
+    print(f"[train B] step time median {med:.2f} ms over {len(times)} steps")
+    print(profile_split(kern, n, med, f"train step path B "
+                        f"(L={prof_batch['tokens'].shape[1]})"))
+    top = sorted(kern.items(), key=lambda x: -x[1][0])[:10]
+    print("[profile] top kernels of a path-B step (ms/step, launches/step): "
+          + "; ".join(f"{k[:60]} {us / n / 1e3:.4f} x{c / n:.0f}"
+                      for k, (us, c) in top))
+
+    # one fp32 step at reduced width, card against CPU
+    small = cfg.replace(n_layers=2, d_model=64, n_heads=4, d_ff=128,
+                        seq_len=64, precision="fp32", attention="flash")
+    m_cpu = cli.build_model(small, vocab_size=100, device="cpu")
+    m_cpu.init_weights(torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(11)
+    lengths = rng.integers(4, 65, size=8)
+    mask = (np.arange(64)[None] < lengths[:, None]).astype(np.int32)
+    labels = rng.integers(0, 4, size=8).astype(np.int32)
+    tokens = (rng.integers(1, 100, size=(8, 64)) * mask).astype(np.int32)
+    batch = {"tokens": tokens, "token_types": np.zeros_like(tokens),
+             "mask": mask, "label": labels}
+    draws = step_draws(0, 0, 8, m_cpu.n_dropout_sites(), 0.99)
+    m_cpu.seed_amax_histories(8, 64, draws)
+    m_gpu = cli.build_model(small, vocab_size=100, device="cuda")
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    m_gpu.cuda()
+    l_c, g_c, *_ = loss_and_grads(m_cpu, to_device(batch, "cpu"), draws)
+    l_g, g_g, *_ = loss_and_grads(m_gpu, to_device(batch, "cuda"), draws)
+    l_g, l_c = l_g.item(), l_c.item()
+    e_loss = abs(l_g - l_c)
+    e_grad = max((g_g[k].cpu() - g_c[k]).abs().max().item() for k in g_c)
+    e_hist = max((b.cpu() - m_cpu.state_dict()[n]).abs().max().item()
+                 for n, b in m_gpu.named_buffers() if "amax_history" in n)
+    print(f"[train B] fp32 step at d_model 64 x 2 layers, --ffn_impl pallas "
+          f"--quant int8, card vs CPU, same weights/histories/batch/draws: "
+          f"loss {l_g:.6f} vs {l_c:.6f} (err {e_loss:.3g}, tol 1e-4), grads "
+          f"max err {e_grad:.3g} (tol 1e-3), histories max err {e_hist:.3g}"
+          f" (tol 1e-5)")
+    check(e_loss <= 1e-4 and e_grad <= 1e-3 and e_hist <= 1e-5,
+          "path B card step differs from CPU")
+
+    # short runs of path A and path C (fp8)
+    short = {}
+    for tag, flags, ffn, quant in (("A", ["--ffn_impl", "pallas"], "pallas",
+                                    False),
+                                   ("C", ["--quant", "fp8"], "flax", True)):
+        # stride 64: 4 steps, the fewest at which the record's one-cycle
+        # schedule is finite (optax's, copied: NaN below 4 steps a run)
+        _, got, l_short, s_steps, s_eval = run_path(cli, flags, 64,
+                                                    build_dir, tag)
+        n_fwd = s_steps + s_eval + (1 if quant else 0)
+        want = path_counts(L, n_fwd, s_steps, ffn, quant)
+        check(got == want, f"path {tag} launches {got} != {want}")
+        print(f"[train {tag}] launches == the path's exact counts; losses "
+              + " ".join(f"{x:.4f}" for x in l_short))
+        short[tag] = got
+    return {"launches": launches, "per_step": per_step, "step_ms": med,
+            "state": state, "short": short}
+
+
+def serve_quant_phase(cli, state) -> dict:
+    """Path D: ``--quant int8 --ffn_impl pallas`` serving on the weights
+    and histories of the path-B run."""
+    import numpy as np
+    import torch
+
+    from faster_distributed_training_tpu_torch.interop import (
+        batch_stats_to_jax, params_to_jax)
+    from faster_distributed_training_tpu_torch.serve import pad_batch
+
+    defaults = cli.TRANSFORMER_DEFAULTS
+    cfg = cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
+        ["--device", "cuda", "--serve_requests", "32", "--serve_batch_size",
+         "8", "--quant", "int8", "--ffn_impl", "pallas"]), defaults=defaults)
+    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    bundle = {"params": params_to_jax(sd, cfg.n_heads),
+              "batch_stats": batch_stats_to_jax(sd)}
+    requests = cli.synth_requests(32, 30522, cfg.seq_buckets, seed=7)
+    reset_counts()
+    res = cli.run_serving(cfg, requests=requests, params=bundle)
+    launches = read_counts()
+    engine = res["engines"][0]
+    batches_run = sum(e.calls for e in res["engines"])
+    results = res["results"]
+    check(len(results) == 32 and all(r is not None and np.isfinite(r).all()
+                                     for r in results), "quant serving")
+    want = {"flash_fwd": 6 * batches_run, "fused_ffn_quant": 6 * batches_run,
+            "quant_matmul": 12 * batches_run, "fused_mlp": batches_run}
+    got = {k: launches[k] for k in want}
+    check(got == want and launches["flash_bwd_stats"] == 0
+          and launches["fused_ffn"] == 0, f"quant serve launches {launches}")
+    hist_same = all(torch.equal(b.cpu(), sd[n]) for n, b in
+                    engine.model.named_buffers() if "amax_history" in n)
+    check(hist_same, "serving moved an amax history")
+    served = sorted(set(res["buckets"]))
+    for bucket in served:
+        i = res["buckets"].index(bucket)
+        batch, _ = pad_batch([SimpleNamespace(tokens=requests[i])], bucket,
+                             cfg.serve_batch_size)
+        check(np.array_equal(engine.predict_batch(batch)[0], results[i]),
+              f"quant serve bucket {bucket}: single != batched")
+    # the plain versions on the CPU at the smallest bucket
+    cpu_model = cli.build_model(cfg.replace(attention="flash"),
+                                vocab_size=30522, serving=True, device="cpu")
+    cpu_model.load_state_dict({k: t.cpu() for k, t in
+                               engine.model.state_dict().items()})
+    bucket = served[0]
+    i = res["buckets"].index(bucket)
+    batch, _ = pad_batch([SimpleNamespace(tokens=requests[i])], bucket,
+                         cfg.serve_batch_size)
+    with torch.inference_mode():
+        t = {n: torch.from_numpy(batch[n].astype(np.int64)) for n in batch}
+        plain = cpu_model(t["tokens"], t["token_types"], t["mask"]
+                          ).float().numpy()[0]
+    err = float(np.abs(plain - results[i]).max())
+    per_batch = {k: v / batches_run for k, v in got.items()}
+    print(f"[serve D] --quant int8 --ffn_impl pallas on the path-B weights "
+          f"and histories: {res['requests']} requests, {res['batches']} "
+          f"batches + {batches_run - res['batches']} warm-up; kernel "
+          f"launches per batch {per_batch}; batched == single-request "
+          f"bitwise at every bucket; histories unchanged: {hist_same}; card "
+          f"vs CPU plain logits at bucket {bucket}: max err {err:.3g} (tol "
+          f"5e-2); p50 {res['p50_ms']} ms, p99 {res['p99_ms']} ms, "
+          f"{res['qps']} qps")
+    check(err <= 5e-2, f"quant serve card vs CPU err {err}")
+    n = 10
+    top = served[-1]
+    batch, _ = pad_batch([SimpleNamespace(tokens=t) for t, b in
+                          zip(requests, res["buckets"]) if b == top][:8],
+                         top, 8)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        engine.predict_batch(batch)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kern = device_kernels(lambda: engine.predict_batch(batch), n)
+    print(profile_split(kern, n, wall_ms, f"serve path D bucket {top} "
+                        "(per batch)"))
+    return {"launches": launches}
+
 
 def main() -> int:
     try:
@@ -581,6 +1096,7 @@ def main() -> int:
         err["fused_mlp"] = max(err["fused_mlp"], e)
 
     err.update(check_backward(fa, gen))
+    err.update(check_quant_kernels(gen))
 
     # -- 4. timings at the paths' shapes ---------------------------------------
     L = 512
@@ -653,8 +1169,11 @@ def main() -> int:
               f", library {t['library']['call_ms']:.5f}; bound "
               f"{t['bound_ms']:.5f} ms ({t['bound_by']})", flush=True)
 
+    qt = time_quant_kernels(gen)
+
     # -- 5. training at full width ---------------------------------------------
     tr = train_phase(cli, fa, fused_mlp, str(_build.BUILD_DIR))
+    trq = train_quant_phase(cli, str(_build.BUILD_DIR))
 
     # -- 6. serving at full width ----------------------------------------------
     defaults = cli.TRANSFORMER_DEFAULTS
@@ -665,17 +1184,18 @@ def main() -> int:
     model.init_weights(torch.Generator().manual_seed(cfg.seed))
     params = params_to_jax(model.state_dict(), cfg.n_heads)
     requests = cli.synth_requests(64, 30522, cfg.seq_buckets, seed=cfg.seed)
-    for counted in (flash_attention, fa.flash_attention_bwd,
-                    fa.flash_attention_bwd_recompute, fused_mlp):
-        counted.launches = 0
+    reset_counts()
     t0 = time.monotonic()
     res = cli.run_serving(cfg, requests=requests, params=params)
     serve_s = time.monotonic() - t0
-    launches = {"flash_fwd": flash_attention.launches,
-                "fused_mlp": fused_mlp.launches}
-    check(fa.flash_attention_bwd.launches == 0
-          and fa.flash_attention_bwd_recompute.launches == 0,
+    counts = read_counts()
+    launches = {"flash_fwd": counts["flash_fwd"],
+                "fused_mlp": counts["fused_mlp"]}
+    check(counts["flash_bwd_stats"] == counts["flash_bwd_recompute"] == 0,
           "serving launched a backward kernel")
+    check(counts["fused_ffn"] == counts["fused_ffn_quant"]
+          == counts["quant_matmul"] == 0,
+          "the default serving build launched a slice-3 kernel")
     engines = res["engines"]
     batches_run = sum(e.calls for e in engines)
     results = res["results"]
@@ -749,12 +1269,15 @@ def main() -> int:
                       f"{k[:60]} {us / n / 1e3:.4f} x{c / n:.0f}"
                       for k, (us, c) in top))
 
-    # -- 6. output -----------------------------------------------------------
+    sq = serve_quant_phase(cli, trq["state"])
+
+    # -- 7. output -----------------------------------------------------------
     print(f"[serve] p50 {res['p50_ms']} ms, p99 {res['p99_ms']} ms, "
           f"{res['qps']} qps (64 requests, batch 8, 1 replica)")
     print(f"[train] step time median {tr['step_ms']:.2f} ms; fixed-batch "
           f"loss {tr['loss_first']:.4f} -> {tr['loss_last']:.4f}; eval "
-          f"accuracy {tr['test_acc']:.4f}")
+          f"accuracy {tr['test_acc']:.4f}; path B step time median "
+          f"{trq['step_ms']:.2f} ms")
     src = "faster_distributed_training_tpu_torch/csrc/"
     jax_ops = "faster_distributed_training_tpu/ops/"
     # launches: the training run (the main path); the recompute route's
@@ -781,6 +1304,38 @@ def main() -> int:
                         "plain_ms": t["plain"]["ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library"]["ms"]})
+    # slice 3: fused_ffn's launches from the path-A run, fused_ffn_quant's
+    # and quant_matmul's from the path-B run; serving's from path D
+    slice3 = (("fused_ffn", "fused_ffn", "fused_ffn.py:208",
+               trq["short"]["A"]["fused_ffn"]),
+              ("fused_ffn_quant", "fused_ffn", "fused_ffn.py:624",
+               trq["launches"]["fused_ffn_quant"]),
+              ("quant_matmul", "quant_matmul", "quant.py:244",
+               trq["launches"]["quant_matmul"]))
+    for name, file, replaces, n in slice3:
+        t = qt[name]
+        entry = {"name": name, "route": "cuda", "source": f"{src}{file}.cu",
+                 "replaces": jax_ops + replaces, "launches": n,
+                 "launches_serve": sq["launches"][name],
+                 "max_abs_err": err[name], "ms": t["kernel"]["ms"],
+                 "call_ms": t["kernel"]["call_ms"],
+                 "plain_ms": t["plain"]["ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"],
+                 "library_ms": t["library"]["ms"] if t["library"] else None}
+        if name.startswith("fused_ffn"):
+            entry["library_is"] = "its two cuBLAS GEMMs only"
+        if name == "quant_matmul":
+            e = qt["quant_matmul_e4m3"]
+            entry.update({
+                "shape": "8192x512->1536, int8; e4m3_* the E4M3 kernel",
+                "e4m3_launches_path_c": trq["short"]["C"]["quant_matmul"],
+                "e4m3_max_abs_err": err["quant_matmul_e4m3"],
+                "e4m3_ms": e["kernel"]["ms"],
+                "e4m3_plain_ms": e["plain"]["ms"],
+                "e4m3_bound_ms": e["bound_ms"],
+                "e4m3_library_ms": e["library"]["ms"] if e["library"]
+                else None})
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Entry points of the port: classifier training (slice 2) and serving
-(slice 1).
+(slice 1), with the fused FFN and quantized GEMMs (slice 3: ``--ffn_impl
+pallas``, ``--quant int8|fp8``, ``--quant_grad fp8_e5m2``).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
 ``resolve_attention``, ``build_model``, ``load_dataset`` (the synthetic
@@ -63,17 +64,22 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
     """The port's Transformer for ``cfg``.  ``serving=True`` builds the
     inference twin: GEMM weights stored in the compute dtype (the JAX
     model casts its fp32 weights at every call; serving rounds them once
-    at load).  Features the port has not reached raise."""
+    at load) and, under ``--quant``, the scale state frozen (quantize at
+    the restored histories' scales, never roll).  ``--ffn_impl pallas``
+    takes the fused FFN kernel at every width the config accepts (the
+    JAX package's VMEM go/no-go checks are TPU figures and are not
+    copied; a shape the kernel cannot take raises in its wrapper).
+    Features the port has not reached raise."""
     from faster_distributed_training_tpu_torch.models import get_model
-
-    from faster_distributed_training_tpu_torch.train.amp import compute_dtype
+    from faster_distributed_training_tpu_torch.ops.quant import (
+        warn_if_killed)
+    from faster_distributed_training_tpu_torch.train.amp import (
+        compute_dtype, resolve_quant_policy)
 
     if cfg.model != "transformer":
         raise NotImplementedError(f"the port builds the transformer only "
                                   f"so far, not {cfg.model!r}")
     unported = {"--task lm": cfg.task != "cls",
-                "--quant": (cfg.quant or "none") != "none",
-                "--ffn_impl pallas": cfg.ffn_impl == "pallas",
                 "--tricks off (unfused qkv)": cfg.tricks == "off",
                 "--dropout_impl xla": cfg.dropout_impl == "xla",
                 "--remat": bool(cfg.remat),
@@ -83,6 +89,13 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
     dtype = compute_dtype(cfg.precision)
     device = torch.device(device if device is not None else cfg.device)
+    quant = resolve_quant_policy(cfg)
+    if quant is not None:
+        warn_if_killed(quant.fmt)
+        quant = quant._replace(frozen_scales=bool(serving))
+    if cfg.ffn_impl not in ("flax", "pallas"):
+        raise ValueError(f"--ffn_impl must be flax or pallas, got "
+                         f"{cfg.ffn_impl!r}")
     rate = 0.0 if cfg.dropout_impl == "none" else 0.1
     rates = {k: rate for k in (
         "dropout_encodings", "dropout_connection_attention",
@@ -93,7 +106,8 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
                      n_layers=cfg.n_layers, d_model=cfg.d_model,
                      d_ff=cfg.d_ff, h=cfg.n_heads, dtype=dtype,
                      param_dtype=dtype if serving else torch.float32,
-                     attention_impl=resolve_attention(cfg, device), **rates)
+                     attention_impl=resolve_attention(cfg, device),
+                     ffn_impl=cfg.ffn_impl, quant=quant, **rates)
 
 
 def unported_training_flags(cfg: TrainConfig) -> list:
@@ -104,8 +118,6 @@ def unported_training_flags(cfg: TrainConfig) -> list:
         "--steps_per_dispatch > 1": int(cfg.steps_per_dispatch or 1) > 1,
         f"--data_path {cfg.data_path}": cfg.data_path != "host",
         f"--dataset {cfg.dataset}": cfg.dataset != "synthetic",
-        "--quant": (cfg.quant or "none") != "none",
-        "--ffn_impl pallas": cfg.ffn_impl == "pallas",
         "--task lm": cfg.task != "cls",
         "--mesh": any(int(s) > 1 for s in cfg.mesh_shape),
         "--distributed": bool(cfg.distributed),
@@ -193,15 +205,16 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     """Full training run of the transformer classifier; returns
     {'state', 'history', 'best_acc', 'cfg', 'trainer', 'steps_per_epoch'}.
     ``params``: a JAX-layout parameter tree to start from (seeded
-    init from ``cfg.seed`` when None).  Runs on ``cfg.device`` (cuda by
+    init from ``cfg.seed`` when None; a ``{"params", "batch_stats"}``
+    bundle also sets the amax histories of ``--quant``).  Runs on ``cfg.device`` (cuda by
     default) unless ``device`` says otherwise."""
-    from faster_distributed_training_tpu_torch.interop import params_from_jax
+    from faster_distributed_training_tpu_torch.interop import load_jax_tree
     from faster_distributed_training_tpu_torch.optim import build_optimizer
     from faster_distributed_training_tpu_torch.train.loop import Trainer
     from faster_distributed_training_tpu_torch.train.state import (
         create_train_state)
     from faster_distributed_training_tpu_torch.train.steps import (
-        make_eval_step, make_train_step)
+        make_eval_step, make_train_step, mixup_alpha, step_draws)
 
     missing = unported_training_flags(cfg)
     if missing:
@@ -211,10 +224,16 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     eval_ds = apply_subset(load_dataset(cfg, train=False), cfg.subset_stride)
     model = build_model(cfg, vocab_size=train_ds.vocab_size(), device=dev)
     if params is not None:
-        model.load_state_dict(params_from_jax(params))
+        load_jax_tree(model, params)
     else:
         model.init_weights(torch.Generator().manual_seed(cfg.seed))
     model.to(dev)
+    if params is None:
+        # the JAX init's training forward on a zero batch (seeds the
+        # --quant amax histories; a no-op without quant)
+        model.seed_amax_histories(cfg.batch_size, cfg.seq_len, step_draws(
+            cfg.seed, 0, cfg.batch_size, model.n_dropout_sites(),
+            mixup_alpha(cfg)))
     train_loader, eval_loader, steps_per_epoch = make_loaders(
         cfg, train_ds, eval_ds)
     tx, _ = build_optimizer(cfg, steps_per_epoch)
@@ -227,7 +246,10 @@ def run_training(cfg: TrainConfig, params=None, device=None,
             "slice)")
     log(f"[train] {cfg.model} on {dev.type}: {cfg.n_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.precision}, "
-        f"attention {model.layers[0].attn.attention_impl}, "
+        f"attention {model.layers[0].attn.attention_impl}, ffn "
+        f"{cfg.ffn_impl}, quant {cfg.quant or 'none'}"
+        + (f" (grads {cfg.quant_grad})"
+           if (cfg.quant_grad or "none") != "none" else "") + ", "
         f"{steps_per_epoch} steps/epoch x {cfg.epochs} epochs, batch "
         f"{cfg.batch_size}")
     ckpt_name = "transformer"

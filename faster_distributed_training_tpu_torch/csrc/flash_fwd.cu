@@ -35,6 +35,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 #include <type_traits>
 
 using namespace nvcuda;
@@ -46,27 +48,6 @@ constexpr int BK = 64;   // keys per tile
 constexpr int NT = 128;  // threads: 4 warps x 16 q rows
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 template <typename T, int D>
 struct Tile {

@@ -14,13 +14,21 @@ returns under ``"params"``) maps onto the port's ``state_dict``:
     cls_w1 (d_hidden, d), cls_w2 (n_class, d_hidden), cls_b1 (1, d_hidden),
     cls_b2 (1, n_class)                          -> the same, unchanged
 
+Under ``--quant`` the JAX ``batch_stats`` tree holds the amax histories,
+``layer_i/attn/{qkv,out}/amax_history_{x,w}`` and
+``layer_i/ffn/Dense_{0,1}/amax_history_{x,w}``; they map onto the port's
+``QuantDense`` buffers ``layers.i.attn.qkv.amax_history_x`` and so on
+(``batch_stats_to_jax`` / the ``batch_stats`` argument of
+``params_from_jax``).  Parameters and statistics stay in separate trees,
+as in the JAX variables.
+
 Arrays cross as numpy (the tests hand the same arrays to both packages);
 nothing here imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -30,6 +38,7 @@ _LINEARS = (("attn/qkv", "attn.qkv"), ("attn/out", "attn.out"),
 _NORMS = ("ln_attn", "ln_ffn")
 _CLS = ("cls_w1", "cls_b1", "cls_w2", "cls_b2")
 _EMB = ("token_embedding", "pos_embedding", "segment_embedding")
+_HISTS = ("amax_history_x", "amax_history_w")
 
 
 def _t(a) -> torch.Tensor:
@@ -52,8 +61,29 @@ def model_tree(tree: Mapping[str, Any]) -> Mapping[str, Any]:
     return tree
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's fp32 ``state_dict`` for a JAX Transformer tree."""
+def stats_tree(tree: Mapping[str, Any]) -> Mapping[str, Any]:
+    """The ``batch_stats`` tree of a JAX variables bundle ({} if none)."""
+    stats = tree.get("batch_stats", {}) if isinstance(tree, Mapping) else {}
+    return stats.get("model", stats)
+
+
+def params_from_jax(tree: Mapping[str, Any],
+                    batch_stats: Optional[Mapping[str, Any]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """The port's fp32 ``state_dict`` for a JAX Transformer tree; with
+    ``batch_stats`` also the amax histories it holds."""
+    sd = _params_from_jax(tree)
+    for path, hist in flatten(batch_stats or {}).items():
+        *mods, leaf = path.split("/")
+        if leaf not in _HISTS or not mods[0].startswith("layer_"):
+            raise ValueError(f"batch_stats/{path}: not an amax history of "
+                             f"the Transformer")
+        sd[".".join(["layers", mods[0][len("layer_"):], *mods[1:], leaf])
+           ] = _t(hist)
+    return sd
+
+
+def _params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     tree = model_tree(tree)
     sd = {f"embeddings.{n}": _t(tree["Embeddings_0"][n]) for n in _EMB}
     i = 0
@@ -110,6 +140,29 @@ def params_to_jax(sd: Mapping[str, torch.Tensor], n_heads: int
     for n in _CLS:
         tree[n] = _np(sd[n])
     return tree
+
+
+def batch_stats_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The JAX ``batch_stats`` tree (fp32 numpy) of the port's amax
+    history buffers; {} for an unquantized model."""
+    flat = {}
+    for key, t in sd.items():
+        parts = key.split(".")
+        if parts[-1] in _HISTS and parts[0] == "layers":
+            flat["/".join([f"layer_{parts[1]}", *parts[2:]])] = _np(t)
+    return unflatten(flat)
+
+
+def load_jax_tree(model: torch.nn.Module, tree: Mapping[str, Any]) -> None:
+    """Load a JAX parameter tree (and the ``batch_stats`` of a variables
+    bundle, when it has them) into ``model``.  Histories the tree lacks
+    stay as they are (fresh zeros); anything else missing raises."""
+    sd = params_from_jax(tree, stats_tree(tree))
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    bad = [k for k in missing if k.rsplit(".", 1)[-1] not in _HISTS]
+    if bad or unexpected:
+        raise KeyError(f"JAX tree does not fit the model: missing {bad}, "
+                       f"unexpected {list(unexpected)}")
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:

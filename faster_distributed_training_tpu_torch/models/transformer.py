@@ -14,6 +14,15 @@ and LayerNorm parameters stay fp32; the GEMM weights live in
 ``param_dtype`` and are cast to the compute ``dtype`` at use (a no-op when
 the two agree, as in the serving build).
 
+Under a ``QuantPolicy`` (``train.amp``) the qkv, out and FFN projections
+are ``ops.quant.QuantDense`` (int8/fp8 GEMMs at delayed per-tensor
+scales, amax histories as persistent buffers under the same module names
+as the JAX ``batch_stats`` tree).  ``ffn_impl="pallas"`` runs each pre-LN
+FFN sublayer through ``ops.fused_ffn`` (one kernel per call, recompute
+backward; under a policy the quantized generalized core, whose amaxes
+roll the FFN histories); its parameters and buffers keep the flax
+branch's ``state_dict`` keys, so a checkpoint loads into either branch.
+
 ``train=True`` runs the training forward: hash dropout at every site of
 the JAX model (encodings; per layer the attention probabilities, the
 attention connection, the FFN hidden and the FFN connection; the pooler)
@@ -38,9 +47,32 @@ from faster_distributed_training_tpu_torch.ops.attention import (
 from faster_distributed_training_tpu_torch.ops.dropout import hash_dropout
 from faster_distributed_training_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_qkv)
+from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+    ffn_core_generalized, fused_ffn_sublayer)
 from faster_distributed_training_tpu_torch.ops.fused_mlp import fused_mlp
 from faster_distributed_training_tpu_torch.ops.layernorm import (
     torch_layernorm, torch_layernorm_f32)
+from faster_distributed_training_tpu_torch.ops.quant import (
+    QuantDense, quant_enabled, scale_from_history, tensor_amax,
+    update_amax_history)
+
+
+def _dense(d_in: int, d_out: int, quant, dtype, param_dtype) -> nn.Module:
+    """nn.Linear, or its quantized twin under a QuantPolicy."""
+    if quant is None:
+        return nn.Linear(d_in, d_out, dtype=param_dtype)
+    return QuantDense(d_in, d_out, fmt=quant.fmt,
+                      amax_history_len=quant.amax_history_len,
+                      margin=quant.margin, frozen_scales=quant.frozen_scales,
+                      grad_fmt=quant.grad_fmt, dtype=dtype,
+                      param_dtype=param_dtype)
+
+
+def _project(x: torch.Tensor, layer: nn.Module, dtype, train: bool
+             ) -> torch.Tensor:
+    if isinstance(layer, QuantDense):
+        return layer(x, train)
+    return _linear(x, layer, dtype)
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
@@ -124,7 +156,7 @@ class MultiheadAttention(nn.Module):
 
     def __init__(self, h: int, d_model: int, dropout: float = 0.1,
                  dtype=torch.float32, param_dtype=torch.float32,
-                 attention_impl: str = "dense"):
+                 attention_impl: str = "dense", quant=None):
         super().__init__()
         if attention_impl not in ("dense", "flash"):
             raise ValueError(f"attention_impl {attention_impl!r}: the port "
@@ -134,15 +166,16 @@ class MultiheadAttention(nn.Module):
         self.dropout = dropout
         self.dtype = dtype
         self.attention_impl = attention_impl
-        self.qkv = nn.Linear(d_model, 3 * d_model, dtype=param_dtype)
-        self.out = nn.Linear(d_model, d_model, dtype=param_dtype)
+        self.qkv = _dense(d_model, 3 * d_model, quant, dtype, param_dtype)
+        self.out = _dense(d_model, d_model, quant, dtype, param_dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 train: bool = False,
                 seeds: Optional[Iterator[int]] = None) -> torch.Tensor:
         B, L, _ = x.shape
         d_k = self.d_model // self.h
-        qkv = _linear(x, self.qkv, self.dtype).view(B, L, 3, self.h, d_k)
+        qkv = _project(x, self.qkv, self.dtype, train).view(B, L, 3, self.h,
+                                                            d_k)
         # [B, h, L, d_k] strided views of the fused projection: the flash
         # kernels read them (and write their gradient) in place
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
@@ -161,54 +194,106 @@ class MultiheadAttention(nn.Module):
         else:
             ctx = dense_attention(q, k, v, mask)
         ctx = ctx.transpose(1, 2).reshape(B, L, self.d_model)
-        return _linear(ctx, self.out, self.dtype)
+        return _project(ctx, self.out, self.dtype, train)
 
 
 class PositionalWiseFFN(nn.Module):
     """Linear -> exact (erf) GELU -> dropout -> Linear."""
 
     def __init__(self, d_model: int, d_ff: int, dropout: float = 0.1,
-                 dtype=torch.float32, param_dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=torch.float32, quant=None):
         super().__init__()
         self.dtype = dtype
         self.dropout = dropout
-        self.Dense_0 = nn.Linear(d_model, d_ff, dtype=param_dtype)
-        self.Dense_1 = nn.Linear(d_ff, d_model, dtype=param_dtype)
+        self.Dense_0 = _dense(d_model, d_ff, quant, dtype, param_dtype)
+        self.Dense_1 = _dense(d_ff, d_model, quant, dtype, param_dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 seeds: Optional[Iterator[int]] = None) -> torch.Tensor:
-        h = F.gelu(_linear(x, self.Dense_0, self.dtype), approximate="none")
+        h = F.gelu(_project(x, self.Dense_0, self.dtype, train),
+                   approximate="none")
         h = _dropout(h, self.dropout, train, seeds)
-        return _linear(h, self.Dense_1, self.dtype)
+        return _project(h, self.Dense_1, self.dtype, train)
 
 
 class EncoderLayer(nn.Module):
     """Pre-LN attention sublayer then pre-LN FFN sublayer, each with its
-    connection dropout."""
+    connection dropout.  ``ffn_impl="pallas"`` runs the FFN sublayer (LN,
+    both GEMMs, GELU, both dropout sites, residual) in the fused kernel,
+    reading the parameters of ``ln_ffn`` and ``ffn`` in place."""
 
     def __init__(self, h: int, d_model: int, d_ff: int,
                  dropout_connection_attention: float = 0.1,
                  dropout_connection_ffn: float = 0.1,
                  dropout_attention: float = 0.1, dropout_ffn: float = 0.1,
                  dtype=torch.float32, param_dtype=torch.float32,
-                 attention_impl: str = "dense"):
+                 attention_impl: str = "dense", ffn_impl: str = "flax",
+                 quant=None):
         super().__init__()
+        if ffn_impl not in ("flax", "pallas"):
+            raise ValueError(f"ffn_impl {ffn_impl!r}: the port has 'flax' "
+                             f"and 'pallas'")
+        self.dtype = dtype
+        self.ffn_impl = ffn_impl
+        self.quant = quant
         self.drop_attn_conn = dropout_connection_attention
         self.drop_ffn_conn = dropout_connection_ffn
         self.ln_attn = TorchLayerNorm(d_model, dtype=dtype)
         self.attn = MultiheadAttention(h, d_model, dropout_attention, dtype,
-                                       param_dtype, attention_impl)
+                                       param_dtype, attention_impl, quant)
         self.ln_ffn = TorchLayerNorm(d_model, dtype=dtype)
         self.ffn = PositionalWiseFFN(d_model, d_ff, dropout_ffn, dtype,
-                                     param_dtype)
+                                     param_dtype, quant)
 
     def forward(self, h: torch.Tensor, mask: Optional[torch.Tensor],
                 train: bool = False,
                 seeds: Optional[Iterator[int]] = None) -> torch.Tensor:
         a = self.attn(self.ln_attn(h), mask, train, seeds)
         h = h + _dropout(a, self.drop_attn_conn, train, seeds)
+        if self.ffn_impl == "pallas":
+            return self._fused_ffn(h, train, seeds)
         f = self.ffn(self.ln_ffn(h), train, seeds)
         return h + _dropout(f, self.drop_ffn_conn, train, seeds)
+
+    def _fused_ffn(self, h: torch.Tensor, train: bool,
+                   seeds: Optional[Iterator[int]]) -> torch.Tensor:
+        """The JAX EncoderLayer's ``ffn_impl="pallas"`` branch: one fused
+        sublayer; with active dropout its two seeds are one (hid, out)
+        pair, drawn where the flax branch draws the FFN-hidden and
+        FFN-connection seeds."""
+        r_h, r_c = self.ffn.dropout, self.drop_ffn_conn
+        if train and (r_h > 0.0 or r_c > 0.0):
+            hid_seed, out_seed = next(seeds), next(seeds)
+        else:
+            hid_seed = out_seed = 0
+            r_h = r_c = 0.0
+        d0, d1, dt = self.ffn.Dense_0, self.ffn.Dense_1, self.dtype
+        w1, b1 = d0.weight.to(dt), d0.bias.to(dt)
+        w2, b2 = d1.weight.to(dt), d1.bias.to(dt)
+        ln = self.ln_ffn
+        fmt = self.quant.fmt if (self.quant is not None
+                                 and quant_enabled()) else None
+        if fmt is None:
+            # FDT_QUANT=0 keeps the state allocated but runs the plain
+            # kernel (the QuantDense contract)
+            return fused_ffn_sublayer(h, ln.scale, ln.bias, w1, b1, w2, b2,
+                                      hid_seed, out_seed, r_h, r_c, ln.eps)
+        hists = (d0.amax_history_x, d0.amax_history_w, d1.amax_history_x,
+                 d1.amax_history_w)
+        scales = tuple(scale_from_history(t, fmt, self.quant.margin)
+                       for t in hists)
+        out, amax2 = ffn_core_generalized(
+            h, ln.scale, ln.bias, w1, b1, w2, b2, hid_seed, out_seed, 0, 0,
+            0, r_h, r_c, ln.eps, 1, 1, dff_glob=w1.shape[0], quant_fmt=fmt,
+            quant_scales=scales, grad_fmt=self.quant.grad_fmt)
+        if train and not self.quant.frozen_scales:
+            # roll as QuantDense would: x-side amaxes from the kernel (LN
+            # output, post-dropout activation), w-side from the cast weights
+            with torch.no_grad():
+                for hist, amax in zip(hists, (amax2[0], tensor_amax(w1),
+                                              amax2[1], tensor_amax(w2))):
+                    hist.copy_(update_amax_history(hist, amax))
+        return out
 
 
 class Transformer(nn.Module):
@@ -224,7 +309,8 @@ class Transformer(nn.Module):
                  dropout_attention: float = 0.1, dropout_ffn: float = 0.1,
                  dropout_pooler: float = 0.1,
                  dtype=torch.float32, param_dtype=torch.float32,
-                 attention_impl: str = "dense"):
+                 attention_impl: str = "dense", ffn_impl: str = "flax",
+                 quant=None):
         super().__init__()
         self.h = h
         self.dtype = dtype
@@ -237,7 +323,8 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(
             EncoderLayer(h, d_model, d_ff, dropout_connection_attention,
                          dropout_connection_ffn, dropout_attention,
-                         dropout_ffn, dtype, param_dtype, attention_impl)
+                         dropout_ffn, dtype, param_dtype, attention_impl,
+                         ffn_impl, quant)
             for _ in range(n_layers))
         self.ln_final = TorchLayerNorm(d_model, dtype=dtype)
         self.pooler = nn.Linear(d_model, d_model, dtype=param_dtype)
@@ -277,6 +364,24 @@ class Transformer(nn.Module):
             else:
                 xavier(p, p.shape[1], p.shape[0])
         return self
+
+    @torch.no_grad()
+    def seed_amax_histories(self, batch_size: int, seq_len: int,
+                            draws) -> bool:
+        """Under --quant, fresh (all-zero) amax histories would quantize
+        the first step at scale 1, rounding every weight below 0.5 to
+        zero.  The JAX package's init runs one training forward on a zero
+        batch of the run's shape, which rolls each history once; this is
+        that forward.  Returns whether it ran (histories present and all
+        zero)."""
+        hists = [b for n, b in self.named_buffers() if "amax_history" in n]
+        if not hists or any(bool(h.any()) for h in hists):
+            return False
+        dev = self.embeddings.token_embedding.device
+        tokens = torch.zeros((batch_size, seq_len), dtype=torch.long,
+                             device=dev)
+        self(tokens, train=True, draws=draws)
+        return True
 
     def forward(self, x: torch.Tensor,
                 token_types: Optional[torch.Tensor] = None,

@@ -5,9 +5,10 @@ a shared library with a plain C interface, loaded with ``ctypes``
 (pointers and the stream as ``c_void_p``).  Nothing here includes
 PyTorch's headers, so a build takes seconds.  Libraries land in
 ``faster_distributed_training_tpu_torch/_build/`` (git-ignored), named by
-a hash of the source and flags: an edited source rebuilds, an unchanged
-one is reused.  ``build`` starts one ``nvcc`` per stale source, all at
-once.  The build runs at first use, never at import.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags:
+an edited source rebuilds, an unchanged one is reused.  ``build`` starts
+one ``nvcc`` per stale source, all at once.  The build runs at first use,
+never at import.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict, Iterable, Tuple
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("flash_fwd", "flash_bwd", "fused_mlp")
+KERNELS = ("flash_fwd", "flash_bwd", "fused_mlp", "quant_matmul", "fused_ffn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -50,6 +51,9 @@ def nvcc_path() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -17,7 +17,8 @@ serving step does not reuse any training machinery:
 
 Checkpoints: :func:`load_serving_state` reads the JAX parameter tree
 from an ``.npz`` of flat "a/b/c" paths (or takes it in memory) through
-``interop.params_from_jax``.  Reading the JAX package's Orbax
+``interop.load_jax_tree``, with the ``--quant`` amax histories of its
+``batch_stats`` frozen in the serving build.  Reading the JAX package's Orbax
 checkpoints comes with the checkpoint slice.
 """
 
@@ -120,15 +121,17 @@ def load_serving_state(cfg, device: torch.device, params=None,
     """(model on ``device``, ServingState, meta).
 
     ``params``: a JAX-layout parameter tree (nested dicts of arrays, in
-    any layout ``interop.model_tree`` accepts).  Without it the tree is
-    read from ``path`` (default ``<checkpoint_dir>/transformer_params.npz``),
-    an ``.npz`` whose keys are the flat "a/b/c" parameter paths
-    (``interop.flatten``).  The model comes from
+    any layout ``interop.model_tree`` accepts, with the ``--quant`` amax
+    histories under a ``batch_stats`` key).  Without it the tree is read
+    from ``path`` (default ``<checkpoint_dir>/transformer_params.npz``),
+    an ``.npz`` whose keys are the flat "a/b/c" paths (``interop.flatten``;
+    the histories under ``batch_stats/...``).  The model comes from
     ``cli.build_model(serving=True)``: GEMM weights stored in the compute
-    dtype, rounded once here as the JAX model rounds them at every call."""
+    dtype, rounded once here as the JAX model rounds them at every call,
+    and under ``--quant`` the scales frozen at the histories' values."""
     from faster_distributed_training_tpu_torch.cli import build_model
     from faster_distributed_training_tpu_torch.interop import (
-        params_from_jax, unflatten)
+        load_jax_tree, model_tree, unflatten)
 
     if cfg.model != "transformer":
         raise ValueError(f"serving is wired for the transformer text "
@@ -144,11 +147,11 @@ def load_serving_state(cfg, device: torch.device, params=None,
         with np.load(path) as z:
             params = unflatten({k: z[k] for k in z.files})
         log(f"[serve] loaded parameters from {path}")
-    sd = params_from_jax(params)
-    vocab = int(sd["embeddings.token_embedding"].shape[0])
+    vocab = int(np.shape(
+        model_tree(params)["Embeddings_0"]["token_embedding"])[0])
     model = build_model(cfg, vocab_size=vocab, serving=True,
                         device=torch.device(device))
-    model.load_state_dict(sd)
+    load_jax_tree(model, params)
     model = model.to(device).eval()
     state = ServingState(params=model.state_dict())
     return model, state, {"vocab": vocab, "step": state.step}

@@ -1,7 +1,8 @@
 """The port's own checkpoints of the whole train state.
 
-``<checkpoint_dir>/<name>/`` holds ``state.pt`` (model parameters,
-optimizer state, step and seed, saved with ``torch.save`` and read back
+``<checkpoint_dir>/<name>/`` holds ``state.pt`` (the model's state dict —
+parameters and, under ``--quant``, the amax-history buffers — optimizer
+state, step and seed, saved with ``torch.save`` and read back
 with ``weights_only=True``), ``meta.json`` (epoch, step_in_epoch,
 best_acc, step) and a ``COMMIT`` marker.  Each file is written to a
 temporary name and renamed; the marker is removed first and written

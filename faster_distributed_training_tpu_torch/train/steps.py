@@ -7,11 +7,17 @@ global-norm clip, the optimizer update and the mixup-weighted accuracy.
 PyTorch runs eagerly, so there is no compile step; the step returns its
 metrics as device scalars and never waits on the card.
 
+Under ``--quant`` the training forward rolls every amax history once (the
+JAX step's mutable ``batch_stats``); the eval step's forward does not.
+
 Randomness is explicit.  A ``StepDraws`` holds one u32 seed per dropout
 site in the model's call order, the mixup lambda and the permutation.
-In a run they come from generators seeded by (run seed, step) — numpy
-for lambda and the permutation, a ``torch.Generator`` for the seeds — so a
-resumed run redraws identical values.  They are not the JAX package's
+The fused FFN (``--ffn_impl pallas``) takes its two seeds as one (hidden,
+connection) pair where the flax FFN takes its hidden and connection
+seeds, so the count is the same on both branches.  In a run they come
+from generators seeded by (run seed, step) — numpy for lambda and the
+permutation, a ``torch.Generator`` for the seeds — so a resumed run
+redraws identical values.  They are not the JAX package's
 threefry bits; the parity tests hand both packages the same draws, and
 every dropout mask is bitwise equal given its seed.
 """

@@ -251,3 +251,124 @@ def test_serving_on_card_counts_launches_and_is_batch_invariant(card):
         assert np.isfinite(got).all()
         batch, _ = pad_batch([type("R", (), {"tokens": req})], bucket, 4)
         np.testing.assert_array_equal(engine.predict_batch(batch)[0], got)
+
+
+# -- slice 3: the quantized GEMM and the fused FFN ---------------------------
+#
+# int8 GEMMs are exact: kernel == plain version bit for bit.  E4M3 and the
+# fused FFN hold to 2e-2 of max |plain| in bf16 and under quant (the
+# kernels sum in another order; a flipped rounding of f or a before
+# quantization moves one grid step), 1e-4 in fp32 without quant.  Two launches on the same inputs give the
+# same bits, the amaxes included.
+
+
+def _quant_operands(g, M, K, N, fmt):
+    from faster_distributed_training_tpu_torch.ops.quant import quantize
+
+    x = torch.randn(M, K, generator=g, device="cuda")
+    w = torch.randn(N, K, generator=g, device="cuda") * 0.05
+    sx = torch.tensor(127.0 / 4.0 if fmt == "int8" else 448.0 / 4.0,
+                      device="cuda")
+    sw = torch.tensor(127.0 / 0.2 if fmt == "int8" else 448.0 / 0.2,
+                      device="cuda")
+    return quantize(x, sx, fmt), quantize(w, sw, fmt), sx, sw
+
+
+@pytest.mark.parametrize("M,K,N", [(8192, 512, 1536), (8192, 1024, 512),
+                                   (77, 48, 40)])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quant_matmul_matches_plain(card, M, K, N, fmt):
+    from faster_distributed_training_tpu_torch.ops.quant import (
+        quant_dot_reference, quant_matmul)
+
+    xq, wq, sx, sw = _quant_operands(card, M, K, N, fmt)
+    for dtype in (torch.bfloat16, torch.float32):
+        n0 = quant_matmul.launches
+        got = quant_matmul(xq, wq, sx, sw, fmt, dtype)
+        again = quant_matmul(xq, wq, sx, sw, fmt, dtype)
+        want = quant_dot_reference(xq, wq, sx, sw, fmt, dtype)
+        torch.cuda.synchronize()
+        assert quant_matmul.launches == n0 + 2
+        assert torch.equal(got, again)
+        if fmt == "int8":
+            assert torch.equal(got, want)
+        else:
+            tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= tol * want.float().abs().max().item()
+
+
+def test_quant_matmul_rejects_what_the_kernel_does_not_take(card):
+    from faster_distributed_training_tpu_torch.ops.quant import quant_matmul
+
+    xq, wq, sx, sw = _quant_operands(card, 8, 24, 8, "int8")
+    with pytest.raises(ValueError, match="K % 16"):
+        quant_matmul(xq, wq, sx, sw, "int8", torch.bfloat16)
+    with pytest.raises(TypeError, match="operands"):
+        quant_matmul(xq.float(), wq, sx, sw, "int8", torch.bfloat16)
+
+
+def _ffn_inputs(g, rows, d, d_ff, dtype):
+    h = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+    ln_s = 1.0 + 0.1 * torch.randn(d, generator=g, device="cuda")
+    ln_b = 0.1 * torch.randn(d, generator=g, device="cuda")
+    w1 = (torch.randn(d_ff, d, generator=g, device="cuda")
+          / d ** 0.5).to(dtype)
+    b1 = (0.1 * torch.randn(d_ff, generator=g, device="cuda")).to(dtype)
+    w2 = (torch.randn(d, d_ff, generator=g, device="cuda")
+          / d_ff ** 0.5).to(dtype)
+    b2 = (0.1 * torch.randn(d, generator=g, device="cuda")).to(dtype)
+    return h, ln_s, ln_b, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("rows,d,d_ff", [(8192, 512, 1024), (100, 64, 208)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fmt", [None, "int8", "fp8"])
+def test_fused_ffn_matches_plain(card, rows, d, d_ff, dtype, fmt):
+    from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+        _ffn_body_reference, ffn_fwd_generalized)
+
+    args = _ffn_inputs(card, rows, d, d_ff, dtype)
+    scales = torch.tensor([30.0, 300.0, 60.0, 250.0], device="cuda")
+    seeds = (0x1234567, 0x89ABCDE, 0, 0, 0)
+    run = lambda: ffn_fwd_generalized(  # noqa: E731
+        *args, seeds, scales, 0.1, 0.1, 1e-6, 1, 1, d_ff, fmt)
+    n0 = ffn_fwd_generalized.launches
+    out, amax = run()
+    out2, amax2 = run()
+    quant = None if fmt is None else (fmt, *scales.unbind(), None)
+    want, want_amax = _ffn_body_reference(
+        *args, seeds[0], seeds[1], 0.1, 0.1, 1e-6, quant=quant,
+        return_amax=True, plain_gemm=True)
+    torch.cuda.synchronize()
+    assert ffn_fwd_generalized.launches == n0 + 2
+    assert torch.equal(out, out2) and torch.equal(amax, amax2)
+    tol = 2e-2 if dtype == torch.bfloat16 or fmt is not None else 1e-4
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
+    if fmt is None:
+        assert torch.equal(amax, torch.zeros_like(amax))
+    else:
+        assert torch.allclose(amax, want_amax, rtol=1e-2, atol=0)
+
+
+def test_fused_ffn_sublayer_autograd_on_card(card):
+    """The Function's forward is the kernel's output; its gradients are
+    the recompute's (the plain version under autograd) on the card."""
+    from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+        ffn_fwd, ffn_sublayer_reference, fused_ffn_sublayer)
+
+    args = _ffn_inputs(card, 256, 64, 128, torch.float32)
+    leaves = [t.detach().requires_grad_(True) for t in args]
+    n0 = ffn_fwd.launches
+    out = fused_ffn_sublayer(*leaves, 5, 6, 0.1, 0.1)
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, leaves, g)
+    ref_leaves = [t.detach().requires_grad_(True) for t in args]
+    ref = ffn_sublayer_reference(*ref_leaves, 5, 6, 0.1, 0.1)
+    want = torch.autograd.grad(ref, ref_leaves, g)
+    torch.cuda.synchronize()
+    assert ffn_fwd.launches == n0 + 1
+    assert (out - ref).abs().max().item() <= 1e-4
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()

@@ -139,8 +139,8 @@ def test_attention_routing():
     assert cli.resolve_attention(odd, torch.device("cuda")) == "dense"
     assert cli.resolve_attention(pcfg.replace(attention="flash"),
                                  torch.device("cpu")) == "flash"
-    with pytest.raises(NotImplementedError, match="quant"):
-        cli.build_model(pcfg.replace(quant="int8"), device="cpu")
+    with pytest.raises(NotImplementedError, match="--remat"):
+        cli.build_model(pcfg.replace(remat=True), device="cpu")
 
 
 def _imports(path):

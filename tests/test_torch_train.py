@@ -12,8 +12,9 @@
   * Resume within the port: 6 straight steps against 3 steps, save, a
     fresh state, restore, 3 more steps — parameters and optimizer state
     bitwise equal, at an epoch boundary and mid-epoch.
-  * The entry points: ``cli.main`` trains on the CPU when asked, and the
-    flags of unreached features raise NotImplementedError.
+  * The entry points: ``cli.main`` trains on the CPU when asked (also
+    with ``--ffn_impl pallas --quant int8``), and the flags of unreached
+    features raise NotImplementedError.
 
 Small size: 2 layers, d_model 64, 4 heads (D = 16), d_ff 128, vocab 100.
 """
@@ -84,7 +85,10 @@ class _Recorder:
 
     def take(self) -> StepDraws:
         assert len(self.lam) == 1 and len(self.perm) == 1
-        draws = StepDraws(seeds=tuple(int(b) for b in self.bits),
+        # a shaped draw (the fused FFN's (2,) pair) gives one seed per
+        # element, in order
+        draws = StepDraws(seeds=tuple(int(v) for b in self.bits
+                                      for v in np.ravel(b)),
                           lam=float(self.lam[0]), perm=self.perm[0])
         self.bits.clear(), self.lam.clear(), self.perm.clear()
         return draws
@@ -210,8 +214,6 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tmp_path):
     for flags, name in ((["--ngd"], "--ngd"), (["--remat"], "--remat"),
                         (["--steps_per_dispatch", "2"], "steps_per_dispatch"),
                         (["--data_path", "resident"], "--data_path"),
-                        (["--quant", "int8"], "--quant"),
-                        (["--ffn_impl", "pallas"], "--ffn_impl"),
                         (["--task", "lm"], "--task lm"),
                         (["--mesh", "dp=2"], "--mesh"),
                         (["--supervise"], "--supervise"),
