@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/H100 port: builds the kernels, holds each
-against its plain version, times them, trains and serves at full width.
+against its plain version, times them, trains (the classifier and the
+next-token LM at seq 8192) and serves at full width.
 
     python3 chip_smoke.py
 
@@ -20,14 +21,24 @@ failure raises and exits non-zero):
                row count (int8 bitwise, E4M3 2e-2 of max |plain|), fused_ffn
                at 8192 x 512 -> 1024 -> 512 for fmt none / int8 / E4M3
                with dropout 0.1 at both sites (outputs 2e-2 of max
-               |plain|, amaxes 1e-2), two launches equal bits;
+               |plain|, amaxes 1e-2), two launches equal bits; at long
+               context (TPU rows 2 and 3: the same two flash kernels),
+               path E's shape (B 4, H 8, L 8192: forward with lse, primal
+               forward, backward), B 1 at L 8192 with key padding and at
+               L 16384, bf16 and fp32, dropout 0.1, against the plain
+               versions walked 1024 q rows at a time (bf16 outputs and
+               all gradients 2e-2 / 1e-5 of max |plain|, fp32 outputs
+               1e-5), two launches equal bits;
   4. timing  — kernel, plain version, the library yardstick and the
                bound.  Two clocks: the device time per call (the sum of
                the kernels a call launches, torch.profiler over 25 calls;
                the JSON line's ms fields), and the time per call the
                caller sees (CUDA events, median of 25 after warm-up);
                slice 3's rows 7, 8 (int8) and 9 (int8, E4M3) at the
-               record's training shape;
+               record's training shape; rows 2 and 3 at path E's shape
+               (B 4, H 8, L 8192, D 64, bf16, dropout 0.1; SDPA without
+               dropout as the yardstick) and row 2's primal forward at
+               B 1, L 16384;
   5. train   — ``cli.run_training`` at the full width of the
                transformer_test.py record (6 layers, d_model 512, 8 heads,
                d_ff 1024, vocab 30522, batch 16, seq 512, bf16, mirror
@@ -38,7 +49,8 @@ failure raises and exits non-zero):
                tokens/s, a [profile] split of one step's device time, the
                recompute route (FDT_FLASH_SAVE_STATS=0) for 2 steps with
                its own counts, one fp32 step at reduced width on the card
-               against the same step on the CPU, and a checkpoint round
+               against the same step on the CPU (loss 1e-5, each grad
+               leaf 1e-5 of its max |CPU grad|), and a checkpoint round
                trip on the card; then path B (``--ffn_impl pallas --quant
                int8``) at full width for 16 steps + 4 eval batches with
                its exact launch counts, one step alone (exact per-step
@@ -46,6 +58,16 @@ failure raises and exits non-zero):
                and [profile] split, an fp32 reduced-width step card vs
                CPU; then 4-step runs of path A (``--ffn_impl pallas``)
                and path C (``--quant fp8``), each with its launch counts;
+               then path E: the port's shard writer packs the synthetic
+               corpus at seq 8192 (4096 documents, seed 0) into a
+               temporary directory, and ``cli.run_training`` trains the
+               next-token LM on it (``--task lm --dataset stream``, tied
+               head, the record's widths, batch 4: 8 steps + one padded
+               eval batch) with exact launch counts booked onto the TPU
+               rows (``flash_rows``), then its step time, tokens/s, peak
+               memory and [profile] split, a 12-step fixed-batch
+               learning probe and an fp32 LM step at d_model 64, L 512
+               card vs CPU (held as the slice-2 step is);
   6. serve   — ``cli.run_serving`` at the default width (6 layers,
                d_model 512, 8 heads, vocab 30522, buckets 64..512, serve
                batch 8, bf16) with seeded random weights; launch counts
@@ -60,7 +82,8 @@ failure raises and exits non-zero):
   7. output  — p50/p99/qps, the kernels JSON line (launches from the
                training run, the recompute route's from its own run,
                fused_ffn's from path A, fused_ffn_quant's and
-               quant_matmul's from path B; the serving runs' beside them),
+               quant_matmul's from path B, rows 2 and 3's from path E;
+               the serving runs' beside them),
                the card line, and last the ok line.
 """
 
@@ -135,13 +158,14 @@ def device_kernels(fn, repeats: int):
             if _device_us(e) > 0}
 
 
-def measure(fn) -> dict:
+def measure(fn, repeats: int = REPEATS) -> dict:
     """Device time per call (the sum of every kernel ``fn`` launches,
     torch.profiler; CUDA events when the profiler sees no device time)
-    and the per-call time the caller sees (CUDA events)."""
-    wall = call_ms(fn)
-    dev = sum(us for us, _ in device_kernels(fn, REPEATS).values()
-              ) / REPEATS / 1e3
+    and the per-call time the caller sees (CUDA events), each over
+    ``repeats`` calls."""
+    wall = call_ms(fn, repeats)
+    dev = sum(us for us, _ in device_kernels(fn, repeats).values()
+              ) / repeats / 1e3
     return {"ms": dev if dev > 0 else wall, "call_ms": wall,
             "timer": "profiler" if dev > 0 else "events"}
 
@@ -220,6 +244,15 @@ def rel_err(got, want) -> float:
 def abs_err(got, want) -> float:
     return max((g.float() - w.float()).abs().max().item()
                for g, w in zip(got, want))
+
+
+def grad_err(got: dict, want: dict):
+    """(max over leaves of max |got - want| / max |want|, that leaf): each
+    gradient leaf held to its own scale, so a small leaf is not hidden
+    under a large one's limit."""
+    return max(((got[k].cpu().float() - w.float()).abs().max().item()
+                / max(w.float().abs().max().item(), 1e-30), k)
+               for k, w in want.items())
 
 
 def check_backward(fa, gen) -> dict:
@@ -474,12 +507,12 @@ def train_phase(cli, fa, fused_mlp, build_dir: str) -> dict:
     l_g, g_g, *_ = loss_and_grads(m_gpu, to_device(batch, "cuda"), draws)
     l_g, l_c = l_g.item(), l_c.item()
     e_loss = abs(l_g - l_c)
-    e_grad = max((g_g[k].cpu() - g_c[k]).abs().max().item() for k in g_c)
+    e_grad, leaf = grad_err(g_g, g_c)
     print(f"[train] fp32 step at d_model 64 x 2 layers, card vs CPU, same "
           f"weights/batch/draws, TF32 off: loss {l_g:.6f} vs "
-          f"{l_c:.6f} (err {e_loss:.3g}, tol 1e-4), grads max err "
-          f"{e_grad:.3g} (tol 1e-3)")
-    check(e_loss <= 1e-4 and e_grad <= 1e-3, "card step differs from CPU")
+          f"{l_c:.6f} (err {e_loss:.3g}, tol 1e-5), grads max err "
+          f"{e_grad:.3g} of the leaf's max |CPU grad| ({leaf}; tol 1e-5)")
+    check(e_loss <= 1e-5 and e_grad <= 1e-5, "card step differs from CPU")
 
     # checkpoint round trip on the card
     ckpt.save_checkpoint(ckdir, "roundtrip", state, 0, 0.5,
@@ -702,13 +735,16 @@ def time_quant_kernels(gen) -> dict:
 
 
 def counted_wrappers():
-    """Every kernel wrapper of the port and its launch count."""
+    """Every kernel wrapper of the port and its launch count
+    (``flash_fwd`` counts every forward launch, ``flash_fwd_stats`` the
+    ones whose lse a backward takes)."""
     from faster_distributed_training_tpu_torch.ops import flash_attention as fa
     from faster_distributed_training_tpu_torch.ops import fused_ffn as ffn
     from faster_distributed_training_tpu_torch.ops.fused_mlp import fused_mlp
     from faster_distributed_training_tpu_torch.ops.quant import quant_matmul
 
     return {"flash_fwd": fa.flash_attention,
+            "flash_fwd_stats": fa.flash_attention_stats,
             "flash_bwd_stats": fa.flash_attention_bwd,
             "flash_bwd_recompute": fa.flash_attention_bwd_recompute,
             "fused_mlp": fused_mlp, "fused_ffn": ffn.ffn_fwd,
@@ -726,12 +762,16 @@ def read_counts() -> dict:
 
 
 def path_counts(n_layers: int, fwd: int, steps: int, ffn: str,
-                quant: bool) -> dict:
+                quant: bool, train_fwd: int = None) -> dict:
     """Exact launches of ``fwd`` forwards and ``steps`` backwards on a
-    path: ffn "flax" or "pallas", quant on or off."""
+    path: ffn "flax" or "pallas", quant on or off; ``train_fwd`` of the
+    forwards are training forwards (their lse saved; default ``steps``)."""
     per_fwd_q = (2 if ffn == "pallas" else 4) * n_layers if quant else 0
     per_bwd_q = 2 * n_layers if (quant and ffn == "pallas") else 0
-    return {"flash_fwd": n_layers * fwd, "flash_bwd_stats": n_layers * steps,
+    train_fwd = steps if train_fwd is None else train_fwd
+    return {"flash_fwd": n_layers * fwd,
+            "flash_fwd_stats": n_layers * train_fwd,
+            "flash_bwd_stats": n_layers * steps,
             "flash_bwd_recompute": 0, "fused_mlp": fwd,
             "fused_ffn": n_layers * fwd if (ffn == "pallas" and not quant)
             else 0,
@@ -807,8 +847,10 @@ def train_quant_phase(cli, build_dir: str) -> dict:
                                                     build_dir, "B")
     cfg = out["cfg"]
     L = cfg.n_layers
-    # one seeding forward (the JAX init's) + every step + every eval batch
-    want = path_counts(L, 1 + steps + n_eval, steps, "pallas", True)
+    # one seeding forward (the JAX init's, a training forward) + every
+    # step + every eval batch
+    want = path_counts(L, 1 + steps + n_eval, steps, "pallas", True,
+                       train_fwd=1 + steps)
     check(launches == want, f"path B launches {launches} != {want}")
     print(f"[train B] launches == the path's exact counts {want} (1 "
           f"seeding forward + {steps} steps + {n_eval} eval batches); loss "
@@ -909,7 +951,8 @@ def train_quant_phase(cli, build_dir: str) -> dict:
         _, got, l_short, s_steps, s_eval = run_path(cli, flags, 64,
                                                     build_dir, tag)
         n_fwd = s_steps + s_eval + (1 if quant else 0)
-        want = path_counts(L, n_fwd, s_steps, ffn, quant)
+        want = path_counts(L, n_fwd, s_steps, ffn, quant,
+                           train_fwd=s_steps + (1 if quant else 0))
         check(got == want, f"path {tag} launches {got} != {want}")
         print(f"[train {tag}] launches == the path's exact counts; losses "
               + " ".join(f"{x:.4f}" for x in l_short))
@@ -948,6 +991,7 @@ def serve_quant_phase(cli, state) -> dict:
             "quant_matmul": 12 * batches_run, "fused_mlp": batches_run}
     got = {k: launches[k] for k in want}
     check(got == want and launches["flash_bwd_stats"] == 0
+          and launches["flash_fwd_stats"] == 0
           and launches["fused_ffn"] == 0, f"quant serve launches {launches}")
     hist_same = all(torch.equal(b.cpu(), sd[n]) for n, b in
                     engine.model.named_buffers() if "amax_history" in n)
@@ -996,6 +1040,388 @@ def serve_quant_phase(cli, state) -> dict:
     print(profile_split(kern, n, wall_ms, f"serve path D bucket {top} "
                         "(per batch)"))
     return {"launches": launches}
+
+
+# -- slice 4: long context (TPU rows 2 and 3) -------------------------------
+
+# The JAX package picks its flash kernels by shape (ops/flash_attention.py:
+# _flash_fwd :606-624, _flash_bwd :997-1003, _flash_impl :567-585): a
+# forward under grad whose Lk*D is past the monolithic backward's envelope
+# (4096*64) runs the k-blocked forward (row 2) and its backward the
+# k-blocked backward (row 3), else rows 1 and 4; a primal (eval) forward
+# runs the monolithic kernel (row 1) up to Lk*D = 8192*64 and the k-blocked
+# one (row 2) past it.  The port launches the same two kernels for all of
+# them; flash_rows() books a path's launches onto the TPU rows that way.
+BWD_ENVELOPE = 4096 * 64
+FWD_ENVELOPE = 8192 * 64
+LONG = {"B": 4, "H": 8, "L": 8192, "D": 64}     # path E's attention shape
+Q_CHUNK = 1024                                  # plain versions' row chunk
+PROBE_FALL = 1.0            # least fall of path E's fixed-batch probe (nat)
+
+
+def flash_rows(counts: dict, lk: int, d: int) -> dict:
+    """{TPU row: launches} of one path's flash counts at key length lk."""
+    grad_fwd = counts["flash_fwd_stats"]
+    primal = counts["flash_fwd"] - grad_fwd
+    long_bwd = lk * d > BWD_ENVELOPE
+    rows = {1: 0, 2: 0, 3: 0, 4: 0}
+    rows[2 if long_bwd else 1] += grad_fwd
+    rows[2 if lk * d > FWD_ENVELOPE else 1] += primal
+    rows[3 if long_bwd else 4] += counts["flash_bwd_stats"]
+    return rows
+
+
+def check_long_kernels(fa, gen) -> dict:
+    """The long-context kernels against the plain versions run a q-row
+    chunk at a time, dropout 0.1, bf16 and fp32: path E's own shape (B 4,
+    H 8, L 8192, no padding: forward with lse, its eval's primal forward,
+    backward), B 1 at L 8192 with key padding (forward, backward) and at
+    L 16384 (forward with lse, primal).  Two launches give equal bits.
+    bf16 outputs are held to 2e-2 of max |plain| (|out| shrinks as
+    1/sqrt(L): an absolute limit sized at L 512 would be as large as the
+    values here), fp32 to 1e-5 absolute, gradients to max |plain| in both.
+    Returns the largest absolute errors."""
+    import torch
+
+    worst = {"flash_fwd_kblocked": 0.0, "flash_bwd_kblocked": 0.0}
+    H, D = LONG["H"], LONG["D"]
+    # (B, L, key padding, primal forward, backward)
+    cases = ((LONG["B"], LONG["L"], False, True, True),
+             (1, 8192, True, False, True),
+             (1, 16384, False, True, False))
+    for dtype, tol, lse_tol in ((torch.bfloat16, 2e-2, 1e-4),
+                                (torch.float32, 1e-5, 1e-5)):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for B, L, padded, primal, backward in cases:
+            what = (f"{name} B{B} H{H} L={L} D{D} dropout 0.1"
+                    + (" + key padding" if padded else ""))
+            q, k, v = qkv_views(B, H, L, D, dtype, gen)
+            # ragged key padding with no fully masked row, or none (path
+            # E's packed rows)
+            mask = ((torch.arange(L, device="cuda")[None] < 8000).int()
+                    if padded else None)
+            got = fa.flash_attention_stats(q, k, v, mask, 0.1, 0xBEEF)
+            again = fa.flash_attention_stats(q, k, v, mask, 0.1, 0xBEEF)
+            want = fa.flash_attention_stats_reference(
+                q, k, v, mask, 0.1, 0xBEEF, Q_CHUNK)
+            torch.cuda.synchronize()
+            outs = [("forward with lse", got[0], again[0], want[0])]
+            if primal:              # an eval forward: no dropout, no lse
+                outs.append(("primal forward", fa.flash_attention(q, k, v),
+                             fa.flash_attention(q, k, v),
+                             fa.flash_attention_reference(
+                                 q, k, v, q_chunk=Q_CHUNK)))
+            e_lse = (got[1] - want[1]).abs().max().item()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = e_lse <= lse_tol
+            notes = []
+            for kind, o, o2, w in outs:
+                e_abs = abs_err((o,), (w,))
+                e = rel_err((o,), (w,)) if dtype == torch.bfloat16 else e_abs
+                same = same and torch.equal(o, o2)
+                ok = ok and e <= tol
+                notes.append(f"{kind} out err {e:.3g}"
+                             + (f" of max |plain| (abs {e_abs:.3g})"
+                                if dtype == torch.bfloat16 else " abs"))
+                worst["flash_fwd_kblocked"] = max(
+                    worst["flash_fwd_kblocked"], e_abs)
+            print(f"[check] long flash fwd {what}: {'; '.join(notes)} (tol "
+                  f"{tol:g}); lse err {e_lse:.3g} (tol {lse_tol:g}); two "
+                  f"launches bitwise equal: {same}", flush=True)
+            check(ok and same, f"long flash fwd {what}")
+            if not backward:
+                continue
+            out, lse, lse_lo = got
+            dout = torch.randn(B, H, L, D, generator=gen,
+                               device="cuda").to(dtype)
+            g = fa.flash_attention_bwd(q, k, v, out, lse, dout, mask, 0.1,
+                                       0xBEEF, lse_lo)
+            g2 = fa.flash_attention_bwd(q, k, v, out, lse, dout, mask, 0.1,
+                                        0xBEEF, lse_lo)
+            ref = fa.flash_attention_bwd_reference(
+                q, k, v, out, lse, dout, mask, 0.1, 0xBEEF, lse_lo,
+                q_chunk=Q_CHUNK)
+            torch.cuda.synchronize()
+            e = rel_err(g, ref)
+            same = all(torch.equal(a, b) for a, b in zip(g, g2))
+            print(f"[check] long flash bwd {what}: dq/dk/dv err {e:.3g} of "
+                  f"max |plain| (tol {tol:g}, abs {abs_err(g, ref):.3g}); "
+                  f"two launches bitwise equal: {same}", flush=True)
+            check(e <= tol and same, f"long flash bwd {what}")
+            worst["flash_bwd_kblocked"] = max(worst["flash_bwd_kblocked"],
+                                              abs_err(g, ref))
+            del g, g2, ref, dout
+        torch.cuda.empty_cache()
+    return worst
+
+
+def time_long_kernels(fa, gen) -> dict:
+    """Rows 2 and 3 at path E's shape (B 4, H 8, L 8192, D 64, bf16,
+    dropout 0.1, no padding), and row 2's primal forward at B 1, L 16384:
+    kernel, plain (q-row chunked, 3 calls), SDPA (no dropout: its dropout
+    is not the hash stream) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, L, D = LONG["B"], LONG["H"], LONG["L"], LONG["D"]
+    q, k, v = qkv_views(B, H, L, D, torch.bfloat16, gen)
+    N, nld = B * H, B * H * L * D
+    fwd = {"kernel": measure(lambda: fa.flash_attention_stats(
+               q, k, v, None, 0.1, 5)),
+           "plain": measure(lambda: fa.flash_attention_stats_reference(
+               q, k, v, None, 0.1, 5, Q_CHUNK), 3),
+           "library": library(lambda: F.scaled_dot_product_attention(
+               q, k, v))}
+    # read q k v, write out, lse and its tail; two L x L x D products
+    fwd["bound_ms"], fwd["bound_by"] = bound(
+        4 * nld * 2 + 2 * N * L * 4, 4 * N * L * L * D, "bf16")
+    out, lse, lse_lo = fa.flash_attention_stats(q, k, v, None, 0.1, 5)
+    dout = torch.randn(B, H, L, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves)
+        return torch.autograd.grad(o, leaves, dout)
+
+    bwd = {"kernel": measure(lambda: fa.flash_attention_bwd(
+               q, k, v, out, lse, dout, None, 0.1, 5, lse_lo)),
+           "plain": measure(lambda: fa.flash_attention_bwd_reference(
+               q, k, v, out, lse, dout, None, 0.1, 5, lse_lo,
+               q_chunk=Q_CHUNK), 3),
+           "library": library(sdpa_bwd),
+           "library_fwd_bwd": library(sdpa_fwd_bwd)}
+    # read q k v out dO (bf16), lse and its tail; write dq dk dv; five
+    # L x L x D products
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        8 * nld * 2 + 2 * N * L * 4, 10 * N * L * L * D, "bf16")
+    del leaves, sdpa_out
+    # row 2 as a primal forward: one sequence of 16384, no dropout (eval)
+    L2 = 16384
+    q2, k2, v2 = qkv_views(1, H, L2, D, torch.bfloat16, gen)
+    prim = {"kernel": measure(lambda: fa.flash_attention(q2, k2, v2)),
+            "plain": measure(lambda: fa.flash_attention_reference(
+                q2, k2, v2, q_chunk=Q_CHUNK), 3),
+            "library": library(lambda: F.scaled_dot_product_attention(
+                q2, k2, v2))}
+    prim["bound_ms"], prim["bound_by"] = bound(
+        4 * H * L2 * D * 2, 4 * H * L2 * L2 * D, "bf16")
+    for name, t in (("flash_fwd_kblocked (with lse) B4 H8 L8192 D64", fwd),
+                    ("flash_bwd_kblocked B4 H8 L8192 D64", bwd),
+                    ("flash_fwd_kblocked primal B1 H8 L16384 D64", prim)):
+        lib = t["library"]
+        print(f"[timing] {name}: device ms per call ({t['kernel']['timer']})"
+              f": kernel {t['kernel']['ms']:.5f}, plain (q-row chunked) "
+              f"{t['plain']['ms']:.5f}, SDPA (no dropout) "
+              + (f"{lib['ms']:.5f}" if lib else "n/a")
+              + (f" (forward + backward {t['library_fwd_bwd']['ms']:.5f})"
+                 if t.get("library_fwd_bwd") else "")
+              + f"; per call incl. launch (events): kernel "
+              f"{t['kernel']['call_ms']:.5f}, plain "
+              f"{t['plain']['call_ms']:.5f}; bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']})", flush=True)
+    return {"fwd": fwd, "bwd": bwd, "primal": prim}
+
+
+def lm_phase(cli, build_dir: str) -> dict:
+    """Path E: shard the synthetic corpus at seq 8192 with the port's
+    writer, train the next-token LM on it at the record's widths (batch 4:
+    8 steps + one padded eval batch) with exact launch counts, then its
+    step time, tokens/s, peak memory and [profile] split, a fixed-batch
+    learning probe and an fp32 LM step card vs CPU."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from faster_distributed_training_tpu_torch.data.loader import BatchLoader
+    from faster_distributed_training_tpu_torch.data.stream import shard
+    from faster_distributed_training_tpu_torch.optim import build_optimizer
+    from faster_distributed_training_tpu_torch.train import steps as steps_mod
+    from faster_distributed_training_tpu_torch.train.state import (
+        create_train_state)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        lm_loss_and_grads, make_train_step, step_draws, to_device)
+
+    tmp = tempfile.mkdtemp(prefix="smoke_lm_", dir=build_dir)
+    try:
+        corpus = os.path.join(tmp, "corpus")
+        t0 = time.monotonic()
+        written = shard.main(["--out", corpus, "--source", "synthetic",
+                              "--seq_len", str(LONG["L"]), "--n_docs",
+                              "4096", "--seed", "0", "--data_dir",
+                              os.path.join(tmp, "data")],
+                             log=lambda line: print(line, flush=True))
+        shard_s = time.monotonic() - t0
+        n_train, n_test = written["train"]["n"], written["test"]["n"]
+        print(f"[shard E] {n_train} train + {n_test} test rows of "
+              f"{LONG['L']} tokens, vocab {written['vocab_size']}, in "
+              f"{shard_s:.1f}s (host CPU)", flush=True)
+
+        defaults = cli.TRANSFORMER_DEFAULTS
+        cfg = cli.config_from_args(cli.build_parser(
+            defaults=defaults).parse_args(
+            ["--device", "cuda", "--task", "lm", "--dataset", "stream",
+             "--stream_dir", corpus, "--seq_len", str(LONG["L"]), "--bs",
+             str(LONG["B"]), "--epoch", "1", "--precision", "bf16",
+             "--checkpoint_dir", os.path.join(tmp, "ckpt"),
+             "--log_every", "2"]), defaults=defaults)
+        step_losses = []
+        make_step = steps_mod.make_train_step
+
+        def recording(cfg_):
+            inner = make_step(cfg_)
+
+            def run(state_, batch, draws=None):
+                state_, metrics = inner(state_, batch, draws)
+                step_losses.append(metrics["loss"])
+                return state_, metrics
+            return run
+
+        steps_mod.make_train_step = recording
+        try:
+            reset_counts()
+            t0 = time.monotonic()
+            out = cli.run_training(cfg, log=lambda line: print(line,
+                                                               flush=True))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = read_counts()
+        finally:
+            steps_mod.make_train_step = make_step
+        steps = len(step_losses)
+        n_eval = -(-n_test // LONG["B"])
+        L = cfg.n_layers
+        print(f"[train E] {steps} steps + {n_eval} eval batch(es) in "
+              f"{wall:.1f}s wall (first use included); launches {launches}",
+              flush=True)
+        check(steps == out["steps_per_epoch"] == n_train // LONG["B"],
+              f"path E ran {steps} steps")
+        check(steps >= 4, "path E needs 4 steps or more (one-cycle)")
+        want = path_counts(L, steps + n_eval, steps, "flax", False)
+        want["fused_mlp"] = 0           # the LM has no classifier
+        check(launches == want, f"path E launches {launches} != {want}")
+        rows = flash_rows(launches, LONG["L"], LONG["D"])
+        check(rows == {1: L * n_eval, 2: L * steps, 3: L * steps, 4: 0},
+              f"path E rows {rows}")
+        print(f"[train E] launches == the path's exact counts: per step "
+              f"{L} flash forwards with lse (row 2) and {L} flash backwards "
+              f"(row 3, dkdv + dq kernels each); per eval batch {L} primal "
+              f"forwards (row 1: Lk*D = 8192*64 is inside its envelope); "
+              f"rows {rows}")
+        losses = torch.stack(step_losses).float().cpu().numpy()
+        hist = out["history"]
+        res = {k: hist[k][0] for k in ("train_loss", "test_loss",
+                                       "train_ppl", "test_ppl", "train_acc",
+                                       "test_acc")}
+        check(bool(np.isfinite(losses).all())
+              and all(np.isfinite(v) for v in res.values()),
+              f"path E non-finite: {res}")
+        print(f"[train E] loss per step " + " ".join(
+            f"{x:.4f}" for x in losses) + "; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in res.items()), flush=True)
+
+        # step time, tokens/s, peak memory and the profile (after the
+        # counted run, on its state)
+        state = out["state"]
+        train_ds = cli.load_dataset(out["cfg"], True)
+        step = make_train_step(out["cfg"])
+        loader = BatchLoader(train_ds, LONG["B"], epoch=1, seed=cfg.seed,
+                             max_len=LONG["L"])
+        batches = [to_device(b, "cuda") for b in itertools.islice(loader, 7)]
+        step(state, batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for b in batches[1:5]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(state, b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        med = statistics.median(times)
+        tok_s = LONG["B"] * LONG["L"] / (med / 1e3)
+        n = 2
+        kern = device_kernels(lambda: step(state, batches[5]), n)
+        busy = sum(us for us, _ in kern.values()) / n / 1e3
+        print(f"[train E] step time median {med:.2f} ms over {len(times)} "
+              f"steps ({', '.join(f'{t:.1f}' for t in times)}); "
+              f"{tok_s:.0f} tokens/s; device busy {busy:.3f} ms a step "
+              f"({100 * busy / med:.1f}% of the median step); peak memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        print(profile_split(kern, n, med, f"train step path E "
+                            f"(B {LONG['B']}, L {LONG['L']})"))
+        top = sorted(kern.items(), key=lambda x: -x[1][0])[:10]
+        print("[profile] top kernels of a path-E step (ms/step, "
+              "launches/step): " + "; ".join(
+                  f"{k[:60]} {us / n / 1e3:.4f} x{c / n:.0f}"
+                  for k, (us, c) in top))
+
+        # the loss goes down on one fixed batch: fixed draws, seeded init,
+        # a fresh record optimizer (one-cycle over the probe's steps)
+        n_probe = 12
+        probe_model = cli.build_model(out["cfg"],
+                                      vocab_size=written["vocab_size"],
+                                      device="cuda")
+        probe_model.init_weights(torch.Generator().manual_seed(cfg.seed))
+        probe_model.to("cuda")
+        probe_tx, _ = build_optimizer(out["cfg"], n_probe)
+        probe = create_train_state(probe_model, probe_tx, seed=cfg.seed)
+        draws = step_draws(cfg.seed, 0, LONG["B"],
+                           probe_model.n_dropout_sites(), 0.99)
+        probe_losses = [float(step(probe, batches[6], draws)[1]["loss"])
+                        for _ in range(n_probe)]
+        print(f"[train E] one fixed batch (B {LONG['B']}, L {LONG['L']}), "
+              f"fixed draws, {n_probe} steps: loss " + " ".join(
+                  f"{x:.4f}" for x in probe_losses), flush=True)
+        # the first card run fell 9.147 -> 5.274 over these 12 steps
+        # (PERF.md, path E's learning probe): hold it to one nat or more
+        check(bool(np.isfinite(probe_losses).all())
+              and probe_losses[-1] < probe_losses[0] - PROBE_FALL,
+              f"path E: the loss on a fixed batch fell less than "
+              f"{PROBE_FALL} nat")
+        del probe, probe_model, state, out, batches
+
+        # one fp32 LM step at reduced width, card against CPU
+        small = cfg.replace(n_layers=2, d_model=64, n_heads=4, d_ff=128,
+                            seq_len=512, precision="fp32", attention="flash")
+        V = written["vocab_size"]
+        m_cpu = cli.build_model(small, vocab_size=V, device="cpu")
+        m_cpu.init_weights(torch.Generator().manual_seed(5))
+        m_gpu = cli.build_model(small, vocab_size=V, device="cuda")
+        m_gpu.load_state_dict(m_cpu.state_dict())
+        m_gpu.to("cuda")
+        tokens = np.random.default_rng(11).integers(
+            1, V, size=(2, 512)).astype(np.int32)
+        batch = {"tokens": tokens, "token_types": np.zeros_like(tokens),
+                 "mask": np.ones_like(tokens),
+                 "label": np.zeros(2, np.int32)}
+        draws = step_draws(0, 0, 2, m_cpu.n_dropout_sites(), 0.99)
+        l_c, g_c, *_ = lm_loss_and_grads(m_cpu, to_device(batch, "cpu"),
+                                         draws)
+        l_g, g_g, *_ = lm_loss_and_grads(m_gpu, to_device(batch, "cuda"),
+                                         draws)
+        l_g, l_c = l_g.item(), l_c.item()
+        e_loss = abs(l_g - l_c)
+        e_grad, leaf = grad_err(g_g, g_c)
+        print(f"[train E] fp32 LM step at d_model 64 x 2 layers, L 512, "
+              f"tied head, card vs CPU, same weights/batch/draws, TF32 off: "
+              f"loss {l_g:.6f} vs {l_c:.6f} (err {e_loss:.3g}, tol 1e-5), "
+              f"grads max err {e_grad:.3g} of the leaf's max |CPU grad| "
+              f"({leaf}; tol 1e-5)", flush=True)
+        check(e_loss <= 1e-5 and e_grad <= 1e-5,
+              "path E card step differs from CPU")
+        return {"launches": launches, "rows": rows, "step_ms": med,
+                "tokens_s": tok_s, "peak_bytes": peak, "busy_ms": busy,
+                "probe": (probe_losses[0], probe_losses[-1]), **res}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -1097,6 +1523,7 @@ def main() -> int:
 
     err.update(check_backward(fa, gen))
     err.update(check_quant_kernels(gen))
+    err.update(check_long_kernels(fa, gen))
 
     # -- 4. timings at the paths' shapes ---------------------------------------
     L = 512
@@ -1170,10 +1597,12 @@ def main() -> int:
               f"{t['bound_ms']:.5f} ms ({t['bound_by']})", flush=True)
 
     qt = time_quant_kernels(gen)
+    lt = time_long_kernels(fa, gen)
 
     # -- 5. training at full width ---------------------------------------------
     tr = train_phase(cli, fa, fused_mlp, str(_build.BUILD_DIR))
     trq = train_quant_phase(cli, str(_build.BUILD_DIR))
+    lm = lm_phase(cli, str(_build.BUILD_DIR))
 
     # -- 6. serving at full width ----------------------------------------------
     defaults = cli.TRANSFORMER_DEFAULTS
@@ -1191,8 +1620,9 @@ def main() -> int:
     counts = read_counts()
     launches = {"flash_fwd": counts["flash_fwd"],
                 "fused_mlp": counts["fused_mlp"]}
-    check(counts["flash_bwd_stats"] == counts["flash_bwd_recompute"] == 0,
-          "serving launched a backward kernel")
+    check(counts["flash_bwd_stats"] == counts["flash_bwd_recompute"]
+          == counts["flash_fwd_stats"] == 0,
+          "serving launched a backward kernel or a training forward")
     check(counts["fused_ffn"] == counts["fused_ffn_quant"]
           == counts["quant_matmul"] == 0,
           "the default serving build launched a slice-3 kernel")
@@ -1278,6 +1708,13 @@ def main() -> int:
           f"loss {tr['loss_first']:.4f} -> {tr['loss_last']:.4f}; eval "
           f"accuracy {tr['test_acc']:.4f}; path B step time median "
           f"{trq['step_ms']:.2f} ms")
+    print(f"[train E] --task lm B {LONG['B']} L {LONG['L']}: step time "
+          f"median {lm['step_ms']:.2f} ms, {lm['tokens_s']:.0f} tokens/s, "
+          f"peak memory {lm['peak_bytes'] / 2**30:.2f} GiB; train loss "
+          f"{lm['train_loss']:.4f} (ppl {lm['train_ppl']:.2f}, next-token "
+          f"accuracy {lm['train_acc']:.4f}), test loss {lm['test_loss']:.4f}"
+          f" (ppl {lm['test_ppl']:.2f}, accuracy {lm['test_acc']:.4f}); "
+          f"fixed-batch loss {lm['probe'][0]:.4f} -> {lm['probe'][1]:.4f}")
     src = "faster_distributed_training_tpu_torch/csrc/"
     jax_ops = "faster_distributed_training_tpu/ops/"
     # launches: the training run (the main path); the recompute route's
@@ -1335,6 +1772,37 @@ def main() -> int:
                 "e4m3_bound_ms": e["bound_ms"],
                 "e4m3_library_ms": e["library"]["ms"] if e["library"]
                 else None})
+        kernels.append(entry)
+    # slice 4: rows 2 and 3 are the same two kernels at long context;
+    # launches from path E, booked onto the rows by flash_rows()
+    for name, key, file, replaces, row in (
+            ("flash_fwd_kblocked", "fwd", "flash_fwd",
+             "flash_attention.py:290", 2),
+            ("flash_bwd_kblocked", "bwd", "flash_bwd",
+             "flash_attention.py:379", 3)):
+        t = lt[key]
+        entry = {"name": name, "route": "cuda", "source": f"{src}{file}.cu",
+                 "replaces": jax_ops + replaces,
+                 "launches": lm["rows"][row], "launches_serve": 0,
+                 "max_abs_err": err[name],
+                 "ms": t["kernel"]["ms"], "call_ms": t["kernel"]["call_ms"],
+                 "plain_ms": t["plain"]["ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"],
+                 "library_ms": t["library"]["ms"] if t["library"] else None,
+                 "shape": "B4 H8 L8192 D64 bf16, dropout 0.1 (library: "
+                          "SDPA without dropout)"}
+        if key == "fwd":
+            p = lt["primal"]
+            entry.update({
+                "primal_shape": "B1 H8 L16384 D64 bf16, no dropout",
+                "primal_ms": p["kernel"]["ms"],
+                "primal_plain_ms": p["plain"]["ms"],
+                "primal_bound_ms": p["bound_ms"],
+                "primal_library_ms": p["library"]["ms"] if p["library"]
+                else None})
+        else:
+            lfb = t["library_fwd_bwd"]
+            entry["library_fwd_bwd_ms"] = lfb["ms"] if lfb else None
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

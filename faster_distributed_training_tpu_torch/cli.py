@@ -1,11 +1,14 @@
 """Entry points of the port: classifier training (slice 2) and serving
 (slice 1), with the fused FFN and quantized GEMMs (slice 3: ``--ffn_impl
-pallas``, ``--quant int8|fp8``, ``--quant_grad fp8_e5m2``).
+pallas``, ``--quant int8|fp8``, ``--quant_grad fp8_e5m2``), and the
+next-token LM on a sharded stream corpus (slice 4: ``--task lm --dataset
+stream --stream_dir D``, host data path).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
 ``resolve_attention``, ``build_model``, ``load_dataset`` (the synthetic
-branch), ``apply_subset``, ``make_loaders``, ``run_training``, ``main``,
-``synth_requests``, ``run_serving`` and ``main_serve``.  Everything runs
+and stream branches), ``apply_subset``, ``make_loaders``,
+``run_training``, ``main``, ``synth_requests``, ``run_serving`` and
+``main_serve``.  Everything runs
 on CUDA unless the caller passes ``--device cpu`` / ``device="cpu"``;
 ``cuda`` without a GPU raises, nothing falls back on its own.
 
@@ -69,7 +72,10 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
     takes the fused FFN kernel at every width the config accepts (the
     JAX package's VMEM go/no-go checks are TPU figures and are not
     copied; a shape the kernel cannot take raises in its wrapper).
-    Features the port has not reached raise."""
+    ``--task lm`` builds the next-token LM: the head tied to the token
+    table unless ``--untie_lm_head``.  Features the port has not reached
+    raise, among them ``--task lm`` with ``--quant`` or ``--ffn_impl
+    pallas``."""
     from faster_distributed_training_tpu_torch.models import get_model
     from faster_distributed_training_tpu_torch.ops.quant import (
         warn_if_killed)
@@ -79,7 +85,12 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
     if cfg.model != "transformer":
         raise NotImplementedError(f"the port builds the transformer only "
                                   f"so far, not {cfg.model!r}")
-    unported = {"--task lm": cfg.task != "cls",
+    unported = {"--lm_causal": bool(cfg.lm_causal),
+                "serving --task lm (decode)": serving and cfg.task == "lm",
+                "--task lm with --quant": (cfg.task == "lm" and (
+                    cfg.quant or "none") != "none"),
+                "--task lm with --ffn_impl pallas": (
+                    cfg.task == "lm" and cfg.ffn_impl == "pallas"),
                 "--tricks off (unfused qkv)": cfg.tricks == "off",
                 "--dropout_impl xla": cfg.dropout_impl == "xla",
                 "--remat": bool(cfg.remat),
@@ -107,7 +118,10 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
                      d_ff=cfg.d_ff, h=cfg.n_heads, dtype=dtype,
                      param_dtype=dtype if serving else torch.float32,
                      attention_impl=resolve_attention(cfg, device),
-                     ffn_impl=cfg.ffn_impl, quant=quant, **rates)
+                     ffn_impl=cfg.ffn_impl, quant=quant,
+                     lm_head=cfg.task == "lm",
+                     tie_lm_head=cfg.task == "lm" and cfg.tie_lm_head,
+                     **rates)
 
 
 def unported_training_flags(cfg: TrainConfig) -> list:
@@ -117,8 +131,9 @@ def unported_training_flags(cfg: TrainConfig) -> list:
         "--remat": bool(cfg.remat),
         "--steps_per_dispatch > 1": int(cfg.steps_per_dispatch or 1) > 1,
         f"--data_path {cfg.data_path}": cfg.data_path != "host",
-        f"--dataset {cfg.dataset}": cfg.dataset != "synthetic",
-        "--task lm": cfg.task != "cls",
+        f"--dataset {cfg.dataset}": cfg.dataset not in ("synthetic",
+                                                        "stream"),
+        "--lm_causal": bool(cfg.lm_causal),
         "--mesh": any(int(s) > 1 for s in cfg.mesh_shape),
         "--distributed": bool(cfg.distributed),
         "--fsdp / --host_offload / --offload_opt_state": bool(
@@ -133,15 +148,26 @@ def unported_training_flags(cfg: TrainConfig) -> list:
 
 
 def load_dataset(cfg: TrainConfig, train: bool):
-    """The synthetic AG-News-shaped split (the JAX package's
-    ``--dataset synthetic`` branch: 4096 train / 1024 test rows, seeds 0
-    and 1).  Real AG News waits for its CSVs in the repository."""
+    """A split of ``cfg.dataset``: ``stream``, the sharded on-disk
+    dataset under ``--stream_dir`` (its reader speaks ``encode_batch``),
+    or ``synthetic``, the AG-News-shaped split (the JAX package's branch:
+    4096 train / 1024 test rows, seeds 0 and 1).  Real AG News waits for
+    its CSVs in the repository."""
+    from faster_distributed_training_tpu_torch.data.stream import (
+        open_stream_split)
     from faster_distributed_training_tpu_torch.data.synthetic import (
         synthetic_agnews)
 
-    if cfg.dataset != "synthetic" or cfg.model != "transformer":
+    if cfg.model != "transformer" or cfg.dataset not in ("synthetic",
+                                                         "stream"):
         raise NotImplementedError(f"not ported yet: --dataset "
                                   f"{cfg.dataset} for {cfg.model}")
+    if cfg.dataset == "stream":
+        if not cfg.stream_dir:
+            raise ValueError("--dataset stream requires --stream_dir (python "
+                             "-m faster_distributed_training_tpu_torch.data."
+                             "stream.shard writes one)")
+        return open_stream_split(cfg.stream_dir, train=train)
     return synthetic_agnews(n=4096 if train else 1024,
                             seed=0 if train else 1, max_len=cfg.seq_len)
 
@@ -170,6 +196,26 @@ def apply_subset(ds, stride: int):
                                            max_len)
 
     return _Subset(ds)
+
+
+def check_stream_corpus(cfg: TrainConfig, train_ds, log) -> TrainConfig:
+    """The JAX ``run_training``'s checks of a stream corpus: packed LM
+    rows carry no labels, so ``--task cls`` on one raises; and the rows
+    have one width, which overrides ``--seq_len``."""
+    if not train_ds.is_text:
+        raise NotImplementedError(f"not ported yet: image stream datasets "
+                                  f"({cfg.stream_dir})")
+    if train_ds.manifest.get("content") == "lm" and cfg.task != "lm":
+        raise ValueError(
+            f"{cfg.stream_dir} is an LM-content corpus (packed token rows, "
+            f"no labels) but --task is {cfg.task!r}; train it with --task "
+            f"lm")
+    sl = int(train_ds.seq_len or 0)
+    if sl and sl != cfg.seq_len:
+        log(f"[data] stream dataset rows are seq_len={sl}; overriding "
+            f"--seq_len {cfg.seq_len}")
+        cfg = cfg.replace(seq_len=sl)
+    return cfg
 
 
 def make_loaders(cfg: TrainConfig, train_ds, eval_ds):
@@ -220,7 +266,10 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
     dev = resolve_device(device if device is not None else cfg.device)
-    train_ds = apply_subset(load_dataset(cfg, train=True), cfg.subset_stride)
+    train_ds = load_dataset(cfg, train=True)
+    if cfg.dataset == "stream":
+        cfg = check_stream_corpus(cfg, train_ds, log)
+    train_ds = apply_subset(train_ds, cfg.subset_stride)
     eval_ds = apply_subset(load_dataset(cfg, train=False), cfg.subset_stride)
     model = build_model(cfg, vocab_size=train_ds.vocab_size(), device=dev)
     if params is not None:
@@ -244,7 +293,10 @@ def run_training(cfg: TrainConfig, params=None, device=None,
         log("[telemetry] not ported yet: this run records no telemetry "
             "(per-step JSONL, manifest, spans come with the telemetry "
             "slice)")
-    log(f"[train] {cfg.model} on {dev.type}: {cfg.n_layers} layers, "
+    log(f"[train] {cfg.model}"
+        + (" next-token LM (tied head)" if model.tie_lm_head else
+           " next-token LM (untied head)" if model.lm else "")
+        + f" on {dev.type}: {cfg.n_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.precision}, "
         f"attention {model.layers[0].attn.attention_impl}, ffn "
         f"{cfg.ffn_impl}, quant {cfg.quant or 'none'}"

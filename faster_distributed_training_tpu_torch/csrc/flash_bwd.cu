@@ -1,7 +1,10 @@
 // Flash-attention backward for Hopper (sm_90a), plain C ABI for ctypes.
 //
-// Replaces two TPU kernels of faster_distributed_training_tpu/ops/
-// flash_attention.py:
+// Replaces three TPU functions of faster_distributed_training_tpu/ops/
+// flash_attention.py (the third, the long-context _flash_bwd_kblocked
+// with its dq_kernel :421 and dkv_kernel :448, is the first's function
+// tiled to fit VMEM at any Lk; the two kernels below are that tiling
+// already, so they serve it too):
 //   * _flash_bwd_pallas_stats (kernel body :757) -- the saved-stats
 //     backward: p = exp(s - lse) from the forward's row lse, and
 //     delta = sum_d dO*out computed outside the kernel (:809-811);

@@ -1,8 +1,11 @@
 // Flash-attention forward for Hopper (sm_90a), plain C ABI for ctypes.
 //
-// Replaces the TPU kernel faster_distributed_training_tpu/ops/
-// flash_attention.py::_flash_fwd_pallas (kernel body :183).  Same
-// function: s = q.k^T / sqrt(D) + key bias (fp32), fp32 row softmax,
+// Replaces the TPU kernels faster_distributed_training_tpu/ops/
+// flash_attention.py::_flash_fwd_pallas (kernel body :183) and, at long
+// context, _flash_fwd_kblocked (kernel body :315): one function, which
+// the TPU splits in two only to fit VMEM (whole K/V resident, or a
+// k-block grid axis with running m/l/acc scratch).  This kernel is
+// already k-blocked, so it serves both.  Same function: s = q.k^T / sqrt(D) + key bias (fp32), fp32 row softmax,
 // hash dropout on p in the p.v product only (the normaliser l sums the
 // undropped p), out = (p.v) / max(l, 1e-30), optional row lse.  The lse
 // comes as a head (lse = m + log l, rounded to fp32) and, optionally, its

@@ -8,11 +8,14 @@ returns under ``"params"``) maps onto the port's ``state_dict``:
     layer_i/attn/qkv/kernel (d, 3, H, d_k)       -> layers.i.attn.qkv.weight
                                                     (3*H*d_k, d)
     layer_i/attn/qkv/bias (3, H, d_k)            -> ....qkv.bias (3*H*d_k,)
-    layer_i/attn/out, ffn/Dense_{0,1}, pooler    -> nn.Linear: kernels are
-                                                    (in, out), transposed
+    layer_i/attn/out, ffn/Dense_{0,1}, pooler,   -> nn.Linear: kernels are
+    lm_head (the untied LM head)                    (in, out), transposed
     ln_final/{scale,bias}                        -> ln_final.*
     cls_w1 (d_hidden, d), cls_w2 (n_class, d_hidden), cls_b1 (1, d_hidden),
     cls_b2 (1, n_class)                          -> the same, unchanged
+
+The next-token LM (``--task lm``) has no pooler and no classifier; its
+tied head is the token table and adds no leaf.
 
 Under ``--quant`` the JAX ``batch_stats`` tree holds the amax histories,
 ``layer_i/attn/{qkv,out}/amax_history_{x,w}`` and
@@ -102,10 +105,15 @@ def _params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         i += 1
     sd["ln_final.scale"] = _t(tree["ln_final"]["scale"])
     sd["ln_final.bias"] = _t(tree["ln_final"]["bias"])
-    sd["pooler.weight"] = _t(np.asarray(tree["pooler"]["kernel"]).T)
-    sd["pooler.bias"] = _t(tree["pooler"]["bias"])
+    # the classifier's head, or the LM's: an untied lm_head Dense, or
+    # nothing at all (tied to the token table)
+    for head in ("pooler", "lm_head"):
+        if head in tree:
+            sd[f"{head}.weight"] = _t(np.asarray(tree[head]["kernel"]).T)
+            sd[f"{head}.bias"] = _t(tree[head]["bias"])
     for n in _CLS:
-        sd[n] = _t(tree[n])
+        if n in tree:
+            sd[n] = _t(tree[n])
     return sd
 
 
@@ -135,10 +143,13 @@ def params_to_jax(sd: Mapping[str, torch.Tensor], n_heads: int
         i += 1
     tree["ln_final"] = {"scale": _np(sd["ln_final.scale"]),
                         "bias": _np(sd["ln_final.bias"])}
-    tree["pooler"] = {"kernel": np.ascontiguousarray(
-        _np(sd["pooler.weight"]).T), "bias": _np(sd["pooler.bias"])}
+    for head in ("pooler", "lm_head"):
+        if f"{head}.weight" in sd:
+            tree[head] = {"kernel": np.ascontiguousarray(
+                _np(sd[f"{head}.weight"]).T), "bias": _np(sd[f"{head}.bias"])}
     for n in _CLS:
-        tree[n] = _np(sd[n])
+        if n in sd:
+            tree[n] = _np(sd[n])
     return tree
 
 

@@ -1,11 +1,15 @@
-"""Transformer encoder for text classification: eval and train forwards.
+"""Transformer encoder for text classification and next-token LM: eval
+and train forwards.
 
 PyTorch counterpart of ``faster_distributed_training_tpu/models/
 transformer.py`` on the classification path: BERT-style token + position
 + segment embeddings (fp32 island) plus the additive sinusoidal encoding
 (``x = emb + dropout(emb + pe)``, the reference's quirk), six pre-LN
 encoder layers (fused-qkv attention, exact-GELU FFN), a final LayerNorm,
-the tanh CLS pooler and the fused-MLP classifier.
+the tanh CLS pooler and the fused-MLP classifier.  With ``lm_head``
+(``--task lm``) the final LayerNorm feeds a next-token head instead of the
+pooler and classifier: tied to the token table by default, or a Dense of
+its own (``--untie_lm_head``), as in the JAX model.
 
 Attention routes to ``ops.flash_attention`` (the Hopper kernels on CUDA,
 their plain versions on CPU; training goes through the autograd Function
@@ -298,7 +302,8 @@ class EncoderLayer(nn.Module):
 
 class Transformer(nn.Module):
     """The classifier encoder; ``forward`` returns fp32 logits [B, n_class]
-    at eval and ``(logits, index, lam)`` in training."""
+    at eval and ``(logits, index, lam)`` in training.  With ``lm_head``
+    the next-token LM: fp32 logits [B, L, vocab] in both."""
 
     def __init__(self, n_class: int, vocab: int = 30522, n_layers: int = 6,
                  h: int = 8, d_model: int = 512, d_ff: int = 1024,
@@ -310,12 +315,15 @@ class Transformer(nn.Module):
                  dropout_pooler: float = 0.1,
                  dtype=torch.float32, param_dtype=torch.float32,
                  attention_impl: str = "dense", ffn_impl: str = "flax",
-                 quant=None):
+                 quant=None, lm_head: bool = False,
+                 tie_lm_head: bool = False):
         super().__init__()
         self.h = h
         self.dtype = dtype
         self.drop_enc = dropout_encodings
         self.drop_pool = dropout_pooler
+        self.lm = lm_head
+        self.tie_lm_head = lm_head and tie_lm_head
         self.embeddings = Embeddings(d_model, vocab, maxlen)
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_table(maxlen, d_model)),
@@ -327,6 +335,12 @@ class Transformer(nn.Module):
                          ffn_impl, quant)
             for _ in range(n_layers))
         self.ln_final = TorchLayerNorm(d_model, dtype=dtype)
+        if lm_head:
+            # the next-token head: tied to the token table, or a Dense of
+            # its own; no pooler, no classifier
+            if not tie_lm_head:
+                self.lm_head = nn.Linear(d_model, vocab, dtype=param_dtype)
+            return
         self.pooler = nn.Linear(d_model, d_model, dtype=param_dtype)
         # classifier weights in (out, in) layout, biases as row vectors —
         # the JAX parameter shapes
@@ -340,8 +354,9 @@ class Transformer(nn.Module):
                                                dtype=param_dtype))
 
     def n_dropout_sites(self) -> int:
-        """Seeds one training forward draws (every site active)."""
-        return 2 + 4 * len(self.layers)
+        """Seeds one training forward draws (every site active): the
+        encodings, four a layer and, on the classifier, the pooler."""
+        return (1 if self.lm else 2) + 4 * len(self.layers)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "Transformer":
@@ -383,12 +398,26 @@ class Transformer(nn.Module):
         self(tokens, train=True, draws=draws)
         return True
 
+    def _lm_logits(self, h: torch.Tensor) -> torch.Tensor:
+        """fp32 next-token logits [B, L, vocab].  Tied: h . E^T on the raw
+        fp32 token table, both operands rounded to the compute dtype and
+        the product summed in fp32 (the JAX dot's
+        ``preferred_element_type``), so the logits never pass through
+        bf16.  Untied: the ``lm_head`` Dense in the compute dtype, cast
+        to fp32 after (flax's Dense rounds its output to that dtype)."""
+        if not self.tie_lm_head:
+            return _linear(h, self.lm_head, self.dtype).float()
+        table = self.embeddings.token_embedding.to(self.dtype)
+        return torch.matmul(h.to(self.dtype).float(), table.float().t())
+
     def forward(self, x: torch.Tensor,
                 token_types: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
                 train: bool = False, draws=None):
         """Eval: fp32 logits.  ``train=True``: ``(logits, index, lam)``
-        with the randomness of ``draws`` (``seeds``, ``lam``, ``perm``)."""
+        with the randomness of ``draws`` (``seeds``, ``lam``, ``perm``).
+        With the LM head, fp32 logits [B, L, vocab] either way (no
+        mixup; ``draws.lam`` and ``draws.perm`` go unused)."""
         if train and draws is None:
             raise ValueError("the training forward takes its randomness "
                              "explicitly: pass draws (train.steps."
@@ -406,6 +435,8 @@ class Transformer(nn.Module):
         for layer in self.layers:
             h = layer(h, mask, train, seeds)
         h = self.ln_final(h)
+        if self.lm:
+            return self._lm_logits(h)
         pooled = torch.tanh(_linear(h[:, 0, :], self.pooler, self.dtype))
         pooled = _dropout(pooled, self.drop_pool, train, seeds)
         dt = self.dtype

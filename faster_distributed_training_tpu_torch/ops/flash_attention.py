@@ -3,8 +3,14 @@
 Counterpart of ``faster_distributed_training_tpu/ops/flash_attention.py``:
 the monolithic forward ``_flash_fwd_pallas`` and the two backward kernels
 ``_flash_bwd_pallas_stats`` (saved stats) and ``_flash_bwd_pallas``
-(recompute).  ``flash_attention`` takes [B, H, L, D] tensors and a
-key-padding mask, and computes
+(recompute), and the long-context pair ``_flash_fwd_kblocked`` /
+``_flash_bwd_kblocked`` that JAX takes once Lk*D outgrows the TPU's
+VMEM envelopes.  The two pairs compute one function and differ only in
+how they fit VMEM; the port's kernels stream K/V (forward) and loop over
+q and k tiles (backward) with O(tile) shared memory at any length, so
+the same two kernels serve both pairs and no routing switch is copied.
+``flash_attention`` takes [B, H, L, D] tensors and a key-padding mask,
+and computes
 
     s   = q.k^T / sqrt(D) + bias      (fp32; bias is NEG_INF at masked keys)
     p   = exp(s - max_row s)           (fp32)
@@ -34,10 +40,13 @@ forward kernel with ``emit_lse`` and then the same backward kernels.
 
 For CUDA tensors the wrappers launch ``csrc/flash_fwd.cu`` and
 ``csrc/flash_bwd.cu``; for CPU tensors they run the plain versions beside
-them (``flash_attention_reference``, ``flash_attention_bwd_reference``,
+them (``flash_attention_reference``, ``flash_attention_stats_reference``,
+``flash_attention_bwd_reference``,
 ``flash_attention_bwd_recompute_reference``), the same math over whole rows
-with the same rounding points.  There is no fallback: any other device, or
-a CUDA input the kernels do not take, raises.  ``flash_attention_qkv`` is
+with the same rounding points; their ``q_chunk`` walks the q rows a chunk
+at a time so a long sequence's [B, H, Lq, Lk] temporaries fit.  There is
+no fallback: any other device, or a CUDA input the kernels do not take,
+raises.  ``flash_attention_qkv`` is
 the ``torch.autograd.Function`` the model trains through: it takes the
 fused [B, L, 3, H, D] projection and returns its gradient as one buffer of
 that layout.
@@ -76,12 +85,20 @@ def _seed_int(dropout_seed) -> int:
     return 0 if dropout_seed is None else int(dropout_seed) & 0xFFFFFFFF
 
 
-def _keep(q, Lk, dropout_rate, dropout_seed) -> torch.Tensor:
+def _keep(q, Lk, dropout_rate, dropout_seed, q0: int = 0) -> torch.Tensor:
+    """The keep factors of q rows q0 .. q0 + Lq (q holds those rows)."""
     B, H, Lq, _ = q.shape
     return dropout_keep(
         _seed_int(dropout_seed), bh_index(B, H, q.device),
-        torch.arange(Lq, device=q.device)[None, None, :, None],
+        torch.arange(q0, q0 + Lq, device=q.device)[None, None, :, None],
         torch.arange(Lk, device=q.device)[None, None, None, :], dropout_rate)
+
+
+def _row_chunks(Lq: int, q_chunk: Optional[int]):
+    """[(start, stop)] of the q-row chunks a plain version walks: one
+    chunk of all rows unless ``q_chunk`` is given."""
+    step = int(q_chunk) if q_chunk else Lq
+    return [(a, min(a + step, Lq)) for a in range(0, Lq, step)]
 
 
 def _scores(q, k, mask):
@@ -96,38 +113,53 @@ def _scores(q, k, mask):
     return s
 
 
-def _reference_stats(q, k, v, mask, dropout_rate, dropout_seed):
-    """(out, lse, lse_lo) of the plain forward: lse = m + log l rounded to
-    fp32 and lse_lo = (m - lse) + log l, its low-order tail."""
+def _stats_rows(q, k, v, mask, dropout_rate, dropout_seed, q0):
+    """(out, lse, lse_lo) of the q rows q0 .. q0 + Lq that ``q`` holds."""
     s = _scores(q, k, mask)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     if dropout_rate > 0.0:
-        p = p * _keep(q, k.shape[2], dropout_rate, dropout_seed)
+        p = p * _keep(q, k.shape[2], dropout_rate, dropout_seed, q0)
     out = (torch.matmul(p.to(v.dtype).float(), v.float()) / l).to(q.dtype)
     log_l = torch.log(l)
     lse = m + log_l
     return out, lse[..., 0], ((m - lse) + log_l)[..., 0]
 
 
+def flash_attention_stats_reference(q, k, v, mask=None,
+                                    dropout_rate: float = 0.0,
+                                    dropout_seed=None,
+                                    q_chunk: Optional[int] = None):
+    """Plain version of :func:`flash_attention_stats`: (out, lse, lse_lo),
+    lse = m + log l rounded to fp32 and lse_lo = (m - lse) + log l, its
+    low-order tail.  Rows are independent, so ``q_chunk`` rows at a time
+    give the same values."""
+    parts = [_stats_rows(q[:, :, a:b], k, v, mask, dropout_rate,
+                         dropout_seed, a)
+             for a, b in _row_chunks(q.shape[2], q_chunk)]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(t, dim=2) for t in zip(*parts))
+
+
 def flash_attention_reference(q, k, v, mask=None, dropout_rate: float = 0.0,
-                              dropout_seed=None, emit_lse: bool = False):
+                              dropout_seed=None, emit_lse: bool = False,
+                              q_chunk: Optional[int] = None):
     """Plain PyTorch version of the forward kernel: whole-row softmax, the
     same rounding points (fp32 scores and statistics, p cast to v's dtype
-    before the value product, division by l last)."""
-    out, lse, _ = _reference_stats(q, k, v, mask, dropout_rate, dropout_seed)
+    before the value product, division by l last).  ``q_chunk`` walks the
+    q rows that many at a time, so the [B, H, Lq, Lk] temporaries of a
+    long sequence fit in memory; the values do not change."""
+    out, lse, _ = flash_attention_stats_reference(
+        q, k, v, mask, dropout_rate, dropout_seed, q_chunk)
     return (out, lse) if emit_lse else out
 
 
-def flash_attention_bwd_reference(q, k, v, out, lse, dout, mask=None,
-                                  dropout_rate: float = 0.0,
-                                  dropout_seed=None, lse_lo=None):
-    """Plain PyTorch version of the saved-stats backward kernels (JAX's
-    ``_flash_bwd_pallas_stats``): (dq, dk, dv) in q/k/v's dtypes from the
-    forward's out [B, H, Lq, D], fp32 lse [B, H, Lq] and, optionally, the
-    lse's low-order tail (without it a fully masked row, whose lse rounds
-    at -1e9, comes out unnormalized, as in the TPU kernel)."""
+def _bwd_rows(q, k, v, out, lse, dout, mask, dropout_rate, dropout_seed,
+              lse_lo, q0):
+    """fp32 (dq, dk, dv) of the q rows q0 .. q0 + Lq that ``q`` holds: dq
+    of those rows, dk and dv summed over them only."""
     D = q.shape[-1]
     scale = 1.0 / math.sqrt(D)
     s = _scores(q, k, mask) - lse.float()[..., None]
@@ -138,7 +170,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, mask=None,
     dp = torch.matmul(g, v.float().transpose(-1, -2))
     pt = p
     if dropout_rate > 0.0:
-        keep = _keep(q, k.shape[2], dropout_rate, dropout_seed)
+        keep = _keep(q, k.shape[2], dropout_rate, dropout_seed, q0)
         pt = p * keep
         dp = dp * keep
     delta = (g * out.float()).sum(dim=-1, keepdim=True)
@@ -146,19 +178,45 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, mask=None,
     dv = torch.matmul(pt.to(dout.dtype).float().transpose(-1, -2), g)
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
     dq = torch.matmul(ds.to(k.dtype).float(), k.float())
+    return dq, dk, dv
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, dout, mask=None,
+                                  dropout_rate: float = 0.0,
+                                  dropout_seed=None, lse_lo=None,
+                                  q_chunk: Optional[int] = None):
+    """Plain PyTorch version of the saved-stats backward kernels (JAX's
+    ``_flash_bwd_pallas_stats``): (dq, dk, dv) in q/k/v's dtypes from the
+    forward's out [B, H, Lq, D], fp32 lse [B, H, Lq] and, optionally, the
+    lse's low-order tail (without it a fully masked row, whose lse rounds
+    at -1e9, comes out unnormalized, as in the TPU kernel).  ``q_chunk``
+    walks the q rows that many at a time: dq is the same, dk and dv are
+    fp32 sums over the chunks (another order of the same sum)."""
+    dq_parts, dk, dv = [], None, None
+    for a, b in _row_chunks(q.shape[2], q_chunk):
+        dq_c, dk_c, dv_c = _bwd_rows(
+            q[:, :, a:b], k, v, out[:, :, a:b], lse[:, :, a:b],
+            dout[:, :, a:b], mask, dropout_rate, dropout_seed,
+            None if lse_lo is None else lse_lo[:, :, a:b], a)
+        dq_parts.append(dq_c)
+        dk = dk_c if dk is None else dk + dk_c
+        dv = dv_c if dv is None else dv + dv_c
+    dq = dq_parts[0] if len(dq_parts) == 1 else torch.cat(dq_parts, dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_bwd_recompute_reference(q, k, v, dout, mask=None,
                                             dropout_rate: float = 0.0,
-                                            dropout_seed=None):
+                                            dropout_seed=None,
+                                            q_chunk: Optional[int] = None):
     """Plain PyTorch version of the recompute route (JAX's
     ``_flash_bwd_pallas``, residuals = inputs only): the forward's out and
     lse rebuilt, then the saved-stats backward."""
-    out, lse, lse_lo = _reference_stats(q, k, v, mask, dropout_rate,
-                                        dropout_seed)
+    out, lse, lse_lo = flash_attention_stats_reference(
+        q, k, v, mask, dropout_rate, dropout_seed, q_chunk)
     return flash_attention_bwd_reference(q, k, v, out, lse, dout, mask,
-                                         dropout_rate, dropout_seed, lse_lo)
+                                         dropout_rate, dropout_seed, lse_lo,
+                                         q_chunk)
 
 
 def save_stats_enabled(save_stats: Optional[bool] = None) -> bool:
@@ -288,13 +346,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_stats(q, k, v, mask=None, dropout_rate: float = 0.0,
                           dropout_seed=None):
     """The forward with everything the saved-stats backward takes:
-    (out, lse, lse_lo), lse_lo being the low-order tail of the lse."""
+    (out, lse, lse_lo), lse_lo being the low-order tail of the lse.  Its
+    launches count here (the forwards a backward will use: training's and
+    the recompute route's) and in ``flash_attention.launches`` (every
+    forward kernel launch)."""
     if not _on_card(q, "flash_attention"):
-        return _reference_stats(q, k, v, mask, dropout_rate, dropout_seed)
-    return _launch_fwd(q, k, v, mask, dropout_rate, dropout_seed, 2)
+        return flash_attention_stats_reference(q, k, v, mask, dropout_rate,
+                                               dropout_seed)
+    got = _launch_fwd(q, k, v, mask, dropout_rate, dropout_seed, 2)
+    flash_attention_stats.launches += 1
+    return got
 
 
 flash_attention.launches = 0
+flash_attention_stats.launches = 0
 
 
 def _launch_bwd(q, k, v, out, lse, dout, mask, dropout_rate, dropout_seed,

@@ -17,7 +17,7 @@ import torch
 from faster_distributed_training_tpu_torch.config import TrainConfig
 from faster_distributed_training_tpu_torch.train import checkpoint as ckpt
 from faster_distributed_training_tpu_torch.train.metrics import (
-    MetricAccumulator)
+    MetricAccumulator, perplexity)
 from faster_distributed_training_tpu_torch.train.state import TrainState
 from faster_distributed_training_tpu_torch.train.steps import to_device
 
@@ -43,6 +43,11 @@ class Trainer:
         self.history: Dict[str, list] = {
             "train_acc": [], "train_loss": [], "test_acc": [],
             "test_loss": [], "epoch_time": [], "peak_mem_bytes": []}
+        if cfg.task == "lm":
+            # the LM's headline: perplexity of the token-weighted epoch
+            # loss; "accuracy" is next-token accuracy
+            self.history["train_ppl"] = []
+            self.history["test_ppl"] = []
 
     def _step_ckpt_name(self, ckpt_name: str) -> str:
         return ckpt_name + "_step"
@@ -132,6 +137,11 @@ class Trainer:
                          f"at checkpoint time; running its eval and "
                          f"continuing")
             test_m = self.evaluate(state, eval_loader(epoch))
+            if cfg.task == "lm":
+                for m, key in ((train_m, "train_ppl"), (test_m, "test_ppl")):
+                    if _finite(m.get("loss")):
+                        m["perplexity"] = perplexity(m["loss"])
+                    self.history[key].append(m.get("perplexity", 0.0))
             peak = (torch.cuda.max_memory_allocated(self.device) if cuda
                     else None)
             self.history["train_acc"].append(train_m.get("accuracy", 0.0))
@@ -146,6 +156,8 @@ class Trainer:
                 f"test_loss={test_m.get('loss', 0):.4f} "
                 f"test_acc={test_m.get('accuracy', 0):.4f} "
                 f"time={elapsed:.1f}s"
+                + (f" test_ppl={test_m['perplexity']:.2f}"
+                   if "perplexity" in test_m else "")
                 + (f" peak_mem={peak / 1e6:.0f}MB" if peak else ""))
             if not _finite(train_m.get("loss", 0.0)):
                 self.log(f"[warn] non-finite train loss at epoch {epoch} "

@@ -1,6 +1,6 @@
 """Metric helpers, copied from the JAX package's ``train/metrics.py``:
-``percentiles`` and ``MetricAccumulator`` (device scalars summed, one
-host sync per epoch)."""
+``percentiles``, ``perplexity`` and ``MetricAccumulator`` (device scalars
+summed, one host sync per epoch)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,13 @@ def percentiles(values: Iterable[float],
                          math.ceil(q / 100.0 * len(vals)) - 1))
         out[int(q)] = round(vals[idx], 3)
     return out
+
+
+def perplexity(loss: float, cap: float = 30.0) -> float:
+    """exp of a per-token cross-entropy, the LM's headline metric, with
+    the exponent capped so an early or diverged loss reports a large
+    finite value (exp(30) ~ 1e13) instead of inf."""
+    return float(math.exp(min(float(loss), cap)))
 
 
 def _column(values) -> torch.Tensor:

@@ -1,9 +1,12 @@
-"""The train and eval steps of the transformer classification path.
+"""The train and eval steps of the transformer: the classifier and the
+next-token LM (``--task lm``).
 
 Counterparts of the JAX package's ``train/steps.py::make_train_step``
 (the transformer branch) and ``make_eval_step``: in-forward mixup, the
 training forward with hash dropout, the mixup criterion, backward,
-global-norm clip, the optimizer update and the mixup-weighted accuracy.
+global-norm clip, the optimizer update and the mixup-weighted accuracy;
+for the LM, the training forward with ``mask=None``, the shifted
+next-token loss (``lm_shift_metrics``), backward, clip and update.
 PyTorch runs eagerly, so there is no compile step; the step returns its
 metrics as device scalars and never waits on the card.
 
@@ -25,7 +28,7 @@ every dropout mask is bitwise equal given its seed.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +84,49 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def lm_shift_metrics(logits: torch.Tensor, tokens: torch.Tensor,
+                     tok_mask: Optional[torch.Tensor] = None,
+                     sample_valid: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The shifted next-token objective (the JAX package's
+    ``train/steps.py::lm_shift_metrics``): position t of ``logits [B, L,
+    V]`` predicts token t+1 of ``tokens [B, L]``.  A target counts when
+    its context position and the target itself are real (``tok_mask``),
+    crossed with the per-sample ``valid`` of a padded eval batch.  Returns
+    fp32 ``(loss_total, correct, total)``: the summed per-token
+    cross-entropy, the hits and the count of targets."""
+    lg = logits[:, :-1].float()
+    tgt = tokens[:, 1:].long()
+    if tok_mask is not None:
+        valid = (tok_mask[:, :-1] * tok_mask[:, 1:]).float()
+    else:
+        valid = torch.ones(tgt.shape, dtype=torch.float32, device=lg.device)
+    if sample_valid is not None:
+        valid = valid * sample_valid.float()[:, None]
+    losses = per_sample_cross_entropy(lg.reshape(-1, lg.shape[-1]),
+                                      tgt.reshape(-1)).reshape(tgt.shape)
+    loss_total = (losses * valid).sum()
+    correct = ((lg.argmax(dim=-1) == tgt).float() * valid).sum()
+    return loss_total, correct, valid.sum()
+
+
+def lm_loss_and_grads(model, batch: Dict[str, torch.Tensor],
+                      draws: StepDraws):
+    """The LM training forward (``mask=None``: packed rows have nothing to
+    mask in attention; padded targets leave the loss through
+    ``lm_shift_metrics``' token mask), the per-token mean loss and the
+    gradients.  Returns (loss, grads by name, loss_total, correct,
+    total)."""
+    logits = model(batch["tokens"], token_types=batch.get("token_types"),
+                   mask=None, train=True, draws=draws)
+    loss_total, correct, total = lm_shift_metrics(logits, batch["tokens"],
+                                                  batch.get("mask"))
+    loss = loss_total / torch.clamp(total, min=1.0)
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss, dict(zip(params, grads)), loss_total, correct, total
+
+
 def loss_and_grads(model, batch: Dict[str, torch.Tensor], draws: StepDraws):
     """The training forward with ``draws``, the mixup criterion and the
     gradients of every parameter.  Returns (loss, grads by name, logits,
@@ -105,14 +151,27 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
     derives them from (state.seed, state.step).  Updates the state in
     place and advances its step."""
     alpha = mixup_alpha(cfg)
+    lm = cfg.task == "lm"
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              draws: StepDraws = None) -> Tuple[TrainState, Metrics]:
-        y = batch["label"]
-        B = y.shape[0]
+        B = batch["tokens"].shape[0]
         if draws is None:
+            # the LM draws lambda and the permutation too and never uses
+            # them, as the JAX step threads its mixup key
             draws = step_draws(state.seed, state.step, B,
                                state.model.n_dropout_sites(), alpha)
+        if lm:
+            loss, grads, loss_total, correct, total = lm_loss_and_grads(
+                state.model, batch, draws)
+            state.tx.update(grads, state.opt_state, state.params())
+            state.step += 1
+            # loss is the per-token mean; loss_total / total the exact
+            # token-weighted epoch loss; accuracy is next-token accuracy
+            return state, {"loss": loss.detach(),
+                           "loss_total": loss_total.detach(),
+                           "correct": correct, "total": total}
+        y = batch["label"]
         loss, grads, logits, y_b, lam = loss_and_grads(state.model, batch,
                                                        draws)
         state.tx.update(grads, state.opt_state, state.params())
@@ -131,10 +190,22 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
 def make_eval_step(cfg: TrainConfig) -> Callable[[TrainState, Dict],
                                                  Metrics]:
     """Eval: deterministic forward (no dropout, no mixup); a padded final
-    batch's ``valid`` mask keeps its pad rows out of every sum."""
+    batch's ``valid`` mask keeps its pad rows out of every sum.  The LM
+    evaluates the shifted next-token objective."""
+    lm = cfg.task == "lm"
 
     @torch.no_grad()
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Metrics:
+        if lm:
+            logits = state.model(batch["tokens"],
+                                 token_types=batch.get("token_types"),
+                                 mask=None, train=False)
+            loss_total, correct, total = lm_shift_metrics(
+                logits, batch["tokens"], batch.get("mask"),
+                batch.get("valid"))
+            return {"loss": loss_total / torch.clamp(total, min=1.0),
+                    "loss_total": loss_total, "correct": correct,
+                    "total": total}
         logits = state.model(batch["tokens"],
                              token_types=batch.get("token_types"),
                              mask=batch.get("mask"), train=False)

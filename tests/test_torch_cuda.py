@@ -10,7 +10,12 @@ Tolerances: bf16 2e-2 max abs on forward outputs (p and relu(h) round to
 bf16 at the same points, accumulation orders differ), lse 1e-3; fp32
 1e-5 with TF32 off (one flipped dropout keep bit would show).  Backward
 gradients are held relative to the plain version's max |value|: bf16
-2e-2, fp32 1e-5 (sums of 128-512 products in another order).
+2e-2, fp32 1e-5 (sums of 128-512 products in another order).  The
+long-context cases (L 8192 and 16384, the TPU's k-blocked shapes) run
+against the plain versions walked 1024 q rows at a time; there |out|
+shrinks as 1/sqrt(L) (~0.018 at 8192), so bf16 outputs are held to 2e-2
+of max |plain| and lse to 1e-4.  fp32 steps card vs CPU: loss 1e-5, each
+gradient leaf 1e-5 of its own max |CPU grad|.
 """
 
 import numpy as np
@@ -101,6 +106,14 @@ def _rel_err(got, want):
                for g, w in zip(got, want))
 
 
+def _assert_step_matches(l_g, g_g, l_c, g_c):
+    """An fp32 step card vs CPU: loss 1e-5; each gradient leaf held to its
+    own scale, so a small leaf is not hidden under a large one's limit."""
+    assert abs(l_g.item() - l_c.item()) <= 1e-5
+    for name, want in g_c.items():
+        assert _rel_err((g_g[name].cpu(),), (want,)) <= 1e-5, name
+
+
 @pytest.mark.parametrize("L,D,rate", [(40, 16, 0.1), (64, 64, 0.1),
                                       (130, 32, 0.0), (512, 64, 0.1),
                                       (96, 128, 0.1)])
@@ -167,8 +180,9 @@ def test_flash_bwd_rejects_what_the_kernel_does_not_take(card):
 
 def test_train_step_on_card_matches_cpu(card):
     """One fp32 train step at small width: the card's kernels against the
-    CPU's plain versions, same weights, batch and draws (loss 1e-4, grads
-    1e-3), and the step's launches (2 flash fwd, 2 flash bwd, 1 MLP)."""
+    CPU's plain versions, same weights, batch and draws (loss 1e-5, grads
+    1e-5 of each leaf's max), and the step's launches (2 flash fwd, 2 flash
+    bwd, 1 MLP)."""
     from faster_distributed_training_tpu_torch.train.steps import (
         loss_and_grads, step_draws, to_device)
 
@@ -197,9 +211,7 @@ def test_train_step_on_card_matches_cpu(card):
     assert (flash_attention.launches - counts[0],
             flash_attention_bwd.launches - counts[1],
             fused_mlp.launches - counts[2]) == (2, 2, 1)
-    assert abs(loss.item() - want_loss.item()) <= 1e-4
-    for name in want:
-        assert (got[name].cpu() - want[name]).abs().max().item() <= 1e-3, name
+    _assert_step_matches(loss, got, want_loss, want)
 
 
 @pytest.mark.parametrize("rows,dtype", [(8, torch.bfloat16),
@@ -372,3 +384,92 @@ def test_fused_ffn_sublayer_autograd_on_card(card):
     assert (out - ref).abs().max().item() <= 1e-4
     for a, b in zip(got, want):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+# -- long context: the same kernels as TPU rows 2 and 3 -------------------
+
+@pytest.mark.parametrize("B,padded", [(1, True), (4, False)])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+def test_flash_long_context_matches_chunked_plain(card, dtype, tol, B,
+                                                  padded):
+    """L 8192 (past the TPU's monolithic envelopes: its k-blocked pair's
+    shape), H 8, D 64, dropout 0.1; B 1 with ragged key padding and B 4
+    with none (the LM's packed rows): the forward with lse and the
+    backward against the plain versions walked 1024 q rows at a time; two
+    launches give equal bits.  bf16 outputs relative to max |plain|."""
+    from faster_distributed_training_tpu_torch.ops.flash_attention import (
+        flash_attention_stats_reference)
+
+    L = 8192
+    q, k, v = _qkv(card, B, 8, L, 64, dtype)
+    mask = ((torch.arange(L, device="cuda")[None] < 8000).int() if padded
+            else None)
+    out, lse, lse_lo = flash_attention_stats(q, k, v, mask, 0.1, 7)
+    want = flash_attention_stats_reference(q, k, v, mask, 0.1, 7,
+                                           q_chunk=1024)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        assert _rel_err((out,), (want[0],)) <= tol
+    else:
+        assert (out - want[0]).abs().max().item() <= tol
+    lse_tol = 1e-4 if dtype == torch.bfloat16 else 1e-5
+    assert (lse - want[1]).abs().max().item() <= lse_tol
+    dout = torch.randn(B, 8, L, 64, generator=card, device="cuda").to(dtype)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, mask, 0.1, 7, lse_lo)
+    ref = flash_attention_bwd_reference(q, k, v, out, lse, dout, mask, 0.1,
+                                        7, lse_lo, q_chunk=1024)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, mask, 0.1, 7,
+                                lse_lo)
+    torch.cuda.synchronize()
+    assert _rel_err(got, ref) <= tol
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_primal_forward_at_16384(card):
+    """Row 2's primal shape (Lk*D past 8192*64): one sequence of 16384,
+    held to 2e-2 of max |plain| (|out| ~0.013 here), and the forward with
+    lse at the same shape (lse 1e-4)."""
+    from faster_distributed_training_tpu_torch.ops.flash_attention import (
+        flash_attention_stats_reference)
+
+    q, k, v = _qkv(card, 1, 8, 16384, 64, torch.bfloat16)
+    out = flash_attention(q, k, v)
+    want = flash_attention_reference(q, k, v, q_chunk=1024)
+    _, lse, _ = flash_attention_stats(q, k, v, None, 0.0, 0)
+    want_lse = flash_attention_stats_reference(q, k, v, None, 0.0, 0,
+                                               q_chunk=1024)[1]
+    torch.cuda.synchronize()
+    assert _rel_err((out,), (want,)) <= 2e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+def test_lm_train_step_on_card_matches_cpu(card):
+    """One fp32 next-token LM step (tied head) at d_model 64, L 512: the
+    card's kernels against the CPU's plain versions (loss 1e-5, grads
+    1e-5 of each leaf's max), and the step's launches (2 forwards with lse, 2 backward
+    pairs, no classifier)."""
+    from faster_distributed_training_tpu_torch.train.steps import (
+        lm_loss_and_grads, step_draws, to_device)
+
+    cfg = cli.TRANSFORMER_DEFAULTS.replace(
+        task="lm", n_layers=2, d_model=64, n_heads=4, d_ff=128, seq_len=512,
+        precision="fp32", attention="flash")
+    m_cpu = cli.build_model(cfg, vocab_size=300, device="cpu")
+    m_cpu.init_weights(torch.Generator().manual_seed(5))
+    m_gpu = cli.build_model(cfg, vocab_size=300, device="cuda")
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    m_gpu.cuda()
+    tokens = np.random.default_rng(1).integers(1, 300, size=(2, 512))
+    batch = {"tokens": tokens.astype(np.int32),
+             "mask": np.ones((2, 512), np.int32)}
+    draws = step_draws(0, 0, 2, m_cpu.n_dropout_sites(), 0.99)
+    l_c, g_c, *_ = lm_loss_and_grads(m_cpu, to_device(batch, "cpu"), draws)
+    counts = (flash_attention_stats.launches, flash_attention_bwd.launches,
+              fused_mlp.launches)
+    l_g, g_g, *_ = lm_loss_and_grads(m_gpu, to_device(batch, "cuda"), draws)
+    torch.cuda.synchronize()
+    assert (flash_attention_stats.launches - counts[0],
+            flash_attention_bwd.launches - counts[1],
+            fused_mlp.launches - counts[2]) == (2, 2, 0)
+    _assert_step_matches(l_g, g_g, l_c, g_c)

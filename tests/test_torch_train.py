@@ -214,7 +214,8 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tmp_path):
     for flags, name in ((["--ngd"], "--ngd"), (["--remat"], "--remat"),
                         (["--steps_per_dispatch", "2"], "steps_per_dispatch"),
                         (["--data_path", "resident"], "--data_path"),
-                        (["--task", "lm"], "--task lm"),
+                        (["--lm_causal"], "--lm_causal"),
+                        (["--data_path", "stream"], "--data_path stream"),
                         (["--mesh", "dp=2"], "--mesh"),
                         (["--supervise"], "--supervise"),
                         (["--precision", "fp16"], "fp16")):
