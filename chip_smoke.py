@@ -30,7 +30,10 @@ failure raises and exits non-zero):
                all gradients 2e-2 / 1e-5 of max |plain|, fp32 outputs
                1e-5), two launches equal bits;
   4. timing  — kernel, plain version, the library yardstick and the
-               bound.  Two clocks: the device time per call (the sum of
+               bound; the backward also at dropout 0, like for like with
+               SDPA's backward (which runs without dropout), and the bf16
+               backward kernels' registers, spills (the build log; the D 64
+               pair must not spill) and shared memory.  Two clocks: the device time per call (the sum of
                the kernels a call launches, torch.profiler over 25 calls;
                the JSON line's ms fields), and the time per call the
                caller sees (CUDA events, median of 25 after warm-up);
@@ -92,6 +95,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -232,6 +236,44 @@ def profile_split(kern: dict, n: int, wall_ms: float, what: str) -> str:
             f"({100 * busy / wall_ms:.1f}%): "
             + ", ".join(f"{g} {v:.3f}" for g, v in
                         sorted(groups.items(), key=lambda x: -x[1])))
+
+
+def ptxas_usage(log: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from nvcc's -Xptxas=-v output."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            usage[name].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
+def bwd_build(fa, log: str) -> dict:
+    """{"dkdv_kernel_sm90<D>" / "dq_kernel_sm90<D>": registers, spill bytes
+    and dynamic shared memory} of the bf16 backward kernels: registers and
+    spills from this run's build log, shared memory from the library."""
+    lib = fa._bwd_lib()
+    got = {}
+    for mangled, u in ptxas_usage(log).items():
+        m = re.search(r"(dkdv|dq)_kernel_sm90ILi(\d+)E", mangled)
+        if m:
+            d = int(m.group(2))
+            got[f"{m.group(1)}_kernel_sm90<{d}>"] = dict(
+                u, smem_bytes=lib.fdt_flash_bwd_smem_bytes(
+                    d, int(m.group(1) == "dq")))
+    return got
 
 
 def rel_err(got, want) -> float:
@@ -1190,6 +1232,8 @@ def time_long_kernels(fa, gen) -> dict:
 
     bwd = {"kernel": measure(lambda: fa.flash_attention_bwd(
                q, k, v, out, lse, dout, None, 0.1, 5, lse_lo)),
+           "kernel_p0": measure(lambda: fa.flash_attention_bwd(
+               q, k, v, out, lse, dout, None, 0.0, 5, lse_lo)),
            "plain": measure(lambda: fa.flash_attention_bwd_reference(
                q, k, v, out, lse, dout, None, 0.1, 5, lse_lo,
                q_chunk=Q_CHUNK), 3),
@@ -1214,8 +1258,10 @@ def time_long_kernels(fa, gen) -> dict:
                     ("flash_bwd_kblocked B4 H8 L8192 D64", bwd),
                     ("flash_fwd_kblocked primal B1 H8 L16384 D64", prim)):
         lib = t["library"]
+        p0 = (f" (dropout 0, like for like with SDPA: "
+              f"{t['kernel_p0']['ms']:.5f})" if "kernel_p0" in t else "")
         print(f"[timing] {name}: device ms per call ({t['kernel']['timer']})"
-              f": kernel {t['kernel']['ms']:.5f}, plain (q-row chunked) "
+              f": kernel {t['kernel']['ms']:.5f}{p0}, plain (q-row chunked) "
               f"{t['plain']['ms']:.5f}, SDPA (no dropout) "
               + (f"{lib['ms']:.5f}" if lib else "n/a")
               + (f" (forward + backward {t['library_fwd_bwd']['ms']:.5f})"
@@ -1473,6 +1519,20 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    bwd_use = bwd_build(fa, logs.get("flash_bwd", ""))
+    for kname, u in sorted(bwd_use.items()):
+        print(f"[build] flash_bwd {kname} (bf16, wgmma): {u.get('registers')} "
+              f"registers, spill stores {u.get('spill_stores')} B, spill "
+              f"loads {u.get('spill_loads')} B, dynamic shared memory "
+              f"{u['smem_bytes']} B", flush=True)
+    check(len(bwd_use) == 8 or not logs.get("flash_bwd"),
+          f"the build log names {sorted(bwd_use)}, not the eight bf16 "
+          f"backward kernels")
+    for d in (64,):
+        for kname in (f"dkdv_kernel_sm90<{d}>", f"dq_kernel_sm90<{d}>"):
+            u = bwd_use.get(kname, {})
+            check(not u.get("spill_stores") and not u.get("spill_loads"),
+                  f"{kname} spills: {u}")
 
     # -- 3. kernel vs plain version -----------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1565,11 +1625,15 @@ def main() -> int:
 
     bws = {"kernel": measure(lambda: fa.flash_attention_bwd(
                q, k, v, out, lse, dout, mask, 0.1, 5, lse_lo)),
+           "kernel_p0": measure(lambda: fa.flash_attention_bwd(
+               q, k, v, out, lse, dout, mask, 0.0, 5, lse_lo)),
            "plain": measure(lambda: fa.flash_attention_bwd_reference(
                q, k, v, out, lse, dout, mask, 0.1, 5, lse_lo)),
            "library": measure(sdpa_bwd)}
     bwr = {"kernel": measure(lambda: fa.flash_attention_bwd_recompute(
                q, k, v, dout, mask, 0.1, 5)),
+           "kernel_p0": measure(lambda: fa.flash_attention_bwd_recompute(
+               q, k, v, dout, mask, 0.0, 5)),
            "plain": measure(
                lambda: fa.flash_attention_bwd_recompute_reference(
                    q, k, v, dout, mask, 0.1, 5)),
@@ -1588,8 +1652,11 @@ def main() -> int:
                     ("flash_bwd_stats B16 H8 L512 D64", bws),
                     ("flash_bwd_recompute B16 H8 L512 D64", bwr),
                     ("fused_mlp 8x512->1024->4", mlp)):
+        p0 = (f" (dropout 0: {t['kernel_p0']['ms']:.5f}, beside the "
+              f"library's {t['library']['ms']:.5f} without dropout)"
+              if "kernel_p0" in t else "")
         print(f"[timing] {name}: device ms per call ({t['kernel']['timer']}"
-              f"): kernel {t['kernel']['ms']:.5f}, plain "
+              f"): kernel {t['kernel']['ms']:.5f}{p0}, plain "
               f"{t['plain']['ms']:.5f}, library {t['library']['ms']:.5f}; "
               f"per call incl. launch (events): kernel "
               f"{t['kernel']['call_ms']:.5f}, plain {t['plain']['call_ms']:.5f}"
@@ -1722,6 +1789,8 @@ def main() -> int:
     train_l = dict(tr["launches"],
                    flash_bwd_recompute=tr["recompute_launches"][
                        "flash_bwd_recompute"])
+    # the bf16 backward kernels at the paths' head dim (D 64)
+    bwd_d64 = {k: u for k, u in bwd_use.items() if k.endswith("<64>")}
     kernels = []
     for name, t, file, replaces in (
             ("flash_fwd", fa_t, "flash_fwd",
@@ -1741,6 +1810,9 @@ def main() -> int:
                         "plain_ms": t["plain"]["ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library"]["ms"]})
+        if "kernel_p0" in t:
+            kernels[-1].update(ms_dropout0=t["kernel_p0"]["ms"],
+                               build=bwd_d64)
     # slice 3: fused_ffn's launches from the path-A run, fused_ffn_quant's
     # and quant_matmul's from the path-B run; serving's from path D
     slice3 = (("fused_ffn", "fused_ffn", "fused_ffn.py:208",
@@ -1802,7 +1874,8 @@ def main() -> int:
                 else None})
         else:
             lfb = t["library_fwd_bwd"]
-            entry["library_fwd_bwd_ms"] = lfb["ms"] if lfb else None
+            entry.update(library_fwd_bwd_ms=lfb["ms"] if lfb else None,
+                         ms_dropout0=t["kernel_p0"]["ms"], build=bwd_d64)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

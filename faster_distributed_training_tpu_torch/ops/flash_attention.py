@@ -249,6 +249,8 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.fdt_flash_bwd.restype = ctypes.c_int
         lib.fdt_flash_bwd_max_head_dim.argtypes = [i]
         lib.fdt_flash_bwd_max_head_dim.restype = ctypes.c_int
+        lib.fdt_flash_bwd_smem_bytes.argtypes = [i, i]
+        lib.fdt_flash_bwd_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -362,9 +364,24 @@ flash_attention.launches = 0
 flash_attention_stats.launches = 0
 
 
+def _check_rows16(**tensors):
+    """The bf16 backward kernels move 16-byte rows with cp.async: each
+    tensor needs a 16-byte-aligned base and (b, h, l) strides that are
+    multiples of 8 elements.  Anything else raises (no copy, no other
+    route)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16 or any(s % 8 for s in _strides(t)):
+            raise ValueError(
+                f"flash_attention backward kernel takes bf16 {name} with a "
+                f"16-byte-aligned base and (b, h, l) strides that are "
+                f"multiples of 8, got address mod 16 = {t.data_ptr() % 16}, "
+                f"strides {_strides(t)}")
+
+
 def _launch_bwd(q, k, v, out, lse, dout, mask, dropout_rate, dropout_seed,
                 lse_lo, grads):
-    """The dkdv + dq kernel pair of csrc/flash_bwd.cu (no launch count)."""
+    """The dkdv + dq kernel pair of csrc/flash_bwd.cu (no launch count):
+    the wgmma kernels for bf16, the FMA kernels for fp32."""
     _check_inputs(q, k, v)
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
@@ -392,6 +409,8 @@ def _launch_bwd(q, k, v, out, lse, dout, mask, dropout_rate, dropout_seed,
                 or t.device != q.device or t.stride(3) != 1):
             raise ValueError(f"{name} buffer must be {tuple(like.shape)} "
                              f"{like.dtype} on {q.device}, D contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_rows16(q=q, k=k, v=v, dout=dout, dq=dq, dk=dk, dv=dv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fdt_flash_bwd(

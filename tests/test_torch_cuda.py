@@ -114,10 +114,32 @@ def _assert_step_matches(l_g, g_g, l_c, g_c):
         assert _rel_err((g_g[name].cpu(),), (want,)) <= 1e-5, name
 
 
+def _dense_vjp(q, k, v, mask, dout):
+    """fp32 autograd through plain softmax attention (no dropout): the
+    dense VJP a fully masked row's gradients must match (a uniform row)."""
+    from faster_distributed_training_tpu_torch.ops.attention import (
+        mask_to_bias)
+
+    leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    s = leaves[0] @ leaves[1].transpose(-1, -2) / q.shape[-1] ** 0.5
+    s = s + mask_to_bias(mask)[:, None, None, :]
+    out = torch.softmax(s, dim=-1) @ leaves[2]
+    return torch.autograd.grad(out, leaves, dout.float())
+
+
+# the wgmma kernels' tile edges: 128-key dkdv blocks, 64-row q stages (32
+# at D 128), 128-row dq blocks and 64-key stages
+_BWD_EDGES = [(L, D, rate) for L in (127, 129, 200, 1100)
+              for D in (16, 32, 64, 128) for rate in (0.0, 0.1)]
+
+
 @pytest.mark.parametrize("L,D,rate", [(40, 16, 0.1), (64, 64, 0.1),
                                       (130, 32, 0.0), (512, 64, 0.1),
-                                      (96, 128, 0.1)])
+                                      (96, 128, 0.1)] + _BWD_EDGES)
 def test_flash_bwd_bf16_matches_plain(card, L, D, rate):
+    """Batch element 0 has every key masked (``_mask``); q/k/v are strided
+    views of one [B, L, 3, H, D] projection, and the gradients also go
+    into the views of one such buffer."""
     q, k, v, mask, out, lse, dout = _bwd_inputs(card, 2, 4, L, D,
                                                 torch.bfloat16, rate)
     n0 = flash_attention_bwd.launches
@@ -129,10 +151,21 @@ def test_flash_bwd_bf16_matches_plain(card, L, D, rate):
     assert flash_attention_bwd.launches == n0 + 1
     assert [g.dtype for g in got] == [torch.bfloat16] * 3
     assert _rel_err(got, want) <= 2e-2
-    # no atomics: the same launch gives the same bits
+    # no atomics: the same launch gives the same bits, into separate
+    # buffers or into the fused [B, L, 3, H, D] gradient's views
     again = flash_attention_bwd(q, k, v, out, lse[0], dout, mask, rate, 99,
                                 lse[1])
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dqkv = torch.empty(2, L, 3, 4, D, device="cuda", dtype=torch.bfloat16)
+    fused = tuple(dqkv[:, :, i].transpose(1, 2) for i in range(3))
+    flash_attention_bwd(q, k, v, out, lse[0], dout, mask, rate, 99, lse[1],
+                        grads=fused)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, fused))
+    if rate == 0.0:
+        # the fully masked element against the dense VJP (the lse tail)
+        dense = _dense_vjp(q[:1], k[:1], v[:1], mask[:1], dout[:1])
+        assert _rel_err([g[:1] for g in got], dense) <= 2e-2
 
 
 @pytest.mark.parametrize("D", [16, 64])
@@ -176,6 +209,15 @@ def test_flash_bwd_rejects_what_the_kernel_does_not_take(card):
                                                 torch.bfloat16, 0.0)
     with pytest.raises(ValueError, match="dout"):
         flash_attention_bwd(q, k, v, out, lse[0], dout.float(), mask)
+    # the bf16 kernels move 16-byte rows: an odd row stride, or a base
+    # that is not 16-byte aligned, raises (no copy, no other route)
+    wide = torch.randn(1, 2, 16, 17, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(wide[..., :16], k, v, out, lse[0], dout, mask)
+    flat = torch.randn(1 + 2 * 16 * 16, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(q, flat[1:].view(1, 2, 16, 16), v, out, lse[0],
+                            dout, mask)
 
 
 def test_train_step_on_card_matches_cpu(card):
