@@ -4,7 +4,12 @@ against its plain version, times them, trains (the classifier and the
 next-token LM at seq 8192) and serves at full width.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --steps [DIR]
 
+The second form prints only the device split of one record-width
+training step of the slice-2 path and paths B and C, and whether two
+identical steps are bitwise equal, for the port at DIR (default: this
+checkout): run it on a parent and a change in one call to compare them.
 Needs one CUDA card and the repo checkout beside this file; without
 either it exits non-zero and prints no result.  Phases, in order (any
 failure raises and exits non-zero):
@@ -18,10 +23,14 @@ failure raises and exits non-zero):
                recompute route against the saved-stats route, and the
                autograd Function against the kernels' own outputs;
                quant_matmul at the record's four GEMM shapes and a ragged
-               row count (int8 bitwise, E4M3 2e-2 of max |plain|), fused_ffn
+               row count (int8 bitwise; E4M3 with bf16 output, whose
+               sums stay in fp8 wgmma, 2e-2 of max |plain|, its worst
+               error printed beside that limit; E4M3 with fp32 output,
+               upcast to bf16, 1e-5 at the qkv shape), fused_ffn
                at 8192 x 512 -> 1024 -> 512 for fmt none / int8 / E4M3
                with dropout 0.1 at both sites (outputs 2e-2 of max
-               |plain|, amaxes 1e-2), two launches equal bits; at long
+               |plain|, amaxes 1e-2), two launches equal bits, and the
+               engine each shape routes to; at long
                context (TPU rows 2 and 3: the same two flash kernels),
                path E's shape (B 4, H 8, L 8192: forward with lse, primal
                forward, backward), B 1 at L 8192 with key padding and at
@@ -32,13 +41,16 @@ failure raises and exits non-zero):
   4. timing  — kernel, plain version, the library yardstick and the
                bound; the backward also at dropout 0, like for like with
                SDPA's backward (which runs without dropout), and the bf16
-               backward kernels' registers, spills (the build log; the D 64
-               pair must not spill) and shared memory.  Two clocks: the device time per call (the sum of
+               backward kernels' and the wgmma GEMM and FFN kernels'
+               registers, spills (the build log; the D 64 backward pair and
+               the record-shape GEMM and FFN instantiations must not spill)
+               and shared memory.  Two clocks: the device time per call (the sum of
                the kernels a call launches, torch.profiler over 25 calls;
                the JSON line's ms fields), and the time per call the
                caller sees (CUDA events, median of 25 after warm-up);
-               slice 3's rows 7, 8 (int8) and 9 (int8, E4M3) at the
-               record's training shape; rows 2 and 3 at path E's shape
+               slice 3's rows 7, 8 (int8 and E4M3: two `_int_mm` /
+               `_scaled_mm` calls as the yardstick) and 9 (int8, E4M3) at
+               the record's training shape; rows 2 and 3 at path E's shape
                (B 4, H 8, L 8192, D 64, bf16, dropout 0.1; SDPA without
                dropout as the yardstick) and row 2's primal forward at
                B 1, L 16384;
@@ -60,7 +72,15 @@ failure raises and exits non-zero):
                launches, every amax history rolled once), its step time
                and [profile] split, an fp32 reduced-width step card vs
                CPU; then 4-step runs of path A (``--ffn_impl pallas``)
-               and path C (``--quant fp8``), each with its launch counts;
+               and path C (``--quant fp8``), each with its launch counts,
+               path C's step time and [profile] split; one training step
+               at the record's width run twice from the same state, batch
+               and draws (slice 2 and path B), every parameter and
+               optimizer leaf bitwise equal (on a difference the step runs
+               again under torch.use_deterministic_algorithms to name the
+               op, and the smoke fails); the transformer_test defaults
+               (``--dataset agnews`` without its CSVs) train 4 steps on the
+               synthetic fallback;
                then path E: the port's shard writer packs the synthetic
                corpus at seq 8192 (4096 documents, seed 0) into a
                temporary directory, and ``cli.run_training`` trains the
@@ -276,6 +296,44 @@ def bwd_build(fa, log: str) -> dict:
     return got
 
 
+QMM_ROUTES = ("direct", "upcast")
+FFN_FMTS = ("none", "int8", "e4m3")
+# the wgmma instantiations the record's shapes run (bf16, d_model 512)
+RECORD_SM90 = ("qmm_kernel_sm90<bf16, int8, direct>",
+               "qmm_kernel_sm90<bf16, e4m3, direct>",
+               "ffn_kernel_sm90<bf16, none, 256>",
+               "ffn_kernel_sm90<bf16, int8, 256>",
+               "ffn_kernel_sm90<bf16, e4m3, 256>")
+
+
+def sm90_build(logs: dict) -> dict:
+    """{"qmm_kernel_sm90<T, fmt, route>" / "ffn_kernel_sm90<T, fmt, DH>":
+    registers, spill bytes and dynamic shared memory} of the wgmma GEMM
+    and FFN instantiations: registers and spills from this run's build
+    log, shared memory from the libraries."""
+    from faster_distributed_training_tpu_torch.ops import fused_ffn, quant
+
+    got = {}
+    for mangled, u in ptxas_usage(logs.get("quant_matmul", "")).items():
+        m = re.search(r"qmm_kernel_sm90I(f|13__nv_bfloat16)Li(\d)ELb(\d)E",
+                      mangled)
+        if m:
+            t = "fp32" if m.group(1) == "f" else "bf16"
+            key = (f"qmm_kernel_sm90<{t}, {('int8', 'e4m3')[int(m.group(2))]}"
+                   f", {QMM_ROUTES[int(m.group(3))]}>")
+            got[key] = dict(u, smem_bytes=quant._lib().fdt_qmm_smem_bytes())
+    for mangled, u in ptxas_usage(logs.get("fused_ffn", "")).items():
+        m = re.search(r"ffn_kernel_sm90I(f|13__nv_bfloat16)Li(\d)ELi(\d+)E",
+                      mangled)
+        if m:
+            t, fmt, dh = (m.group(1) != "f"), int(m.group(2)), int(m.group(3))
+            key = (f"ffn_kernel_sm90<{'bf16' if t else 'fp32'}, "
+                   f"{FFN_FMTS[fmt]}, {dh}>")
+            got[key] = dict(u, smem_bytes=fused_ffn._lib().fdt_ffn_smem_bytes(
+                int(t), fmt, 2 * dh))
+    return got
+
+
 def rel_err(got, want) -> float:
     """max |got - want| / max |want| over a tuple of tensors."""
     return max((g.float() - w.float()).abs().max().item()
@@ -385,7 +443,7 @@ def train_phase(cli, fa, fused_mlp, build_dir: str) -> dict:
     cfg = cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
         ["--device", "cuda", "--dataset", "synthetic", "--epoch", "1",
          "--subset_stride", str(stride), "--checkpoint_dir", ckdir,
-         "--log_every", "8"]), defaults=defaults)
+         "--log_every", "8", "--no_plot"]), defaults=defaults)
     train_ds = cli.apply_subset(cli.load_dataset(cfg, True), stride)
     eval_ds = cli.apply_subset(cli.load_dataset(cfg, False), stride)
     n_eval = -(-len(eval_ds) // cfg.batch_size)
@@ -632,7 +690,7 @@ def check_quant_kernels(gen) -> dict:
     import torch
 
     from faster_distributed_training_tpu_torch.ops.fused_ffn import (
-        _ffn_body_reference, ffn_fwd_generalized)
+        _ffn_body_reference, ffn_engine, ffn_fwd_generalized)
     from faster_distributed_training_tpu_torch.ops.quant import (
         quant_dot_reference, quant_matmul)
 
@@ -640,6 +698,7 @@ def check_quant_kernels(gen) -> dict:
              "fused_ffn_quant": 0.0}
     bf16 = torch.bfloat16
     shapes = dict(QMM_SHAPES, ragged=(1000, 512, 1536))
+    worst_rel = 0.0
     for fmt in ("int8", "fp8"):
         for name, (M, K, N) in shapes.items():
             xq, wq, sx, sw = quant_operands(gen, M, K, N, fmt)
@@ -656,12 +715,32 @@ def check_quant_kernels(gen) -> dict:
             else:
                 ok = rel <= 2e-2
                 note = f"err {rel:.3g} of max |plain| (tol 2e-2)"
+                worst_rel = max(worst_rel, rel)
             print(f"[check] quant_matmul {fmt} {name} {M}x{K}->{N} bf16: "
                   f"{note}; abs err {e:.3g}; two launches bitwise equal: "
                   f"{same}")
             check(ok and same, f"quant_matmul {fmt} {name}")
             key = "quant_matmul" if fmt == "int8" else "quant_matmul_e4m3"
             worst[key] = max(worst[key], e)
+    print(f"[check] quant_matmul fp8 bf16 out (sums in fp8 wgmma, ~14 "
+          f"bits): worst err {worst_rel:.3g} of max |plain| over the "
+          f"shapes above (tol 2e-2)")
+    worst["quant_matmul_e4m3_bf16_rel"] = worst_rel
+    # E4M3 with fp32 output (held to 1e-5): operands upcast exactly to
+    # bf16, bf16 wgmma with fp32 accumulators
+    M, K, N = QMM_SHAPES["qkv"]
+    xq, wq, sx, sw = quant_operands(gen, M, K, N, "fp8")
+    want = quant_dot_reference(xq, wq, sx, sw, "fp8", torch.float32)
+    got = quant_matmul(xq, wq, sx, sw, "fp8", torch.float32)
+    again = quant_matmul(xq, wq, sx, sw, "fp8", torch.float32)
+    torch.cuda.synchronize()
+    rel = (got - want).abs().max().item() / want.abs().max().item()
+    same = torch.equal(got, again)
+    print(f"[check] quant_matmul fp8 qkv {M}x{K}->{N} fp32 out (upcast to "
+          f"bf16): err {rel:.3g} of max |plain| (tol 1e-5); two launches "
+          f"bitwise equal: {same}")
+    check(rel <= 1e-5 and same, f"quant_matmul E4M3 fp32 err {rel}")
+    worst["quant_matmul_e4m3_fp32_rel"] = rel
     rows, d, d_ff = FFN_SHAPE
     args = ffn_inputs(gen, rows, d, d_ff, bf16)
     scales = torch.tensor(FFN_SCALES, device="cuda")
@@ -689,6 +768,18 @@ def check_quant_kernels(gen) -> dict:
         check(rel <= 2e-2 and e_amax <= 1e-2 and same, f"fused_ffn {fmt}")
         key = "fused_ffn" if fmt is None else "fused_ffn_quant"
         worst[key] = max(worst[key], e)
+        if fmt == "fp8":
+            worst["fused_ffn_quant_e4m3"] = e
+    # the engine each shape routes to (by shape and type, never by a
+    # failure): wgmma for bf16 and for fp32 under quant up to d_model 512
+    for dt, fmt, dd in ((bf16, None, 512), (bf16, "int8", 512),
+                        (bf16, "fp8", 512), (torch.float32, "int8", 64),
+                        (torch.float32, None, 64), (bf16, None, 1024)):
+        print(f"[check] fused_ffn engine for {str(dt)[6:]} fmt "
+              f"{fmt or 'none'} d_model {dd}: {ffn_engine(dt, fmt, dd)}")
+    check(ffn_engine(bf16, "int8", 512) == "sm90"
+          and ffn_engine(torch.float32, None, 64) == "wmma",
+          "fused_ffn routing")
     return worst
 
 
@@ -703,8 +794,8 @@ def library(fn):
 
 
 def time_quant_kernels(gen) -> dict:
-    """Rows 7, 8 (int8) and 9 (int8, E4M3) at the record's training
-    shape: kernel, plain, library yardstick, bound."""
+    """Rows 7, 8 (int8, E4M3) and 9 (int8, E4M3) at the record's
+    training shape: kernel, plain, library yardstick, bound."""
     import torch
 
     from faster_distributed_training_tpu_torch.ops.fused_ffn import (
@@ -739,7 +830,12 @@ def time_quant_kernels(gen) -> dict:
     aq = quantize(a, scales[2], "int8")
     w1q = quantize(args[3], scales[1], "int8")
     w2q = quantize(args[5], scales[3], "int8")
-    for name, fmt in (("fused_ffn", None), ("fused_ffn_quant", "int8")):
+    f8, a8 = quantize(f, scales[0], "fp8"), quantize(a, scales[2], "fp8")
+    w1_8 = quantize(args[3], scales[1], "fp8")
+    w2_8 = quantize(args[5], scales[3], "fp8")
+    inv = [(1.0 / v).reshape(()) for v in scales.unbind()]
+    for name, fmt in (("fused_ffn", None), ("fused_ffn_quant", "int8"),
+                      ("fused_ffn_quant_e4m3", "fp8")):
         quant = None if fmt is None else (fmt, *scales.unbind(), None)
         t = {"kernel": measure(lambda: ffn_fwd_generalized(
                  *args, FFN_SEEDS, scales, 0.1, 0.1, 1e-6, 1, 1, d_ff, fmt)),
@@ -751,9 +847,15 @@ def time_quant_kernels(gen) -> dict:
         if fmt is None:
             t["library"] = library(lambda: (torch.matmul(f, args[3].t()),
                                             torch.matmul(a, args[5].t())))
-        else:
+        elif fmt == "int8":
             t["library"] = library(lambda: (torch._int_mm(fq, w1q.t()),
                                             torch._int_mm(aq, w2q.t())))
+        else:
+            t["library"] = library(lambda: (
+                torch._scaled_mm(f8, w1_8.t(), scale_a=inv[0],
+                                 scale_b=inv[1], out_dtype=bf16),
+                torch._scaled_mm(a8, w2_8.t(), scale_a=inv[2],
+                                 scale_b=inv[3], out_dtype=bf16)))
         w_bytes = 2 if fmt is None else 1
         # read h, both weight matrices, the biases and LN parameters once;
         # write the output (and two amaxes)
@@ -838,7 +940,7 @@ def run_path(cli, flags, stride: int, build_dir: str, tag: str):
     cfg = cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
         ["--device", "cuda", "--dataset", "synthetic", "--epoch", "1",
          "--subset_stride", str(stride), "--checkpoint_dir", ckdir,
-         "--log_every", "8", *flags]), defaults=defaults)
+         "--log_every", "8", "--no_plot", *flags]), defaults=defaults)
     step_losses = []
     make_step = steps_mod.make_train_step
 
@@ -990,8 +1092,8 @@ def train_quant_phase(cli, build_dir: str) -> dict:
                                    ("C", ["--quant", "fp8"], "flax", True)):
         # stride 64: 4 steps, the fewest at which the record's one-cycle
         # schedule is finite (optax's, copied: NaN below 4 steps a run)
-        _, got, l_short, s_steps, s_eval = run_path(cli, flags, 64,
-                                                    build_dir, tag)
+        out_s, got, l_short, s_steps, s_eval = run_path(cli, flags, 64,
+                                                        build_dir, tag)
         n_fwd = s_steps + s_eval + (1 if quant else 0)
         want = path_counts(L, n_fwd, s_steps, ffn, quant,
                            train_fwd=s_steps + (1 if quant else 0))
@@ -999,8 +1101,197 @@ def train_quant_phase(cli, build_dir: str) -> dict:
         print(f"[train {tag}] launches == the path's exact counts; losses "
               + " ".join(f"{x:.4f}" for x in l_short))
         short[tag] = got
+    # path C's step time and the profile of one step: its 24 E4M3 GEMMs
+    # (qkv, out and the flax FFN's two Dense per layer) are all in the
+    # forward; the backward's straight-through GEMMs are cuBLAS
+    cfg_c = out_s["cfg"]
+    step_c = make_train_step(cfg_c)
+    times = []
+    for b in batches[:6]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step_c(out_s["state"], b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    med_c = statistics.median(times[2:])
+    kern = device_kernels(lambda: step_c(out_s["state"], prof_batch), n)
+    print(f"[train C] step time median {med_c:.2f} ms over {len(times) - 2} "
+          f"steps")
+    print(profile_split(kern, n, med_c, f"train step path C "
+                        f"(L={prof_batch['tokens'].shape[1]})"))
+    top = sorted(kern.items(), key=lambda x: -x[1][0])[:10]
+    print("[profile] top kernels of a path-C step (ms/step, launches/step): "
+          + "; ".join(f"{k[:60]} {us / n / 1e3:.4f} x{c / n:.0f}"
+                      for k, (us, c) in top))
     return {"launches": launches, "per_step": per_step, "step_ms": med,
-            "state": state, "short": short}
+            "step_ms_c": med_c, "state": state, "short": short}
+
+
+def record_width_states(cli, flags, n: int):
+    """(cfg, the first batch of the synthetic split on the card, ``n``
+    train states at the record's width from the same seeded init)."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.data.loader import BatchLoader
+    from faster_distributed_training_tpu_torch.optim import build_optimizer
+    from faster_distributed_training_tpu_torch.train.state import (
+        create_train_state)
+    from faster_distributed_training_tpu_torch.train.steps import to_device
+
+    defaults = cli.TRANSFORMER_DEFAULTS
+    cfg = cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
+        ["--device", "cuda", "--dataset", "synthetic", *flags]),
+        defaults=defaults)
+    ds = cli.load_dataset(cfg, True)
+    batch = to_device(next(iter(BatchLoader(ds, cfg.batch_size, epoch=0,
+                                            seed=cfg.seed,
+                                            max_len=cfg.seq_len))), "cuda")
+    states = []
+    for _ in range(n):
+        model = cli.build_model(cfg, vocab_size=ds.vocab_size(),
+                                device="cuda")
+        model.init_weights(torch.Generator().manual_seed(cfg.seed))
+        model.cuda()
+        tx, _ = build_optimizer(cfg, 100)
+        states.append(create_train_state(model, tx, cfg.seed))
+    return cfg, batch, states
+
+
+def two_step_diff(cli, flags):
+    """One training step at the record's width, run twice from the same
+    seeded state on the same batch with the same draws: (the number of
+    parameter, buffer and optimizer leaves, the names of those whose bits
+    differ, and on a difference what torch.use_deterministic_algorithms
+    says of the step)."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_train_step, step_draws)
+
+    cfg, batch, states = record_width_states(cli, flags, 2)
+    draws = step_draws(cfg.seed, 0, cfg.batch_size,
+                       states[0].model.n_dropout_sites(), 0.99)
+    step = make_train_step(cfg)
+    for st in states:
+        step(st, batch, draws)
+    torch.cuda.synchronize()
+
+    def leaves(st):
+        out = {f"model/{k}": v for k, v in st.model.state_dict().items()}
+        for part, tree in st.opt_state.items():
+            if isinstance(tree, dict):
+                out.update({f"opt/{part}/{k}": v for k, v in tree.items()
+                            if torch.is_tensor(v)})
+        return out
+
+    a, b = leaves(states[0]), leaves(states[1])
+    differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
+    print(f"[train] two identical steps at the record's width "
+          f"({' '.join(flags) or 'slice 2'}): {len(a)} parameter, buffer "
+          f"and optimizer leaves, {len(differ)} differ"
+          + (f": {differ[:6]}" if differ else " (bitwise equal)"),
+          flush=True)
+    culprit = None
+    if differ:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        try:
+            step(states[0], batch, draws)
+            torch.cuda.synchronize()
+            culprit = "no op refused"
+        except RuntimeError as e:
+            culprit = str(e).splitlines()[0]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        print(f"[train] under torch.use_deterministic_algorithms: {culprit}",
+              flush=True)
+    return len(a), differ, culprit
+
+
+def two_step_check(cli, flags) -> None:
+    """``two_step_diff``, failing the smoke on any difference."""
+    _, differ, culprit = two_step_diff(cli, flags)
+    if differ:
+        fail(f"two identical steps differ in {differ[:6]}; under "
+             f"torch.use_deterministic_algorithms: {culprit}")
+
+
+STEP_PATHS = {"2": [], "B": ["--ffn_impl", "pallas", "--quant", "int8"],
+              "C": ["--quant", "fp8"]}
+
+
+def steps_main(repo: str) -> int:
+    """``--steps``: for the slice-2 path and paths B and C of the port at
+    ``repo``, the [profile] split of one training step at the record's
+    width (seeded init, four warm-up steps, host wall the median of four,
+    device time over three) and the two-identical-steps comparison,
+    reported and not held.  Two trees compare in one call on one card:
+    unpack the other commit into a git-ignored directory and run parent,
+    change, change, parent."""
+    import torch
+
+    sys.path.insert(0, repo)
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.data.loader import BatchLoader
+    from faster_distributed_training_tpu_torch.ops import _build
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_train_step, to_device)
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    build_s, _ = _build.build()
+    print(f"[steps] the port at {repo}; kernels built in {build_s:.1f}s; "
+          f"nvidia-smi: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for tag, flags in STEP_PATHS.items():
+        cfg, _, (state,) = record_width_states(cli, flags, 1)
+        ds = cli.apply_subset(cli.load_dataset(cfg, True), 16)
+        batches = [to_device(b, "cuda") for b in itertools.islice(
+            BatchLoader(ds, cfg.batch_size, epoch=1, seed=cfg.seed,
+                        max_len=cfg.seq_len), 9)]
+        step = make_train_step(cfg)
+        for b in batches[:4]:
+            step(state, b)
+        wall = []
+        for b in batches[4:8]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(state, b)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t) * 1e3)
+        n = 3
+        kern = device_kernels(lambda: step(state, batches[8]), n)
+        print(profile_split(kern, n, statistics.median(wall),
+                            f"path {tag} step (L="
+                            f"{batches[8]['tokens'].shape[1]})"), flush=True)
+        two_step_diff(cli, flags)
+    return 0
+
+
+def defaults_fallback_phase(cli, build_dir: str) -> None:
+    """The transformer_test entry at its defaults (``--dataset agnews``)
+    with no AG News CSVs under --data_dir: the JAX package's synthetic
+    fallback, 4 steps on the card."""
+    import shutil
+
+    import numpy as np
+
+    tmp = os.path.join(build_dir, "smoke_defaults")
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = cli.main(["--device", "cuda", "--epoch", "1", "--subset_stride",
+                    "187", "--no_plot", "--data_dir", os.path.join(tmp, "d"),
+                    "--checkpoint_dir", os.path.join(tmp, "ck"),
+                    "--log_every", "0"], defaults=cli.TRANSFORMER_DEFAULTS)
+    shutil.rmtree(tmp, ignore_errors=True)
+    cfg = out["cfg"]
+    loss = out["history"]["train_loss"]
+    print(f"[train] transformer_test defaults (--dataset {cfg.dataset}, no "
+          f"CSVs): {out['state'].step} steps on the synthetic fallback "
+          f"(12000 rows at subset stride 187), train loss {loss}, eval "
+          f"accuracy {out['history']['test_acc']}", flush=True)
+    check(cfg.dataset == "agnews" and out["state"].step == 4
+          and bool(np.isfinite(loss).all()), "the defaults' fallback run")
 
 
 def serve_quant_phase(cli, state) -> dict:
@@ -1316,7 +1607,7 @@ def lm_phase(cli, build_dir: str) -> dict:
              "--stream_dir", corpus, "--seq_len", str(LONG["L"]), "--bs",
              str(LONG["B"]), "--epoch", "1", "--precision", "bf16",
              "--checkpoint_dir", os.path.join(tmp, "ckpt"),
-             "--log_every", "2"]), defaults=defaults)
+             "--log_every", "2", "--no_plot"]), defaults=defaults)
         step_losses = []
         make_step = steps_mod.make_train_step
 
@@ -1533,6 +1824,21 @@ def main() -> int:
             u = bwd_use.get(kname, {})
             check(not u.get("spill_stores") and not u.get("spill_loads"),
                   f"{kname} spills: {u}")
+    sm90_use = sm90_build(logs)
+    for kname, u in sorted(sm90_use.items()):
+        print(f"[build] {kname} (wgmma): {u.get('registers')} registers, "
+              f"spill stores {u.get('spill_stores')} B, spill loads "
+              f"{u.get('spill_loads')} B, dynamic shared memory "
+              f"{u['smem_bytes']} B", flush=True)
+    check(len(sm90_use) == 24 or not (logs.get("quant_matmul")
+                                      and logs.get("fused_ffn")),
+          f"the build log names {len(sm90_use)} wgmma GEMM / FFN "
+          f"instantiations, not 24")
+    for kname in RECORD_SM90:
+        if sm90_use:
+            u = sm90_use.get(kname, {})
+            check(u and not u.get("spill_stores") and not u.get(
+                "spill_loads"), f"{kname} spills or is missing: {u}")
 
     # -- 3. kernel vs plain version -----------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1669,6 +1975,9 @@ def main() -> int:
     # -- 5. training at full width ---------------------------------------------
     tr = train_phase(cli, fa, fused_mlp, str(_build.BUILD_DIR))
     trq = train_quant_phase(cli, str(_build.BUILD_DIR))
+    two_step_check(cli, [])
+    two_step_check(cli, ["--ffn_impl", "pallas", "--quant", "int8"])
+    defaults_fallback_phase(cli, str(_build.BUILD_DIR))
     lm = lm_phase(cli, str(_build.BUILD_DIR))
 
     # -- 6. serving at full width ----------------------------------------------
@@ -1774,7 +2083,7 @@ def main() -> int:
     print(f"[train] step time median {tr['step_ms']:.2f} ms; fixed-batch "
           f"loss {tr['loss_first']:.4f} -> {tr['loss_last']:.4f}; eval "
           f"accuracy {tr['test_acc']:.4f}; path B step time median "
-          f"{trq['step_ms']:.2f} ms")
+          f"{trq['step_ms']:.2f} ms, path C {trq['step_ms_c']:.2f} ms")
     print(f"[train E] --task lm B {LONG['B']} L {LONG['L']}: step time "
           f"median {lm['step_ms']:.2f} ms, {lm['tokens_s']:.0f} tokens/s, "
           f"peak memory {lm['peak_bytes'] / 2**30:.2f} GiB; train loss "
@@ -1833,6 +2142,22 @@ def main() -> int:
                  "library_ms": t["library"]["ms"] if t["library"] else None}
         if name.startswith("fused_ffn"):
             entry["library_is"] = "its two cuBLAS GEMMs only"
+            entry["engine"] = "ffn_kernel_sm90 (wgmma) at the record's shapes"
+            fmts = ("none",) if name == "fused_ffn" else ("int8", "e4m3")
+            entry["build"] = {k: u for k, u in sm90_use.items()
+                              if k.startswith("ffn_") and k.endswith(", 256>")
+                              and k.split(", ")[1] in fmts and "bf16" in k}
+        if name == "fused_ffn_quant":
+            e = qt["fused_ffn_quant_e4m3"]
+            entry.update({
+                "e4m3_max_abs_err": err["fused_ffn_quant_e4m3"],
+                "e4m3_ms": e["kernel"]["ms"],
+                "e4m3_call_ms": e["kernel"]["call_ms"],
+                "e4m3_plain_ms": e["plain"]["ms"],
+                "e4m3_bound_ms": e["bound_ms"],
+                "e4m3_library_ms": e["library"]["ms"] if e["library"]
+                else None,
+                "e4m3_library_is": "two _scaled_mm calls"})
         if name == "quant_matmul":
             e = qt["quant_matmul_e4m3"]
             entry.update({
@@ -1840,10 +2165,17 @@ def main() -> int:
                 "e4m3_launches_path_c": trq["short"]["C"]["quant_matmul"],
                 "e4m3_max_abs_err": err["quant_matmul_e4m3"],
                 "e4m3_ms": e["kernel"]["ms"],
+                "e4m3_call_ms": e["kernel"]["call_ms"],
                 "e4m3_plain_ms": e["plain"]["ms"],
                 "e4m3_bound_ms": e["bound_ms"],
                 "e4m3_library_ms": e["library"]["ms"] if e["library"]
-                else None})
+                else None,
+                "e4m3_bf16_out_err_of_max_plain":
+                    err["quant_matmul_e4m3_bf16_rel"],
+                "e4m3_fp32_out_err_of_max_plain":
+                    err["quant_matmul_e4m3_fp32_rel"],
+                "build": {k: u for k, u in sm90_use.items()
+                          if k.startswith("qmm_")}})
         kernels.append(entry)
     # slice 4: rows 2 and 3 are the same two kernels at long context;
     # launches from path E, booked onto the rows by flash_rows()
@@ -1886,4 +2218,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--steps"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(steps_main(os.path.abspath(
+            sys.argv[2] if len(sys.argv) > 2
+            else os.path.dirname(os.path.abspath(__file__)))))
     sys.exit(main())

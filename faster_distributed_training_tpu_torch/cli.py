@@ -5,8 +5,8 @@ next-token LM on a sharded stream corpus (slice 4: ``--task lm --dataset
 stream --stream_dir D``, host data path).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
-``resolve_attention``, ``build_model``, ``load_dataset`` (the synthetic
-and stream branches), ``apply_subset``, ``make_loaders``,
+``resolve_attention``, ``build_model``, ``load_dataset`` (the agnews,
+synthetic and stream branches), ``apply_subset``, ``make_loaders``,
 ``run_training``, ``main``, ``synth_requests``, ``run_serving`` and
 ``main_serve``.  Everything runs
 on CUDA unless the caller passes ``--device cpu`` / ``device="cpu"``;
@@ -107,6 +107,10 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
     if cfg.ffn_impl not in ("flax", "pallas"):
         raise ValueError(f"--ffn_impl must be flax or pallas, got "
                          f"{cfg.ffn_impl!r}")
+    mlp_impl = cfg.mlp_impl or "fused"
+    if mlp_impl not in ("fused", "pallas", "naive"):
+        raise ValueError(f"--mlp_impl must be fused, pallas or naive, got "
+                         f"{cfg.mlp_impl!r}")
     rate = 0.0 if cfg.dropout_impl == "none" else 0.1
     rates = {k: rate for k in (
         "dropout_encodings", "dropout_connection_attention",
@@ -119,6 +123,7 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
                      param_dtype=dtype if serving else torch.float32,
                      attention_impl=resolve_attention(cfg, device),
                      ffn_impl=cfg.ffn_impl, quant=quant,
+                     mlp_impl=mlp_impl,
                      lm_head=cfg.task == "lm",
                      tie_lm_head=cfg.task == "lm" and cfg.tie_lm_head,
                      **rates)
@@ -132,7 +137,7 @@ def unported_training_flags(cfg: TrainConfig) -> list:
         "--steps_per_dispatch > 1": int(cfg.steps_per_dispatch or 1) > 1,
         f"--data_path {cfg.data_path}": cfg.data_path != "host",
         f"--dataset {cfg.dataset}": cfg.dataset not in ("synthetic",
-                                                        "stream"),
+                                                        "stream", "agnews"),
         "--lm_causal": bool(cfg.lm_causal),
         "--mesh": any(int(s) > 1 for s in cfg.mesh_shape),
         "--distributed": bool(cfg.distributed),
@@ -142,6 +147,9 @@ def unported_training_flags(cfg: TrainConfig) -> list:
         "--supervise": bool(cfg.supervise),
         "--auto_recover": bool(cfg.auto_recover),
         "--profile_steps": bool(cfg.profile_steps),
+        "--profile": bool(cfg.profile),
+        f"--storage_backend {cfg.storage_backend}": (
+            (cfg.storage_backend or "posix") != "posix"),
         "--precision fp16": cfg.precision == "fp16",
     }
     return [k for k, v in checks.items() if v]
@@ -149,19 +157,31 @@ def unported_training_flags(cfg: TrainConfig) -> list:
 
 def load_dataset(cfg: TrainConfig, train: bool):
     """A split of ``cfg.dataset``: ``stream``, the sharded on-disk
-    dataset under ``--stream_dir`` (its reader speaks ``encode_batch``),
-    or ``synthetic``, the AG-News-shaped split (the JAX package's branch:
-    4096 train / 1024 test rows, seeds 0 and 1).  Real AG News waits for
-    its CSVs in the repository."""
+    dataset under ``--stream_dir`` (its reader speaks ``encode_batch``);
+    ``agnews``, the CSVs under ``--data_dir/ag_news`` or, when they cannot
+    be read, the synthetic split of the JAX package's fallback (12000 /
+    2000 rows, seeds 0 and 1; nothing is downloaded); or ``synthetic``,
+    the AG-News-shaped split (4096 train / 1024 test rows)."""
     from faster_distributed_training_tpu_torch.data.stream import (
         open_stream_split)
     from faster_distributed_training_tpu_torch.data.synthetic import (
         synthetic_agnews)
 
     if cfg.model != "transformer" or cfg.dataset not in ("synthetic",
-                                                         "stream"):
+                                                         "stream", "agnews"):
         raise NotImplementedError(f"not ported yet: --dataset "
                                   f"{cfg.dataset} for {cfg.model}")
+    if cfg.dataset == "agnews":
+        from faster_distributed_training_tpu_torch.data.agnews import (
+            AGNewsDataset)
+        try:
+            return AGNewsDataset(cfg.data_dir, train=train,
+                                 buckets=cfg.seq_buckets)
+        except Exception as e:
+            print(f"[data] AG News unavailable ({e!r}); using synthetic")
+            return synthetic_agnews(n=12000 if train else 2000,
+                                    seed=0 if train else 1,
+                                    max_len=cfg.seq_len)
     if cfg.dataset == "stream":
         if not cfg.stream_dir:
             raise ValueError("--dataset stream requires --stream_dir (python "
@@ -309,9 +329,30 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     state = trainer.fit(state, train_loader, eval_loader,
                         ckpt_name=ckpt_name, start_epoch=start_epoch,
                         start_step_in_epoch=start_step)
+    if cfg.plot and trainer.history["test_acc"]:
+        plot_history(trainer.history, ckpt_name, log)
     return {"state": state, "history": trainer.history,
             "best_acc": trainer.best_acc, "cfg": cfg, "trainer": trainer,
             "steps_per_epoch": steps_per_epoch}
+
+
+def plot_history(history: dict, prefix: str, log=print) -> list:
+    """``<prefix>_accuracy.png`` and ``<prefix>_time.png`` in the working
+    directory (the JAX ``run_training``'s curves after training).  A plot
+    is a report, not a result: without matplotlib one line says so and
+    the run goes on."""
+    from faster_distributed_training_tpu_torch.utils.plotting import (
+        draw_graph)
+
+    try:
+        return [draw_graph(history["test_acc"], "test accuracy",
+                           f"{prefix} test accuracy",
+                           f"{prefix}_accuracy.png"),
+                draw_graph(history["epoch_time"], "seconds",
+                           f"{prefix} epoch time", f"{prefix}_time.png")]
+    except ImportError:
+        log("[plot] matplotlib is not installed: no PNGs written")
+        return []
 
 
 def main(argv=None, defaults: Optional[TrainConfig] = None,

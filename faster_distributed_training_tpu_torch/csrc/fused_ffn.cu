@@ -2,9 +2,9 @@
 // ctypes.
 //
 // Replaces two TPU kernels of faster_distributed_training_tpu/ops/
-// fused_ffn.py: _ffn_fwd_pallas (kernel _ffn_kernel :153) and its
-// generalized twin _ffn_fwd_pallas2 (kernel _ffn_kernel2 :537) without the
-// tp `partial` output.  Per row of h [rows, d]:
+// fused_ffn.py: _ffn_fwd_pallas (def :208, pallas_call :242, kernel
+// _ffn_kernel :153) and its generalized twin _ffn_fwd_pallas2 (:624 /
+// :679 / _ffn_kernel2 :537) without the tp `partial` output.  Per row of h [rows, d]:
 //
 //   f   = TorchLayerNorm(h) in fp32 (unbiased variance, eps added to the
 //         std), cast to the compute dtype T
@@ -30,21 +30,59 @@
 // What bounds it on this card: at the record's training shape (8192 rows,
 // 512 -> 1024 -> 512, bf16) the two GEMMs are 17.2 GFLOP against ~19 MB of
 // h, out and weights: 17.4 us of bf16 tensor-core time against 5.7 us of
-// bytes -- operations.  The TPU kernel keeps both weight matrices in VMEM;
-// what this kernel keeps out of device memory is the [rows, d_ff] hidden
+// bytes -- operations (8.7 us at the 8-bit rate under quant).  The TPU
+// kernel keeps both weight matrices in VMEM; here they stay in the 50 MB
+// L2 and every row block streams them again (2 MB bf16 a block), and what
+// the kernel keeps out of device memory is the [rows, d_ff] hidden
 // activation and the LN output.
 //
-// Design: one block per 32-row tile, 8 warps.  LayerNorm one warp per row
-// into shared memory; then a loop over d_ff in 64-column chunks: GEMM1
-// chunk, GELU / dropout / quantize in the epilogue, the chunk of `a` in
-// shared memory, GEMM2 accumulated into a [32 x d] shared accumulator
-// (int32 under int8: the sums are exact, the descale comes once at the
-// end, as in the TPU kernel's full-width int32 dot).  The loop over d_ff
-// removes any envelope in d_ff; d is bounded by shared memory (the
-// wrapper asks fdt_ffn_smem_bytes and raises).  GEMM engines: WMMA bf16
-// for bf16 (weight fragments straight from global memory, L2-resident),
-// WMMA s8 for int8 (operands staged tile-major so every fragment pointer
-// is 256-bit aligned), FMA in fp32 for fp32 compute and for E4M3.
+// Two engines, routed by shape and type in the C entry (engine_for below,
+// which ops/fused_ffn.py::ffn_engine asks), never by a failure:
+//
+// ffn_kernel_sm90<T, FMT, DH> (bf16 for every fmt, fp32 under quant;
+// d_model <= 512): wgmma.  One block per 64-row tile (one wgmma M; 128
+// blocks at 8192 rows, one wave on 132 SMs), two consumer warpgroups.
+//   * LN: one warp a row, fp32, into a K-major swizzled tile in shared
+//     memory (bf16, or quantized to s8 / E4M3 at sx1), resident for the
+//     whole block (64 KB bf16 at d 512, 32 KB 8-bit).
+//   * A loop over d_ff in 128-column chunks.  GEMM1: each warpgroup
+//     computes 64 rows x its 64 columns of the chunk (wgmma m64n64, SS,
+//     A the LN tile, B the w1 slice).  The hidden epilogue runs on the
+//     accumulator fragments in registers (descale, b1, A&S erf GELU, hash
+//     dropout, cast, amax, quantize at sx2) and stores the chunk into a
+//     K-major tile that both warpgroups read as GEMM2's A.  GEMM2: each
+//     warpgroup accumulates 64 rows x its DH = d/2 output columns (wgmma
+//     m64nDH, 128 fp32 or s32 registers at d 512) across every chunk; the
+//     int8 sums are exact, descaled once at the end as in the TPU kernel.
+//   * w1 and w2 slices stream through a four-stage cp.async ring of 32 KB
+//     tiles (w1: 128 rows x 256 bytes of K; w2: 2 DH rows x the bytes of
+//     K that fill a stage), in the swizzle the descriptors name
+//     (csrc/sm90.cuh, SwTileB).  Blocks walk the chunks from different
+//     starting points so they do not all read one weight tile at once.
+//     8-bit wgmma has no transpose bit: w1 [d_ff, d] and w2 [d, d_ff]
+//     are both K-major already.
+//   * Shared memory: 128 KB ring + LN tile + hidden chunk, 209 KB at d
+//     512 bf16: one block an SM.  Edges: rows past the end and columns
+//     past d / d_ff load as zeros (cp.async with source size 0), padded
+//     hidden columns are stored as 0, the last k32 step of a K with
+//     K % 32 == 16 is zero-filled; the epilogue masks rows.
+//   * E4M3: the partial sums stay in the tensor cores over d (GEMM1) and
+//     d_ff (GEMM2): a second accumulator would not fit beside GEMM2's 128
+//     registers without spilling.  The FFN is held to 2e-2 of max
+//     |plain|; PERF.md has the measured error.
+//   * b2, connection dropout and the residual run on GEMM2's fragments.
+//
+// ffn_kernel<T, FMT> (the WMMA / FMA kernel): fp32 without quant (FMA in fp32,
+// held to 1e-4; no tensor-core type keeps that) and every d_model above
+// 512, where the two-warpgroup split of d would need more than 255
+// registers a thread.  One block per 32-row tile, 8 warps; the GEMM2
+// accumulator [32 x d] in shared memory, 64-column chunks of d_ff; WMMA
+// bf16 (weight fragments from global memory), WMMA s8 (operands staged
+// tile-major), FMA for fp32 and E4M3; d is bounded by shared memory (the
+// wrapper asks fdt_ffn_smem_bytes and raises).
+//
+// Both write amax = [max |f|, max |a|] under quant with atomicMax on the
+// float bits: order-free, so two launches give equal bits.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -55,6 +93,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 using namespace nvcuda;
 
@@ -504,13 +543,489 @@ cudaError_t dispatch_fmt(const Args& a, int fmt, cudaStream_t s) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wgmma engine (bf16 for fmt none; s8 or E4M3 under quant)
+
+namespace sm90 {
+
+constexpr int BM = 64;         // rows a block: one wgmma M
+constexpr int CH = 128;        // d_ff columns a chunk: 64 per warpgroup in GEMM1
+constexpr int NT = 256;        // two consumer warpgroups
+constexpr int STAGES = 4;      // weight-tile ring
+constexpr int SLOT = 32768;    // bytes a ring stage
+constexpr int W1 = 256;        // bytes of K a GEMM1 tile ([CH rows][256 B])
+using Blk64 = SwTileB<128, BM>;  // LN and hidden tiles: [KP / 128][64][128 B]
+using Blk1 = SwTileB<128, CH>;   // GEMM1 weight tile: [2][CH][128 B]
+
+template <int FMT>
+struct Eng;
+template <>
+struct Eng<FMT_NONE> {
+  using Acc = float;
+  static constexpr int ESZ = 2;
+  template <int N>
+  static __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+    Wgmma<N>::ss(d, da, db, acc);
+  }
+  static __device__ __forceinline__ float f(float v) { return v; }
+};
+template <>
+struct Eng<FMT_INT8> {
+  using Acc = int;
+  static constexpr int ESZ = 1;
+  template <int N>
+  static __device__ __forceinline__ void mma(int (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+    WgmmaS8<N>::ss(d, da, db, acc);
+  }
+  static __device__ __forceinline__ float f(int v) { return __int2float_rn(v); }
+};
+template <>
+struct Eng<FMT_E4M3> {
+  using Acc = float;
+  static constexpr int ESZ = 1;
+  template <int N>
+  static __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+    WgmmaE4M3<N>::ss(d, da, db, acc);
+  }
+  static __device__ __forceinline__ float f(float v) { return v; }
+};
+
+// GEMM2 weight tile of DP = 2 DH rows (d padded): as many bytes of K as
+// fill a stage, at most a chunk's
+template <int FMT, int DH>
+struct G2 {
+  static constexpr int ESZ = Eng<FMT>::ESZ;
+  static constexpr int FIT = SLOT / (2 * DH);
+  static constexpr int W2 = FIT < CH * ESZ ? FIT : CH * ESZ;
+  using Tile = SwTileB<(W2 < 128 ? W2 : 128), 2 * DH>;
+};
+
+__host__ __device__ inline int ln_bytes(int esz, int d) {
+  return (d * esz + W1 - 1) / W1 * W1;  // a row of the LN tile, K padded
+}
+
+constexpr int BIAS_FLOATS = 2 * CH + 512;  // b1 of two chunks, b2 (fp32)
+
+__host__ __device__ inline size_t smem_bytes(int esz, int d) {
+  return 1024 + (size_t)STAGES * SLOT + (size_t)BM * ln_bytes(esz, d) + (size_t)BM * CH * esz +
+         BIAS_FLOATS * 4;
+}
+
+// the 16-byte group of T values at p as fp32
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float (&v)[16 / sizeof(T)]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  if constexpr (std::is_same<T, float>::value) {
+    v[0] = __uint_as_float(u.x), v[1] = __uint_as_float(u.y);
+    v[2] = __uint_as_float(u.z), v[3] = __uint_as_float(u.w);
+  } else {
+    const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(b[e]);
+  }
+}
+
+// one byte (8-bit engines) of the quantized value v * s
+template <int FMT>
+__device__ __forceinline__ uint8_t q_byte(float v, float s) {
+  if constexpr (FMT == FMT_INT8) {
+    return (uint8_t)q_int8(v, s);
+  } else {
+    const float x = fminf(fmaxf(__fmul_rn(v, s), -448.f), 448.f);
+    return __nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);
+  }
+}
+
+// the ring's position: the k-th chunk of d_ff this block walks (chunk
+// (k + rot) % nch: blocks start at different chunks, so the 128 blocks do
+// not all read the same weight tile at once), GEMM1 (g2 = 0) or GEMM2
+// tile kt of it
+struct Cursor {
+  int k, g2, kt;
+  __device__ __forceinline__ int cb(int rot, int nch) const { return (k + rot) % nch * CH; }
+  __device__ __forceinline__ void advance(int n1, int d_ff, int esz, int w2, int rot, int nch) {
+    if (!g2) {
+      if (++kt == n1) g2 = 1, kt = 0;
+    } else {
+      const int nc = min(CH, d_ff - cb(rot, nch));
+      if (++kt == (nc * esz + w2 - 1) / w2) g2 = 0, kt = 0, ++k;
+    }
+  }
+};
+
+template <typename T, int FMT, int DH>
+__global__ void __launch_bounds__(NT, 1) ffn_kernel_sm90(const Args a) {
+  using E = Eng<FMT>;
+  using Acc = typename E::Acc;
+  using G = G2<FMT, DH>;
+  using Tile2 = typename G::Tile;
+  constexpr int ESZ = E::ESZ, W2 = G::W2;
+  static_assert(FMT != FMT_NONE || std::is_same<T, __nv_bfloat16>::value,
+                "fmt none runs the bf16 engine");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const int d = a.d, d_ff = a.d_ff, KP = ln_bytes(ESZ, d);
+  const uint32_t lnt = ring + STAGES * SLOT;      // LN output [64][KP]
+  const uint32_t hid = lnt + BM * KP;              // hidden chunk [64][CH * ESZ]
+  unsigned char* ln_p = smem_raw + (lnt - raw);
+  unsigned char* hid_p = smem_raw + (hid - raw);
+  // b1 of the current and the next chunk, and b2, in fp32
+  float* bias1 = reinterpret_cast<float*>(hid_p + BM * CH * ESZ);
+  float* bias2 = bias1 + 2 * CH;
+
+  const int row0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5, w = warp & 3, l = tid & 31;
+  const T* h = static_cast<const T*>(a.h);
+  const T* b1 = static_cast<const T*>(a.b1);
+  const T* b2 = static_cast<const T*>(a.b2);
+  const unsigned char* w1 = static_cast<const unsigned char*>(a.w1);
+  const unsigned char* w2 = static_cast<const unsigned char*>(a.w2);
+  const int n1 = (d * ESZ + W1 - 1) / W1;
+  const int nch = (d_ff + CH - 1) / CH, rot = blockIdx.x % nch;
+
+  // the weight tile at cursor c into ring stage s (one commit group a call)
+  auto issue = [&](const Cursor& c, int s) {
+    if (c.k < nch) {
+      const uint32_t st = ring + s * SLOT;
+      const int cb = c.cb(rot, nch);
+      if (!c.g2) {
+        // w1 rows cb .. cb + CH - 1, bytes kt W1 ..
+        for (int v = tid; v < CH * (W1 / 16); v += NT) {
+          const int n = v / (W1 / 16), q = v % (W1 / 16);
+          const int kb = c.kt * W1 + 16 * q;
+          const bool ok = cb + n < d_ff && kb < d * ESZ;
+          cp_async16(st + Blk1::offset(n, q), w1 + (ok ? (size_t)(cb + n) * d * ESZ + kb : 0),
+                     ok ? 16 : 0);
+        }
+      } else {
+        // w2 rows 0 .. 2 DH - 1, bytes (cb .. cb + nc) ESZ of each
+        const int lim = min(CH, d_ff - cb) * ESZ;
+        for (int v = tid; v < 2 * DH * (W2 / 16); v += NT) {
+          const int j = v / (W2 / 16), q = v % (W2 / 16);
+          const int kb = c.kt * W2 + 16 * q;
+          const bool ok = j < d && kb < lim;
+          cp_async16(st + Tile2::offset(j, q),
+                     w2 + (ok ? (size_t)j * d_ff * ESZ + (size_t)cb * ESZ + kb : 0),
+                     ok ? 16 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  Cursor pc{0, 0, 0};
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    issue(pc, s);
+    pc.advance(n1, d_ff, ESZ, W2, rot, nch);
+  }
+
+  // b1 of the first chunk and b2 (the next chunks' b1 load during the
+  // GEMM2 tiles before them; a barrier always lies between)
+  auto load_b1 = [&](int k, int buf) {
+    if (tid < CH) {
+      const int col = Cursor{k, 0, 0}.cb(rot, nch) + tid;
+      bias1[buf * CH + tid] = col < d_ff ? to_f(b1[col]) : 0.f;
+    }
+  };
+  load_b1(0, 0);
+  for (int j = tid; j < d; j += NT) bias2[j] = to_f(b2[j]);
+
+  float sx1 = 0.f, inv1 = 0.f, sx2 = 0.f, inv2 = 0.f;
+  if constexpr (FMT != FMT_NONE) {
+    sx1 = a.scales[0];
+    inv1 = __fdiv_rn(1.f, __fmul_rn(a.scales[0], a.scales[1]));
+    sx2 = a.scales[2];
+    inv2 = __fdiv_rn(1.f, __fmul_rn(a.scales[2], a.scales[3]));
+  }
+
+  // -- 1. LayerNorm, one warp per row, the row in registers (16-byte
+  //       loads), into the K-major LN tile (zeros past d and for rows past
+  //       the end) ----------------------------------------------------------------
+  float amax_f = 0.f;
+  constexpr int VEC = 16 / (int)sizeof(T);  // elements a 16-byte load
+  constexpr int MAXC = 512 / VEC / 32;        // such groups a lane at d <= 512
+  const int ngroups = d / VEC;
+  for (int r = warp; r < BM; r += NT / 32) {
+    const int g = row0 + r;
+    const bool valid = g < a.rows;
+    float x[MAXC][VEC];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      const int c = l + 32 * i;
+      if (valid && c < ngroups) {
+        load16<T>(h + (size_t)g * d + c * VEC, x[i]);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) s += x[i][e];
+      }
+    }
+    float mean = 0.f, stdv = 1.f;
+    if (valid) {
+      mean = __fdiv_rn(warp_sum(s), (float)d);
+      float ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < MAXC; ++i) {
+        if (l + 32 * i < ngroups) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const float c = __fsub_rn(x[i][e], mean);
+            ss = __fadd_rn(ss, __fmul_rn(c, c));
+          }
+        }
+      }
+      stdv = __fadd_rn(__fsqrt_rn(__fdiv_rn(warp_sum(ss), (float)(d - 1))), a.eps);
+    }
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      const int c = l + 32 * i;
+      if (c >= ngroups) continue;
+      float fv[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        fv[e] = 0.f;
+        if (valid) {
+          const int k = c * VEC + e;
+          const float f = __fadd_rn(
+              __fmul_rn(a.ln_s[k], __fdiv_rn(__fsub_rn(x[i][e], mean), stdv)), a.ln_b[k]);
+          fv[e] = to_f(from_f<T>(f));
+          if constexpr (FMT != FMT_NONE) amax_f = fmaxf(amax_f, fabsf(fv[e]));
+        }
+      }
+      if constexpr (FMT == FMT_NONE) {
+        // 8 bf16: one 16-byte chunk of the tile
+        *reinterpret_cast<uint4*>(ln_p + Blk64::offset(r, c)) =
+            make_uint4(pack_bf16(fv[0], fv[1]), pack_bf16(fv[2], fv[3]), pack_bf16(fv[4], fv[5]),
+                       pack_bf16(fv[6], fv[7]));
+      } else {
+        uint32_t q[VEC / 4];
+#pragma unroll
+        for (int e4 = 0; e4 < VEC / 4; ++e4)
+          q[e4] = (uint32_t)q_byte<FMT>(fv[4 * e4], sx1) |
+                  ((uint32_t)q_byte<FMT>(fv[4 * e4 + 1], sx1) << 8) |
+                  ((uint32_t)q_byte<FMT>(fv[4 * e4 + 2], sx1) << 16) |
+                  ((uint32_t)q_byte<FMT>(fv[4 * e4 + 3], sx1) << 24);
+        if constexpr (VEC == 8)
+          *reinterpret_cast<uint2*>(ln_p + Blk64::byte(r, c * VEC)) = make_uint2(q[0], q[1]);
+        else
+          *reinterpret_cast<uint32_t*>(ln_p + Blk64::byte(r, c * VEC)) = q[0];
+      }
+    }
+  }
+  // K padding of the LN tile: zeros from byte d * ESZ to KP of every row
+  for (int v = tid; v < BM * ((KP - d * ESZ) / 16); v += NT) {
+    const int per = (KP - d * ESZ) / 16, r = v / per, q = d * ESZ / 16 + v % per;
+    *reinterpret_cast<uint4*>(ln_p + Blk64::offset(r, q)) = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // -- 2. the ring: per chunk, GEMM1 tiles then GEMM2 tiles --------------------
+  // this thread's two fragment rows (16 w + l / 4 and + 8) and their
+  // global ids, the dropout hash's row term
+  uint32_t grow[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) grow[hh] = global_row(a, row0 + 16 * w + (l >> 2) + 8 * hh);
+  Acc acc1[32], acc2[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc2[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc1[i] = 0;
+  float amax_a = 0.f;
+  Cursor cc{0, 0, 0};
+  for (int t = 0; cc.k < nch; ++t) {
+    cp_async_wait<STAGES - 2>();  // tile t landed (this thread's copies)
+    fence_proxy_async();          // ... and this thread's st.shared writes
+    __syncthreads();              // every thread's; stage (t - 1) % STAGES is free
+    // the next weight tile's loads are issued after this tile's wgmmas, so
+    // the tensor cores run while the threads queue the copies
+    auto refill = [&]() {
+      issue(pc, (t + STAGES - 1) % STAGES);
+      pc.advance(n1, d_ff, ESZ, W2, rot, nch);
+    };
+    const uint32_t st = ring + (t % STAGES) * SLOT;
+    const int cb = cc.cb(rot, nch), nc = min(CH, d_ff - cb);
+    if (!cc.g2) {
+      // GEMM1: this warpgroup's 64 columns of the chunk, K slice kt
+      const int ns = min(W1 / 32, (d * ESZ - cc.kt * W1 + 31) / 32);
+      auto g1 = [&](int ks) {
+        E::template mma<64>(acc1, Blk64::kmajor(lnt, 0, cc.kt * (W1 / 32) + ks),
+                            Blk1::kmajor(st, 64 * wg, ks), (cc.kt | ks) != 0);
+      };
+      wgmma_fence();
+      if (ns == W1 / 32) {  // a full tile: no condition between the wgmmas
+#pragma unroll
+        for (int ks = 0; ks < W1 / 32; ++ks) g1(ks);
+      } else {
+        for (int ks = 0; ks < ns; ++ks) g1(ks);
+      }
+      wgmma_commit();
+      refill();
+      wgmma_wait<0>();
+      fence_regs(acc1);
+      if (cc.kt == n1 - 1) {
+        // the hidden epilogue on the fragments: descale, b1, GELU, dropout,
+        // cast, amax, quantize; the chunk into the K-major hidden tile
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = 16 * w + (l >> 2) + 8 * hh, g = row0 + r;
+            const int c = 64 * wg + 8 * j + 2 * (l & 3);
+            float av[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              av[e] = 0.f;
+              if (c + e < nc) {
+                const int col = cb + c + e;
+                float v = E::f(acc1[4 * j + 2 * hh + e]);
+                if constexpr (FMT != FMT_NONE) v = to_f(from_f<T>(__fmul_rn(v, inv1)));
+                v = __fadd_rn(v, bias1[(cc.k & 1) * CH + c + e]);
+                float act = gelu_as(v);
+                if (a.drop_h) {
+                  const uint32_t idx = grow[hh] * (uint32_t)a.dff_glob + a.c0 + (uint32_t)col;
+                  act = __fmul_rn(act, keep(a.seed_h, idx, a.t_h, a.ks_h));
+                }
+                av[e] = to_f(from_f<T>(act));
+                if constexpr (FMT != FMT_NONE) {
+                  if (g < a.rows) amax_a = fmaxf(amax_a, fabsf(av[e]));
+                }
+              }
+            }
+            if constexpr (FMT == FMT_NONE) {
+              *reinterpret_cast<uint32_t*>(hid_p + Blk64::byte(r, 2 * c)) = pack_bf16(av[0], av[1]);
+            } else {
+              const uint16_t pair = (uint16_t)q_byte<FMT>(av[0], sx2) |
+                                    ((uint16_t)q_byte<FMT>(av[1], sx2) << 8);
+              *reinterpret_cast<uint16_t*>(hid_p + Blk64::byte(r, c)) = pair;
+            }
+          }
+        }
+      }
+    } else {
+      // GEMM2: out[64 x this warpgroup's DH columns] += a_chunk . w2 slice
+      if (cc.kt == 0 && cc.k + 1 < nch) load_b1(cc.k + 1, (cc.k + 1) & 1);
+      const int ns = min(W2 / 32, (nc * ESZ - cc.kt * W2 + 31) / 32);
+      auto g2 = [&](int ks) {
+        E::template mma<DH>(acc2, Blk64::kmajor(hid, 0, cc.kt * (W2 / 32) + ks),
+                            Tile2::kmajor(st, DH * wg, ks), 1);
+      };
+      wgmma_fence();
+      if (ns == W2 / 32) {
+#pragma unroll
+        for (int ks = 0; ks < W2 / 32; ++ks) g2(ks);
+      } else {
+        for (int ks = 0; ks < ns; ++ks) g2(ks);
+      }
+      wgmma_commit();
+      refill();
+      wgmma_wait<0>();
+      fence_regs(acc2);
+    }
+    cc.advance(n1, d_ff, ESZ, W2, rot, nch);
+  }
+  cp_async_wait<0>();
+
+  // -- 3. b2, connection dropout, residual, from the fragments -----------------
+  T* out = static_cast<T*>(a.out);
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * w + (l >> 2) + 8 * hh, g = row0 + r;
+      const int col = DH * wg + 8 * j + 2 * (l & 3);
+      if (g >= a.rows || col >= d) continue;
+      float o[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = E::f(acc2[4 * j + 2 * hh + e]);
+        if constexpr (FMT != FMT_NONE) v = to_f(from_f<T>(__fmul_rn(v, inv2)));
+        v = __fadd_rn(v, bias2[col + e]);
+        if (a.drop_c) {
+          const uint32_t idx = grow[hh] * (uint32_t)d + (uint32_t)(col + e);
+          v = __fmul_rn(v, keep(a.seed_o, idx, a.t_c, a.ks_c));
+        }
+        o[e] = __fadd_rn(to_f(h[(size_t)g * d + col + e]), v);
+      }
+      T* dst = out + (size_t)g * d + col;
+      if constexpr (std::is_same<T, float>::value) {
+        *reinterpret_cast<float2*>(dst) = make_float2(o[0], o[1]);
+      } else {
+        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(o[0], o[1]);
+      }
+    }
+  }
+
+  if constexpr (FMT != FMT_NONE) {
+    amax_f = warp_max(amax_f);
+    amax_a = warp_max(amax_a);
+    if (l == 0) {
+      atomicMax(reinterpret_cast<int*>(a.amax), __float_as_int(amax_f));
+      atomicMax(reinterpret_cast<int*>(a.amax) + 1, __float_as_int(amax_a));
+    }
+  }
+}
+
+template <typename T, int FMT, int DH>
+cudaError_t launch(const Args& a, cudaStream_t s) {
+  const size_t bytes = smem_bytes(Eng<FMT>::ESZ, a.d);
+  if (bytes > 232448) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(ffn_kernel_sm90<T, FMT, DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  ffn_kernel_sm90<T, FMT, DH><<<(a.rows + BM - 1) / BM, NT, bytes, s>>>(a);
+  return cudaGetLastError();
+}
+
+// the narrowest warpgroup width that holds half of d (d <= 512)
+template <typename T, int FMT>
+cudaError_t launch_d(const Args& a, cudaStream_t s) {
+  if (a.d <= 64) return launch<T, FMT, 32>(a, s);
+  if (a.d <= 128) return launch<T, FMT, 64>(a, s);
+  if (a.d <= 256) return launch<T, FMT, 128>(a, s);
+  if (a.d <= 512) return launch<T, FMT, 256>(a, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace sm90
+
+// The routing rule, by shape and type alone: the wgmma kernel (engine 1)
+// takes bf16 for every fmt and fp32 under quant up to d_model 512 (its two
+// warpgroups split d, and a 64 x 256 fp32 accumulator a warpgroup is 128
+// registers a thread); engine 0, the WMMA / FMA kernel above, takes the
+// rest.
+inline int engine_for(bool is_bf16, int fmt, int d) {
+  return d <= 512 && (is_bf16 || fmt != FMT_NONE) ? 1 : 0;
+}
+
+cudaError_t dispatch_sm90(const Args& a, bool is_bf16, int fmt, cudaStream_t s) {
+  if (is_bf16) {
+    switch (fmt) {
+      case FMT_NONE: return sm90::launch_d<__nv_bfloat16, FMT_NONE>(a, s);
+      case FMT_INT8: return sm90::launch_d<__nv_bfloat16, FMT_INT8>(a, s);
+      case FMT_E4M3: return sm90::launch_d<__nv_bfloat16, FMT_E4M3>(a, s);
+    }
+  } else {
+    switch (fmt) {
+      case FMT_INT8: return sm90::launch_d<float, FMT_INT8>(a, s);
+      case FMT_E4M3: return sm90::launch_d<float, FMT_E4M3>(a, s);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory a block needs (dtype 0 = float32, 1 = bfloat16;
-// fmt 0 = none, 1 = int8, 2 = E4M3); above 232448 the kernel cannot run.
+// The kernel a shape runs on (dtype 0 = float32, 1 = bfloat16; fmt 0 =
+// none, 1 = int8, 2 = E4M3): 1 = the wgmma kernel, 0 = the WMMA / FMA one.
+int fdt_ffn_engine(int dtype, int fmt, int d) { return engine_for(dtype == 1, fmt, d); }
+
+// Dynamic shared memory a block of that kernel needs; above 232448 it
+// cannot run.
 long long fdt_ffn_smem_bytes(int dtype, int fmt, int d) {
+  if (engine_for(dtype == 1, fmt, d))
+    return (long long)sm90::smem_bytes(fmt == FMT_NONE ? 2 : 1, d);
   return (long long)layout(engine_of(dtype == 1, fmt), d).total;
 }
 
@@ -559,6 +1074,7 @@ int fdt_fused_ffn_fwd(const void* h, const void* ln_s, const void* ln_b, const v
   a.drop_c = drop_c;
   a.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (engine_for(dtype == 1, fmt, d)) return (int)dispatch_sm90(a, dtype == 1, fmt, s);
   cudaError_t err = dtype == 1 ? dispatch_fmt<__nv_bfloat16>(a, fmt, s)
                                : dispatch_fmt<float>(a, fmt, s);
   return (int)err;

@@ -1,199 +1,264 @@
 // Quantized GEMM for Hopper (sm_90a), plain C ABI for ctypes.
 //
 // Replaces the TPU kernel faster_distributed_training_tpu/ops/quant.py::
-// quant_dot_pallas (kernel _quant_matmul_kernel :233):
+// quant_dot_pallas (def :244, pallas_call :272, kernel _quant_matmul_kernel
+// :233):
 //
 //   out[m, n] = cast_out(float(sum_k xq[m, k] * wq[n, k]) * inv),
 //   inv = 1.0f / (sx * sw)
 //
 // with xq [M, K] and wq [N, K] (nn.Linear's (out, in) layout, the JAX
 // (K, N) kernel transposed) already quantized.  int8: exact int32 sums, so
-// the result equals the plain version bit for bit.  E4M3: operands upcast
-// to fp32 and summed with FMA in fp32, as the TPU kernel upcasts and runs an
-// fp32 dot (fp8 tensor-core mma is later work).  The scales arrive as device
-// pointers, so the caller never waits on the card for them.
+// the result equals the plain version bit for bit.  E4M3: see below.  The
+// scales arrive as device pointers, so the caller never waits on the card
+// for them.
 //
 // What bounds it on this card: at the record's qkv shape (8192 x 512 ->
-// 1536, int8 operands, bf16 out) the work is 12.9 GOP against ~30 MB of
-// traffic, 6.5 us at 1,979 TOP/s and 9.0 us at 3.35 TB/s: the bytes,
-// barely.  The TPU kernel keeps wq resident in VMEM across row blocks;
-// here wq stays in the 50 MB L2 and every block re-reads its tiles.
+// 1536, 8-bit operands, bf16 out) the work is 12.9 GOP against ~30 MB of
+// traffic (25 MB of it the bf16 output), 6.5 us at 1,979 TOP/s and 9.0 us
+// at 3.35 TB/s: the bytes, barely, so the kernel must reach the 8-bit
+// tensor-core rate and write the output in full 16-byte rows.
 //
-// Design, int8: one block per 64 x 64 output tile, four warps of 32 x 32
-// (2 x 2 WMMA s8 m16n16k16 fragments, int32 accumulators), K in steps of
-// 64 staged through shared memory.  WMMA wants 256-bit aligned fragment
-// pointers, which a row-major int8 tile at k offset 16 cannot give, so the
-// operands are staged tile-major: each 16 x 16 tile is 256 contiguous
-// bytes with a leading dimension of 16.  The int32 tile goes through
-// shared memory to the epilogue (convert, descale, cast).  E4M3: one block
-// per 64 x 64 tile, 256 threads of 4 x 4 outputs, K in steps of 16 staged
-// as fp32.  No pipelining, no wgmma: the simple, correct version.
+// Design: one templated wgmma GEMM over the 8-bit operand type (s8 with
+// s32 accumulators, E4M3 with fp32 accumulators).  One block of two
+// consumer warpgroups per 128 x 128 output tile (64 rows each, wgmma
+// m64n128k32); both operands are K-major in shared memory (8-bit wgmma has
+// no transpose bit, and xq and wq are both K-major already, so no
+// transposed copy exists), in 128-byte K slices through a three-stage
+// cp.async ring (SwTileB in csrc/sm90.cuh, the swizzle the descriptors
+// name).  96 KB of shared memory and at most 128 registers a thread let
+// two blocks share an SM, so one block's epilogue overlaps the other's
+// loads.  The epilogue descales and casts in registers, stages the tile in
+// shared memory and stores it as 16-byte rows.  Edges: rows past M or N
+// and bytes past K load as zeros (cp.async with source size 0), so a K with
+// K % 32 == 16 zero-fills the last k32 step; the epilogue masks ragged M
+// and N.
+//
+// E4M3 accumulation: Hopper's fp8 wgmma does not add at full fp32
+// precision (about 14 bits are kept, DeepSeek-V3 report section 3.3.2):
+// one k32 step alone errs by ~7e-5 of max |plain| on this card, and
+// promoting partial sums into fp32 registers as often as every k32 step
+// still missed the 1e-5 that fp32 output is held to (PERF.md, PR 6).  So
+// the C entry picks the E4M3 route by output type:
+//   * bf16 output (held to 2e-2; the training and serving path): fp8
+//     wgmma, partial sums in the tensor cores at ~14 bits.  It errs by
+//     0.0038-0.0057 of max |plain| at the smoke's shapes (PERF.md);
+//   * fp32 output (1e-5): the E4M3 operands upcast exactly to bf16 in
+//     shared memory and bf16 wgmma k16 with fp32 accumulators, which sum
+//     exactly as the plain version does up to order: half the fp8 rate,
+//     synchronous loads, one block an SM; it serves the fp32 checks, not
+//     the training path.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64;
+constexpr int BM = 128, BN = 128;
+constexpr int BK = 128;  // bytes (8-bit values) of K a stage
+constexpr int STAGES = 3;
+constexpr int NT = 256;  // two warpgroups
+using Tile = SwTileB<BK, BM>;
+constexpr int STAGE_BYTES = 2 * Tile::BYTES;  // A and B, 32 KB
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + base alignment
 
-// -- int8: WMMA s8 ------------------------------------------------------------
-constexpr int BK8 = 64;
-constexpr int NT8 = 128;
-constexpr int CS = BN + 4;  // int32 epilogue tile stride
+enum { FMT_INT8 = 0, FMT_E4M3 = 1 };
+using Tile16 = SwTileB<2 * BK, BM>;  // the upcast route's bf16 tiles, 32 KB each
 
-template <typename T>
-__global__ void __launch_bounds__(NT8)
-    qmm_int8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
+// 16 E4M3 bytes -> 16 bf16 values (exact) as two 16-byte chunks
+__device__ __forceinline__ void upcast16(const uint4& v, uint4& lo, uint4& hi) {
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    __nv_fp8_e4m3 x0, x1;
+    x0.__x = b[2 * i];
+    x1.__x = b[2 * i + 1];
+    w[i] = pack_bf16(static_cast<float>(x0), static_cast<float>(x1));
+  }
+  lo = make_uint4(w[0], w[1], w[2], w[3]);
+  hi = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+template <int FMT>
+struct Engine;
+template <>
+struct Engine<FMT_INT8> {
+  using Acc = int;
+  static __device__ __forceinline__ void mma(int (&d)[64], uint64_t da, uint64_t db, int acc) {
+    WgmmaS8<BN>::ss(d, da, db, acc);
+  }
+  static __device__ __forceinline__ float to_float(int v) { return __int2float_rn(v); }
+};
+template <>
+struct Engine<FMT_E4M3> {
+  using Acc = float;
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+    WgmmaE4M3<BN>::ss(d, da, db, acc);
+  }
+  static __device__ __forceinline__ float to_float(float v) { return v; }
+};
+
+// UPCAST: E4M3 operands upcast to bf16 and bf16 wgmma (the fp32-output route)
+template <typename T, int FMT, bool UPCAST>
+__global__ void __launch_bounds__(NT, UPCAST ? 1 : 2)
+    qmm_kernel_sm90(const uint8_t* __restrict__ xq, const uint8_t* __restrict__ wq,
                     const float* __restrict__ sx, const float* __restrict__ sw,
                     T* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(128) int8_t As[BM * BK8];
-  __shared__ __align__(128) int8_t Bs[BN * BK8];
-  __shared__ __align__(128) int Cs[BM * CS];
+  using E = Engine<FMT>;
+  using Acc = typename E::Acc;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3, l = tid & 31;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  constexpr int KT = BK8 / 16;
+  const int KT = (K + BK - 1) / BK;
+  const int nsteps = (K + 31) / 32;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
+  // K slice kt of A (rows m0..) and B (rows n0..) into its ring stage;
+  // one commit group per call, empty past the end
+  auto issue = [&](int kt) {
+    if (kt < KT) {
+      const uint32_t st = base + (kt % STAGES) * STAGE_BYTES;
+      const int k0 = kt * BK;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  for (int k0 = 0; k0 < K; k0 += BK8) {
-    __syncthreads();
-    // 64 rows x 4 sixteen-byte pieces of each operand; piece (r, q) lands
-    // in tile (r / 16, q) at row r % 16
-    for (int v = tid; v < 2 * BM * KT; v += NT8) {
-      const bool is_b = v >= BM * KT;
-      const int u = is_b ? v - BM * KT : v;
-      const int r = u / KT, q = u % KT, k = k0 + 16 * q;
-      const int g = (is_b ? n0 : m0) + r;
-      const int lim = is_b ? N : M;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (g < lim && k < K)
-        val = *reinterpret_cast<const uint4*>((is_b ? wq : xq) + (size_t)g * K + k);
-      int8_t* dst = (is_b ? Bs : As) + ((r >> 4) * KT + q) * 256 + (r & 15) * 16;
-      *reinterpret_cast<uint4*>(dst) = val;
+      for (int i = 0; i < 2 * BM * (BK / 16) / NT; ++i) {
+        const int v = tid + i * NT;
+        const bool is_b = v >= BM * (BK / 16);
+        const int u = is_b ? v - BM * (BK / 16) : v;
+        const int r = u / (BK / 16), c = u % (BK / 16);
+        const int g = (is_b ? n0 : m0) + r, k = k0 + 16 * c;
+        const bool ok = g < (is_b ? N : M) && k < K;
+        const uint8_t* src = (is_b ? wq : xq) + (ok ? (size_t)g * K + k : 0);
+        cp_async16(st + (is_b ? Tile::BYTES : 0) + Tile::offset(r, c), src, ok ? 16 : 0);
+      }
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+
+  Acc acc[64];
 #pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+
+  if constexpr (UPCAST) {
+    // synchronous: 16 E4M3 bytes from global -> 16 bf16 in the stage
     for (int kt = 0; kt < KT; ++kt) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb[2];
+      const int k0 = kt * BK;
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + ((2 * wm + i) * KT + kt) * 256, 16);
+      for (int i = 0; i < 2 * BM * (BK / 16) / NT; ++i) {
+        const int v = tid + i * NT;
+        const bool is_b = v >= BM * (BK / 16);
+        const int u = is_b ? v - BM * (BK / 16) : v;
+        const int r = u / (BK / 16), c = u % (BK / 16);
+        const int g = (is_b ? n0 : m0) + r, k = k0 + 16 * c;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (g < (is_b ? N : M) && k < K)
+          val = *reinterpret_cast<const uint4*>((is_b ? wq : xq) + (size_t)g * K + k);
+        uint4 lo, hi;
+        upcast16(val, lo, hi);
+        unsigned char* dst = smem + (is_b ? Tile16::BYTES : 0);
+        *reinterpret_cast<uint4*>(dst + Tile16::offset(r, 2 * c)) = lo;
+        *reinterpret_cast<uint4*>(dst + Tile16::offset(r, 2 * c + 1)) = hi;
+      }
+      fence_proxy_async();
+      __syncthreads();
+      const int ns = min(BK / 16, (K - k0) / 16);
+      auto mma16 = [&](int ks) {
+        Wgmma<BN>::ss(acc, Tile16::kmajor(base, 64 * wg, ks),
+                      Tile16::kmajor(base + Tile16::BYTES, 0, ks), 1);
+      };
+      wgmma_fence();
+      if (ns == BK / 16) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + ((2 * wn + j) * KT + kt) * 256, 16);
+        for (int ks = 0; ks < BK / 16; ++ks) mma16(ks);
+      } else {
+        for (int ks = 0; ks < ns; ++ks) mma16(ks);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncthreads();  // the stage is rewritten next
+    }
+  } else {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int s = 0; s < STAGES - 1; ++s) issue(s);
+    for (int kt = 0; kt < KT; ++kt) {
+      cp_async_wait<STAGES - 2>();  // slice kt landed (this thread's copies)
+      fence_proxy_async();
+      __syncthreads();              // ... every thread's; slice kt - 1's stage is free
+      const uint32_t a = base + (kt % STAGES) * STAGE_BYTES, b = a + Tile::BYTES;
+      const int ns = min(BK / 32, nsteps - kt * (BK / 32));
+      wgmma_fence();
+      if (ns == BK / 32) {
+        // a full slice: no condition between the wgmmas
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+        for (int ks = 0; ks < BK / 32; ++ks)
+          E::mma(acc, Tile::kmajor(a, 64 * wg, ks), Tile::kmajor(b, 0, ks), 1);
+        wgmma_commit();
+        issue(kt + STAGES - 1);  // the next slice's copies queue while the tensor cores run
+      } else {
+        issue(kt + STAGES - 1);
+#pragma unroll
+        for (int ks = 0; ks < BK / 32; ++ks)
+          if (ks < ns) E::mma(acc, Tile::kmajor(a, 64 * wg, ks), Tile::kmajor(b, 0, ks), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    cp_async_wait<0>();
+  }
+  __syncthreads();  // every warpgroup is done with the ring: reuse it
+
+  // epilogue: descale + cast in registers, the tile through shared memory
+  // (rows padded by 16 bytes), then 16-byte row stores
+  constexpr int OP = BN * (int)sizeof(T) + 16;
+  const float inv = __fdiv_rn(1.0f, __fmul_rn(sx[0], sw[0]));
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * wg + 16 * w + (l >> 2) + 8 * h, c = 8 * j + 2 * (l & 3);
+      T* dst = reinterpret_cast<T*>(smem + r * OP) + c;
+      dst[0] = from_f<T>(__fmul_rn(E::to_float(acc[4 * j + 2 * h]), inv));
+      dst[1] = from_f<T>(__fmul_rn(E::to_float(acc[4 * j + 2 * h + 1]), inv));
     }
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (32 * wm + 16 * i) * CS + 32 * wn + 16 * j, acc[i][j], CS,
-                              wmma::mem_row_major);
   __syncthreads();
-  const float inv = __fdiv_rn(1.0f, __fmul_rn(sx[0], sw[0]));
-  for (int e = tid; e < BM * BN; e += NT8) {
-    const int r = e / BN, c = e % BN, m = m0 + r, n = n0 + c;
-    if (m < M && n < N)
-      out[(size_t)m * N + n] = from_f<T>(__fmul_rn(__int2float_rn(Cs[r * CS + c]), inv));
-  }
-}
-
-// -- E4M3: fp32 FMA -------------------------------------------------------------
-constexpr int BKF = 16;
-constexpr int NTF = 256;
-constexpr int FS = BM + 4;  // fp32 operand tile stride ([k][row])
-
-__device__ __forceinline__ float e4m3_to_f(uint8_t b) {
-  __nv_fp8_e4m3 v;
-  v.__x = b;
-  return static_cast<float>(v);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTF)
-    qmm_e4m3_kernel(const uint8_t* __restrict__ xq, const uint8_t* __restrict__ wq,
-                    const float* __restrict__ sx, const float* __restrict__ sw,
-                    T* __restrict__ out, int M, int N, int K) {
-  __shared__ float As[BKF * FS];
-  __shared__ float Bs[BKF * FS];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BKF) {
-    __syncthreads();
-    if (tid < 2 * BM) {
-      // one 16-byte row piece of A (threads 0..63) or B (64..127)
-      const bool is_b = tid >= BM;
-      const int r = is_b ? tid - BM : tid;
-      const int g = (is_b ? n0 : m0) + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (g < (is_b ? N : M))
-        val = *reinterpret_cast<const uint4*>((is_b ? wq : xq) + (size_t)g * K + k0);
-      const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&val);
-      float* dst = is_b ? Bs : As;
-#pragma unroll
-      for (int k = 0; k < BKF; ++k) dst[k * FS + r] = e4m3_to_f(bytes[k]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BKF; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k * FS + 4 * ty + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k * FS + 4 * tx + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-  const float inv = __fdiv_rn(1.0f, __fmul_rn(sx[0], sw[0]));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * ty + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * tx + j;
-      if (m < M && n < N) out[(size_t)m * N + n] = from_f<T>(__fmul_rn(acc[i][j], inv));
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements a 16-byte chunk
+  constexpr int CPR = BN / EPC;
+  const bool vec = ((size_t)N * sizeof(T)) % 16 == 0;
+  for (int v = tid; v < BM * CPR; v += NT) {
+    const int r = v / CPR, q = v % CPR, m = m0 + r, n = n0 + q * EPC;
+    if (m >= M || n >= N) continue;
+    const unsigned char* src = smem + r * OP + q * 16;
+    T* dst = out + (size_t)m * N + n;
+    if (vec && n + EPC <= N) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < EPC && n + e < N; ++e) dst[e] = reinterpret_cast<const T*>(src)[e];
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* xq, const void* wq, const float* sx, const float* sw, void* out,
-                   int fmt, int M, int N, int K, cudaStream_t s) {
+template <typename T, int FMT, bool UPCAST>
+cudaError_t launch_one(const void* xq, const void* wq, const float* sx, const float* sw,
+                       void* out, int M, int N, int K, cudaStream_t s) {
+  auto* kern = qmm_kernel_sm90<T, FMT, UPCAST>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if (fmt == 0)
-    qmm_int8_kernel<T><<<grid, NT8, 0, s>>>(static_cast<const int8_t*>(xq),
-                                            static_cast<const int8_t*>(wq), sx, sw,
-                                            static_cast<T*>(out), M, N, K);
-  else
-    qmm_e4m3_kernel<T><<<grid, NTF, 0, s>>>(static_cast<const uint8_t*>(xq),
-                                            static_cast<const uint8_t*>(wq), sx, sw,
-                                            static_cast<T*>(out), M, N, K);
+  kern<<<grid, NT, SMEM_BYTES, s>>>(static_cast<const uint8_t*>(xq),
+                                    static_cast<const uint8_t*>(wq), sx, sw,
+                                    static_cast<T*>(out), M, N, K);
   return cudaGetLastError();
 }
 
@@ -202,20 +267,29 @@ cudaError_t launch(const void* xq, const void* wq, const float* sx, const float*
 extern "C" {
 
 // fmt: 0 = int8, 1 = E4M3.  out_dtype: 0 = float32, 1 = bfloat16.
-// xq [M, K], wq [N, K] contiguous and 16-byte aligned, K % 16 == 0; sx, sw
-// one fp32 each on the device; out [M, N].
+// E4M3 to fp32 takes the exact upcast route, E4M3 to bf16 fp8 wgmma (see
+// the note at the top).  xq [M, K], wq [N, K] contiguous and 16-byte
+// aligned, K % 16 == 0; sx, sw one fp32 each on the device; out [M, N].
 int fdt_quant_matmul(const void* xq, const void* wq, const void* sx, const void* sw, void* out,
                      int fmt, int out_dtype, int M, int N, int K, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || (fmt != 0 && fmt != 1))
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || (fmt != FMT_INT8 && fmt != FMT_E4M3))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(sx);
   const float* b = static_cast<const float*>(sw);
-  cudaError_t err = out_dtype == 1
-                        ? launch<__nv_bfloat16>(xq, wq, a, b, out, fmt, M, N, K, s)
-                        : launch<float>(xq, wq, a, b, out, fmt, M, N, K, s);
+  cudaError_t err;
+  if (out_dtype == 1)
+    err = fmt == FMT_INT8
+              ? launch_one<__nv_bfloat16, FMT_INT8, false>(xq, wq, a, b, out, M, N, K, s)
+              : launch_one<__nv_bfloat16, FMT_E4M3, false>(xq, wq, a, b, out, M, N, K, s);
+  else
+    err = fmt == FMT_INT8 ? launch_one<float, FMT_INT8, false>(xq, wq, a, b, out, M, N, K, s)
+                          : launch_one<float, FMT_E4M3, true>(xq, wq, a, b, out, M, N, K, s);
   return (int)err;
 }
+
+// dynamic shared memory a block takes (the same for every instantiation)
+long long fdt_qmm_smem_bytes() { return (long long)SMEM_BYTES; }
 
 const char* fdt_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,4 +1,5 @@
-"""Text cleaning and tokenizer resolution for the LM corpus writer.
+"""Text cleaning and tokenizer resolution for the AG News reader and the
+LM corpus writer.
 
 Copies of what ``faster_distributed_training_tpu/data/agnews.py`` gives
 the stream corpus writer: the reference's cleaner (HTML tags and URLs
@@ -10,8 +11,7 @@ one.  The ladder's first step, HuggingFace's ``bert-base-uncased`` when
 cached locally, is not ported (it needs ``transformers``, which the port
 does not depend on): a real ``vocab.txt`` on disk comes first here, then
 the corpus-trained WordPiece vocab cached beside the data, then the hash
-tokenizer.  The AG News CSV reader itself waits for the CSVs in the
-repository.
+tokenizer.  ``data/agnews.py`` reads the AG News CSVs with them.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import html
 import os
 import re
 import zlib
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 _TAG_RE = re.compile(r"<[^>]+>")
 _URL_RE = re.compile(r"https?://\S+|www\.\S+")
@@ -95,6 +95,12 @@ class HashTokenizer:
         return ids
 
 
+# corpus-trained tokenizers by data_dir: the train split builds the vocab
+# and the test split of the same run must reuse it even when the disk
+# cache cannot be written
+_corpus_tokenizers: Dict[str, object] = {}
+
+
 def _resolve_tokenizer(data_dir: str, corpus_texts: Sequence[str],
                        log=print):
     """The tokenizer a corpus is written with: a real bert ``vocab.txt``
@@ -117,10 +123,14 @@ def _resolve_tokenizer(data_dir: str, corpus_texts: Sequence[str],
                              f"wordpiece_vocab_{cleaner_fingerprint()}.txt")
         if os.path.isfile(cache):
             return WordPieceTokenizer.from_vocab_file(cache)
+        memo = _corpus_tokenizers.get(os.path.abspath(data_dir))
+        if memo is not None:
+            return memo
     if not corpus_texts:
         return HashTokenizer()
     tk = WordPieceTokenizer(build_wordpiece_vocab(corpus_texts))
     if cache:
+        _corpus_tokenizers[os.path.abspath(data_dir)] = tk
         try:
             os.makedirs(os.path.dirname(cache), exist_ok=True)
             tk.save_vocab(cache)

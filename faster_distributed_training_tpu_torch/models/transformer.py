@@ -53,7 +53,8 @@ from faster_distributed_training_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_qkv)
 from faster_distributed_training_tpu_torch.ops.fused_ffn import (
     ffn_core_generalized, fused_ffn_sublayer)
-from faster_distributed_training_tpu_torch.ops.fused_mlp import fused_mlp
+from faster_distributed_training_tpu_torch.ops.fused_mlp import (
+    fused_mlp, mlp_reference)
 from faster_distributed_training_tpu_torch.ops.layernorm import (
     torch_layernorm, torch_layernorm_f32)
 from faster_distributed_training_tpu_torch.ops.quant import (
@@ -122,6 +123,49 @@ def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
     return pe
 
 
+class _Lookup(torch.autograd.Function):
+    """``table[idx]`` whose backward sums the cotangent rows of each index
+    in a fixed order: a stable sort of the indices, an fp64 running sum
+    over the sorted rows, and each index's total as the difference across
+    its run, written once to its row.  Bitwise the same from launch to
+    launch on the card, where ``F.embedding``'s backward was not for
+    repeated indices (``chip_smoke.py`` holds two identical training steps
+    bitwise equal)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return F.embedding(idx, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        n = flat.numel()
+        srt, perm = torch.sort(flat, stable=True)
+        # running sums along the last dimension ([d, n]: torch's fast scan)
+        run = torch.cumsum(g.reshape(n, -1)[perm].double().t().contiguous(),
+                           dim=1)
+        first = torch.ones_like(flat, dtype=torch.bool)
+        first[1:] = srt[1:] != srt[:-1]
+        last = torch.ones_like(first)
+        last[:-1] = first[1:]
+        pos = torch.arange(n, device=flat.device)
+        start = torch.where(first, pos, 0).cummax(0).values
+        before = run.index_select(1, (start - 1).clamp(min=0))
+        before.mul_((start > 0).to(before.dtype))
+        run.sub_(before)
+        del before
+        # each run's last row carries its total; every other row goes to a
+        # spare row past the table, dropped below
+        rows = torch.where(last, srt, ctx.n_rows)
+        out = torch.zeros(ctx.n_rows + 1, g.shape[-1], dtype=g.dtype,
+                          device=g.device)
+        out.index_put_((rows,), run.t().to(g.dtype))
+        return out[:ctx.n_rows], None
+
+
 class Embeddings(nn.Module):
     """token + learned-position + segment embeddings scaled by
     sqrt(d_model); tables and the sum stay fp32."""
@@ -136,10 +180,10 @@ class Embeddings(nn.Module):
     def forward(self, x: torch.Tensor, token_types: torch.Tensor
                 ) -> torch.Tensor:
         L = x.shape[1]
-        tokens = F.embedding(x, self.token_embedding).float()
+        tokens = _Lookup.apply(self.token_embedding, x).float()
         positions = self.pos_embedding[None, :L, :].float()
-        segments = F.embedding(token_types[:, :L],
-                               self.segment_embedding).float()
+        segments = _Lookup.apply(self.segment_embedding,
+                                 token_types[:, :L]).float()
         return (tokens + positions + segments) * math.sqrt(self.d_model)
 
 
@@ -316,9 +360,12 @@ class Transformer(nn.Module):
                  dtype=torch.float32, param_dtype=torch.float32,
                  attention_impl: str = "dense", ffn_impl: str = "flax",
                  quant=None, lm_head: bool = False,
-                 tie_lm_head: bool = False):
+                 tie_lm_head: bool = False, mlp_impl: str = "fused"):
         super().__init__()
         self.h = h
+        # "naive": the classifier MLP as plain autograd of its plain
+        # version (the JAX --mlp_impl naive arm); else the kernel's Function
+        self.mlp_impl = mlp_impl
         self.dtype = dtype
         self.drop_enc = dropout_encodings
         self.drop_pool = dropout_pooler
@@ -441,9 +488,11 @@ class Transformer(nn.Module):
         pooled = _dropout(pooled, self.drop_pool, train, seeds)
         dt = self.dtype
 
+        mlp = mlp_reference if self.mlp_impl == "naive" else fused_mlp
+
         def classify(z):
-            return fused_mlp(z.to(dt), self.cls_w1.to(dt), self.cls_b1.to(dt),
-                             self.cls_w2.to(dt), self.cls_b2.to(dt)).float()
+            return mlp(z.to(dt), self.cls_w1.to(dt), self.cls_b1.to(dt),
+                       self.cls_w2.to(dt), self.cls_b2.to(dt)).float()
 
         if not train:
             return classify(pooled)

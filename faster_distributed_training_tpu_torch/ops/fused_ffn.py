@@ -7,13 +7,16 @@ Counterpart of ``faster_distributed_training_tpu/ops/fused_ffn.py``:
 
 in one kernel per call (``csrc/fused_ffn.cu``, which replaces both
 ``_ffn_fwd_pallas`` and ``_ffn_fwd_pallas2``), with every intermediate
-kept on chip.  LN is TorchLayerNorm in fp32, GELU the exact form through
-the A&S 7.1.26 erf polynomial (``_erf_f32``, shared with the plain
-versions so the recompute backward sees the forward's activations), both
-dropout sites the stateless hash stream of ``ops/dropout.py`` addressed by
-global row id.  Under quant the two GEMMs run on int8/E4M3 operands at
-delayed scales: the LN output and the hidden activation are quantized in
-the kernel, the weights once per call here, and the kernel returns
+kept on chip: the ``wgmma`` kernel for bf16 and for fp32 under quant up to
+d_model 512, the WMMA / FMA kernel otherwise, routed by shape and type in
+the kernel's C entry (``ffn_engine`` asks it).  LN is TorchLayerNorm in
+fp32, GELU the exact form through the A&S 7.1.26 erf polynomial
+(``_erf_f32``, shared with the plain versions so the recompute backward
+sees the forward's activations), both dropout sites the stateless hash
+stream of ``ops/dropout.py`` addressed by global row id.  Under quant the
+two GEMMs run on int8/E4M3 operands at delayed scales: the LN output and
+the hidden activation are quantized in the kernel, the weights once per
+call here, and the kernel returns
 [amax_f, amax_a] for the history roll.
 
 Weights are in ``nn.Linear``'s layout: w1 [d_ff, d], w2 [d, d_ff].  For
@@ -162,6 +165,8 @@ def _lib() -> ctypes.CDLL:
             [p] * 10 + [i] * 5 + [u] * 5 + [i] * 3
             + [u, f, i, u, f, i, f, p])
         lib.fdt_fused_ffn_fwd.restype = ctypes.c_int
+        lib.fdt_ffn_engine.argtypes = [i, i, i]
+        lib.fdt_ffn_engine.restype = ctypes.c_int
         lib.fdt_ffn_smem_bytes.argtypes = [i, i, i]
         lib.fdt_ffn_smem_bytes.restype = ctypes.c_longlong
     return lib
@@ -173,6 +178,16 @@ def _dropout_args(rate: float):
         return 0, 0.0, 0
     t = _thresh_u16(rate)
     return t, (float(np.float32(_GRID / t)) if t > 0 else 0.0), 1
+
+
+def ffn_engine(dtype, fmt, d: int) -> str:
+    """Which kernel of ``csrc/fused_ffn.cu`` a shape runs on, as its C
+    entry routes it (by shape and type alone): "sm90" (wgmma: bf16 for
+    every fmt, fp32 under quant) up to d_model 512; "wmma" (``ffn_kernel``:
+    FMA for fp32 without quant, WMMA bf16 / s8 and FMA E4M3 above d_model
+    512) otherwise.  Builds the kernel library on first use."""
+    return ("wmma", "sm90")[_lib().fdt_ffn_engine(_DTYPES[dtype],
+                                                 _FMT_CODES[fmt], d)]
 
 
 def _check_inputs(h2d, ln_scale, ln_bias, w1, b1, w2, b2, fmt):

@@ -10,10 +10,16 @@ Counterpart of ``faster_distributed_training_tpu/ops/quant.py``:
     the format's finite max, one round-to-nearest-even cast) and
     ``dequantize``;
   * ``quant_matmul``: out = cast((xq . wq^T) * 1/(sx*sw)) with int32
-    accumulation for int8 and fp32 for E4M3.  On CUDA tensors it launches
-    ``csrc/quant_matmul.cu`` (replaces ``quant_dot_pallas``); on CPU
-    tensors it runs ``quant_dot_reference``.  Any other device raises;
-    there is no VMEM-style fallback;
+    accumulation for int8.  On CUDA tensors it launches
+    ``csrc/quant_matmul.cu`` (replaces ``quant_dot_pallas``: one 8-bit
+    ``wgmma`` GEMM, s8 or E4M3); on CPU tensors it runs
+    ``quant_dot_reference``, which sums E4M3 in fp32.  On the card, E4M3
+    with fp32 output sums in fp32 too (operands upcast exactly to bf16,
+    bf16 ``wgmma``), but E4M3 with bf16 output, the training and serving
+    route, accumulates in fp8 ``wgmma``, which keeps about 14 bits of the
+    partial sums: 0.0038-0.0057 of max |plain| at the smoke's shapes
+    (``PERF.md``), against the 2e-2 it is held to.  Any other device
+    raises; there is no VMEM-style fallback;
   * ``quant_dot``: an autograd Function that quantizes both operands once,
     saves the QUANTIZED operands and the scales, and in its backward runs
     the straight-through estimator on the dequantized operands (or, with
@@ -162,6 +168,8 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fdt_quant_matmul.argtypes = [p] * 5 + [i] * 5 + [p]
         lib.fdt_quant_matmul.restype = ctypes.c_int
+        lib.fdt_qmm_smem_bytes.argtypes = []
+        lib.fdt_qmm_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -174,7 +182,9 @@ def quant_matmul(xq: torch.Tensor, wq: torch.Tensor, sx, sw, fmt: str,
                  out_dtype) -> torch.Tensor:
     """xq [M, K], wq [N, K] (int8, or float8_e4m3fn for fmt "fp8"); sx,
     sw fp32 scalars (tensors stay on the device).  The kernel on CUDA,
-    the plain version on the CPU."""
+    the plain version on the CPU.  The kernel picks E4M3's accumulation
+    by ``out_dtype``: exact fp32 sums for float32, fp8 ``wgmma`` sums
+    (about 14 bits) for bfloat16."""
     if xq.device.type == "cpu":
         return quant_dot_reference(xq, wq, sx, sw, fmt, out_dtype)
     if xq.device.type != "cuda":

@@ -8,6 +8,9 @@ best_acc, step) and a ``COMMIT`` marker.  Each file is written to a
 temporary name and renamed; the marker is removed first and written
 last, so its presence means everything before it is complete — the idiom
 of the JAX package's ``train/checkpoint.py::save_pytree_checkpoint``.
+Step-cadence checkpoints form a series named by global step,
+``<name>_<step:09d>`` (``series_member``); reading a series by its name
+(``read_meta(d, "transformer_step")``) reads its newest committed member.
 Reading the JAX package's Orbax checkpoints is not ported yet.
 """
 
@@ -15,8 +18,10 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -34,6 +39,54 @@ def ckpt_dir(checkpoint_dir: str, name: str) -> str:
 def has_checkpoint(checkpoint_dir: str, name: str) -> bool:
     return os.path.exists(os.path.join(ckpt_dir(checkpoint_dir, name),
                                        _COMMIT))
+
+
+def series_member(series: str, step: int) -> str:
+    """The name of a step-cadence checkpoint: the series and the global
+    step."""
+    return f"{series}_{int(step):09d}"
+
+
+def series_members(checkpoint_dir: str, series: str,
+                   committed: bool = True) -> List[Tuple[int, str]]:
+    """(step, name) of the series' members, oldest first; with
+    ``committed`` only those whose COMMIT marker is written."""
+    root = os.path.abspath(checkpoint_dir)
+    if not os.path.isdir(root):
+        return []
+    pat = re.compile(re.escape(series) + r"_(\d{9})$")
+    out = []
+    for name in os.listdir(root):
+        m = pat.match(name)
+        if m and (not committed or has_checkpoint(checkpoint_dir, name)):
+            out.append((int(m.group(1)), name))
+    return sorted(out)
+
+
+def resolve(checkpoint_dir: str, name: str) -> str:
+    """``name`` itself when it is a committed checkpoint, else the newest
+    committed member of the series ``name`` (``name`` when there is
+    none)."""
+    if has_checkpoint(checkpoint_dir, name):
+        return name
+    members = series_members(checkpoint_dir, name)
+    return members[-1][1] if members else name
+
+
+def prune_series(checkpoint_dir: str, series: str, keep: int) -> List[str]:
+    """Keep the newest ``keep`` committed members of the series; remove
+    older committed ones and any uncommitted residue older than the
+    newest committed member.  Returns the names removed."""
+    committed = series_members(checkpoint_dir, series)
+    doomed = [n for _, n in committed[:-max(int(keep), 1)]]
+    if committed:
+        newest = committed[-1][0]
+        doomed += [n for s, n in series_members(checkpoint_dir, series,
+                                                committed=False)
+                   if s < newest and not has_checkpoint(checkpoint_dir, n)]
+    for n in doomed:
+        shutil.rmtree(ckpt_dir(checkpoint_dir, n), ignore_errors=True)
+    return doomed
 
 
 def _replace_atomically(path: str, write) -> None:
@@ -80,6 +133,7 @@ def save_checkpoint(checkpoint_dir: str, name: str, state: TrainState,
 
 def read_meta(checkpoint_dir: str, name: str) -> Dict[str, Any]:
     """meta.json of a committed checkpoint ({} when there is none)."""
+    name = resolve(checkpoint_dir, name)
     if not has_checkpoint(checkpoint_dir, name):
         return {}
     with open(os.path.join(ckpt_dir(checkpoint_dir, name), _META)) as f:
@@ -104,6 +158,7 @@ def restore_checkpoint(checkpoint_dir: str, name: str, state: TrainState
                        ) -> Tuple[TrainState, Dict[str, Any]]:
     """Restore into ``state`` in place (tensors stay on their devices).
     Returns (state, meta)."""
+    name = resolve(checkpoint_dir, name)
     if not has_checkpoint(checkpoint_dir, name):
         raise FileNotFoundError(f"no committed checkpoint {name!r} under "
                                 f"{checkpoint_dir}")

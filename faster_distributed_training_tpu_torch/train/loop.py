@@ -1,7 +1,10 @@
 """The Trainer's K=1 host loop (the JAX package's ``train/loop.py``):
 ``run_epoch``, ``evaluate``, ``fit`` with the best-accuracy epoch
-checkpoint, step-cadence checkpoints (``--checkpoint_every``) and
-``maybe_resume``.  A mid-epoch resume starts the epoch's loader at the
+checkpoint, step-cadence checkpoints (``--checkpoint_every`` steps and/or
+``--checkpoint_every_secs`` of wall clock, whichever fires first; named
+by global step, the newest ``--checkpoint_keep`` committed ones kept,
+older ones removed only after the new one commits) and ``maybe_resume``
+(the newer of the epoch checkpoint and the newest committed step one).  A mid-epoch resume starts the epoch's loader at the
 first batch the checkpoint had not trained: the loader's order is a pure
 function of (seed, epoch) and the step draws of (seed, step), so the
 remainder replays exactly, and the skipped batches are never built.
@@ -20,6 +23,9 @@ from faster_distributed_training_tpu_torch.train.metrics import (
     MetricAccumulator, perplexity)
 from faster_distributed_training_tpu_torch.train.state import TrainState
 from faster_distributed_training_tpu_torch.train.steps import to_device
+
+# the wall clock of the --checkpoint_every_secs cadence
+cadence_clock = time.monotonic
 
 LoaderFn = Callable[[int], Iterable]
 # (epoch, first batch) -> that epoch's batches from the first one on
@@ -40,6 +46,7 @@ class Trainer:
         self.log = log
         self.best_acc = 0.0
         self.global_step = 0
+        self._last_save_t = cadence_clock()
         self.history: Dict[str, list] = {
             "train_acc": [], "train_loss": [], "test_acc": [],
             "test_loss": [], "epoch_time": [], "peak_mem_bytes": []}
@@ -50,7 +57,28 @@ class Trainer:
             self.history["test_ppl"] = []
 
     def _step_ckpt_name(self, ckpt_name: str) -> str:
+        """The step checkpoints' series name."""
         return ckpt_name + "_step"
+
+    def _cadence_due(self) -> bool:
+        cfg = self.cfg
+        if cfg.checkpoint_every and self.global_step % cfg.checkpoint_every == 0:
+            return True
+        return bool(cfg.checkpoint_every_secs) and (
+            cadence_clock() - self._last_save_t >= cfg.checkpoint_every_secs)
+
+    def _save_step(self, state: TrainState, ckpt_name: str, epoch: int,
+                   step_in_epoch: int) -> None:
+        """One step checkpoint, named by the global step; then the series
+        is pruned to the newest --checkpoint_keep committed members."""
+        cfg = self.cfg
+        series = self._step_ckpt_name(ckpt_name)
+        ckpt.save_checkpoint(cfg.checkpoint_dir,
+                             ckpt.series_member(series, self.global_step),
+                             state, epoch, self.best_acc,
+                             step_in_epoch=step_in_epoch)
+        self._last_save_t = cadence_clock()
+        ckpt.prune_series(cfg.checkpoint_dir, series, cfg.checkpoint_keep)
 
     def run_epoch(self, state: TrainState, loader: Iterable, epoch: int = 0,
                   start_step: int = 0, ckpt_name: str = "ckpt") -> tuple:
@@ -84,12 +112,8 @@ class Trainer:
                     self.log(f"[epoch {epoch}] step {n}: loss={loss:.4f} "
                              f"acc={acc_now:.4f} {exs:.0f} ex/s")
                     last_t, last_n = now, n
-                if cfg.checkpoint_every and (self.global_step
-                                             % cfg.checkpoint_every == 0):
-                    ckpt.save_checkpoint(cfg.checkpoint_dir,
-                                         self._step_ckpt_name(ckpt_name),
-                                         state, epoch, self.best_acc,
-                                         step_in_epoch=n)
+                if self._cadence_due():
+                    self._save_step(state, ckpt_name, epoch, n)
         finally:
             if closer is not None:
                 closer()
@@ -118,6 +142,7 @@ class Trainer:
             ) -> TrainState:
         cfg = self.cfg
         self.global_step = int(state.step)
+        self._last_save_t = cadence_clock()
         epoch = start_epoch
         resume_step = start_step_in_epoch
         cuda = self.device.type == "cuda"
@@ -172,13 +197,14 @@ class Trainer:
     def maybe_resume(self, state: TrainState, ckpt_name: str = "ckpt"
                      ) -> tuple:
         """--resume: restore the newer of the best-accuracy epoch
-        checkpoint and the step-cadence one.  Returns (state, start
-        epoch, start step in that epoch)."""
+        checkpoint and the newest committed step checkpoint.  Returns
+        (state, start epoch, start step in that epoch)."""
         if not self.cfg.resume:
             return state, 0, 0
         d = self.cfg.checkpoint_dir
         best: Optional[tuple] = None
-        for name in (ckpt_name, self._step_ckpt_name(ckpt_name)):
+        for name in (ckpt_name, ckpt.resolve(d, self._step_ckpt_name(
+                ckpt_name))):
             meta = ckpt.read_meta(d, name)
             if meta and (best is None or meta["step"] > best[1]["step"]):
                 best = (name, meta)

@@ -311,8 +311,10 @@ def test_serving_on_card_counts_launches_and_is_batch_invariant(card):
 #
 # int8 GEMMs are exact: kernel == plain version bit for bit.  E4M3 and the
 # fused FFN hold to 2e-2 of max |plain| in bf16 and under quant (the
-# kernels sum in another order; a flipped rounding of f or a before
-# quantization moves one grid step), 1e-4 in fp32 without quant.  Two launches on the same inputs give the
+# kernels sum in another order, fp8 wgmma with a narrower accumulator; a
+# flipped rounding of f or a before quantization moves one grid step),
+# 1e-4 in fp32 without quant; the E4M3 GEMM with fp32 output (its exact
+# bf16 upcast) 1e-5.  Two launches on the same inputs give the
 # same bits, the amaxes included.
 
 
@@ -329,7 +331,8 @@ def _quant_operands(g, M, K, N, fmt):
 
 
 @pytest.mark.parametrize("M,K,N", [(8192, 512, 1536), (8192, 1024, 512),
-                                   (77, 48, 40)])
+                                   (77, 48, 40), (1000, 512, 1536),
+                                   (130, 96, 72), (300, 1056, 200)])
 @pytest.mark.parametrize("fmt", ["int8", "fp8"])
 def test_quant_matmul_matches_plain(card, M, K, N, fmt):
     from faster_distributed_training_tpu_torch.ops.quant import (
@@ -375,7 +378,10 @@ def _ffn_inputs(g, rows, d, d_ff, dtype):
     return h, ln_s, ln_b, w1, b1, w2, b2
 
 
-@pytest.mark.parametrize("rows,d,d_ff", [(8192, 512, 1024), (100, 64, 208)])
+@pytest.mark.parametrize("rows,d,d_ff", [(8192, 512, 1024), (100, 64, 208)]
+                         + [(r, d, f) for r in (64, 100, 512) for d in (64, 512)
+                            for f in (208, 1024)
+                            if (r, d, f) != (100, 64, 208)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("fmt", [None, "int8", "fp8"])
 def test_fused_ffn_matches_plain(card, rows, d, d_ff, dtype, fmt):
@@ -404,6 +410,97 @@ def test_fused_ffn_matches_plain(card, rows, d, d_ff, dtype, fmt):
         assert torch.equal(amax, torch.zeros_like(amax))
     else:
         assert torch.allclose(amax, want_amax, rtol=1e-2, atol=0)
+
+
+def test_ffn_engine_routes_by_shape_and_type(card):
+    """The wgmma FFN takes bf16 for every fmt and fp32 under quant up to
+    d_model 512; fp32 without quant and wider models run the WMMA / FMA
+    kernel (the C entry's rule, read through ``ffn_engine``)."""
+    from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+        ffn_engine)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert [ffn_engine(bf16, f, 512) for f in (None, "int8", "fp8")] == [
+        "sm90"] * 3
+    assert [ffn_engine(f32, f, 64) for f in (None, "int8", "fp8")] == [
+        "wmma", "sm90", "sm90"]
+    assert ffn_engine(bf16, None, 528) == ffn_engine(bf16, "int8", 1024) \
+        == "wmma"
+
+
+@pytest.mark.parametrize("fmt", [None, "int8"])
+def test_fused_ffn_above_the_wgmma_envelope(card, fmt):
+    """d_model 1024 (bf16) routes to the WMMA / FMA kernel by shape: it matches
+    the plain version where that kernel's shared memory holds the shape
+    (fmt none) and raises naming the bytes where it does not (int8), as
+    that kernel always did."""
+    from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+        _ffn_body_reference, ffn_engine, ffn_fwd_generalized)
+
+    assert ffn_engine(torch.bfloat16, fmt, 1024) == "wmma"
+    args = _ffn_inputs(card, 40, 1024, 256, torch.bfloat16)
+    scales = torch.tensor([30.0, 300.0, 60.0, 250.0], device="cuda")
+    seeds = (0x1234567, 0x89ABCDE, 0, 0, 0)
+    if fmt is not None:
+        with pytest.raises(ValueError, match="shared memory"):
+            ffn_fwd_generalized(*args, seeds, scales, 0.1, 0.1, 1e-6, 1, 1,
+                                256, fmt)
+        return
+    out, amax = ffn_fwd_generalized(*args, seeds, scales, 0.1, 0.1, 1e-6, 1,
+                                    1, 256, fmt)
+    quant = None if fmt is None else (fmt, *scales.unbind(), None)
+    want, want_amax = _ffn_body_reference(
+        *args, seeds[0], seeds[1], 0.1, 0.1, 1e-6, quant=quant,
+        return_amax=True, plain_gemm=True)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item()
+    assert torch.equal(amax, torch.zeros_like(amax))
+
+
+def test_two_identical_steps_are_bitwise_equal(card):
+    """One training step at d_model 64 but the record's batch 16 x seq 512
+    (8192 token rows, 100 token ids: every embedding row repeats), run
+    twice from the same state, batch and draws on bf16 with
+    the flash, fused-FFN and quantized-GEMM kernels: every parameter,
+    buffer and optimizer leaf bitwise equal."""
+    from faster_distributed_training_tpu_torch.optim import build_optimizer
+    from faster_distributed_training_tpu_torch.train.state import (
+        create_train_state)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_train_step, step_draws, to_device)
+
+    cfg = cli.TRANSFORMER_DEFAULTS.replace(
+        n_layers=1, d_model=64, n_heads=4, d_ff=128, seq_len=512,
+        attention="flash", ffn_impl="pallas", quant="int8")
+    rng = np.random.default_rng(4)
+    mask = (np.arange(512)[None] < rng.integers(64, 513, size=(16, 1))
+            ).astype(np.int32)
+    batch = to_device({"tokens": (rng.integers(1, 100, size=(16, 512))
+                                  * mask).astype(np.int32),
+                       "token_types": np.zeros((16, 512), np.int32),
+                       "mask": mask,
+                       "label": rng.integers(0, 4, size=16).astype(np.int32)},
+                      "cuda")
+    states = []
+    for _ in range(2):
+        model = cli.build_model(cfg, vocab_size=100, device="cuda")
+        model.init_weights(torch.Generator().manual_seed(3))
+        model.cuda()
+        tx, _ = build_optimizer(cfg, 10)
+        states.append(create_train_state(model, tx, 0))
+    draws = step_draws(0, 0, 16, states[0].model.n_dropout_sites(), 0.99)
+    step = make_train_step(cfg)
+    for st in states:
+        step(st, batch, draws)
+        step(st, batch, draws)
+    torch.cuda.synchronize()
+    a, b = states
+    for k, v in a.model.state_dict().items():
+        assert torch.equal(v, b.model.state_dict()[k]), k
+    for part in ("v", "z"):
+        for k, v in a.opt_state[part].items():
+            assert torch.equal(v, b.opt_state[part][k]), (part, k)
 
 
 def test_fused_ffn_sublayer_autograd_on_card(card):

@@ -341,8 +341,8 @@ def test_cli_trains_with_fused_ffn_and_quant_on_cpu(tmp_path):
             "--d_model", "32", "--n_heads", "2", "--d_ff", "64",
             "--seq_len", "64", "--subset_stride", "64", "--bs", "16",
             "--precision", "fp32", "--log_every", "0", "--checkpoint_dir",
-            str(tmp_path), "--no_telemetry", "--ffn_impl", "pallas",
-            "--quant", "int8"]
+            str(tmp_path), "--no_telemetry", "--no_plot", "--ffn_impl",
+            "pallas", "--quant", "int8"]
     out = cli.main(argv + ["--device", "cpu"],
                    defaults=cli.TRANSFORMER_DEFAULTS)
     assert out["state"].step == 4

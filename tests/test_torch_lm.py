@@ -355,7 +355,8 @@ def test_cli_trains_the_lm_on_cpu_and_rejects_what_is_not_ported(
             stream_dir, "--epoch", "1", "--n_layers", "1", "--d_model",
             "32", "--n_heads", "2", "--d_ff", "64", "--bs", "8",
             "--precision", "fp32", "--log_every", "0", "--subset_stride",
-            "4", "--checkpoint_dir", str(tmp_path), "--no_telemetry"]
+            "4", "--checkpoint_dir", str(tmp_path), "--no_telemetry",
+            "--no_plot"]
     logs = []
     cfg = cli.config_from_args(cli.build_parser(
         defaults=cli.TRANSFORMER_DEFAULTS).parse_args(argv + [
