@@ -8,7 +8,8 @@ next-token LM at seq 8192) and serves at full width.
 
 The second form prints only the device split of one record-width
 training step of the slice-2 path and paths B and C, and whether two
-identical steps are bitwise equal, for the port at DIR (default: this
+identical steps are bitwise equal, then path E's step split (the LM at
+seq 8192 on a random batch), for the port at DIR (default: this
 checkout): run it on a parent and a change in one call to compare them.
 Needs one CUDA card and the repo checkout beside this file; without
 either it exits non-zero and prints no result.  Phases, in order (any
@@ -16,7 +17,10 @@ failure raises and exits non-zero):
 
   1. device  — CUDA present; the card's name and power limit;
   2. build   — every kernel of the training and serving paths from
-               csrc/ (five sources, one nvcc each, in parallel);
+               csrc/ (five sources, one nvcc each, in parallel); the
+               registers, spills and shared memory of the bf16 forward
+               (flash_fwd_kernel_sm90<D>, four head dims; <64> must not
+               spill) and backward kernels and of the wgmma GEMM and FFN;
   3. check   — each kernel against its plain version at the paths'
                shapes, with the stated tolerances; the backward kernels
                also for determinism (two launches, equal bits), the
@@ -39,8 +43,12 @@ failure raises and exits non-zero):
                all gradients 2e-2 / 1e-5 of max |plain|, fp32 outputs
                1e-5), two launches equal bits;
   4. timing  — kernel, plain version, the library yardstick and the
-               bound; the backward also at dropout 0, like for like with
-               SDPA's backward (which runs without dropout), and the bf16
+               bound; the flash forward (rows 1, 2, 2') and backward also
+               at dropout 0, like for like with SDPA (which runs without
+               dropout), the forward's and the classifier's own kernel
+               time apart from the wrapper's torch work (the key bias),
+               the classifier (row 6) at 8, 16 and 4096 rows beside an
+               empty kernel's device time (the launch floor), and the bf16
                backward kernels' and the wgmma GEMM and FFN kernels'
                registers, spills (the build log; the D 64 backward pair and
                the record-shape GEMM and FFN instantiations must not spill)
@@ -182,16 +190,23 @@ def device_kernels(fn, repeats: int):
             if _device_us(e) > 0}
 
 
-def measure(fn, repeats: int = REPEATS) -> dict:
+def measure(fn, repeats: int = REPEATS, group: str = None) -> dict:
     """Device time per call (the sum of every kernel ``fn`` launches,
     torch.profiler; CUDA events when the profiler sees no device time)
     and the per-call time the caller sees (CUDA events), each over
-    ``repeats`` calls."""
+    ``repeats`` calls; with ``group``, also ``kernel_only_ms``: the
+    device time of the kernels of that ``kernel_group`` alone (the hand
+    kernel without the wrapper's torch work)."""
     wall = call_ms(fn, repeats)
-    dev = sum(us for us, _ in device_kernels(fn, repeats).values()
-              ) / repeats / 1e3
-    return {"ms": dev if dev > 0 else wall, "call_ms": wall,
-            "timer": "profiler" if dev > 0 else "events"}
+    kern = device_kernels(fn, repeats)
+    dev = sum(us for us, _ in kern.values()) / repeats / 1e3
+    got = {"ms": dev if dev > 0 else wall, "call_ms": wall,
+           "timer": "profiler" if dev > 0 else "events"}
+    if group:
+        got["kernel_only_ms"] = sum(
+            us for name, (us, _) in kern.items()
+            if kernel_group(name) == group) / repeats / 1e3
+    return got
 
 
 def bound(n_bytes: float, n_flops: float, kind: str):
@@ -280,19 +295,21 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
-def bwd_build(fa, log: str) -> dict:
-    """{"dkdv_kernel_sm90<D>" / "dq_kernel_sm90<D>": registers, spill bytes
-    and dynamic shared memory} of the bf16 backward kernels: registers and
-    spills from this run's build log, shared memory from the library."""
-    lib = fa._bwd_lib()
+def flash_build(fa, logs: dict) -> dict:
+    """{"flash_fwd_kernel_sm90<D>" / "dkdv_kernel_sm90<D>" /
+    "dq_kernel_sm90<D>": registers, spill bytes and dynamic shared memory}
+    of the bf16 flash kernels: registers and spills from this run's build
+    logs, shared memory from the libraries."""
+    fwd, bwd = fa._fwd_lib(), fa._bwd_lib()
     got = {}
-    for mangled, u in ptxas_usage(log).items():
-        m = re.search(r"(dkdv|dq)_kernel_sm90ILi(\d+)E", mangled)
-        if m:
-            d = int(m.group(2))
-            got[f"{m.group(1)}_kernel_sm90<{d}>"] = dict(
-                u, smem_bytes=lib.fdt_flash_bwd_smem_bytes(
-                    d, int(m.group(1) == "dq")))
+    for src in ("flash_fwd", "flash_bwd"):
+        for mangled, u in ptxas_usage(logs.get(src, "")).items():
+            m = re.search(r"(flash_fwd|dkdv|dq)_kernel_sm90ILi(\d+)E", mangled)
+            if m:
+                kind, d = m.group(1), int(m.group(2))
+                smem = (fwd.fdt_flash_fwd_smem_bytes(d) if kind == "flash_fwd"
+                        else bwd.fdt_flash_bwd_smem_bytes(d, int(kind == "dq")))
+                got[f"{kind}_kernel_sm90<{d}>"] = dict(u, smem_bytes=smem)
     return got
 
 
@@ -1225,7 +1242,8 @@ def steps_main(repo: str) -> int:
     ``repo``, the [profile] split of one training step at the record's
     width (seeded init, four warm-up steps, host wall the median of four,
     device time over three) and the two-identical-steps comparison,
-    reported and not held.  Two trees compare in one call on one card:
+    reported and not held; then path E's split (``lm_step_split``).  Two
+    trees compare in one call on one card:
     unpack the other commit into a git-ignored directory and run parent,
     change, change, parent."""
     import torch
@@ -1266,7 +1284,55 @@ def steps_main(repo: str) -> int:
                             f"path {tag} step (L="
                             f"{batches[8]['tokens'].shape[1]})"), flush=True)
         two_step_diff(cli, flags)
+    lm_step_split(cli)
     return 0
+
+
+def lm_step_split(cli, vocab: int = 605) -> None:
+    """Path E's step for ``--steps``: the next-token LM at the record's
+    widths, tied head, B 4, L 8192, bf16, on one seeded batch of random
+    tokens (``vocab`` is the size the port's WordPiece gives the
+    synthetic corpus; no corpus is sharded here): the [profile] split of
+    one step (two warm-up steps, host wall the median of three, device
+    time over two)."""
+    import numpy as np
+    import torch
+
+    from faster_distributed_training_tpu_torch.optim import build_optimizer
+    from faster_distributed_training_tpu_torch.train.state import (
+        create_train_state)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_train_step, to_device)
+
+    defaults = cli.TRANSFORMER_DEFAULTS
+    cfg = cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
+        ["--device", "cuda", "--task", "lm", "--seq_len", str(LONG["L"]),
+         "--bs", str(LONG["B"]), "--precision", "bf16"]), defaults=defaults)
+    model = cli.build_model(cfg, vocab_size=vocab, device="cuda")
+    model.init_weights(torch.Generator().manual_seed(cfg.seed))
+    model.cuda()
+    tx, _ = build_optimizer(cfg, 100)
+    state = create_train_state(model, tx, cfg.seed)
+    tokens = np.random.default_rng(0).integers(
+        1, vocab, size=(LONG["B"], LONG["L"])).astype(np.int32)
+    batch = to_device({"tokens": tokens, "token_types": np.zeros_like(tokens),
+                       "mask": np.ones_like(tokens),
+                       "label": np.zeros(LONG["B"], np.int32)}, "cuda")
+    step = make_train_step(cfg)
+    for _ in range(2):
+        step(state, batch)
+    wall = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t) * 1e3)
+    n = 2
+    kern = device_kernels(lambda: step(state, batch), n)
+    print(profile_split(kern, n, statistics.median(wall),
+                        f"path E step (B {LONG['B']}, L {LONG['L']})"),
+          flush=True)
 
 
 def defaults_fallback_phase(cli, build_dir: str) -> None:
@@ -1500,7 +1566,9 @@ def time_long_kernels(fa, gen) -> dict:
     q, k, v = qkv_views(B, H, L, D, torch.bfloat16, gen)
     N, nld = B * H, B * H * L * D
     fwd = {"kernel": measure(lambda: fa.flash_attention_stats(
-               q, k, v, None, 0.1, 5)),
+               q, k, v, None, 0.1, 5), group="flash_fwd"),
+           "kernel_p0": measure(lambda: fa.flash_attention_stats(
+               q, k, v, None, 0.0, 5), group="flash_fwd"),
            "plain": measure(lambda: fa.flash_attention_stats_reference(
                q, k, v, None, 0.1, 5, Q_CHUNK), 3),
            "library": library(lambda: F.scaled_dot_product_attention(
@@ -1538,7 +1606,8 @@ def time_long_kernels(fa, gen) -> dict:
     # row 2 as a primal forward: one sequence of 16384, no dropout (eval)
     L2 = 16384
     q2, k2, v2 = qkv_views(1, H, L2, D, torch.bfloat16, gen)
-    prim = {"kernel": measure(lambda: fa.flash_attention(q2, k2, v2)),
+    prim = {"kernel": measure(lambda: fa.flash_attention(q2, k2, v2),
+                              group="flash_fwd"),
             "plain": measure(lambda: fa.flash_attention_reference(
                 q2, k2, v2, q_chunk=Q_CHUNK), 3),
             "library": library(lambda: F.scaled_dot_product_attention(
@@ -1551,6 +1620,10 @@ def time_long_kernels(fa, gen) -> dict:
         lib = t["library"]
         p0 = (f" (dropout 0, like for like with SDPA: "
               f"{t['kernel_p0']['ms']:.5f})" if "kernel_p0" in t else "")
+        if "kernel_only_ms" in t["kernel"]:
+            p0 += (f" (kernel only {t['kernel']['kernel_only_ms']:.5f}"
+                   + (f"; at dropout 0 {t['kernel_p0']['kernel_only_ms']:.5f}"
+                      if "kernel_p0" in t else "") + ")")
         print(f"[timing] {name}: device ms per call ({t['kernel']['timer']})"
               f": kernel {t['kernel']['ms']:.5f}{p0}, plain (q-row chunked) "
               f"{t['plain']['ms']:.5f}, SDPA (no dropout) "
@@ -1782,7 +1855,7 @@ def main() -> int:
         from faster_distributed_training_tpu_torch.ops.flash_attention import (
             flash_attention, flash_attention_reference)
         from faster_distributed_training_tpu_torch.ops.fused_mlp import (
-            fused_mlp, mlp_reference)
+            fused_mlp, launch_floor, mlp_reference)
         from faster_distributed_training_tpu_torch.serve import pad_batch
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -1810,20 +1883,27 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    bwd_use = bwd_build(fa, logs.get("flash_bwd", ""))
-    for kname, u in sorted(bwd_use.items()):
-        print(f"[build] flash_bwd {kname} (bf16, wgmma): {u.get('registers')} "
+    flash_use = flash_build(fa, logs)
+    fwd_use = {k: u for k, u in flash_use.items() if k.startswith("flash_")}
+    bwd_use = {k: u for k, u in flash_use.items() if k not in fwd_use}
+    for kname, u in sorted(flash_use.items()):
+        src = "flash_fwd" if kname in fwd_use else "flash_bwd"
+        print(f"[build] {src} {kname} (bf16, wgmma): {u.get('registers')} "
               f"registers, spill stores {u.get('spill_stores')} B, spill "
               f"loads {u.get('spill_loads')} B, dynamic shared memory "
               f"{u['smem_bytes']} B", flush=True)
-    check(len(bwd_use) == 8 or not logs.get("flash_bwd"),
-          f"the build log names {sorted(bwd_use)}, not the eight bf16 "
-          f"backward kernels")
-    for d in (64,):
-        for kname in (f"dkdv_kernel_sm90<{d}>", f"dq_kernel_sm90<{d}>"):
-            u = bwd_use.get(kname, {})
-            check(not u.get("spill_stores") and not u.get("spill_loads"),
-                  f"{kname} spills: {u}")
+    for src, got, n in (("flash_fwd", fwd_use, 4), ("flash_bwd", bwd_use, 8)):
+        check(len(got) == n or not logs.get(src),
+              f"the build log names {sorted(got)}, not the {n} bf16 {src} "
+              f"kernels")
+    # the paths' head dim: these must not spill
+    for kname in ("flash_fwd_kernel_sm90<64>", "dkdv_kernel_sm90<64>",
+                  "dq_kernel_sm90<64>"):
+        src = "flash_fwd" if kname in fwd_use else "flash_bwd"
+        u = flash_use.get(kname, {})
+        check(not logs.get(src) or (u and not u.get("spill_stores")
+                                    and not u.get("spill_loads")),
+              f"{kname} spills or is missing: {u}")
     sm90_use = sm90_build(logs)
     for kname, u in sorted(sm90_use.items()):
         print(f"[build] {kname} (wgmma): {u.get('registers')} registers, "
@@ -1896,21 +1976,49 @@ def main() -> int:
     q, k, v = qkv_views(B, H, L, D, bf16, gen)
     mask = ragged_mask(B, L, gen)
     sdpa_mask = (mask[:, None, None, :] != 0)
-    fa_t = {"kernel": measure(lambda: flash_attention(q, k, v, mask=mask)),
-          "plain": measure(
-              lambda: flash_attention_reference(q, k, v, mask=mask)),
-          "library": measure(lambda: F.scaled_dot_product_attention(
-              q, k, v, attn_mask=sdpa_mask))}
+    # the primal (eval, serving) forward, no dropout: like for like with
+    # SDPA; and the training forward (lse and its tail, dropout 0.1)
+    fa_t = {"kernel": measure(lambda: flash_attention(q, k, v, mask=mask),
+                              group="flash_fwd"),
+            "kernel_train": measure(lambda: fa.flash_attention_stats(
+                q, k, v, mask, 0.1, 5), group="flash_fwd"),
+            "plain": measure(
+                lambda: flash_attention_reference(q, k, v, mask=mask)),
+            "library": measure(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=sdpa_mask))}
     fa_t["bound_ms"], fa_t["bound_by"] = bound(
         4 * B * H * L * D * 2 + B * L * 4, 4 * B * H * L * L * D, "bf16")
-    x = torch.randn(8, d_in, generator=gen, device="cuda").to(bf16)
-    mlp = {"kernel": measure(lambda: fused_mlp(x, w1, b1, w2, b2)),
-           "plain": measure(lambda: mlp_reference(x, w1, b1, w2, b2)),
-           "library": measure(lambda: torch.addmm(
-               b2, torch.relu(torch.addmm(b1, x, w1.T)), w2.T))}
-    mlp["bound_ms"], mlp["bound_by"] = bound(
-        2 * (8 * d_in + d_h * d_in + d_h + d_out * d_h + d_out + 8 * d_out),
-        2 * 8 * (d_in * d_h + d_h * d_out), "bf16")
+    # the classifier at serving's 8 rows, training's 16 and 4096; beside
+    # it the device time of an empty kernel, the floor of any launch
+    mlp_at = {}
+    for rows in (8, 16, 4096):
+        x = torch.randn(rows, d_in, generator=gen, device="cuda").to(bf16)
+        mlp_at[rows] = {
+            "kernel": measure(lambda: fused_mlp(x, w1, b1, w2, b2),
+                              group="fused_mlp"),
+            "plain": measure(lambda: mlp_reference(x, w1, b1, w2, b2)),
+            "library": measure(lambda: torch.addmm(
+                b2, torch.relu(torch.addmm(b1, x, w1.T)), w2.T))}
+        mlp_at[rows]["bound_ms"], mlp_at[rows]["bound_by"] = bound(
+            2 * (rows * d_in + d_h * d_in + d_h + d_out * d_h + d_out
+                 + rows * d_out),
+            2 * rows * (d_in * d_h + d_h * d_out), "bf16")
+    mlp = mlp_at[8]
+    floor = measure(lambda: launch_floor(torch.device("cuda")))
+    print(f"[timing] launch floor (an empty kernel, <<<1, 32>>>): device ms "
+          f"per call ({floor['timer']}) {floor['ms']:.5f}; per call incl. "
+          f"launch (events) {floor['call_ms']:.5f}", flush=True)
+    for rows in (16, 4096):
+        t = mlp_at[rows]
+        print(f"[timing] fused_mlp {rows}x{d_in}->{d_h}->{d_out}: device ms "
+              f"per call ({t['kernel']['timer']}): kernel "
+              f"{t['kernel']['ms']:.5f} (kernel only "
+              f"{t['kernel']['kernel_only_ms']:.5f}), plain "
+              f"{t['plain']['ms']:.5f}, library (addmm, relu, addmm) "
+              f"{t['library']['ms']:.5f}; per call incl. launch (events): "
+              f"kernel {t['kernel']['call_ms']:.5f}, library "
+              f"{t['library']['call_ms']:.5f}; bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']})", flush=True)
     # the backward at the training shape: B 16, H 8, L 512, D 64, bf16,
     # key padding and dropout 0.1 as the train step runs it
     B_t = 16
@@ -1954,13 +2062,20 @@ def main() -> int:
     # two products are done again
     bwr["bound_ms"], bwr["bound_by"] = bound(
         7 * nld * 2 + B_t * L * 4, 14 * N_t * L * L * D, "bf16")
-    for name, t in (("flash_fwd B8 H8 L512 D64", fa_t),
+    for name, t in (("flash_fwd B8 H8 L512 D64 (primal, key padding, "
+                     "dropout 0)", fa_t),
                     ("flash_bwd_stats B16 H8 L512 D64", bws),
                     ("flash_bwd_recompute B16 H8 L512 D64", bwr),
                     ("fused_mlp 8x512->1024->4", mlp)):
         p0 = (f" (dropout 0: {t['kernel_p0']['ms']:.5f}, beside the "
               f"library's {t['library']['ms']:.5f} without dropout)"
               if "kernel_p0" in t else "")
+        if "kernel_only_ms" in t["kernel"]:
+            p0 += f" (kernel only {t['kernel']['kernel_only_ms']:.5f})"
+        if "kernel_train" in t:
+            p0 += (f"; with lse and dropout 0.1 (a training forward) "
+                   f"{t['kernel_train']['ms']:.5f} (kernel only "
+                   f"{t['kernel_train']['kernel_only_ms']:.5f})")
         print(f"[timing] {name}: device ms per call ({t['kernel']['timer']}"
               f"): kernel {t['kernel']['ms']:.5f}{p0}, plain "
               f"{t['plain']['ms']:.5f}, library {t['library']['ms']:.5f}; "
@@ -2100,6 +2215,7 @@ def main() -> int:
                        "flash_bwd_recompute"])
     # the bf16 backward kernels at the paths' head dim (D 64)
     bwd_d64 = {k: u for k, u in bwd_use.items() if k.endswith("<64>")}
+    fwd_d64 = {k: u for k, u in fwd_use.items() if k.endswith("<64>")}
     kernels = []
     for name, t, file, replaces in (
             ("flash_fwd", fa_t, "flash_fwd",
@@ -2122,6 +2238,25 @@ def main() -> int:
         if "kernel_p0" in t:
             kernels[-1].update(ms_dropout0=t["kernel_p0"]["ms"],
                                build=bwd_d64)
+        if name == "flash_fwd":     # "ms" is the primal: dropout 0
+            kernels[-1].update(
+                ms_dropout0=t["kernel"]["ms"],
+                kernel_only_ms=t["kernel"]["kernel_only_ms"],
+                ms_train_lse_dropout01=t["kernel_train"]["ms"],
+                kernel_only_ms_train_lse_dropout01=t["kernel_train"][
+                    "kernel_only_ms"], build=fwd_d64)
+        if name == "fused_mlp":
+            kernels[-1].update(
+                kernel_only_ms=t["kernel"]["kernel_only_ms"],
+                launch_floor_ms=floor["ms"],
+                **{f"{key}_{rows}_rows": val for rows in (16, 4096)
+                   for key, val in (
+                       ("ms", mlp_at[rows]["kernel"]["ms"]),
+                       ("kernel_only_ms",
+                        mlp_at[rows]["kernel"]["kernel_only_ms"]),
+                       ("plain_ms", mlp_at[rows]["plain"]["ms"]),
+                       ("library_ms", mlp_at[rows]["library"]["ms"]),
+                       ("bound_ms", mlp_at[rows]["bound_ms"]))})
     # slice 3: fused_ffn's launches from the path-A run, fused_ffn_quant's
     # and quant_matmul's from the path-B run; serving's from path D
     slice3 = (("fused_ffn", "fused_ffn", "fused_ffn.py:208",
@@ -2198,6 +2333,11 @@ def main() -> int:
         if key == "fwd":
             p = lt["primal"]
             entry.update({
+                "ms_dropout0": t["kernel_p0"]["ms"],
+                "kernel_only_ms": t["kernel"]["kernel_only_ms"],
+                "kernel_only_ms_dropout0": t["kernel_p0"]["kernel_only_ms"],
+                "primal_kernel_only_ms": p["kernel"]["kernel_only_ms"],
+                "build": fwd_d64,
                 "primal_shape": "B1 H8 L16384 D64 bf16, no dropout",
                 "primal_ms": p["kernel"]["ms"],
                 "primal_plain_ms": p["plain"]["ms"],

@@ -236,6 +236,8 @@ def _fwd_lib() -> ctypes.CDLL:
         lib.fdt_flash_fwd.argtypes = (
             [p] * 7 + [i] * 6 + [ll] * 12 + [f, i, u, u, u, i, u, f, p])
         lib.fdt_flash_fwd.restype = ctypes.c_int
+        lib.fdt_flash_fwd_smem_bytes.argtypes = [i]
+        lib.fdt_flash_fwd_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -308,6 +310,8 @@ def _launch_fwd(q, k, v, mask, dropout_rate, dropout_seed, emit_lse: int):
         bias = bias.to(q.device)
     out = torch.empty((B, Lq, H, D), dtype=q.dtype,
                       device=q.device).permute(0, 2, 1, 3)
+    if q.dtype == torch.bfloat16:
+        _check_rows16(q=q, k=k, v=v, out=out)
     stats = (torch.empty((emit_lse, B, H, Lq), dtype=torch.float32,
                          device=q.device) if emit_lse else None)
     lib = _fwd_lib()
@@ -332,7 +336,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     dropout_rate: float = 0.0, dropout_seed=None,
                     emit_lse: bool = False):
     """The forward kernel.  q/k/v [B, H, L, D] (any strides over B, H and
-    L; D contiguous); mask: None or a key-padding mask (mask == 0 masked);
+    L; D contiguous; bf16 views with a 16-byte-aligned base and (b, h, l)
+    strides that are multiples of 8, as the model's views of its fused
+    projection are); mask: None or a key-padding mask (mask == 0 masked);
     dropout_seed: a uint32 (python int or integer tensor).  Returns out
     [B, H, Lq, D] (a view of a [B, Lq, H, D] buffer on CUDA) and, with
     emit_lse, the fp32 row lse [B, H, Lq].  No autograd: training goes
@@ -365,14 +371,14 @@ flash_attention_stats.launches = 0
 
 
 def _check_rows16(**tensors):
-    """The bf16 backward kernels move 16-byte rows with cp.async: each
-    tensor needs a 16-byte-aligned base and (b, h, l) strides that are
-    multiples of 8 elements.  Anything else raises (no copy, no other
-    route)."""
+    """The bf16 forward and backward kernels move 16-byte rows with
+    cp.async: each tensor needs a 16-byte-aligned base and (b, h, l)
+    strides that are multiples of 8 elements.  Anything else raises (no
+    copy, no other route)."""
     for name, t in tensors.items():
         if t.data_ptr() % 16 or any(s % 8 for s in _strides(t)):
             raise ValueError(
-                f"flash_attention backward kernel takes bf16 {name} with a "
+                f"flash_attention kernel takes bf16 {name} with a "
                 f"16-byte-aligned base and (b, h, l) strides that are "
                 f"multiples of 8, got address mod 16 = {t.data_ptr() % 16}, "
                 f"strides {_strides(t)}")

@@ -46,9 +46,39 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fdt_fused_mlp_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
         lib.fdt_fused_mlp_fwd.restype = ctypes.c_int
-        lib.fdt_mlp_rows_per_block.restype = ctypes.c_int
-        lib.fdt_mlp_units_per_block.restype = ctypes.c_int
+        lib.fdt_mlp_partial_floats.argtypes = [i] * 4
+        lib.fdt_mlp_partial_floats.restype = ctypes.c_longlong
+        lib.fdt_mlp_counters.argtypes = [i, i]
+        lib.fdt_mlp_counters.restype = ctypes.c_int
+        lib.fdt_launch_floor.argtypes = [p]
+        lib.fdt_launch_floor.restype = ctypes.c_int
     return lib
+
+
+# {(device index, CUDA stream): int32 tickets}, zeroed once and grown when a call needs
+# more, so a call launches no memset.  Reuse is safe: calls on one stream
+# run one after another, and the kernel's last block of each row block
+# resets its ticket to 0 before the kernel ends.
+_counters = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)   # each device's default stream is 0
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
+def launch_floor(device) -> None:
+    """One empty kernel on ``device``'s current stream: the device time of
+    a launch that does nothing, the floor beside the MLP kernel's time."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        err = lib.fdt_launch_floor(
+            torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, err, "launch floor")
 
 
 def _check_inputs(x2, w1, b1, w2, b2):
@@ -140,19 +170,17 @@ def _mlp_fwd(x, w1, b1, w2, b2) -> torch.Tensor:
     _check_inputs(x2, w1, b1, w2, b2)
     rows, d_in = x2.shape
     lib = _lib()
-    per_block = lib.fdt_mlp_rows_per_block()
-    n_splits = -(-d_h // lib.fdt_mlp_units_per_block())
+    dt = _DTYPES[x.dtype]
     out = torch.empty((rows, d_out), dtype=x.dtype, device=x.device)
-    partial = torch.empty((n_splits, rows, d_out), dtype=torch.float32,
-                          device=x.device)
-    counters = torch.zeros(-(-rows // per_block), dtype=torch.int32,
-                           device=x.device)
+    partial = torch.empty(lib.fdt_mlp_partial_floats(dt, rows, d_h, d_out),
+                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        counters = _tickets(x.device, stream, lib.fdt_mlp_counters(dt, rows))
         err = lib.fdt_fused_mlp_fwd(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), out.data_ptr(), partial.data_ptr(),
-            counters.data_ptr(), _DTYPES[x.dtype], rows, d_in, d_h, d_out,
+            counters.data_ptr(), dt, rows, d_in, d_h, d_out,
             stream)
     _build.check(lib, err, "fused_mlp launch")
     fused_mlp.launches += 1

@@ -7,7 +7,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: bf16 2e-2 max abs on forward outputs (p and relu(h) round to
-bf16 at the same points, accumulation orders differ), lse 1e-3; fp32
+bf16 at the same points, accumulation orders differ; at the forward's
+tile edges relative to max |plain|), lse 1e-3; fp32
 1e-5 with TF32 off (one flipped dropout keep bit would show).  Backward
 gradients are held relative to the plain version's max |value|: bf16
 2e-2, fp32 1e-5 (sums of 128-512 products in another order).  The
@@ -27,7 +28,8 @@ from faster_distributed_training_tpu_torch.interop import params_to_jax
 from faster_distributed_training_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_recompute,
     flash_attention_bwd_reference, flash_attention_qkv,
-    flash_attention_reference, flash_attention_stats)
+    flash_attention_reference, flash_attention_stats,
+    flash_attention_stats_reference)
 from faster_distributed_training_tpu_torch.ops.fused_mlp import (
     fused_mlp, mlp_reference)
 from faster_distributed_training_tpu_torch.serve import pad_batch
@@ -81,6 +83,88 @@ def test_flash_fp32_dropout_matches_plain(card, rate):
                                     dropout_seed=2024)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= 1e-5
+
+
+# the bf16 forward kernel's tile edges: 128-row q blocks of two 64-row
+# warpgroups, 64-key ring stages
+_FWD_EDGES = [(L, D, rate) for L in (1, 63, 65, 127, 129, 200, 1100)
+              for D in (16, 32, 64, 128) for rate in (0.0, 0.1)]
+
+
+@pytest.mark.parametrize("L,D,rate", _FWD_EDGES)
+def test_flash_fwd_bf16_at_tile_edges(card, L, D, rate):
+    """flash_fwd_kernel_sm90 against the plain version: out 2e-2 of max
+    |plain|, lse 1e-3, lse_lo 1e-3 (batch element 0 has every key masked,
+    ``_mask``); q/k/v are views of one [B, L, 3, H, D] buffer, and the
+    same values copied out contiguous give the same bits; two launches
+    give the same bits."""
+    q, k, v = _qkv(card, 2, 4, L, D, torch.bfloat16)
+    mask = _mask(card, 2, L)
+    n0 = flash_attention.launches
+    got = flash_attention_stats(q, k, v, mask, rate, 99)
+    want = flash_attention_stats_reference(q, k, v, mask, rate, 99)
+    again = flash_attention_stats(q, k, v, mask, rate, 99)
+    flat = flash_attention_stats(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), mask, rate, 99)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 3
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == (2, 4, L, D)
+    assert _rel_err(got[:1], want[:1]) <= 2e-2
+    assert (got[1] - want[1]).abs().max().item() <= 1e-3
+    assert (got[2] - want[2]).abs().max().item() <= 1e-3
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, flat))
+
+
+@pytest.mark.parametrize("Lq,Lk", [(100, 300), (300, 65), (1, 129)])
+def test_flash_fwd_bf16_lq_ne_lk(card, Lq, Lk):
+    q, _, _ = _qkv(card, 2, 4, Lq, 64, torch.bfloat16)
+    _, k, v = _qkv(card, 2, 4, Lk, 64, torch.bfloat16)
+    mask = _mask(card, 2, Lk)
+    got = flash_attention_stats(q, k, v, mask, 0.1, 5)
+    want = flash_attention_stats_reference(q, k, v, mask, 0.1, 5)
+    torch.cuda.synchronize()
+    assert _rel_err(got[:1], want[:1]) <= 2e-2
+    assert (got[1] - want[1]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_flash_fwd_bf16_fully_masked_row(card, D):
+    """A batch row with every key masked: its out (the mean of V) and its
+    lse tail (log Lk) match the plain version, and the backward that takes
+    this forward's lse gives the dense VJP's gradients."""
+    L = 200
+    q, k, v = _qkv(card, 2, 4, L, D, torch.bfloat16)
+    mask = torch.ones(2, L, dtype=torch.int32, device="cuda")
+    mask[1] = 0
+    out, lse, lse_lo = flash_attention_stats(q, k, v, mask, 0.0, 0)
+    want = flash_attention_stats_reference(q, k, v, mask, 0.0, 0)
+    torch.cuda.synchronize()
+    assert _rel_err((out[1],), (want[0][1],)) <= 2e-2
+    assert (lse_lo[1] - want[2][1]).abs().max().item() <= 1e-3
+    dout = torch.randn(2, 4, L, D, generator=card, device="cuda").to(
+        torch.bfloat16)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, mask, 0.0, 0, lse_lo)
+    dense = _dense_vjp(q[1:], k[1:], v[1:], mask[1:], dout[1:])
+    torch.cuda.synchronize()
+    assert _rel_err([g[1:] for g in got], dense) <= 2e-2
+
+
+def test_flash_fwd_refuses_views_it_cannot_take(card):
+    """The bf16 forward moves 16-byte rows: a base that is not 16-byte
+    aligned, or an l stride that is not a multiple of 8, raises before a
+    launch (no copy, no other route)."""
+    q, k, v = _qkv(card, 1, 2, 16, 16, torch.bfloat16)
+    wide = torch.randn(1, 2, 16, 20, device="cuda").to(torch.bfloat16)
+    flat = torch.randn(1 + 2 * 16 * 16, device="cuda").to(torch.bfloat16)
+    n0 = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(wide[..., :16], k, v)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, flat[1:].view(1, 2, 16, 16), v)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_stats(q, k, flat[1:].view(1, 2, 16, 16))
+    assert flash_attention.launches == n0
 
 
 def test_flash_rejects_what_the_kernel_does_not_take(card):
@@ -275,6 +359,59 @@ def test_mlp_matches_plain(card, rows, dtype):
     assert (got.float() - want.float()).abs().max().item() <= tol
     # deterministic: the same call gives the same bits
     assert torch.equal(fused_mlp(x, w1, b1, w2, b2), got)
+
+
+def _mlp_weights(g, dtype, d_in=512, d_h=1024, d_out=4):
+    return [(torch.randn(*shape, generator=g, device="cuda") * 0.05).to(dtype)
+            for shape in ((d_h, d_in), (d_h,), (d_out, d_h), (d_out,))]
+
+
+@pytest.mark.parametrize("rows", [1, 8, 9, 16, 17, 64, 65, 4096])
+def test_mlp_bf16_rows_and_batch_invariance(card, rows):
+    """The tensor-core classifier (16-row blocks up to 64 rows, 128-row
+    blocks past them) against the plain version at 2e-2; two calls give
+    the same bits, and each of the first rows gives the same bits alone
+    as inside the batch (whichever block shape ran it)."""
+    w1, b1, w2, b2 = _mlp_weights(card, torch.bfloat16)
+    x = torch.randn(rows, 512, generator=card, device="cuda").to(
+        torch.bfloat16)
+    got = fused_mlp(x, w1, b1, w2, b2)
+    want = mlp_reference(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert torch.equal(fused_mlp(x, w1, b1, w2, b2), got)
+    for i in range(min(rows, 3)):
+        assert torch.equal(fused_mlp(x[i:i + 1], w1, b1, w2, b2), got[i:i + 1])
+
+
+@pytest.mark.parametrize("rows,d_in,d_h,d_out", [(8, 520, 1000, 40),
+                                                 (200, 520, 1000, 40),
+                                                 (9, 64, 1000, 4),
+                                                 (130, 64, 1000, 4)])
+def test_mlp_bf16_ragged_and_wide_shapes(card, rows, d_in, d_h, d_out):
+    """Shapes off the record: d_in a half k step past a multiple of 16, d_h
+    not a multiple of the 64-unit groups, and 40 outputs, whose w2 columns
+    and group sums no longer fit shared memory (both block shapes then read
+    them from device memory): 2e-2 against the plain version, and the
+    first row's bits alone equal its bits in the batch."""
+    w1, b1, w2, b2 = _mlp_weights(card, torch.bfloat16, d_in, d_h, d_out)
+    x = torch.randn(rows, d_in, generator=card, device="cuda").to(
+        torch.bfloat16)
+    got = fused_mlp(x, w1, b1, w2, b2)
+    want = mlp_reference(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert torch.equal(fused_mlp(x[:1], w1, b1, w2, b2), got[:1])
+
+
+def test_mlp_row_alone_equals_row_in_a_batch_of_16(card):
+    w1, b1, w2, b2 = _mlp_weights(card, torch.bfloat16)
+    x = torch.randn(16, 512, generator=card, device="cuda").to(torch.bfloat16)
+    batched = fused_mlp(x, w1, b1, w2, b2)
+    alone = torch.cat([fused_mlp(x[i:i + 1], w1, b1, w2, b2)
+                       for i in range(16)])
+    torch.cuda.synchronize()
+    assert torch.equal(alone, batched)
 
 
 def test_mlp_rejects_unaligned_rows(card):

@@ -1,9 +1,10 @@
-"""Which bf16 views the flash backward kernels take.
+"""Which bf16 views the flash forward and backward kernels take.
 
-The bf16 kernels of ``csrc/flash_bwd.cu`` move 16-byte rows with
-``cp.async``: every q/k/v/dO/gradient view needs a 16-byte-aligned base
-and (b, h, l) strides that are multiples of 8 elements, and anything else
-raises before a launch (no copy, no other route).  The check is plain
+The bf16 kernels of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` move
+16-byte rows with ``cp.async``: every q/k/v/out/dO/gradient view needs a
+16-byte-aligned base and (b, h, l) strides that are multiples of 8
+elements, and anything else raises before a launch (no copy, no other
+route).  The check is plain
 Python over a tensor's address and strides, so it runs here on CPU
 tensors; the kernels themselves are held on the card
 (``tests/test_torch_cuda.py``).
