@@ -1,12 +1,15 @@
 """Entry points of the port: classifier training (slice 2) and serving
 (slice 1), with the fused FFN and quantized GEMMs (slice 3: ``--ffn_impl
-pallas``, ``--quant int8|fp8``, ``--quant_grad fp8_e5m2``), and the
+pallas``, ``--quant int8|fp8``, ``--quant_grad fp8_e5m2``), the
 next-token LM on a sharded stream corpus (slice 4: ``--task lm --dataset
-stream --stream_dir D``, host data path).
+stream --stream_dir D``, host data path), and ResNet-18…152 training on
+CIFAR-10 with NGD, the image mixup modes and fp16 loss scaling (slice 8:
+``--model resnet50``, ``python -m faster_distributed_training_tpu_torch.
+resnet50_test``).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
 ``resolve_attention``, ``build_model``, ``load_dataset`` (the agnews,
-synthetic and stream branches), ``apply_subset``, ``make_loaders``,
+cifar10, synthetic and stream branches), ``apply_subset``, ``make_loaders``,
 ``run_training``, ``main``, ``synth_requests``, ``run_serving`` and
 ``main_serve``.  Everything runs
 on CUDA unless the caller passes ``--device cpu`` / ``device="cpu"``;
@@ -37,6 +40,18 @@ from faster_distributed_training_tpu_torch.ops.flash_attention import (
 TRANSFORMER_DEFAULTS = TrainConfig(model="transformer", dataset="agnews",
                                    num_classes=4, lr=5e-5, batch_size=16,
                                    epochs=30, alpha=0.99, seq_len=512)
+# the ResNet entry's record (the JAX package's resnet50_test.py)
+RESNET50_DEFAULTS = TrainConfig(model="resnet50", dataset="cifar10",
+                                num_classes=10, lr=0.1, batch_size=512,
+                                epochs=30, alpha=0.2)
+IMAGE_DATASETS = ("cifar10", "synthetic")
+TEXT_DATASETS = ("agnews", "synthetic", "stream")
+
+
+def is_resnet(cfg: TrainConfig) -> bool:
+    from faster_distributed_training_tpu_torch.models import RESNETS
+
+    return cfg.model in RESNETS
 
 
 def resolve_device(name) -> torch.device:
@@ -82,9 +97,10 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
     from faster_distributed_training_tpu_torch.train.amp import (
         compute_dtype, resolve_quant_policy)
 
+    if is_resnet(cfg):
+        return _build_resnet(cfg)
     if cfg.model != "transformer":
-        raise NotImplementedError(f"the port builds the transformer only "
-                                  f"so far, not {cfg.model!r}")
+        raise ValueError(f"unknown model {cfg.model!r}")
     unported = {"--lm_causal": bool(cfg.lm_causal),
                 "serving --task lm (decode)": serving and cfg.task == "lm",
                 "--task lm with --quant": (cfg.task == "lm" and (
@@ -129,15 +145,43 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
                      **rates)
 
 
+def _build_resnet(cfg: TrainConfig):
+    """The ResNet of ``cfg``: bf16 compute unless ``--precision fp32`` or
+    fp16 (fp32 compute, as in the JAX package); ``--tricks off`` (fp32
+    by then) leaves the conv + BN backward to autograd.  ``--quant``
+    warns and runs full precision, as the JAX package does; ``--remat``
+    (block checkpointing) raises."""
+    import warnings
+
+    from faster_distributed_training_tpu_torch.models import get_model
+    from faster_distributed_training_tpu_torch.train.amp import (
+        compute_dtype)
+
+    if cfg.remat:
+        raise NotImplementedError("not ported yet: --remat")
+    if (cfg.quant or "none") != "none":
+        warnings.warn(
+            f"--quant {cfg.quant} is only wired for the transformer's "
+            f"GEMMs (attention projections + FFN); {cfg.model} runs "
+            f"full-precision", stacklevel=3)
+    return get_model(cfg.model, cfg.num_classes,
+                     dtype=compute_dtype(cfg.precision),
+                     conv_remat=cfg.tricks != "off")
+
+
 def unported_training_flags(cfg: TrainConfig) -> list:
     """The flags of features the training slice does not reach."""
+    datasets = IMAGE_DATASETS if is_resnet(cfg) else TEXT_DATASETS
     checks = {
-        "--ngd": cfg.use_ngd,
+        # NGD preconditions the axes in the JAX layout's order, and the
+        # transformer's fused qkv kernel has no permutation onto it
+        "--ngd on the transformer": (not is_resnet(cfg) and (
+            cfg.use_ngd or cfg.optimizer == "ngd")),
         "--remat": bool(cfg.remat),
         "--steps_per_dispatch > 1": int(cfg.steps_per_dispatch or 1) > 1,
         f"--data_path {cfg.data_path}": cfg.data_path != "host",
-        f"--dataset {cfg.dataset}": cfg.dataset not in ("synthetic",
-                                                        "stream", "agnews"),
+        f"--dataset {cfg.dataset} for {cfg.model}": (
+            cfg.dataset not in datasets),
         "--lm_causal": bool(cfg.lm_causal),
         "--mesh": any(int(s) > 1 for s in cfg.mesh_shape),
         "--distributed": bool(cfg.distributed),
@@ -150,25 +194,43 @@ def unported_training_flags(cfg: TrainConfig) -> list:
         "--profile": bool(cfg.profile),
         f"--storage_backend {cfg.storage_backend}": (
             (cfg.storage_backend or "posix") != "posix"),
-        "--precision fp16": cfg.precision == "fp16",
     }
     return [k for k, v in checks.items() if v]
 
 
 def load_dataset(cfg: TrainConfig, train: bool):
-    """A split of ``cfg.dataset``: ``stream``, the sharded on-disk
+    """A split of ``cfg.dataset``.  Text: ``stream``, the sharded on-disk
     dataset under ``--stream_dir`` (its reader speaks ``encode_batch``);
     ``agnews``, the CSVs under ``--data_dir/ag_news`` or, when they cannot
     be read, the synthetic split of the JAX package's fallback (12000 /
     2000 rows, seeds 0 and 1; nothing is downloaded); or ``synthetic``,
-    the AG-News-shaped split (4096 train / 1024 test rows)."""
+    the AG-News-shaped split (4096 train / 1024 test rows).  Images (a
+    ResNet), as an ``(x, y)`` pair: ``cifar10``, the pickled batches
+    under ``--data_dir`` or, without them, ``synthetic_cifar`` (50000 /
+    10000 images, nothing is downloaded); or ``synthetic``, 4096 / 1024
+    synthetic images."""
     from faster_distributed_training_tpu_torch.data.stream import (
         open_stream_split)
     from faster_distributed_training_tpu_torch.data.synthetic import (
-        synthetic_agnews)
+        synthetic_agnews, synthetic_cifar)
 
-    if cfg.model != "transformer" or cfg.dataset not in ("synthetic",
-                                                         "stream", "agnews"):
+    if is_resnet(cfg):
+        if cfg.dataset not in IMAGE_DATASETS:
+            raise NotImplementedError(f"not ported yet: --dataset "
+                                      f"{cfg.dataset} for {cfg.model}")
+        if cfg.dataset == "cifar10":
+            from faster_distributed_training_tpu_torch.data.cifar10 import (
+                load_cifar10)
+            try:
+                return load_cifar10(cfg.data_dir, train=train)
+            except Exception as e:
+                print(f"[data] CIFAR-10 unavailable ({e!r}); using "
+                      f"synthetic")
+                return synthetic_cifar(n=50000 if train else 10000,
+                                       seed=0 if train else 1)
+        return synthetic_cifar(n=4096 if train else 1024,
+                               seed=0 if train else 1)
+    if cfg.dataset not in TEXT_DATASETS:
         raise NotImplementedError(f"not ported yet: --dataset "
                                   f"{cfg.dataset} for {cfg.model}")
     if cfg.dataset == "agnews":
@@ -193,9 +255,13 @@ def load_dataset(cfg: TrainConfig, train: bool):
 
 
 def apply_subset(ds, stride: int):
-    """1/N-stride subset of a text dataset (applied to both splits)."""
+    """1/N-stride subset of either dataset kind (applied to both
+    splits)."""
     if stride <= 1:
         return ds
+    if isinstance(ds, tuple):
+        x, y = ds
+        return (x[::stride], y[::stride])
 
     class _Subset:
         def __init__(self, base):
@@ -240,17 +306,18 @@ def check_stream_corpus(cfg: TrainConfig, train_ds, log) -> TrainConfig:
 
 def make_loaders(cfg: TrainConfig, train_ds, eval_ds):
     """(train_loader(epoch, start), eval_loader(epoch), steps_per_epoch);
-    ``start`` is the epoch's first batch (a mid-epoch resume).  One
-    background thread prefetches batches (``--prefetch_depth``; the JAX
-    package's ``--workers`` thread pool yields the same order and is not
-    ported)."""
+    ``start`` is the epoch's first batch (a mid-epoch resume).
+    ``max(1, --workers)`` threads materialize batches in order, at most
+    ``max(--prefetch_depth, --workers)`` ahead; ``--prefetch_depth 0``
+    is synchronous."""
     from faster_distributed_training_tpu_torch.data.loader import (
-        BatchLoader, PrefetchIterator)
+        BatchLoader, ParallelBatchIterator)
 
     def wrap(loader):
         if cfg.prefetch_depth <= 0:
             return loader
-        return PrefetchIterator(loader, depth=cfg.prefetch_depth)
+        return ParallelBatchIterator(loader, cfg.workers,
+                                     depth=cfg.prefetch_depth)
 
     def train_loader(epoch: int, start: int = 0):
         return wrap(BatchLoader(train_ds, cfg.batch_size, epoch=epoch,
@@ -268,14 +335,16 @@ def make_loaders(cfg: TrainConfig, train_ds, eval_ds):
 
 def run_training(cfg: TrainConfig, params=None, device=None,
                  log: Callable[[str], None] = print) -> dict:
-    """Full training run of the transformer classifier; returns
+    """Full training run of the transformer or a ResNet; returns
     {'state', 'history', 'best_acc', 'cfg', 'trainer', 'steps_per_epoch'}.
     ``params``: a JAX-layout parameter tree to start from (seeded
     init from ``cfg.seed`` when None; a ``{"params", "batch_stats"}``
-    bundle also sets the amax histories of ``--quant``).  Runs on ``cfg.device`` (cuda by
-    default) unless ``device`` says otherwise."""
+    bundle also sets the amax histories of ``--quant`` or a ResNet's
+    running statistics).  Runs on ``cfg.device`` (cuda by default)
+    unless ``device`` says otherwise."""
     from faster_distributed_training_tpu_torch.interop import load_jax_tree
-    from faster_distributed_training_tpu_torch.optim import build_optimizer
+    from faster_distributed_training_tpu_torch.optim import (build_optimizer,
+                                                             layouts_of)
     from faster_distributed_training_tpu_torch.train.loop import Trainer
     from faster_distributed_training_tpu_torch.train.state import (
         create_train_state)
@@ -286,18 +355,27 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
     dev = resolve_device(device if device is not None else cfg.device)
+    resnet = is_resnet(cfg)
     train_ds = load_dataset(cfg, train=True)
     if cfg.dataset == "stream":
         cfg = check_stream_corpus(cfg, train_ds, log)
     train_ds = apply_subset(train_ds, cfg.subset_stride)
     eval_ds = apply_subset(load_dataset(cfg, train=False), cfg.subset_stride)
-    model = build_model(cfg, vocab_size=train_ds.vocab_size(), device=dev)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = build_model(cfg, vocab_size=None if resnet
+                        else train_ds.vocab_size(), device=dev)
     if params is not None:
         load_jax_tree(model, params)
     else:
-        model.init_weights(torch.Generator().manual_seed(cfg.seed))
+        model.init_weights(gen)
     model.to(dev)
-    if params is None:
+    extra = {}
+    if resnet:
+        extra = resnet_extra_leaves(cfg, gen)
+        if dev.type == "cuda":
+            # cuDNN's NHWC kernels for the bf16 convs
+            model.to(memory_format=torch.channels_last)
+    elif params is None:
         # the JAX init's training forward on a zero batch (seeds the
         # --quant amax histories; a no-op without quant)
         model.seed_amax_histories(cfg.batch_size, cfg.seq_len, step_draws(
@@ -305,35 +383,70 @@ def run_training(cfg: TrainConfig, params=None, device=None,
             mixup_alpha(cfg)))
     train_loader, eval_loader, steps_per_epoch = make_loaders(
         cfg, train_ds, eval_ds)
-    tx, _ = build_optimizer(cfg, steps_per_epoch)
-    state = create_train_state(model, tx, cfg.seed)
+    tx, _ = build_optimizer(cfg, steps_per_epoch, layouts=layouts_of(model))
+    state = create_train_state(
+        model, tx, cfg.seed, extra={n: t.to(dev) for n, t in extra.items()})
     trainer = Trainer(cfg, make_train_step(cfg), make_eval_step(cfg), dev,
                       log=log)
     if cfg.telemetry:
         log("[telemetry] not ported yet: this run records no telemetry "
             "(per-step JSONL, manifest, spans come with the telemetry "
             "slice)")
-    log(f"[train] {cfg.model}"
-        + (" next-token LM (tied head)" if model.tie_lm_head else
-           " next-token LM (untied head)" if model.lm else "")
-        + f" on {dev.type}: {cfg.n_layers} layers, "
-        f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.precision}, "
-        f"attention {model.layers[0].attn.attention_impl}, ffn "
-        f"{cfg.ffn_impl}, quant {cfg.quant or 'none'}"
-        + (f" (grads {cfg.quant_grad})"
-           if (cfg.quant_grad or "none") != "none" else "") + ", "
-        f"{steps_per_epoch} steps/epoch x {cfg.epochs} epochs, batch "
-        f"{cfg.batch_size}")
-    ckpt_name = "transformer"
+    if resnet:
+        from faster_distributed_training_tpu_torch.train.steps import (
+            resolve_mixup_mode)
+        opt = cfg.optimizer or ("ngd" if cfg.use_ngd else "madgrad")
+        what = (f"{cfg.model} on {dev.type}: {cfg.precision}, optimizer "
+                f"{opt}, mixup {resolve_mixup_mode(cfg)}")
+    else:
+        what = (f"{cfg.model}"
+                + (" next-token LM (tied head)" if model.tie_lm_head else
+                   " next-token LM (untied head)" if model.lm else "")
+                + f" on {dev.type}: {cfg.n_layers} layers, d_model "
+                f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.precision}, "
+                f"attention {model.layers[0].attn.attention_impl}, ffn "
+                f"{cfg.ffn_impl}, quant {cfg.quant or 'none'}"
+                + (f" (grads {cfg.quant_grad})"
+                   if (cfg.quant_grad or "none") != "none" else ""))
+    log(f"[train] {what}, {steps_per_epoch} steps/epoch x {cfg.epochs} "
+        f"epochs, batch {cfg.batch_size}")
+    ckpt_name = "resnet" if resnet else "transformer"
     state, start_epoch, start_step = trainer.maybe_resume(state, ckpt_name)
-    state = trainer.fit(state, train_loader, eval_loader,
-                        ckpt_name=ckpt_name, start_epoch=start_epoch,
-                        start_step_in_epoch=start_step)
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    if resnet and dev.type == "cuda":
+        # conv algorithms without atomics, autotuned: two identical steps
+        # are bitwise equal; the process's own flags come back after
+        cudnn.deterministic, cudnn.benchmark = True, True
+    try:
+        state = trainer.fit(state, train_loader, eval_loader,
+                            ckpt_name=ckpt_name, start_epoch=start_epoch,
+                            start_step_in_epoch=start_step)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
     if cfg.plot and trainer.history["test_acc"]:
         plot_history(trainer.history, ckpt_name, log)
     return {"state": state, "history": trainer.history,
             "best_acc": trainer.best_acc, "cfg": cfg, "trainer": trainer,
             "steps_per_epoch": steps_per_epoch}
+
+
+def resnet_extra_leaves(cfg: TrainConfig, gen: torch.Generator) -> dict:
+    """The trainable leaves beside a ResNet: the meta mode's per-sample
+    lambda (batch, 1, 1, 1) or the attn mode's NHWC lambda map, drawn
+    from ``gen``; none for the other modes."""
+    from faster_distributed_training_tpu_torch.train.mixup import (
+        init_attn_lambda, init_meta_lambda)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        resolve_mixup_mode)
+
+    mode = resolve_mixup_mode(cfg)
+    if mode == "meta":
+        return {"mixup_lambda": init_meta_lambda(gen, cfg.batch_size)}
+    if mode == "attn":
+        return {"mixup_lambda": init_attn_lambda(gen, cfg.batch_size, 32,
+                                                 32, 3)}
+    return {}
 
 
 def plot_history(history: dict, prefix: str, log=print) -> list:

@@ -1,7 +1,8 @@
 """Batch loading and sequence-length bucketing.
 
 numpy copies of the JAX package's ``data/loader.py`` (``shard_for_host``,
-``BatchLoader`` with ``plan``/``materialize``, ``PrefetchIterator``,
+``BatchLoader`` with ``plan``/``materialize`` for text and image
+datasets, ``ParallelBatchIterator`` in place of both its iterators,
 ``eligible_buckets``/``select_bucket``) and ``data/agnews.py::
 bucket_length``: the epoch batch stream is a pure function of
 (n, seed, epoch) and equals the JAX loader's bitwise, and serving bins
@@ -11,10 +12,8 @@ requests into the same lengths.  One process: ``process_index`` 0 of
 
 from __future__ import annotations
 
-import queue
-import threading
-from typing import (Dict, Iterable, Iterator, List, Optional, Sequence,
-                    Tuple)
+import collections
+from typing import Deque, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -43,6 +42,12 @@ def select_bucket(n: int, buckets: Sequence[int],
     return bucket_length(int(n), list(eligible_buckets(buckets, max_len)))
 
 
+def dataset_len(data) -> int:
+    """Sample count of a text dataset (``encode_batch``) or an image
+    ``(x, y)`` pair."""
+    return len(data) if hasattr(data, "encode_batch") else len(data[0])
+
+
 def shard_for_host(n: int, epoch: int, seed: int = 0, shuffle: bool = True,
                    process_index: int = 0, process_count: int = 1,
                    pad: bool = False):
@@ -67,8 +72,9 @@ def shard_for_host(n: int, epoch: int, seed: int = 0, shuffle: bool = True,
 
 
 class BatchLoader:
-    """Dict batches from an ``encode_batch``-style text dataset (the image
-    datasets come with the ResNet slice).  Training (``pad_last=False``)
+    """Dict batches from an ``encode_batch``-style text dataset, or from
+    an image ``(x, y)`` pair as ``{"image": x[idx], "label": y[idx]}``
+    (NHWC uint8 images, int32 labels).  Training (``pad_last=False``)
     drops the trailing partial batch; eval (``pad_last=True``) pads it and
     every batch carries a float ``valid`` mask.  ``start`` is the first
     entry of the plan that iteration yields: a mid-epoch resume skips the
@@ -87,7 +93,8 @@ class BatchLoader:
         self.pad_last = pad_last
         self.start = start
         self._pi, self._pc = process_index, process_count
-        self._n = len(data)
+        self.is_text = hasattr(data, "encode_batch")
+        self._n = dataset_len(data)
 
     def __len__(self) -> int:
         if self.pad_last:
@@ -125,7 +132,11 @@ class BatchLoader:
     def materialize(self, entry: Tuple[np.ndarray, Optional[np.ndarray]]
                     ) -> Dict[str, np.ndarray]:
         batch_idx, valid = entry
-        batch = dict(self.data.encode_batch(batch_idx, self.max_len))
+        if self.is_text:
+            batch = dict(self.data.encode_batch(batch_idx, self.max_len))
+        else:
+            x, y = self.data
+            batch = {"image": x[batch_idx], "label": y[batch_idx]}
         if valid is not None:
             batch["valid"] = valid
         return batch
@@ -135,63 +146,53 @@ class BatchLoader:
             yield self.materialize(entry)
 
 
-class PrefetchIterator:
-    """A background thread keeps a bounded queue of ready batches.
-    ``close`` cancels the worker, drains the queue and joins it."""
+class ParallelBatchIterator:
+    """Background prefetch of a loader's batches (``--workers`` and
+    ``--prefetch_depth``): ``max(1, workers)`` threads materialize them
+    from construction on, at most ``depth`` in flight, and they are
+    yielded strictly in plan order (from the loader's ``start``).  A
+    worker's exception is raised at its batch.  ``close`` cancels the
+    batches not yet started and joins the threads; running out of
+    batches closes too."""
 
-    _DONE = object()
-    _PUT_POLL_S = 0.2
+    def __init__(self, loader: BatchLoader, workers: int = 1,
+                 depth: int = 2):
+        from concurrent.futures import ThreadPoolExecutor
 
-    def __init__(self, iterable: Iterable, depth: int = 2):
-        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
-        self._err: Optional[BaseException] = None
-        self._cancel = threading.Event()
-        self._done = False
+        self._loader = loader
+        self._workers = max(int(workers), 1)
+        self._depth = max(int(depth), self._workers)
+        self._plan = iter(loader.plan()[loader.start:])
+        self._pending: Deque = collections.deque()
+        self._ex = ThreadPoolExecutor(max_workers=self._workers)
+        self._fill()
 
-        def worker():
-            try:
-                for item in iterable:
-                    if not self._put(item):
-                        return
-            except BaseException as e:  # re-raised in the consumer
-                self._err = e
-            finally:
-                self._put(self._DONE)
-
-        self._t = threading.Thread(target=worker, daemon=True)
-        self._t.start()
-
-    def _put(self, item) -> bool:
-        while not self._cancel.is_set():
-            try:
-                self._q.put(item, timeout=self._PUT_POLL_S)
-                return True
-            except queue.Full:
-                continue
-        return False
+    def _fill(self) -> None:
+        while len(self._pending) < self._depth:
+            entry = next(self._plan, None)
+            if entry is None:
+                return
+            self._pending.append(self._ex.submit(self._loader.materialize,
+                                                 entry))
 
     def close(self) -> None:
-        self._cancel.set()
-        while True:
-            try:
-                self._q.get_nowait()
-            except queue.Empty:
-                break
-        self._t.join(timeout=5.0)
-        self._done = True
+        self._plan = iter(())
+        for fut in self._pending:
+            fut.cancel()
+        self._pending.clear()
+        self._ex.shutdown(wait=True, cancel_futures=True)
 
-    def __iter__(self):
+    def __iter__(self) -> "ParallelBatchIterator":
         return self
 
-    def __next__(self):
-        if self._done:
-            if self._err is not None:
-                raise self._err
+    def __next__(self) -> Dict[str, np.ndarray]:
+        if not self._pending:
+            self.close()
             raise StopIteration
-        item = self._q.get()
-        if item is self._DONE:
-            self._done = True
-            if self._err is not None:
-                raise self._err
-            raise StopIteration
-        return item
+        try:
+            batch = self._pending.popleft().result()
+        except BaseException:
+            self.close()
+            raise
+        self._fill()
+        return batch

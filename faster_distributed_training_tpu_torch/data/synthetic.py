@@ -1,13 +1,32 @@
-"""Synthetic AG-News-shaped text data (a copy of the JAX package's
-``data/synthetic.py::synthetic_agnews``; same numpy draws, so both
-packages see the same tokens and labels).  Labels are learnable: every
-token is congruent to the label modulo num_classes."""
+"""Synthetic datasets, copies of the JAX package's ``data/synthetic.py``:
+CIFAR-shaped images (``synthetic_cifar``) and AG-News-shaped text
+(``synthetic_agnews``).  Same numpy draws, so both packages see the same
+bytes.  Labels are learnable: class k images are noise around a fixed
+class prototype, and every token is congruent to its label modulo
+num_classes."""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
+
+
+def synthetic_cifar(n: int = 1024, seed: int = 0, num_classes: int = 10,
+                    signal: float = 0.6, noise_std: float = 40.0
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """(NHWC uint8 images, int32 labels).  The prototypes come from a
+    fixed rng, independent of ``seed``: the train (seed 0) and test
+    (seed 1) splits share the class structure, so test accuracy
+    measures generalization."""
+    rng = np.random.default_rng(seed)
+    proto_rng = np.random.default_rng(20260101)
+    labels = rng.integers(0, num_classes, size=n).astype(np.int32)
+    prototypes = proto_rng.integers(0, 256, size=(num_classes, 32, 32, 3))
+    noise = rng.normal(0, noise_std, size=(n, 32, 32, 3))
+    x = np.clip(prototypes[labels] * signal + noise + 50,
+                0, 255).astype(np.uint8)
+    return x, labels
 
 
 def synthetic_agnews(n: int = 512, seed: int = 0, vocab: int = 30522,

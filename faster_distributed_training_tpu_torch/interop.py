@@ -1,4 +1,5 @@
-"""Carry Transformer weights between the JAX package and the port.
+"""Carry Transformer and ResNet weights between the JAX package and the
+port.
 
 The JAX model's parameter tree (nested dicts of arrays, as ``model.init``
 returns under ``"params"``) maps onto the port's ``state_dict``:
@@ -24,6 +25,13 @@ Under ``--quant`` the JAX ``batch_stats`` tree holds the amax histories,
 (``batch_stats_to_jax`` / the ``batch_stats`` argument of
 ``params_from_jax``).  Parameters and statistics stay in separate trees,
 as in the JAX variables.
+
+A ResNet's flax tree maps onto the port's ``state_dict`` by its path
+(the port's modules carry flax's auto names, ``BottleNeck_3/ConvBN_1/
+BatchNorm_0/scale`` -> ``BottleNeck_3.ConvBN_1.BatchNorm_0.scale``):
+conv kernels HWIO -> OIHW, ``fc_kernel`` (in, out) -> (out, in), and the
+``batch_stats`` tree's ``mean`` / ``var`` onto the running-stat buffers
+(``resnet_from_jax`` / ``resnet_to_jax``).
 
 Arrays cross as numpy (the tests hand the same arrays to both packages);
 nothing here imports JAX.
@@ -164,10 +172,54 @@ def batch_stats_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return unflatten(flat)
 
 
+def _resnet_leaf_from_jax(path: str, a) -> torch.Tensor:
+    a = np.asarray(a, np.float32)
+    if path.endswith("kernel") and a.ndim == 4:
+        a = a.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+    elif path == "fc_kernel":
+        a = a.T                              # (in, out) -> (out, in)
+    return _t(np.ascontiguousarray(a))
+
+
+def resnet_from_jax(tree: Mapping[str, Any],
+                    batch_stats: Optional[Mapping[str, Any]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """The port's fp32 ResNet ``state_dict`` for a flax ResNet tree and,
+    when given, its ``batch_stats`` (the running statistics)."""
+    sd = {}
+    for src in (model_tree(tree), batch_stats or {}):
+        for path, a in flatten(src).items():
+            sd[path.replace("/", ".")] = _resnet_leaf_from_jax(path, a)
+    return sd
+
+
+def resnet_to_jax(sd: Mapping[str, torch.Tensor]):
+    """The inverse of :func:`resnet_from_jax`: ``(params, batch_stats)``,
+    flax-layout trees of fp32 numpy arrays."""
+    params, stats = {}, {}
+    for key, t in sd.items():
+        path, a = key.replace(".", "/"), _np(t)
+        if path.endswith("kernel") and a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)      # OIHW -> HWIO
+        elif path == "fc_kernel":
+            a = a.T
+        leaf = path.rsplit("/", 1)[-1]
+        (stats if leaf in ("mean", "var") else params)[path] = (
+            np.ascontiguousarray(a))
+    return unflatten(params), unflatten(stats)
+
+
 def load_jax_tree(model: torch.nn.Module, tree: Mapping[str, Any]) -> None:
     """Load a JAX parameter tree (and the ``batch_stats`` of a variables
     bundle, when it has them) into ``model``.  Histories the tree lacks
-    stay as they are (fresh zeros); anything else missing raises."""
+    stay as they are (fresh zeros); anything else missing raises.  A
+    ResNet's tree must hold every leaf, its running statistics
+    included."""
+    from faster_distributed_training_tpu_torch.models.resnet import ResNet
+
+    if isinstance(model, ResNet):
+        model.load_state_dict(resnet_from_jax(tree, stats_tree(tree)))
+        return
     sd = params_from_jax(tree, stats_tree(tree))
     missing, unexpected = model.load_state_dict(sd, strict=False)
     bad = [k for k in missing if k.rsplit(".", 1)[-1] not in _HISTS]

@@ -1,6 +1,7 @@
 """Optimizer + schedule pairing (the JAX package's ``optim/builder.py``):
-the reference's get_optimizer selection behind one function, with
-global-norm gradient clipping before the update."""
+the reference's get_optimizer selection behind one function (MADGRAD,
+MirrorMADGRAD, NGD and SGD), with global-norm gradient clipping before
+the update."""
 
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ import torch
 from faster_distributed_training_tpu_torch.config import TrainConfig
 from faster_distributed_training_tpu_torch.optim import schedules
 from faster_distributed_training_tpu_torch.optim.madgrad import (
-    Madgrad, madgrad, mirror_madgrad)
+    madgrad, mirror_madgrad)
+from faster_distributed_training_tpu_torch.optim.ngd import (NGD,
+                                                             NGDHyperParams)
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -36,7 +39,7 @@ class Optimizer:
     """clip_by_global_norm (when ``clip_norm``) chained before the inner
     update, as ``optax.chain`` does in the JAX builder."""
 
-    def __init__(self, inner: Madgrad, clip_norm: Optional[float] = None):
+    def __init__(self, inner, clip_norm: Optional[float] = None):
         self.inner = inner
         self.clip_norm = clip_norm
 
@@ -60,10 +63,12 @@ def _default_schedule(optimizer: str, cfg: TrainConfig) -> str:
 
 
 def build_optimizer(cfg: TrainConfig, steps_per_epoch: int,
-                    lr_scale: float = 1.0) -> Tuple[Optimizer,
-                                                    schedules.Schedule]:
+                    lr_scale: float = 1.0, layouts=None
+                    ) -> Tuple[Optimizer, schedules.Schedule]:
     """(optimizer, schedule).  ``lr_scale`` is the data-parallel world
-    size (1 on one card)."""
+    size (1 on one card); ``layouts`` maps a parameter name to its
+    permutation into the JAX layout, the axis order NGD preconditions in
+    (``optim.ngd.layouts_of``)."""
     base_lr = cfg.lr * lr_scale
     name = cfg.optimizer or ("ngd" if cfg.use_ngd else
                              ("mirror_madgrad" if cfg.model == "transformer"
@@ -87,11 +92,19 @@ def build_optimizer(cfg: TrainConfig, steps_per_epoch: int,
         inner = madgrad(schedule, cfg.momentum, cfg.weight_decay)
     elif name == "mirror_madgrad":
         inner = mirror_madgrad(schedule, cfg.momentum, cfg.weight_decay)
-    elif name in ("ngd", "sgd", "adamw"):
-        raise NotImplementedError(
-            f"not ported yet: --optimizer {name}"
-            + (" / --ngd (comes with the ResNet slice)"
-               if name in ("ngd", "sgd") else ""))
+    elif name == "ngd":
+        inner = NGD(schedule, momentum=cfg.momentum,
+                    weight_decay=cfg.weight_decay, use_ngd=True,
+                    hp=NGDHyperParams(alpha=cfg.ngd_alpha, rank=cfg.ngd_rank,
+                                      update_period=cfg.ngd_update_period,
+                                      eta=cfg.ngd_eta,
+                                      max_dim=cfg.ngd_max_dim),
+                    layouts=layouts)
+    elif name == "sgd":
+        inner = NGD(schedule, momentum=cfg.momentum,
+                    weight_decay=cfg.weight_decay, use_ngd=False)
+    elif name == "adamw":
+        raise NotImplementedError("not ported yet: --optimizer adamw")
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     return Optimizer(inner, cfg.clip_norm or None), schedule

@@ -1,8 +1,10 @@
 """The port's own checkpoints of the whole train state.
 
 ``<checkpoint_dir>/<name>/`` holds ``state.pt`` (the model's state dict —
-parameters and, under ``--quant``, the amax-history buffers — optimizer
-state, step and seed, saved with ``torch.save`` and read back
+parameters and buffers: the amax histories under ``--quant``, a ResNet's
+BN running statistics — the trainable leaves outside the model (the
+mixup lambda), the optimizer state (NGD's factors and its counter), the
+fp16 loss scale, step and seed, saved with ``torch.save`` and read back
 with ``weights_only=True``), ``meta.json`` (epoch, step_in_epoch,
 best_acc, step) and a ``COMMIT`` marker.  Each file is written to a
 temporary name and renamed; the marker is removed first and written
@@ -119,8 +121,12 @@ def save_checkpoint(checkpoint_dir: str, name: str, state: TrainState,
     commit = os.path.join(path, _COMMIT)
     if os.path.exists(commit):
         os.remove(commit)
+    ls = state.loss_scale
     payload = {"model": _to_cpu(state.model.state_dict()),
+               "extra": _to_cpu(dict(state.extra)),
                "opt_state": _to_cpu(state.opt_state),
+               "loss_scale": _to_cpu({"scale": ls.scale,
+                                      "growth_count": ls.growth_count}),
                "step": int(state.step), "seed": int(state.seed)}
     _replace_atomically(os.path.join(path, _STATE),
                         lambda f: torch.save(payload, f))
@@ -169,6 +175,10 @@ def restore_checkpoint(checkpoint_dir: str, name: str, state: TrainState
         state.model.load_state_dict(payload["model"])
         state.opt_state = _copy_into(state.opt_state, payload["opt_state"],
                                      "opt_state")
+        _copy_into(dict(state.extra), payload["extra"], "extra")
+        ls = state.loss_scale
+        _copy_into({"scale": ls.scale, "growth_count": ls.growth_count},
+                   payload["loss_scale"], "loss_scale")
     state.step = int(payload["step"])
     state.seed = int(payload["seed"])
     return state, read_meta(checkpoint_dir, name)

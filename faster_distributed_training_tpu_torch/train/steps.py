@@ -1,20 +1,30 @@
-"""The train and eval steps of the transformer: the classifier and the
-next-token LM (``--task lm``).
+"""The train and eval steps: the transformer classifier, the next-token
+LM (``--task lm``) and the ResNet image classifier.
 
 Counterparts of the JAX package's ``train/steps.py::make_train_step``
-(the transformer branch) and ``make_eval_step``: in-forward mixup, the
-training forward with hash dropout, the mixup criterion, backward,
-global-norm clip, the optimizer update and the mixup-weighted accuracy;
-for the LM, the training forward with ``mask=None``, the shifted
-next-token loss (``lm_shift_metrics``), backward, clip and update.
-PyTorch runs eagerly, so there is no compile step; the step returns its
+and ``make_eval_step``.  Transformer: in-forward mixup, the training
+forward with hash dropout, the mixup criterion, backward, global-norm
+clip, the optimizer update and the mixup-weighted accuracy; for the LM,
+the training forward with ``mask=None``, the shifted next-token loss
+(``lm_shift_metrics``), backward, clip and update.  ResNet: uint8 images
+augmented in-step (crop, flip, normalize), mixup by mode
+(``resolve_mixup_mode``: static, intra, meta, attn or none), the
+training forward (BN running stats updated), the loss, backward, clip
+and update, then the mixup-weighted accuracy; the eval step normalizes
+and uses the running stats.  Under ``--precision fp16`` (fp32 compute)
+the loss is scaled, the grads unscaled and checked, and a step with a
+non-finite grad is skipped: parameters, optimizer state and buffers stay
+as they were while the step count and the loss scale advance.  Deciding
+the skip reads one device bool a step, in fp16 only.  PyTorch runs
+eagerly, so there is no compile step; otherwise the step returns its
 metrics as device scalars and never waits on the card.
 
 Under ``--quant`` the training forward rolls every amax history once (the
 JAX step's mutable ``batch_stats``); the eval step's forward does not.
 
 Randomness is explicit.  A ``StepDraws`` holds one u32 seed per dropout
-site in the model's call order, the mixup lambda and the permutation.
+site in the model's call order, the mixup lambda and the permutation,
+and for images the crop offsets and flip bits.
 The fused FFN (``--ffn_impl pallas``) takes its two seeds as one (hidden,
 connection) pair where the flax FFN takes its hidden and connection
 seeds, so the count is the same on both branches.  In a run they come
@@ -34,6 +44,9 @@ import numpy as np
 import torch
 
 from faster_distributed_training_tpu_torch.config import TrainConfig
+from faster_distributed_training_tpu_torch.train import mixup as mx
+from faster_distributed_training_tpu_torch.train.amp import (
+    scale_loss, unscale_and_check, update_loss_scale)
 from faster_distributed_training_tpu_torch.train.losses import (
     cross_entropy, per_sample_cross_entropy)
 from faster_distributed_training_tpu_torch.train.mixup import (
@@ -48,6 +61,38 @@ class StepDraws:
     seeds: Sequence[int]   # one u32 per active dropout site, in call order
     lam: float             # mixup lambda
     perm: np.ndarray       # mixup partner index per row
+    crop: Optional[np.ndarray] = None   # images: (n, 2) offsets in [0, 8]
+    flip: Optional[np.ndarray] = None   # images: (n,) horizontal flips
+
+
+def resolve_mixup_mode(cfg: TrainConfig) -> str:
+    """The image mixup mode: ``--mixup_mode``, else meta under
+    ``--meta_learning``, else static when alpha != 0, else none."""
+    if cfg.mixup_mode:
+        return cfg.mixup_mode
+    if cfg.meta_learning:
+        return "meta"
+    return "static" if cfg.alpha != 0 else "none"
+
+
+def image_draws(seed: int, step: int, batch_size: int, alpha: float,
+                padding: int = 4) -> StepDraws:
+    """The draws of image step ``step`` of a run seeded ``seed``."""
+    rng = np.random.default_rng((int(seed), int(step)))
+    lam = sample_lam(rng, alpha)
+    perm = rng.permutation(batch_size)
+    crop = rng.integers(0, 2 * padding + 1, size=(batch_size, 2))
+    flip = rng.random(batch_size) < 0.5
+    return StepDraws(seeds=(), lam=lam, perm=perm, crop=crop, flip=flip)
+
+
+def _pinned(a, device) -> torch.Tensor:
+    """A host array on ``device`` (pinned, an asynchronous copy to a
+    card)."""
+    t = torch.tensor(np.asarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def mixup_alpha(cfg: TrainConfig) -> float:
@@ -110,8 +155,15 @@ def lm_shift_metrics(logits: torch.Tensor, tokens: torch.Tensor,
     return loss_total, correct, valid.sum()
 
 
+def _grads(loss, params: Dict[str, torch.Tensor], loss_scale=None):
+    """Grads by name of ``loss``, scaled by ``loss_scale`` (fp16)."""
+    scaled = scale_loss(loss, loss_scale, loss_scale is not None)
+    return dict(zip(params, torch.autograd.grad(scaled,
+                                                list(params.values()))))
+
+
 def lm_loss_and_grads(model, batch: Dict[str, torch.Tensor],
-                      draws: StepDraws):
+                      draws: StepDraws, loss_scale=None):
     """The LM training forward (``mask=None``: packed rows have nothing to
     mask in attention; padded targets leave the loss through
     ``lm_shift_metrics``' token mask), the per-token mean loss and the
@@ -122,15 +174,15 @@ def lm_loss_and_grads(model, batch: Dict[str, torch.Tensor],
     loss_total, correct, total = lm_shift_metrics(logits, batch["tokens"],
                                                   batch.get("mask"))
     loss = loss_total / torch.clamp(total, min=1.0)
-    params = dict(model.named_parameters())
-    grads = torch.autograd.grad(loss, list(params.values()))
-    return loss, dict(zip(params, grads)), loss_total, correct, total
+    grads = _grads(loss, dict(model.named_parameters()), loss_scale)
+    return loss, grads, loss_total, correct, total
 
 
-def loss_and_grads(model, batch: Dict[str, torch.Tensor], draws: StepDraws):
+def loss_and_grads(model, batch: Dict[str, torch.Tensor], draws: StepDraws,
+                   loss_scale=None):
     """The training forward with ``draws``, the mixup criterion and the
-    gradients of every parameter.  Returns (loss, grads by name, logits,
-    y_b, lam)."""
+    gradients of every parameter (of the scaled loss under fp16).
+    Returns (loss, grads by name, logits, y_b, lam)."""
     y = batch["label"]
     logits, index, lam = model(batch["tokens"],
                                token_types=batch.get("token_types"),
@@ -139,9 +191,71 @@ def loss_and_grads(model, batch: Dict[str, torch.Tensor], draws: StepDraws):
     lam = lam.to(logits.device)
     y_b = y[index]
     loss = mixup_criterion(cross_entropy, logits, y, y_b, lam)
-    params = dict(model.named_parameters())
-    grads = torch.autograd.grad(loss, list(params.values()))
-    return loss, dict(zip(params, grads)), logits, y_b, lam
+    grads = _grads(loss, dict(model.named_parameters()), loss_scale)
+    return loss, grads, logits, y_b, lam
+
+
+def image_loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
+                         draws: StepDraws, mode: str, loss_scale=None):
+    """The image step's forward: augment (uint8 batches), mixup by
+    ``mode``, the training forward (BN running stats updated), the
+    criterion and the grads of every trainable leaf, the mixup lambda's
+    included.  Returns (loss, grads by name, logits, y_a, y_b, lam)."""
+    from faster_distributed_training_tpu_torch.data.augment import (
+        augment_batch)
+
+    x, y = batch["image"], batch["label"]
+    dev = x.device
+    if x.dtype == torch.uint8:
+        x = augment_batch(x, _pinned(draws.crop, dev),
+                          _pinned(draws.flip, dev), train=True)
+    perm = _pinned(draws.perm, dev)
+    if mode == "meta":
+        x, y_a, y_b, lam = mx.meta_mixup_apply(state.extra["mixup_lambda"],
+                                               perm, x, y)
+    elif mode == "attn":
+        x, y_a, y_b, lam = mx.attn_mixup_apply(state.extra["mixup_lambda"],
+                                               perm, x, y)
+    elif mode in ("static", "intra"):
+        x, y_a, y_b, lam = mx.mixup_data(x, y, draws.lam, perm,
+                                         intra_only=mode == "intra")
+    elif mode == "none":
+        y_a, y_b, lam = y, y, torch.tensor(1.0)
+    else:
+        raise ValueError(f"unknown mixup mode {mode!r}")
+    logits = state.model(x, train=True)
+    if mode in ("meta", "attn"):
+        loss = mx.mixup_criterion_meta(per_sample_cross_entropy, logits,
+                                       y_a, y_b, lam)
+    else:
+        loss = mixup_criterion(cross_entropy, logits, y_a, y_b, lam)
+    grads = _grads(loss, state.params(), loss_scale)
+    return loss, grads, logits, y_a, y_b, lam
+
+
+def apply_update(state: TrainState, grads: Dict[str, torch.Tensor],
+                 fp16: bool, buffers=None) -> None:
+    """Clip and update (the optimizer), then advance the step.  Under
+    fp16 the grads are unscaled and checked first and the loss scale
+    moves; on a non-finite grad the update is skipped and the model's
+    buffers go back to ``buffers`` (their values before the forward)."""
+    grads, finite = unscale_and_check(grads, state.loss_scale, fp16)
+    new_scale = update_loss_scale(state.loss_scale, finite, fp16)
+    if fp16 and not bool(finite):
+        with torch.no_grad():
+            for b, old in zip(state.model.buffers(), buffers):
+                b.copy_(old)
+    else:
+        state.tx.update(grads, state.opt_state, state.params())
+    state.loss_scale = new_scale
+    state.step += 1
+
+
+def _snapshot(state: TrainState, fp16: bool):
+    """The buffers' values before the forward, for an fp16 skip."""
+    if not fp16:
+        return None
+    return [b.detach().clone() for b in state.model.buffers()]
 
 
 def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
@@ -152,37 +266,54 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
     place and advances its step."""
     alpha = mixup_alpha(cfg)
     lm = cfg.task == "lm"
+    image = cfg.model != "transformer"
+    mode = resolve_mixup_mode(cfg)
+    fp16 = cfg.precision == "fp16"
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              draws: StepDraws = None) -> Tuple[TrainState, Metrics]:
-        B = batch["tokens"].shape[0]
-        if draws is None:
+        ls = state.loss_scale if fp16 else None
+        buffers = _snapshot(state, fp16)
+        if image:
+            B = batch["image"].shape[0]
+            draws = draws or image_draws(state.seed, state.step, B,
+                                         cfg.alpha)
+            loss, grads, logits, y_a, y_b, lam = image_loss_and_grads(
+                state, batch, draws, mode, ls)
+        else:
             # the LM draws lambda and the permutation too and never uses
             # them, as the JAX step threads its mixup key
-            draws = step_draws(state.seed, state.step, B,
-                               state.model.n_dropout_sites(), alpha)
+            B = batch["tokens"].shape[0]
+            draws = draws or step_draws(state.seed, state.step, B,
+                                        state.model.n_dropout_sites(), alpha)
         if lm:
             loss, grads, loss_total, correct, total = lm_loss_and_grads(
-                state.model, batch, draws)
-            state.tx.update(grads, state.opt_state, state.params())
-            state.step += 1
+                state.model, batch, draws, ls)
+            apply_update(state, grads, fp16, buffers)
             # loss is the per-token mean; loss_total / total the exact
             # token-weighted epoch loss; accuracy is next-token accuracy
-            return state, {"loss": loss.detach(),
-                           "loss_total": loss_total.detach(),
-                           "correct": correct, "total": total}
-        y = batch["label"]
-        loss, grads, logits, y_b, lam = loss_and_grads(state.model, batch,
-                                                       draws)
-        state.tx.update(grads, state.opt_state, state.params())
-        state.step += 1
-        with torch.no_grad():
-            pred = logits.argmax(dim=-1)
-            correct = (lam * (pred == y).sum()
-                       + (1.0 - lam) * (pred == y_b).sum())
-        return state, {"loss": loss.detach().float(),
+            metrics = {"loss": loss.detach(),
+                       "loss_total": loss_total.detach(),
+                       "correct": correct, "total": total}
+        else:
+            if not image:
+                y_a = batch["label"]
+                loss, grads, logits, y_b, lam = loss_and_grads(
+                    state.model, batch, draws, ls)
+            apply_update(state, grads, fp16, buffers)
+            # the mixup-weighted accuracy: lam a scalar or one a sample
+            with torch.no_grad():
+                pred = logits.argmax(dim=-1)
+                correct = (lam * (pred == y_a) + (1.0 - lam)
+                           * (pred == y_b)).sum() if lam.dim() else (
+                    lam * (pred == y_a).sum()
+                    + (1.0 - lam) * (pred == y_b).sum())
+            metrics = {"loss": loss.detach().float(),
                        "correct": correct.float(),
                        "total": torch.tensor(float(B))}
+        if fp16:
+            metrics["loss_scale"] = state.loss_scale.scale
+        return state, metrics
 
     return step
 
@@ -193,10 +324,18 @@ def make_eval_step(cfg: TrainConfig) -> Callable[[TrainState, Dict],
     batch's ``valid`` mask keeps its pad rows out of every sum.  The LM
     evaluates the shifted next-token objective."""
     lm = cfg.task == "lm"
+    image = cfg.model != "transformer"
 
     @torch.no_grad()
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Metrics:
-        if lm:
+        if image:
+            from faster_distributed_training_tpu_torch.data.augment import (
+                normalize)
+            x = batch["image"]
+            if x.dtype == torch.uint8:
+                x = normalize(x)
+            logits = state.model(x, train=False)
+        elif lm:
             logits = state.model(batch["tokens"],
                                  token_types=batch.get("token_types"),
                                  mask=None, train=False)
@@ -206,9 +345,10 @@ def make_eval_step(cfg: TrainConfig) -> Callable[[TrainState, Dict],
             return {"loss": loss_total / torch.clamp(total, min=1.0),
                     "loss_total": loss_total, "correct": correct,
                     "total": total}
-        logits = state.model(batch["tokens"],
-                             token_types=batch.get("token_types"),
-                             mask=batch.get("mask"), train=False)
+        else:
+            logits = state.model(batch["tokens"],
+                                 token_types=batch.get("token_types"),
+                                 mask=batch.get("mask"), train=False)
         y = batch["label"]
         hit = (logits.argmax(dim=-1) == y).float()
         losses = per_sample_cross_entropy(logits, y)

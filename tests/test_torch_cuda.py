@@ -39,10 +39,17 @@ pytestmark = pytest.mark.cuda
 
 @pytest.fixture
 def card():
+    """The card's generator, TF32 matmuls off; the process's backend
+    flags (TF32, cuDNN determinism and autotuning) come back after."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    cudnn = torch.backends.cudnn
+    flags = (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32,
+             cudnn.deterministic, cudnn.benchmark)
     torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.Generator(device="cuda").manual_seed(0)
+    yield torch.Generator(device="cuda").manual_seed(0)
+    (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32,
+     cudnn.deterministic, cudnn.benchmark) = flags
 
 
 def _qkv(gen, B, H, L, D, dtype):
@@ -749,3 +756,180 @@ def test_lm_train_step_on_card_matches_cpu(card):
             flash_attention_bwd.launches - counts[1],
             fused_mlp.launches - counts[2]) == (2, 2, 0)
     _assert_step_matches(l_g, g_g, l_c, g_c)
+
+
+# -- the ResNet slice: conv + BN, NGD on cuSOLVER, the image step ------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_fused_conv_bn_card_matches_cpu(card, dtype, tol, stride):
+    """``fused_conv_bn`` on cuDNN (channels_last) against the CPU: out,
+    mean, var and both gradients, fp32 1e-5 and bf16 2e-2 of max |CPU|;
+    one output channel has variance 0."""
+    from faster_distributed_training_tpu_torch.ops.conv_bn import (
+        fused_conv_bn)
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(stride)
+    x = torch.randn(8, 64, 16, 16, generator=gen)
+    w = torch.randn(128, 64, 3, 3, generator=gen) * 0.05
+    w[0] = 0.0
+    g = torch.randn(8, 128, 16 // stride, 16 // stride, generator=gen)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev, dtype).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        wd = w.to(dev, dtype).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        o, m, v = fused_conv_bn(xd, wd, stride, 1)
+        dx, dw = torch.autograd.grad(o, (xd, wd), g.to(dev, dtype))
+        outs.append([t.detach().float().cpu() for t in (o, m, v, dx, dw)])
+    for got, want in zip(outs[1], outs[0]):
+        assert _rel_err((got,), (want,)) <= tol
+
+
+def test_augment_card_is_bitwise_cpu(card):
+    """The in-step augment (normalize, zero pad, crop, flip) on the card
+    equals the CPU's bitwise: the division by 255 is a true division on
+    both (CUDA turns a division by a Python scalar into a multiply by
+    its reciprocal)."""
+    from faster_distributed_training_tpu_torch.data.augment import (
+        augment_batch)
+
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.integers(0, 256, (64, 32, 32, 3), dtype=np.uint8))
+    off = torch.tensor(rng.integers(0, 9, (64, 2)))
+    flip = torch.tensor(rng.random(64) < 0.5)
+    for train in (True, False):
+        want = augment_batch(x, off, flip, train=train)
+        got = augment_batch(x.cuda(), off, flip, train=train)
+        assert torch.equal(got.cpu(), want), train
+
+
+def _ngd_case(dev, dtype):
+    from faster_distributed_training_tpu_torch.optim.ngd import ScaleByNGD
+
+    # OIHW and (out, in); every axis-state has N >= rank
+    shapes = {"conv": (64, 32, 3, 3), "fc": (40, 64)}
+    port = ScaleByNGD(layouts={"conv": (2, 3, 1, 0), "fc": (1, 0)},
+                      precond_dtype=dtype)
+    gen = torch.Generator().manual_seed(0)
+    state = port.init({k: torch.zeros(s, device=dev)
+                       for k, s in shapes.items()})
+    outs = []
+    for _ in range(12):
+        g = {k: torch.randn(s, generator=gen).to(dev)
+             for k, s in shapes.items()}
+        outs.append({k: v.cpu() for k, v in port.update(g, state).items()})
+    return outs, state
+
+
+def test_ngd_card_matches_cpu(card):
+    """12 NGD steps on the card (cuSOLVER's Jacobi ``eigh``) and the CPU
+    (LAPACK), every axis-state with N >= rank: in fp32 the preconditioned
+    updates 1e-5 of max |CPU|; in fp64 (``precond_dtype``) the factors,
+    sorted d and rho 1e-6 relative and W^T diag(d) W 1e-6 of its max.
+    The factors are compared in fp64 because in fp32 a d that is a small
+    difference of near-equal eigenvalues (an axis of dim 3 over 6144
+    rows) differs by 1e-4 between any two eigensolvers."""
+    from faster_distributed_training_tpu_torch.optim.ngd import (
+        ngd_invariants)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for a, b in zip(_ngd_case("cuda", torch.float32)[0],
+                    _ngd_case("cpu", torch.float32)[0]):
+        for k in a:
+            assert _rel_err((a[k],), (b[k],)) <= 1e-5, k
+    (_, s_g), (_, s_c) = (_ngd_case(dev, torch.float64)
+                          for dev in ("cuda", "cpu"))
+    for key, gc in s_c["groups"].items():
+        gg = {n: t.cpu() for n, t in s_g["groups"][key].items()}
+        assert _rel_err((gg["d"].sort(dim=1).values,),
+                        (gc["d"].sort(dim=1).values,)) <= 1e-6, key
+        assert _rel_err((gg["rho"],), (gc["rho"],)) <= 1e-6, key
+        assert _rel_err((ngd_invariants(gg["w"], gg["d"]),),
+                        (ngd_invariants(gc["w"], gc["d"]),)) <= 1e-6, key
+
+
+def _resnet_states(n, precision="bf16", bs=32):
+    from faster_distributed_training_tpu_torch.optim import (build_optimizer,
+                                                             layouts_of)
+    from faster_distributed_training_tpu_torch.train.state import (
+        create_train_state)
+
+    cfg = cli.RESNET50_DEFAULTS.replace(
+        model="resnet18", batch_size=bs, use_ngd=True, meta_learning=True,
+        precision=precision)
+    torch.backends.cudnn.deterministic = True
+    states = []
+    for _ in range(n):
+        gen = torch.Generator().manual_seed(3)
+        model = cli.build_model(cfg).init_weights(gen)
+        model.cuda().to(memory_format=torch.channels_last)
+        tx, _ = build_optimizer(cfg, 10, layouts=layouts_of(model))
+        states.append(create_train_state(
+            model, tx, 0, extra={
+                k: v.cuda() for k, v in cli.resnet_extra_leaves(
+                    cfg, gen).items()}))
+    rng = np.random.default_rng(2)
+    batch = {"image": torch.tensor(rng.integers(0, 256, (bs, 32, 32, 3),
+                                                dtype=np.uint8)).cuda(),
+             "label": torch.tensor(rng.integers(0, 10, bs)).cuda()}
+    return cfg, states, batch
+
+
+def test_two_identical_resnet_steps_are_bitwise_equal(card):
+    """Two resnet18 NGD + meta-mixup steps (bf16, channels_last, cuDNN
+    deterministic), run twice from the same state, batch and draws:
+    every parameter, BN statistic, mixup lambda, NGD factor and
+    momentum leaf bitwise equal."""
+    from faster_distributed_training_tpu_torch.train.state import (
+        state_leaves)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_train_step)
+
+    cfg, states, batch = _resnet_states(2)
+    step = make_train_step(cfg)
+    for st in states:
+        step(st, batch)
+        step(st, batch)
+    torch.cuda.synchronize()
+    a, b = (state_leaves(s) for s in states)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_non_update_ngd_step_never_waits_on_the_card(card):
+    """A resnet18 NGD step whose factors are not refreshed (t = 11)
+    makes no host sync (``set_sync_debug_mode("error")`` raises on one);
+    an update step's syncs are eigh's error checks, one a group at
+    most."""
+    import warnings
+
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_train_step)
+
+    cfg, (state,), batch = _resnet_states(1)
+    step = make_train_step(cfg)
+    for _ in range(11):                   # init, then updates, warmed up
+        step(state, batch)
+    torch.cuda.synchronize()
+    assert state.opt_state["ngd"]["t"] == 11
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    state.opt_state["ngd"]["t"] = 12
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) <= len(state.opt_state["ngd"]["groups"])

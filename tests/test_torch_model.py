@@ -139,4 +139,4 @@ def test_train_forward_raises_until_training_slice():
     missing = [n for n, g in zip(names, grads) if g is None]
     assert missing == ["embeddings.segment_embedding"] or not missing
     with pytest.raises(ValueError):
-        get_model("resnet50", 10)
+        get_model("vgg16", 10)

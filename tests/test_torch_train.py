@@ -218,9 +218,15 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tmp_path):
                         (["--data_path", "stream"], "--data_path stream"),
                         (["--mesh", "dp=2"], "--mesh"),
                         (["--supervise"], "--supervise"),
-                        (["--precision", "fp16"], "fp16")):
+                        (["--dataset", "cifar10"], "--dataset cifar10")):
         with pytest.raises(NotImplementedError, match=name):
             cli.main(argv + flags, defaults=cli.TRANSFORMER_DEFAULTS)
+    # fp16 loss scaling (fp32 compute) trains the transformer too
+    out = cli.main(argv + ["--precision", "fp16"],
+                   defaults=cli.TRANSFORMER_DEFAULTS)
+    assert out["state"].step == 4
+    assert float(out["state"].loss_scale.scale) == 2.0 ** 16
+    assert np.isfinite(out["history"]["train_loss"]).all()
     # the record's --dataset agnews without its CSVs: the JAX package's
     # synthetic fallback (12000 train rows, 188 at subset stride 64)
     out = cli.main(argv[2:] + ["--data_dir", str(tmp_path / "no_csv")],
