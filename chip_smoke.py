@@ -7,13 +7,15 @@ width.
     python3 chip_smoke.py
     python3 chip_smoke.py --steps [DIR]
     python3 chip_smoke.py --resnet
+    python3 chip_smoke.py --dispatch
 
 The second form prints only the device split of one record-width
 training step of the slice-2 path and paths B and C, and whether two
 identical steps are bitwise equal, then path E's step split (the LM at
 seq 8192 on a random batch), for the port at DIR (default: this
 checkout): run it on a parent and a change in one call to compare them.
-The third runs phase R (the ResNet slice, no kernel build) alone.
+The third runs phase R (the ResNet slice, no kernel build) alone; the
+fourth builds the kernels and runs phases K (without path E) and M.
 Needs one CUDA card and the repo checkout beside this file; without
 either it exits non-zero and prints no result.  Phases, in order (any
 failure raises and exits non-zero):
@@ -72,9 +74,8 @@ failure raises and exits non-zero):
                the synthetic split at subset stride 8 (32 steps + one
                eval of 8 batches), seeded init; launch counts set to 0
                just before and read just after; then the step time, the
-               tokens/s, a [profile] split of one step's device time, the
-               recompute route (FDT_FLASH_SAVE_STATS=0) for 2 steps with
-               its own counts, one fp32 step at reduced width on the card
+               tokens/s, a [profile] split of one step's device time, one
+               fp32 step at reduced width on the card
                against the same step on the CPU (loss 1e-5, each grad
                leaf 1e-5 of its max |CPU grad|), and a checkpoint round
                trip on the card; then path B (``--ffn_impl pallas --quant
@@ -148,9 +149,50 @@ failure raises and exits non-zero):
                move by one fp32 ulp), two
                identical R1 steps bitwise on every leaf, and 4
                ``--precision fp16`` resnet18 steps with the loss scale;
+  K. dispatch — K steps a dispatch (``--steps_per_dispatch``, the step
+               captured once as a CUDA graph and replayed): every
+               parameter, buffer and optimizer leaf bitwise equal to K=1
+               after 8 steps of the slice-2 record at K=4 (host,
+               ``--data_path resident`` and ``--remat --remat_policy
+               attn_out``) and 16 steps at K=16 resident, of path B at
+               K=4, of ResNet-50 SGD + meta at
+               K=4 (with and without ``--remat``) and of ResNet-50 NGD +
+               meta over 16 steps (the factor refreshes eager in their
+               slots), and of path E at K=2 (inside the LM phase, on its
+               corpus); each
+               seed-taking kernel (rows 1-5, 7, 8) captured once and
+               replayed with 3 seeds written to its device seed buffer,
+               bitwise equal to eager launches, 3 different masks; then
+               the host wall a step (median), device ms a step and busy
+               share, host launch calls a step (kernel and graph launches
+               of the CUDA runtime, torch.profiler) and tokens/s of the
+               slice-2 record at K=1 host, K=4 host, K=4 resident and
+               K=16 resident, the peak memory and the resident split's
+               bytes; the same for path B, ResNet R1's non-update step
+               (its factor refresh pushed past the run) and path E at
+               K=1 and K=4.  A replay makes no Python call, so the
+               wrappers' counts do not see it: the launches of each hand
+               kernel in a dispatch of K steps are counted on the device
+               (torch.profiler's CUDA activity, by kernel name; up to 3
+               profiles, as the profiler can lose a replay's records)
+               and must equal K times one eager K=1 step's (slice 2 host
+               and resident, path B, path E at K=4; K=16's printed);
+  M. remat  — the transformer at batch 256, L 512, record widths, under
+               ``--remat_policy`` none, layer, ffn, attn_out and dots:
+               peak memory, step ms, examples/s; each policy's gradients
+               against none's (ffn bitwise; the attention-wrapping ones,
+               through row 5's recompute route, within 2e-2 of each
+               leaf's max |grad|); layer and attn_out below none's peak;
+               under ``--quant int8`` every amax history rolled once,
+               equal to none's; row 5's launches from an entry-point run
+               with ``--remat`` (counts set to 0 just before); ResNet-50
+               ``--remat`` at batch 512: peak, step ms, gradients and BN
+               running statistics bitwise against no remat (cuDNN
+               deterministic);
   7. output  — p50/p99/qps, the phase-R summary, the kernels JSON line
                (launches from the
-               training run, the recompute route's from its own run,
+               training run, the recompute route's from phase M's
+               ``--remat`` run, each kernel's under K=4 beside them,
                fused_ffn's from path A, fused_ffn_quant's and
                quant_matmul's from path B, rows 2 and 3's from path E;
                the serving runs' beside them),
@@ -626,22 +668,6 @@ def train_phase(cli, fa, fused_mlp, build_dir: str) -> dict:
           and probe_losses[-1] < probe_losses[0],
           "the loss on a fixed batch did not go down")
 
-    # the recompute route (JAX's _flash_bwd_pallas) on the same path
-    os.environ["FDT_FLASH_SAVE_STATS"] = "0"
-    try:
-        reset()
-        for b in batches[:2]:
-            step(state, b)
-        torch.cuda.synchronize()
-        rec = read()
-    finally:
-        os.environ.pop("FDT_FLASH_SAVE_STATS")
-    want = {"flash_fwd": 2 * 2 * n_layers, "flash_bwd_stats": 0,
-            "flash_bwd_recompute": 2 * n_layers, "fused_mlp": 2}
-    print(f"[train] recompute route (FDT_FLASH_SAVE_STATS=0), 2 steps: "
-          f"launches {rec}")
-    check(rec == want, f"recompute-route launches {rec} != {want}")
-
     # one fp32 step at reduced width: the card against the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
     small = cfg.replace(n_layers=2, d_model=64, n_heads=4, d_ff=128,
@@ -690,7 +716,7 @@ def train_phase(cli, fa, fused_mlp, build_dir: str) -> dict:
           f"{same} (step {fresh.step}, meta {meta})")
     check(same, "restored state differs")
     shutil.rmtree(ckdir, ignore_errors=True)
-    return {"launches": launches, "recompute_launches": rec,
+    return {"launches": launches,
             "step_ms": med, "loss_first": probe_losses[0],
             "loss_last": probe_losses[-1], "test_acc": test_acc}
 
@@ -937,7 +963,8 @@ def time_quant_kernels(gen) -> dict:
 def counted_wrappers():
     """Every kernel wrapper of the port and its launch count
     (``flash_fwd`` counts every forward launch, ``flash_fwd_stats`` the
-    ones whose lse a backward takes)."""
+    ones whose lse a backward takes; a CUDA graph's capture counts once,
+    its replays not at all: phase K counts those on the device)."""
     from faster_distributed_training_tpu_torch.ops import flash_attention as fa
     from faster_distributed_training_tpu_torch.ops import fused_ffn as ffn
     from faster_distributed_training_tpu_torch.ops.fused_mlp import fused_mlp
@@ -1676,12 +1703,13 @@ def time_long_kernels(fa, gen) -> dict:
     return {"fwd": fwd, "bwd": bwd, "primal": prim}
 
 
-def lm_phase(cli, build_dir: str) -> dict:
+def lm_phase(cli, build_dir: str, then=None) -> dict:
     """Path E: shard the synthetic corpus at seq 8192 with the port's
     writer, train the next-token LM on it at the record's widths (batch 4:
     8 steps + one padded eval batch) with exact launch counts, then its
     step time, tokens/s, peak memory and [profile] split, a fixed-batch
-    learning probe and an fp32 LM step card vs CPU."""
+    learning probe and an fp32 LM step card vs CPU; then ``then(corpus)``
+    (phase K's path-E part), its result under "then"."""
     import shutil
     import tempfile
 
@@ -1866,9 +1894,11 @@ def lm_phase(cli, build_dir: str) -> dict:
               f"({leaf}; tol 1e-5)", flush=True)
         check(e_loss <= 1e-5 and e_grad <= 1e-5,
               "path E card step differs from CPU")
+        del m_cpu, m_gpu
         return {"launches": launches, "rows": rows, "step_ms": med,
                 "tokens_s": tok_s, "peak_bytes": peak, "busy_ms": busy,
-                "probe": (probe_losses[0], probe_losses[-1]), **res}
+                "probe": (probe_losses[0], probe_losses[-1]), **res,
+                "then": then(corpus) if then is not None else None}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2462,6 +2492,680 @@ def resnet_phase(cli, build_dir: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- slice 9: K steps a dispatch (phase K) and --remat (phase M) --------------
+
+LAUNCH_API = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+              "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+K_STRIDE = 32            # the slice-2 record on 128 rows: 8 steps of 16
+
+
+def record_cfg(cli, flags, tag: str, build_dir: str):
+    """The transformer_test record on the card (synthetic split) with
+    ``flags``, its own checkpoint directory."""
+    import shutil
+
+    ckdir = os.path.join(build_dir, f"smoke_ckpt_{tag}")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    defaults = cli.TRANSFORMER_DEFAULTS
+    return cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
+        ["--device", "cuda", "--dataset", "synthetic", "--epoch", "1",
+         "--checkpoint_dir", ckdir, "--log_every", "0", "--no_plot",
+         *flags]), defaults=defaults)
+
+
+def counted_run(cli, cfg, tag: str) -> tuple:
+    """``cli.run_training(cfg)`` with the launch counts set to 0 just
+    before and read just after: (out, every state leaf, counts).  Under a
+    dispatch the counts hold the wrappers' calls (the eager steps' and
+    the capture's), not the replays' launches."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.train.state import (
+        state_leaves)
+
+    reset_counts()
+    t0 = time.monotonic()
+    out = cli.run_training(cfg, log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    disp = out["trainer"].dispatch
+    extra = ""
+    if disp is not None:
+        extra = (f"; dispatch K={disp.k}: {disp.eager_steps} eager step(s), "
+                 f"replays {sum(disp.replays.values())} of "
+                 f"{len(disp.graphs)} graph(s)")
+    print(f"[dispatch {tag}] {out['state'].step} steps in "
+          f"{time.monotonic() - t0:.1f}s wall; launches {counts}{extra}",
+          flush=True)
+    leaves = {k: v.detach().clone() for k, v in
+              state_leaves(out["state"]).items()}
+    return out, leaves, counts
+
+
+def bitwise(tag: str, want: dict, got: dict) -> int:
+    import torch
+
+    check(want.keys() == got.keys(), f"{tag}: state leaves differ in name")
+    bad = [k for k in want if not torch.equal(want[k], got[k])]
+    print(f"[dispatch {tag}] {len(want)} state leaves (parameters, buffers, "
+          f"optimizer): {len(want) - len(bad)} bitwise equal"
+          + (f"; differing: {bad[:8]}" if bad else ""), flush=True)
+    check(not bad, f"{tag}: {len(bad)} leaves differ, first {bad[:4]}")
+    return len(want)
+
+
+def seed_replay_check() -> dict:
+    """Each seed-taking kernel at the paths' shapes captured once as a
+    CUDA graph and replayed with three seeds written to its seed buffer:
+    bitwise equal to eager launches with those seeds, three different
+    outputs.  Returns {kernel: replays checked}."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.ops import flash_attention as fa
+    from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+        ffn_fwd, ffn_fwd_generalized)
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = qkv_views(16, 8, 512, 64, torch.bfloat16, gen)
+    mask = ragged_mask(16, 512, gen)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    out, lse, lse_lo = fa.flash_attention_stats(q, k, v, mask, 0.1, 7)
+    h, ln_s, ln_b, w1, b1, w2, b2 = ffn_inputs(gen, *FFN_SHAPE,
+                                                torch.bfloat16)
+    scales = torch.tensor(FFN_SCALES, device="cuda")
+    s1 = torch.zeros((), dtype=torch.int64, device="cuda")
+    s2 = torch.zeros((), dtype=torch.int64, device="cuda")
+    cases = {
+        "flash_fwd (rows 1, 2)": lambda a, b: (
+            fa.flash_attention(q, k, v, mask, 0.1, a),),
+        "flash_fwd_stats (rows 4, 5)": lambda a, b: fa.flash_attention_stats(
+            q, k, v, mask, 0.1, a),
+        "flash_bwd (rows 3-5)": lambda a, b: fa.flash_attention_bwd(
+            q, k, v, out, lse, dout, mask, 0.1, a, lse_lo),
+        "fused_ffn (row 7)": lambda a, b: (ffn_fwd(
+            h, ln_s, ln_b, w1, b1, w2, b2, a, b, 0.1, 0.1, 1e-6),),
+        "fused_ffn_quant int8 (row 8)": lambda a, b: ffn_fwd_generalized(
+            h, ln_s, ln_b, w1, b1, w2, b2, (a, b, 0, 0, 0), scales, 0.1, 0.1,
+            1e-6, 1, 1, FFN_SHAPE[2], "int8")}
+    seeds = [(1, 0x1234567), (0x9E3779B9, 5), (0xFFFFFFFF, 0x89ABCDE)]
+    done = {}
+    for name, fn in cases.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(s1, s2)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = fn(s1, s2)
+        replayed = []
+        for a, b in seeds:
+            s1.fill_(a)
+            s2.fill_(b)
+            graph.replay()
+            replayed.append(tuple(t.clone() for t in outs))
+        torch.cuda.synchronize()
+        for (a, b), got in zip(seeds, replayed):
+            want = fn(a, b)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"{name}: a graph replay with seeds {a:#x}, {b:#x} "
+                  f"differs from the eager launch")
+        firsts = [r[0] for r in replayed]
+        check(not torch.equal(firsts[0], firsts[1])
+              and not torch.equal(firsts[1], firsts[2]),
+              f"{name}: two seeds gave the same output")
+        done[name] = len(seeds)
+        del graph
+    print(f"[dispatch kernels] each seed kernel captured once and replayed "
+          f"with 3 seeds written to its device seed buffer: bitwise equal to "
+          f"eager launches with those seeds, 3 different masks: "
+          f"{', '.join(done)}", flush=True)
+    return done
+
+
+def dispatch_timing(what: str, run_one, kk: int, steps: int,
+                    tokens: int, expect: dict = None) -> dict:
+    """Host wall a step (median over synchronized dispatches of ``kk``
+    steps, ``run_one()`` runs one), device ms a step and busy share,
+    host-side launch calls a step (kernel launches plus graph launches,
+    the CUDA runtime calls torch.profiler records), tokens (or images) a
+    second and the hand kernels' device launches in one dispatch
+    (``hand``).  The profiler can lose records of a graph's replays and
+    never adds any (three profiles of one K=16 dispatch of the record
+    held 58,637 to 60,234 kernel records, H100): with ``expect`` (the
+    counts due), up to two more dispatches are profiled while a count
+    falls short, and each kernel's largest count is kept."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run_one()                                   # warm-up (and capture)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(max(steps // kk, 2)):
+        t0 = time.perf_counter()
+        run_one()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / kk)
+    wall = statistics.median(times)
+    # the device time from the CUDA activity alone (with the CPU's on, a
+    # CPU op's entry repeats its kernels' time); the launch calls from the
+    # runtime API events of a second, CPU + CUDA, profile
+    kern = device_kernels(run_one, 1)
+    dev = sum(us for us, _ in kern.values()) / kk / 1e3
+    hand, profiles = hand_launches(kern), 1
+    while expect is not None and hand != expect and profiles < 3:
+        more = hand_launches(device_kernels(run_one, 1))
+        hand = {n: max(hand.get(n, 0), more.get(n, 0))
+                for n in hand.keys() | more.keys()}
+        profiles += 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_one()
+        torch.cuda.synchronize()
+    calls = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_API)
+    got = {"wall_ms": wall, "device_ms": dev, "busy": dev / wall,
+           "launch_calls": calls / kk, "per_s": tokens / (wall / 1e3),
+           "k": kk, "hand": hand, "profiles": profiles}
+    print(f"[dispatch timing] {what}: host wall {wall:.3f} ms a step "
+          f"(median of {len(times)} dispatches of {kk}), device "
+          f"{dev:.3f} ms a step, busy {100 * got['busy']:.1f}%, host launch "
+          f"calls {got['launch_calls']:.1f} a step, {got['per_s']:.0f} "
+          f"{'tokens' if tokens > 1024 else 'images'}/s; hand kernels' "
+          f"device launches in one dispatch: {hand} ({profiles} "
+          f"profile(s))", flush=True)
+    return got
+
+
+# the hand kernels by their __global__ names (a name may carry a suffix
+# and template arguments): one launch each per wrapper call, the
+# backward's pair one each
+HAND_KERNELS = ("flash_fwd_kernel", "dkdv_kernel", "dq_kernel",
+                "mlp_fwd_kernel", "ffn_kernel", "qmm_kernel")
+
+
+def hand_launches(kern: dict) -> dict:
+    """{hand kernel: device launches} of a ``device_kernels`` profile."""
+    out = {}
+    for name, (_, n) in kern.items():
+        for k in HAND_KERNELS:
+            if k in name:
+                out[k] = out.get(k, 0) + n
+    return out
+
+
+def k_times(one: dict, k: int) -> dict:
+    """K times the hand kernels' launches of one K=1 step (``one``, a
+    ``dispatch_timing`` result)."""
+    return {n: c * k for n, c in one["hand"].items()}
+
+
+def same_launches(what: str, one: dict, many: dict, want=()) -> None:
+    """The device launches of each hand kernel in a dispatch of K steps
+    (``many``, a ``dispatch_timing`` result) equal K times those of one
+    eager K=1 step (``one``), and every kernel of ``want`` launched: the
+    graph's replays ran the kernels the eager step runs."""
+    k = many["k"]
+    want_k = k_times(one, k)
+    check(many["hand"] == want_k and all(want_k.get(n) for n in want),
+          f"{what}: hand kernels' device launches {many['hand']} != "
+          f"{k} x K=1's {one['hand']} (expected {list(want)})")
+
+
+def record_state(cli, cfg, vocab: int = 30522):
+    """A seeded train state of ``cfg`` on the card."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.optim import (build_optimizer,
+                                                             layouts_of)
+    from faster_distributed_training_tpu_torch.train.state import (
+        create_train_state)
+
+    resnet = cli.is_resnet(cfg)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = cli.build_model(cfg, vocab_size=None if resnet else vocab,
+                            device="cuda").init_weights(gen)
+    model.cuda()
+    extra = {}
+    if resnet:
+        model.to(memory_format=torch.channels_last)
+        extra = {k: v.cuda() for k, v in
+                 cli.resnet_extra_leaves(cfg, gen).items()}
+    tx, _ = build_optimizer(cfg, 64, layouts=layouts_of(model))
+    return create_train_state(model, tx, cfg.seed, extra=extra)
+
+
+def timing_ladder(cli, build_dir: str) -> dict:
+    """Phase K's timing: the slice-2 record at K=1 host, K=4 host, K=4
+    resident and K=16 resident; the peak memory and the resident split's
+    bytes."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.data.device_resident import (
+        DeviceResidentData)
+    from faster_distributed_training_tpu_torch.data.loader import BatchLoader
+    from faster_distributed_training_tpu_torch.train.dispatch import (
+        FusedDispatch)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_train_step, to_device)
+
+    cfg = record_cfg(cli, [], "ktime", build_dir)
+    B, L = cfg.batch_size, cfg.seq_len
+    data = cli.load_dataset(cfg.replace(dataset="synthetic"), True)
+    host = list(itertools.islice(iter(BatchLoader(
+        data, B, epoch=0, seed=cfg.seed, max_len=L)), 16))
+    out = {}
+    state = record_state(cli, cfg)
+    step = make_train_step(cfg)
+    it = itertools.cycle(host)
+    torch.cuda.reset_peak_memory_stats()
+    out["K=1 host"] = dispatch_timing(
+        "slice-2 record K=1 host (eager)",
+        lambda: step(state, to_device(next(it), "cuda")), 1, 12, B * L)
+    disp = FusedDispatch(cfg, 4, "cuda")
+    out["K=4 host"] = dispatch_timing(
+        "slice-2 record K=4 host",
+        lambda: disp.run(state, 4, batches=[next(it) for _ in range(4)]),
+        4, 16, B * L, expect=k_times(out["K=1 host"], 4))
+    res = DeviceResidentData(data, B, seed=cfg.seed, max_len=L,
+                             device="cuda")
+    for k in (4, 16):
+        disp = FusedDispatch(cfg, k, "cuda", resident=res)
+        disp.set_epoch(0)
+        pos = [0]
+
+        def one(d=disp, kk=k):
+            start = pos[0]
+            pos[0] = (start + kk) % (res.steps_per_epoch - kk)
+            return d.run(state, kk, start=start)
+        out[f"K={k} resident"] = dispatch_timing(
+            f"slice-2 record K={k} resident", one, k, 32, B * L,
+            expect=k_times(out["K=1 host"], k))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["resident_bytes"] = res.nbytes
+    # held at K=4; K=16's counts are printed (its profiles lose more
+    # records) and phase K holds K=16 bitwise to K=1 over 16 steps
+    for k in ("K=4 host", "K=4 resident"):
+        same_launches(f"slice-2 record {k}", out["K=1 host"], out[k],
+                      ("flash_fwd_kernel", "dkdv_kernel", "dq_kernel",
+                       "mlp_fwd_kernel"))
+    gib = out["peak_bytes"] / 2**30
+    print(f"[dispatch memory] slice-2 record: peak {gib:.2f} GiB over the "
+          f"ladder; the resident split {res.n} rows x "
+          f"{res.seq_len} tokens, {res.nbytes / 1e6:.1f} MB on the card",
+          flush=True)
+    del state, res
+    return out
+
+
+def dispatch_phase(cli, build_dir: str) -> dict:
+    """Phase K: K steps a dispatch, bitwise against K=1 on the slice-2
+    record (host and resident, and under --remat attn_out), path B,
+    ResNet-50 SGD + meta (with and without --remat) and ResNet-50 NGD +
+    meta across an update step; the seed kernels under graph replay; the
+    timing ladder, where the hand kernels' device launches of a dispatch
+    are counted and held to K=1's."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.train.dispatch import (
+        FusedDispatch)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_train_step, step_draws)
+
+    res = {"leaves": {}}
+    base = ["--subset_stride", str(K_STRIDE)]
+    remat = ["--remat", "--remat_policy", "attn_out"]
+    k4 = ["--steps_per_dispatch", "4"]
+    for k1_flags, k1_tag, runs in (
+            (base, "slice-2 K=1", ((k4, "slice-2 K=4 host"),
+                                   (k4 + ["--data_path", "resident"],
+                                    "slice-2 K=4 resident"))),
+            (["--subset_stride", "16"], "slice-2 K=1 (16 steps)",
+             ((["--steps_per_dispatch", "16", "--data_path", "resident"],
+               "slice-2 K=16 resident"),)),
+            (base + remat, "slice-2 --remat attn_out K=1",
+             ((k4, "slice-2 --remat attn_out K=4"),)),
+            (base + ["--ffn_impl", "pallas", "--quant", "int8"], "path B K=1",
+             ((k4, "path B K=4"),))):
+        one, want, _ = counted_run(cli, record_cfg(cli, k1_flags, "k1",
+                                                   build_dir), k1_tag)
+        for flags, tag in runs:
+            out, got, counts = counted_run(
+                cli, record_cfg(cli, k1_flags + flags, "k4", build_dir), tag)
+            check(out["state"].step == one["state"].step >= 8,
+                  f"{tag}: {out['state'].step} steps")
+            res["leaves"][tag] = bitwise(f"{tag} vs K=1", want, got)
+            check(sum(out["trainer"].dispatch.replays.values()) >= 4,
+                  f"{tag}: too few replays")
+            del out
+        del one
+    for tag, flags, epochs in (
+            ("resnet50 SGD + meta", ["--optimizer", "sgd",
+                                     "--meta_learning"], 1),
+            ("resnet50 SGD + meta --remat", ["--optimizer", "sgd",
+                                             "--meta_learning", "--remat"],
+             1),
+            ("resnet50 NGD + meta", ["--ngd", "--meta_learning"], 2)):
+        argv = flags + ["--epoch", str(epochs)]
+        a, want, _ = counted_run(cli, resnet_cfg(cli, argv + [
+            "--checkpoint_dir", os.path.join(build_dir, "smoke_ckpt_r1")]),
+            f"{tag} K=1")
+        b, got, _ = counted_run(cli, resnet_cfg(cli, argv + [
+            "--steps_per_dispatch", "4", "--checkpoint_dir",
+            os.path.join(build_dir, "smoke_ckpt_r4")]), f"{tag} K=4")
+        check(a["state"].step == b["state"].step == 8 * epochs,
+              f"{tag}: {b['state'].step} steps")
+        disp = b["trainer"].dispatch
+        check(sum(disp.replays.values()) > 0, f"{tag}: no graph replay")
+        if "NGD" in tag:
+            t = b["state"].opt_state["ngd"]["t"]
+            check(t == 16 and disp.eager_steps >= 11,
+                  f"{tag}: NGD counter {t}, {disp.eager_steps} eager steps")
+        res["leaves"][tag] = bitwise(f"{tag} K=4 vs K=1", want, got)
+        del a, b
+    res["seed_kernels"] = seed_replay_check()
+    res["timing"] = timing_ladder(cli, build_dir)
+    # path B's hand kernels under a dispatch, counted on the device
+    from faster_distributed_training_tpu_torch.data.loader import BatchLoader
+    from faster_distributed_training_tpu_torch.train.steps import to_device
+
+    bcfg = record_cfg(cli, ["--ffn_impl", "pallas", "--quant", "int8"],
+                      "kbt", build_dir)
+    data = cli.load_dataset(bcfg.replace(dataset="synthetic"), True)
+    host = list(itertools.islice(iter(BatchLoader(
+        data, bcfg.batch_size, epoch=0, seed=bcfg.seed,
+        max_len=bcfg.seq_len)), 4))
+    state = record_state(cli, bcfg)
+    state.model.seed_amax_histories(bcfg.batch_size, bcfg.seq_len, step_draws(
+        bcfg.seed, 0, bcfg.batch_size, state.model.n_dropout_sites(), 0.99))
+    stepb = make_train_step(bcfg)
+    it = itertools.cycle(host)
+    tok = bcfg.batch_size * bcfg.seq_len
+    tb = {"K=1": dispatch_timing(
+        "path B K=1 (eager)",
+        lambda: stepb(state, to_device(next(it), "cuda")), 1, 8, tok)}
+    disp = FusedDispatch(bcfg, 4, "cuda")
+    tb["K=4"] = dispatch_timing("path B K=4 host",
+                                lambda: disp.run(state, 4, batches=host), 4,
+                                8, tok, expect=k_times(tb["K=1"], 4))
+    same_launches("path B K=4", tb["K=1"], tb["K=4"],
+                  ("flash_fwd_kernel", "dkdv_kernel", "dq_kernel",
+                   "mlp_fwd_kernel", "ffn_kernel", "qmm_kernel"))
+    res["timing_b"] = tb
+    del state, disp
+    # ResNet R1's non-update step at K=1 and K=4 (R1's config with the
+    # factor refresh pushed past the run, so 4 steps in a row are
+    # non-update steps: the same work as R1's non-update step)
+    rcfg = resnet_cfg(cli, ["--ngd", "--meta_learning"]).replace(
+        ngd_update_period=4096)
+    state = record_state(cli, rcfg)
+    batch = resnet_batch(rcfg)
+    step = make_train_step(rcfg)
+    for _ in range(10):                      # past the always-update steps
+        step(state, batch)
+    torch.cuda.synchronize()
+    host = [{k: v.cpu().numpy() for k, v in batch.items()}] * 4
+    rt = {"K=1": dispatch_timing("ResNet R1 non-update step K=1",
+                                 lambda: step(state, batch), 1, 6, 512)}
+    disp = FusedDispatch(rcfg, 4, "cuda")
+    rt["K=4"] = dispatch_timing("ResNet R1 non-update step K=4 host",
+                                lambda: disp.run(state, 4, batches=host), 4,
+                                8, 512)
+    check(sum(disp.replays.values()) > 0 and disp.eager_steps == 1,
+          "R1 non-update dispatch did not replay its graph")
+    res["timing_r1"] = rt
+    del state, disp
+    return res
+
+
+def lm_dispatch(cli, corpus: str, build_dir: str) -> dict:
+    """Path E under a dispatch: K=2 bitwise against K=1 (8 steps), then
+    the step timing at K=1 and K=4."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.data.loader import BatchLoader
+    from faster_distributed_training_tpu_torch.train.dispatch import (
+        FusedDispatch)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_train_step, to_device)
+
+    argv = ["--task", "lm", "--dataset", "stream", "--stream_dir", corpus,
+            "--seq_len", str(LONG["L"]), "--bs", str(LONG["B"])]
+    a, want, _ = counted_run(cli, record_cfg(cli, argv, "e1", build_dir),
+                             "path E K=1")
+    b, got, _ = counted_run(cli, record_cfg(
+        cli, argv + ["--steps_per_dispatch", "2"], "e2", build_dir),
+        "path E K=2")
+    check(a["state"].step == b["state"].step >= 4, "path E: steps")
+    n = bitwise("path E K=2 vs K=1", want, got)
+    cfg = a["cfg"]
+    del a, b
+    data = cli.load_dataset(cfg, True)
+    host = list(itertools.islice(iter(BatchLoader(
+        data, LONG["B"], epoch=0, seed=cfg.seed, max_len=LONG["L"])), 4))
+    state = record_state(cli, cfg, vocab=data.vocab_size())
+    step = make_train_step(cfg)
+    it = itertools.cycle(host)
+    tok = LONG["B"] * LONG["L"]
+    out = {"leaves": n, "K=1": dispatch_timing(
+        "path E K=1 (eager)",
+        lambda: step(state, to_device(next(it), "cuda")), 1, 4, tok)}
+    disp = FusedDispatch(cfg, 4, "cuda")
+    out["K=4"] = dispatch_timing("path E K=4 host",
+                                 lambda: disp.run(state, 4, batches=host),
+                                 4, 8, tok, expect=k_times(out["K=1"], 4))
+    same_launches("path E K=4", out["K=1"], out["K=4"],
+                  ("flash_fwd_kernel", "dkdv_kernel", "dq_kernel"))
+    del state, disp
+    torch.cuda.empty_cache()
+    return out
+
+
+REMAT_SHAPE = (256, 512)       # the JAX remat measurement: batch, seq
+
+
+def remat_phase(cli, build_dir: str) -> dict:
+    """Phase M: the transformer at batch 256, L 512, record widths, under
+    each --remat_policy (none first): peak memory, step ms, examples/s;
+    each policy's gradients against none's (ffn bitwise, the
+    attention-wrapping ones through row 5's recompute route within
+    2e-2 of each leaf's max |grad|); under --quant int8 every amax history
+    rolled once, as none's; row 5's launches from a --remat run of the
+    entry point; ResNet-50 --remat at batch 512: peak, step ms, gradients
+    and BN running statistics bitwise against no remat."""
+    import numpy as np
+    import torch
+
+    from faster_distributed_training_tpu_torch.train.steps import (
+        loss_and_grads, make_train_step, step_draws, to_device)
+
+    B, L = REMAT_SHAPE
+    rng = np.random.default_rng(21)
+    batch = to_device({"tokens": rng.integers(1, 30522, (B, L)).astype(
+        np.int32), "token_types": np.zeros((B, L), np.int32),
+        "mask": np.ones((B, L), np.int32),
+        "label": rng.integers(0, 4, B).astype(np.int32)}, "cuda")
+    out, grads = {}, {}
+    for policy in ("none", "layer", "ffn", "attn_out", "dots"):
+        flags = [] if policy == "none" else ["--remat", "--remat_policy",
+                                             policy]
+        cfg = record_cfg(cli, flags + ["--bs", str(B)], "m", build_dir)
+        state = record_state(cli, cfg)
+        draws = step_draws(0, 0, B, state.model.n_dropout_sites(), 0.99)
+        _, g, *_ = loss_and_grads(state.model, batch, draws)
+        grads[policy] = {k: v.detach().cpu() for k, v in g.items()}
+        del g
+        step = make_train_step(cfg)
+        step(state, batch, draws)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(state, batch, draws)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        out[policy] = {"peak": torch.cuda.max_memory_allocated(),
+                       "step_ms": ms, "ex_s": B / (ms / 1e3)}
+        print(f"[remat] --remat_policy {policy}: batch {B}, L {L}, peak "
+              f"{out[policy]['peak'] / 2**30:.2f} GiB, step {ms:.2f} ms "
+              f"(median of 3), {out[policy]['ex_s']:.0f} examples/s",
+              flush=True)
+        del state, step
+        torch.cuda.empty_cache()
+    base = grads["none"]
+    for policy in ("layer", "ffn", "attn_out", "dots"):
+        if policy == "ffn":
+            same = all(torch.equal(base[k], grads[policy][k]) for k in base)
+            print(f"[remat] ffn gradients bitwise equal to none's: {same}",
+                  flush=True)
+            check(same, "--remat_policy ffn gradients differ from none's")
+            continue
+        e, leaf = grad_err(grads[policy], base)
+        out[policy]["grad_err"] = e
+        print(f"[remat] {policy} gradients (row 5's recompute backward) vs "
+              f"none's (row 4's saved stats): max {e:.3g} of the leaf's max "
+              f"|grad| ({leaf}; tol 2e-2, bf16)", flush=True)
+        check(e <= 2e-2, f"--remat_policy {policy} gradients err {e}")
+    del grads, base
+    for policy in ("layer", "attn_out"):
+        check(out[policy]["peak"] < out["none"]["peak"],
+              f"--remat_policy {policy} peak not below none's")
+    # --quant int8: every history rolled once, equal to none's
+    hist = {}
+    for policy in ("none", "layer", "ffn", "attn_out", "dots"):
+        flags = ["--quant", "int8", "--bs", "16"] + (
+            [] if policy == "none" else ["--remat", "--remat_policy", policy])
+        cfg = record_cfg(cli, flags, "mq", build_dir)
+        state = record_state(cli, cfg)
+        draws = step_draws(0, 0, 16, state.model.n_dropout_sites(), 0.99)
+        state.model.seed_amax_histories(16, L, draws)
+        b16 = {k: v[:16] for k, v in batch.items()}
+        loss_and_grads(state.model, b16, draws)
+        hist[policy] = {n: t.clone() for n, t in state.model.named_buffers()
+                        if "amax_history" in n}
+        del state
+    for policy in ("layer", "ffn", "attn_out", "dots"):
+        same = hist[policy].keys() == hist["none"].keys() and all(
+            torch.equal(hist[policy][n], t) for n, t in hist["none"].items())
+        check(same, f"--quant int8 --remat_policy {policy}: the amax "
+              f"histories differ from none's (rolled twice?)")
+    print(f"[remat] --quant int8: {len(hist['none'])} amax histories after "
+          f"one step equal none's under every policy (each rolled once)",
+          flush=True)
+    # row 5 on a real path: the entry point with --remat (attn_out)
+    _, _, counts = counted_run(cli, record_cfg(
+        cli, ["--remat", "--subset_stride", "64"], "mrun", build_dir),
+        "--remat attn_out K=1")
+    steps = 4096 // 64 // 16
+    check(counts["flash_bwd_recompute"] == 6 * steps
+          and counts["flash_bwd_stats"] == 0,
+          f"--remat: row 5 launches {counts}")
+    out["row5_launches"] = counts["flash_bwd_recompute"]
+    out["remat_counts"] = counts
+    # ResNet-50 block remat at batch 512
+    rn = {}
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, True
+    try:
+        rcfg = resnet_cfg(cli, ["--optimizer", "sgd", "--meta_learning"])
+        rbatch = resnet_batch(rcfg)
+        for remat in (False, True):
+            cfg = rcfg.replace(remat=remat)
+            state = record_state(cli, cfg)
+            step = make_train_step(cfg)
+            from faster_distributed_training_tpu_torch.train.steps import (
+                image_draws, image_loss_and_grads, resolve_mixup_mode)
+            draws = image_draws(0, 0, 512, cfg.alpha)
+            _, g, *_ = image_loss_and_grads(state, rbatch, draws,
+                                            resolve_mixup_mode(cfg))
+            stats = {n: b.clone() for n, b in state.model.named_buffers()}
+            rn[remat] = {"grads": {k: v.detach().clone()
+                                   for k, v in g.items()}, "stats": stats}
+            del g
+            step(state, rbatch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                step(state, rbatch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            rn[remat].update(peak=torch.cuda.max_memory_allocated(),
+                             step_ms=statistics.median(times))
+            print(f"[remat R] resnet50 batch 512 bf16 SGD + meta, remat "
+                  f"{remat}: peak {rn[remat]['peak'] / 2**30:.2f} GiB, step "
+                  f"{rn[remat]['step_ms']:.2f} ms (median of 3)", flush=True)
+            del state, step
+            torch.cuda.empty_cache()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    for part in ("grads", "stats"):
+        a, b = rn[False][part], rn[True][part]
+        same = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                            for k in a)
+        print(f"[remat R] resnet50 --remat {part} bitwise equal to no remat "
+              f"({len(a)} leaves, cuDNN deterministic): {same}", flush=True)
+        check(same, f"resnet50 --remat {part} differ from no remat")
+    out["resnet"] = {k: {kk: v for kk, v in d.items()
+                         if kk in ("peak", "step_ms")} for k, d in rn.items()}
+    return out
+
+
+
+def dispatch_summary(kd: dict, mr: dict) -> None:
+    """The phase K and M summary lines."""
+    t = kd["timing"]
+    print("[dispatch] slice-2 record, host wall / device ms a step (busy, "
+          "host launch calls a step, tokens/s): " + "; ".join(
+              f"{k} {v['wall_ms']:.2f} / {v['device_ms']:.2f} "
+              f"({100 * v['busy']:.1f}%, {v['launch_calls']:.1f}, "
+              f"{v['per_s']:.0f})" for k, v in t.items()
+              if isinstance(v, dict)) + f"; peak {t['peak_bytes'] / 2**30:.2f}"
+          f" GiB, resident split {t['resident_bytes'] / 1e6:.1f} MB")
+    for what, d in (("path B", kd["timing_b"]),
+                    ("ResNet R1 non-update", kd["timing_r1"]),
+                    ("path E", (kd.get("path_e") or {}))):
+        print(f"[dispatch] {what}: " + "; ".join(
+            f"{k} {v['wall_ms']:.2f} / {v['device_ms']:.2f} ms "
+            f"({100 * v['busy']:.1f}%, {v['launch_calls']:.1f} calls)"
+            for k, v in d.items() if isinstance(v, dict)))
+    print(f"[dispatch] bitwise K vs K=1: {kd['leaves']}"
+          + (f", path E K=2 {kd['path_e']['leaves']}" if kd.get("path_e")
+             else "") + f"; hand kernels' device launches in one K=4 "
+          f"dispatch (4 x one K=1 step's): slice-2 "
+          f"{t['K=4 host']['hand']}, path B {kd['timing_b']['K=4']['hand']}")
+    print("[remat] batch 256 L 512: " + "; ".join(
+        f"{p} {mr[p]['peak'] / 2**30:.2f} GiB {mr[p]['step_ms']:.1f} ms "
+        f"{mr[p]['ex_s']:.0f} ex/s" for p in ("none", "layer", "ffn",
+                                              "attn_out", "dots"))
+        + f"; resnet50 --remat {mr['resnet']}; row 5 launches on --remat "
+        f"{mr['row5_launches']}")
+
+
+def dispatch_main() -> int:
+    """``--dispatch``: the kernels' build, then phases K (without path E)
+    and M alone."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_s, _ = _build.build()
+    print(f"[build] {build_s:.1f}s", flush=True)
+    kd = dispatch_phase(cli, str(_build.BUILD_DIR))
+    mr = remat_phase(cli, str(_build.BUILD_DIR))
+    dispatch_summary(kd, mr)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2721,7 +3425,8 @@ def main() -> int:
     two_step_check(cli, [])
     two_step_check(cli, ["--ffn_impl", "pallas", "--quant", "int8"])
     defaults_fallback_phase(cli, str(_build.BUILD_DIR))
-    lm = lm_phase(cli, str(_build.BUILD_DIR))
+    lm = lm_phase(cli, str(_build.BUILD_DIR), then=lambda corpus: lm_dispatch(
+        cli, corpus, str(_build.BUILD_DIR)))
 
     # -- 6. serving at full width ----------------------------------------------
     defaults = cli.TRANSFORMER_DEFAULTS
@@ -2823,6 +3528,12 @@ def main() -> int:
     # -- phase R: ResNet-50 / CIFAR-10 with NGD and mixup ----------------------
     rn = resnet_phase(cli, str(_build.BUILD_DIR))
 
+    # -- phases K and M: K steps a dispatch, --remat -----------------------
+    kd = dispatch_phase(cli, str(_build.BUILD_DIR))
+    kd["path_e"] = lm["then"]
+    mr = remat_phase(cli, str(_build.BUILD_DIR))
+    dispatch_summary(kd, mr)
+
     # -- 7. output -----------------------------------------------------------
     print(f"[serve] p50 {res['p50_ms']} ms, p99 {res['p99_ms']} ms, "
           f"{res['qps']} qps (64 requests, batch 8, 1 replica)")
@@ -2853,12 +3564,22 @@ def main() -> int:
     jax_ops = "faster_distributed_training_tpu/ops/"
     # launches: the training run (the main path); the recompute route's
     # from its own 2-step run; the serving run's beside them
+    # the recompute route's (row 5) from the --remat run, its real path
     train_l = dict(tr["launches"],
-                   flash_bwd_recompute=tr["recompute_launches"][
-                       "flash_bwd_recompute"])
+                   flash_bwd_recompute=mr["row5_launches"])
     # the bf16 backward kernels at the paths' head dim (D 64)
     bwd_d64 = {k: u for k, u in bwd_use.items() if k.endswith("<64>")}
     fwd_d64 = {k: u for k, u in fwd_use.items() if k.endswith("<64>")}
+    # under K=4: the device launches of each kernel in one dispatch of 4
+    # steps (the graph's replays), torch.profiler's CUDA activity by
+    # kernel name (slice 2; path B for its kernels), held in phase K to
+    # 4 x one eager K=1 step's
+    k4s, k4b = kd["timing"]["K=4 host"]["hand"], kd["timing_b"]["K=4"]["hand"]
+    disp_l = {"flash_fwd": k4s["flash_fwd_kernel"],
+              "flash_bwd_stats": k4s["dkdv_kernel"],
+              "fused_mlp": k4s["mlp_fwd_kernel"],
+              "fused_ffn_quant": k4b["ffn_kernel"],
+              "quant_matmul": k4b["qmm_kernel"]}
     kernels = []
     for name, t, file, replaces in (
             ("flash_fwd", fa_t, "flash_fwd",
@@ -2873,6 +3594,7 @@ def main() -> int:
                         "replaces": jax_ops + replaces,
                         "launches": train_l[name],
                         "launches_serve": launches.get(name, 0),
+                        "launches_dispatch_k4": disp_l.get(name),
                         "max_abs_err": err[name], "ms": t["kernel"]["ms"],
                         "call_ms": t["kernel"]["call_ms"],
                         "plain_ms": t["plain"]["ms"],
@@ -2913,6 +3635,7 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": f"{src}{file}.cu",
                  "replaces": jax_ops + replaces, "launches": n,
                  "launches_serve": sq["launches"][name],
+                 "launches_dispatch_k4": disp_l.get(name),
                  "max_abs_err": err[name], "ms": t["kernel"]["ms"],
                  "call_ms": t["kernel"]["call_ms"],
                  "plain_ms": t["plain"]["ms"], "bound_ms": t["bound_ms"],
@@ -3034,6 +3757,13 @@ if __name__ == "__main__":
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(2)
         sys.exit(resnet_main())
+    if sys.argv[1:2] == ["--dispatch"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(dispatch_main())
     if sys.argv[1:2] == ["--steps"]:
         import torch
 

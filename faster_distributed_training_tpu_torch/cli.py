@@ -5,7 +5,10 @@ next-token LM on a sharded stream corpus (slice 4: ``--task lm --dataset
 stream --stream_dir D``, host data path), and ResNet-18…152 training on
 CIFAR-10 with NGD, the image mixup modes and fp16 loss scaling (slice 8:
 ``--model resnet50``, ``python -m faster_distributed_training_tpu_torch.
-resnet50_test``).
+resnet50_test``), and the one-card performance layers (slice 9:
+``--steps_per_dispatch K``, K steps a dispatch replaying a captured
+CUDA graph; ``--data_path resident``, the train split on the card;
+``--remat`` with ``--remat_policy``).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
 ``resolve_attention``, ``build_model``, ``load_dataset`` (the agnews,
@@ -109,7 +112,6 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
                     cfg.task == "lm" and cfg.ffn_impl == "pallas"),
                 "--tricks off (unfused qkv)": cfg.tricks == "off",
                 "--dropout_impl xla": cfg.dropout_impl == "xla",
-                "--remat": bool(cfg.remat),
                 "--mesh": any(int(s) > 1 for s in cfg.mesh_shape)}
     missing = [k for k, v in unported.items() if v]
     if missing:
@@ -127,6 +129,12 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
     if mlp_impl not in ("fused", "pallas", "naive"):
         raise ValueError(f"--mlp_impl must be fused, pallas or naive, got "
                          f"{cfg.mlp_impl!r}")
+    from faster_distributed_training_tpu_torch.models.transformer import (
+        REMAT_POLICIES)
+
+    if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"--remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {cfg.remat_policy!r}")
     rate = 0.0 if cfg.dropout_impl == "none" else 0.1
     rates = {k: rate for k in (
         "dropout_encodings", "dropout_connection_attention",
@@ -142,7 +150,8 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
                      mlp_impl=mlp_impl,
                      lm_head=cfg.task == "lm",
                      tie_lm_head=cfg.task == "lm" and cfg.tie_lm_head,
-                     **rates)
+                     remat=bool(cfg.remat) and not serving,
+                     remat_policy=cfg.remat_policy, **rates)
 
 
 def _build_resnet(cfg: TrainConfig):
@@ -150,15 +159,13 @@ def _build_resnet(cfg: TrainConfig):
     fp16 (fp32 compute, as in the JAX package); ``--tricks off`` (fp32
     by then) leaves the conv + BN backward to autograd.  ``--quant``
     warns and runs full precision, as the JAX package does; ``--remat``
-    (block checkpointing) raises."""
+    checkpoints every residual block."""
     import warnings
 
     from faster_distributed_training_tpu_torch.models import get_model
     from faster_distributed_training_tpu_torch.train.amp import (
         compute_dtype)
 
-    if cfg.remat:
-        raise NotImplementedError("not ported yet: --remat")
     if (cfg.quant or "none") != "none":
         warnings.warn(
             f"--quant {cfg.quant} is only wired for the transformer's "
@@ -166,7 +173,7 @@ def _build_resnet(cfg: TrainConfig):
             f"full-precision", stacklevel=3)
     return get_model(cfg.model, cfg.num_classes,
                      dtype=compute_dtype(cfg.precision),
-                     conv_remat=cfg.tricks != "off")
+                     conv_remat=cfg.tricks != "off", remat=bool(cfg.remat))
 
 
 def unported_training_flags(cfg: TrainConfig) -> list:
@@ -177,9 +184,8 @@ def unported_training_flags(cfg: TrainConfig) -> list:
         # transformer's fused qkv kernel has no permutation onto it
         "--ngd on the transformer": (not is_resnet(cfg) and (
             cfg.use_ngd or cfg.optimizer == "ngd")),
-        "--remat": bool(cfg.remat),
-        "--steps_per_dispatch > 1": int(cfg.steps_per_dispatch or 1) > 1,
-        f"--data_path {cfg.data_path}": cfg.data_path != "host",
+        f"--data_path {cfg.data_path}": cfg.data_path not in ("host",
+                                                              "resident"),
         f"--dataset {cfg.dataset} for {cfg.model}": (
             cfg.dataset not in datasets),
         "--lm_causal": bool(cfg.lm_causal),
@@ -383,11 +389,12 @@ def run_training(cfg: TrainConfig, params=None, device=None,
             mixup_alpha(cfg)))
     train_loader, eval_loader, steps_per_epoch = make_loaders(
         cfg, train_ds, eval_ds)
+    cfg, dispatch = build_dispatch(cfg, train_ds, dev, log)
     tx, _ = build_optimizer(cfg, steps_per_epoch, layouts=layouts_of(model))
     state = create_train_state(
         model, tx, cfg.seed, extra={n: t.to(dev) for n, t in extra.items()})
     trainer = Trainer(cfg, make_train_step(cfg), make_eval_step(cfg), dev,
-                      log=log)
+                      log=log, dispatch=dispatch)
     if cfg.telemetry:
         log("[telemetry] not ported yet: this run records no telemetry "
             "(per-step JSONL, manifest, spans come with the telemetry "
@@ -429,6 +436,53 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     return {"state": state, "history": trainer.history,
             "best_acc": trainer.best_acc, "cfg": cfg, "trainer": trainer,
             "steps_per_epoch": steps_per_epoch}
+
+
+def round_checkpoint_every(cfg: TrainConfig, log) -> TrainConfig:
+    """Under K steps a dispatch checkpoints land on dispatch boundaries:
+    ``--checkpoint_every`` rounds up to a multiple of K, with the JAX
+    package's warning and log line."""
+    k = max(int(cfg.steps_per_dispatch or 1), 1)
+    if k > 1 and cfg.checkpoint_every and cfg.checkpoint_every % k:
+        import warnings
+
+        rounded = -(-cfg.checkpoint_every // k) * k
+        warnings.warn(
+            f"--checkpoint_every {cfg.checkpoint_every} is not a multiple "
+            f"of --steps_per_dispatch {k}; rounding up to {rounded} "
+            f"(checkpoints land on dispatch boundaries)", stacklevel=3)
+        log(f"[ckpt] checkpoint_every rounded {cfg.checkpoint_every} -> "
+            f"{rounded} (multiple of steps_per_dispatch={k})")
+        cfg = cfg.replace(checkpoint_every=rounded)
+    return cfg
+
+
+def build_dispatch(cfg: TrainConfig, train_ds, dev, log):
+    """(cfg, FusedDispatch or None): K steps a dispatch when
+    ``--steps_per_dispatch`` > 1 or ``--data_path resident`` (the
+    resident split uploaded here); None keeps the one-step loop."""
+    from faster_distributed_training_tpu_torch.data.device_resident import (
+        build_device_resident)
+    from faster_distributed_training_tpu_torch.train.dispatch import (
+        FusedDispatch)
+
+    k = max(int(cfg.steps_per_dispatch or 1), 1)
+    cfg = round_checkpoint_every(cfg, log)
+    resident = build_device_resident(cfg, train_ds, dev)
+    if resident is not None:
+        log(f"[data] device-resident train split (replicated): "
+            f"{resident.n} samples, {resident.nbytes / 1e6:.0f} MB on "
+            f"{dev.type}, {resident.steps_per_epoch} steps/epoch"
+            + (f", seq_len={resident.seq_len}" if resident.is_text else ""))
+        if resident.verify_upload():
+            log("[data] device-resident upload verified against its "
+                "encode-time CRC32s")
+    if k == 1 and resident is None:
+        return cfg, None
+    log(f"[dispatch] {k} step(s) a dispatch on {dev.type}"
+        + (": the step captured once as a CUDA graph and replayed"
+           if dev.type == "cuda" else ": the step body in a loop"))
+    return cfg, FusedDispatch(cfg, k, dev, resident=resident, log=log)
 
 
 def resnet_extra_leaves(cfg: TrainConfig, gen: torch.Generator) -> dict:

@@ -106,7 +106,8 @@ struct Args {
   int H, Lq, Lk;
   float scale;
   int dropout;
-  uint32_t seed, b0, h0;
+  const uint32_t* seed;  // the dropout seed on the device (read when dropout)
+  uint32_t b0, h0;
   int h_glob;
   uint32_t thresh;
   float keep_scale;
@@ -117,7 +118,7 @@ struct Args {
 __device__ __forceinline__ uint32_t head_hash(const Args& a, int n) {
   const uint32_t bh = (a.b0 + (uint32_t)(n / a.H)) * (uint32_t)a.h_glob + a.h0 +
                       (uint32_t)(n % a.H);
-  return fmix32(a.seed ^ bh);
+  return fmix32(__ldg(a.seed) ^ bh);
 }
 
 // ---------------------------------------------------------------------------
@@ -471,12 +472,10 @@ __global__ void __launch_bounds__(NTW, D <= 64 ? 2 : 1) dq_kernel_sm90(const Arg
 template <int D>
 cudaError_t launch_bf16(const Args& a, int N, cudaStream_t stream) {
   using C = Cfg<D>;
-  cudaError_t err = cudaFuncSetAttribute(dkdv_kernel_sm90<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         C::dkdv_bytes);
+  static int dkdv_set[FDT_MAX_DEVICES], dq_set[FDT_MAX_DEVICES];
+  cudaError_t err = smem_attr_once(dkdv_kernel_sm90<D>, C::dkdv_bytes, dkdv_set);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq_kernel_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::dq_bytes);
+  err = smem_attr_once(dq_kernel_sm90<D>, C::dq_bytes, dq_set);
   if (err != cudaSuccess) return err;
   dkdv_kernel_sm90<D><<<dim3(N, (a.Lk + C::BKV - 1) / C::BKV), NTW, C::dkdv_bytes, stream>>>(a);
   err = cudaGetLastError();
@@ -757,12 +756,10 @@ __global__ void __launch_bounds__(NT) dq_kernel(const Args a) {
 template <int D>
 cudaError_t launch_f32(const Args& a, int N, cudaStream_t stream) {
   using L = Tile<D>;
-  cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::dkdv_bytes);
+  static int dkdv_set[FDT_MAX_DEVICES], dq_set[FDT_MAX_DEVICES];
+  cudaError_t err = smem_attr_once(dkdv_kernel<D>, (int)L::dkdv_bytes, dkdv_set);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)L::dq_bytes);
+  err = smem_attr_once(dq_kernel<D>, (int)L::dq_bytes, dq_set);
   if (err != cudaSuccess) return err;
   dkdv_kernel<D><<<dim3(N, (a.Lk + BK - 1) / BK), NT, L::dkdv_bytes, stream>>>(a);
   err = cudaGetLastError();
@@ -794,6 +791,7 @@ int fdt_flash_bwd_smem_bytes(int D, int kernel) {
   }
 }
 
+// seed: the dropout seed, a u32 on the device (null without dropout).
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; lse, lse_lo
 // (or null) and delta are contiguous [B*H, Lq] fp32; bias is [B, Lk] fp32
 // or null.  bf16 tensors must have 16-byte-aligned bases and (b, h, l)
@@ -808,7 +806,7 @@ int fdt_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                   long long so_b, long long so_h, long long so_l, long long sdq_b,
                   long long sdq_h, long long sdq_l, long long sdk_b, long long sdk_h,
                   long long sdk_l, long long sdv_b, long long sdv_h, long long sdv_l,
-                  float scale, int dropout, unsigned int seed, unsigned int b0,
+                  float scale, int dropout, const void* seed, unsigned int b0,
                   unsigned int h0, int h_glob, unsigned int thresh, float keep_scale,
                   void* stream) {
   Args a;
@@ -830,13 +828,14 @@ int fdt_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
   a.Lk = Lk;
   a.scale = scale;
   a.dropout = dropout;
-  a.seed = seed;
+  a.seed = static_cast<const uint32_t*>(seed);
   a.b0 = b0;
   a.h0 = h0;
   a.h_glob = h_glob;
   a.thresh = thresh;
   a.keep_scale = keep_scale;
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || (dropout && seed == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (D > fdt_flash_bwd_max_head_dim(dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {

@@ -82,7 +82,8 @@ struct Args {
   int H, Lq, Lk;
   float scale;
   int dropout;
-  uint32_t seed, b0, h0;
+  const uint32_t* seed;  // the dropout seed on the device (read when dropout)
+  uint32_t b0, h0;
   int h_glob;
   uint32_t thresh;
   float keep_scale;
@@ -94,7 +95,7 @@ struct Args {
 __device__ __forceinline__ uint32_t head_hash(const Args& a, int n) {
   const uint32_t bh = (a.b0 + (uint32_t)(n / a.H)) * (uint32_t)a.h_glob + a.h0 +
                       (uint32_t)(n % a.H);
-  return fmix32(a.seed ^ bh);
+  return fmix32(__ldg(a.seed) ^ bh);
 }
 
 // ---------------------------------------------------------------------------
@@ -315,8 +316,8 @@ __global__ void __launch_bounds__(NTW, D <= 64 ? 2 : 1) flash_fwd_kernel_sm90(co
 template <int D>
 cudaError_t launch_bf16(const Args& a, int N, cudaStream_t stream) {
   using C = Cfg<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_sm90<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::bytes);
+  static int smem_set[FDT_MAX_DEVICES];
+  cudaError_t err = smem_attr_once(flash_fwd_kernel_sm90<D>, C::bytes, smem_set);
   if (err != cudaSuccess) return err;
   flash_fwd_kernel_sm90<D><<<dim3(N, (a.Lq + C::BQ - 1) / C::BQ), NTW, C::bytes, stream>>>(a);
   return cudaGetLastError();
@@ -509,9 +510,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Args a) {
 template <int D>
 cudaError_t launch_f32(const Args& a, int N, cudaStream_t stream) {
   using L = Tile<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::bytes);
+  static int smem_set[FDT_MAX_DEVICES];
+  cudaError_t err = smem_attr_once(flash_fwd_kernel<D>, (int)L::bytes, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid(N, (a.Lq + BQ - 1) / BQ);
   flash_fwd_kernel<D><<<grid, NT, L::bytes, stream>>>(a);
@@ -537,6 +537,9 @@ int fdt_flash_fwd_smem_bytes(int D) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  D must be 16, 32, 64 or 128.
+// seed: the dropout seed, a u32 on the device (the low word of an int64
+// is one), read by the kernel, so a captured graph replays with whatever
+// value it holds then; null without dropout.
 // Strides are in elements.  bf16 tensors must have 16-byte-aligned bases
 // and (b, h, l) strides that are multiples of 8 (16-byte rows).
 int fdt_flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
@@ -544,7 +547,7 @@ int fdt_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
                   long long sq_b, long long sq_h, long long sq_l, long long sk_b,
                   long long sk_h, long long sk_l, long long sv_b, long long sv_h,
                   long long sv_l, long long so_b, long long so_h, long long so_l,
-                  float scale, int dropout, unsigned int seed, unsigned int b0,
+                  float scale, int dropout, const void* seed, unsigned int b0,
                   unsigned int h0, int h_glob, unsigned int thresh, float keep_scale,
                   void* stream) {
   Args a;
@@ -564,13 +567,14 @@ int fdt_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
   a.Lk = Lk;
   a.scale = scale;
   a.dropout = dropout;
-  a.seed = seed;
+  a.seed = static_cast<const uint32_t*>(seed);
   a.b0 = b0;
   a.h0 = h0;
   a.h_glob = h_glob;
   a.thresh = thresh;
   a.keep_scale = keep_scale;
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || (dropout && seed == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const long long strides[] = {sq_b, sq_h, sq_l, sk_b, sk_h, sk_l,

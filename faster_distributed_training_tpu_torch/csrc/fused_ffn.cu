@@ -173,7 +173,9 @@ struct Args {
   float* amax;     // [2], zeroed by the caller; written under quant only
   const float* scales;  // [sx1, sw1, sx2, sw2] on the device, or null
   int rows, d, d_ff;
-  uint32_t seed_h, seed_o, b0, s0, c0;
+  const uint32_t* seed_h;  // the two dropout seeds on the device (read when
+  const uint32_t* seed_o;  // their site is on)
+  uint32_t b0, s0, c0;
   int l_loc, l_glob, dff_glob;
   uint32_t t_h, t_c;
   float ks_h, ks_c;
@@ -264,6 +266,9 @@ __global__ void __launch_bounds__(NT) ffn_kernel(const Args a) {
   int* acci = reinterpret_cast<int*>(smem + L.acc);
   const int row0 = blockIdx.x * BM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the dropout seeds, read once a block (null when their site is off)
+  const uint32_t seed_h = a.drop_h ? __ldg(a.seed_h) : 0u;
+  const uint32_t seed_o = a.drop_c ? __ldg(a.seed_o) : 0u;
   const T* h = static_cast<const T*>(a.h);
   const T* b1 = static_cast<const T*>(a.b1);
   const T* b2 = static_cast<const T*>(a.b2);
@@ -330,7 +335,7 @@ __global__ void __launch_bounds__(NT) ffn_kernel(const Args a) {
       float act = gelu_as(v);
       if (a.drop_h) {
         const uint32_t idx = global_row(a, g) * (uint32_t)a.dff_glob + a.c0 + (uint32_t)col;
-        act = __fmul_rn(act, keep(a.seed_h, idx, a.t_h, a.ks_h));
+        act = __fmul_rn(act, keep(seed_h, idx, a.t_h, a.ks_h));
       }
       const T aT = from_f<T>(act);
       const float av = to_f(aT);
@@ -506,7 +511,7 @@ __global__ void __launch_bounds__(NT) ffn_kernel(const Args a) {
     v = __fadd_rn(v, to_f(b2[j]));
     if (a.drop_c) {
       const uint32_t idx = global_row(a, g) * (uint32_t)d + (uint32_t)j;
-      v = __fmul_rn(v, keep(a.seed_o, idx, a.t_c, a.ks_c));
+      v = __fmul_rn(v, keep(seed_o, idx, a.t_c, a.ks_c));
     }
     out[(size_t)g * d + j] = from_f<T>(__fadd_rn(to_f(h[(size_t)g * d + j]), v));
   }
@@ -525,9 +530,8 @@ template <typename T, int FMT>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   const Layout L = layout(engine_of(std::is_same<T, __nv_bfloat16>::value, FMT), a.d);
   if (L.total > 232448) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(ffn_kernel<T, FMT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L.total);
+  static int smem_set[FDT_MAX_DEVICES];
+  cudaError_t err = smem_attr_once(ffn_kernel<T, FMT>, (int)L.total, smem_set);
   if (err != cudaSuccess) return err;
   ffn_kernel<T, FMT><<<(a.rows + BM - 1) / BM, NT, L.total, s>>>(a);
   return cudaGetLastError();
@@ -666,6 +670,9 @@ __global__ void __launch_bounds__(NT, 1) ffn_kernel_sm90(const Args a) {
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023) & ~1023u;
   const int d = a.d, d_ff = a.d_ff, KP = ln_bytes(ESZ, d);
+  // the dropout seeds, read once a block (null when their site is off)
+  const uint32_t seed_h = a.drop_h ? __ldg(a.seed_h) : 0u;
+  const uint32_t seed_o = a.drop_c ? __ldg(a.seed_o) : 0u;
   const uint32_t lnt = ring + STAGES * SLOT;      // LN output [64][KP]
   const uint32_t hid = lnt + BM * KP;              // hidden chunk [64][CH * ESZ]
   unsigned char* ln_p = smem_raw + (lnt - raw);
@@ -883,7 +890,7 @@ __global__ void __launch_bounds__(NT, 1) ffn_kernel_sm90(const Args a) {
                 float act = gelu_as(v);
                 if (a.drop_h) {
                   const uint32_t idx = grow[hh] * (uint32_t)a.dff_glob + a.c0 + (uint32_t)col;
-                  act = __fmul_rn(act, keep(a.seed_h, idx, a.t_h, a.ks_h));
+                  act = __fmul_rn(act, keep(seed_h, idx, a.t_h, a.ks_h));
                 }
                 av[e] = to_f(from_f<T>(act));
                 if constexpr (FMT != FMT_NONE) {
@@ -942,7 +949,7 @@ __global__ void __launch_bounds__(NT, 1) ffn_kernel_sm90(const Args a) {
         v = __fadd_rn(v, bias2[col + e]);
         if (a.drop_c) {
           const uint32_t idx = grow[hh] * (uint32_t)d + (uint32_t)(col + e);
-          v = __fmul_rn(v, keep(a.seed_o, idx, a.t_c, a.ks_c));
+          v = __fmul_rn(v, keep(seed_o, idx, a.t_c, a.ks_c));
         }
         o[e] = __fadd_rn(to_f(h[(size_t)g * d + col + e]), v);
       }
@@ -969,8 +976,8 @@ template <typename T, int FMT, int DH>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   const size_t bytes = smem_bytes(Eng<FMT>::ESZ, a.d);
   if (bytes > 232448) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(ffn_kernel_sm90<T, FMT, DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  static int smem_set[FDT_MAX_DEVICES];
+  cudaError_t err = smem_attr_once(ffn_kernel_sm90<T, FMT, DH>, (int)bytes, smem_set);
   if (err != cudaSuccess) return err;
   ffn_kernel_sm90<T, FMT, DH><<<(a.rows + BM - 1) / BM, NT, bytes, s>>>(a);
   return cudaGetLastError();
@@ -1032,17 +1039,20 @@ long long fdt_ffn_smem_bytes(int dtype, int fmt, int d) {
 // h [rows, d], out [rows, d] in the compute dtype; ln_s, ln_b [d] fp32;
 // w1 [d_ff, d], w2 [d, d_ff] in the compute dtype (fmt 0) or quantized
 // (int8 / E4M3 bytes); b1 [d_ff], b2 [d] in the compute dtype; amax [2]
-// fp32 zeroed; scales [4] fp32 (fmt != 0).  d and d_ff multiples of 16;
-// every pointer 32-byte aligned.
+// fp32 zeroed; scales [4] fp32 (fmt != 0); seed_h, seed_o the two dropout
+// seeds, u32s on the device (null where the site is off), read by the
+// kernel so a captured graph replays with the values they hold then.  d
+// and d_ff multiples of 16; every pointer 32-byte aligned.
 int fdt_fused_ffn_fwd(const void* h, const void* ln_s, const void* ln_b, const void* w1,
                       const void* b1, const void* w2, const void* b2, void* out, void* amax,
                       const void* scales, int dtype, int fmt, int rows, int d, int d_ff,
-                      unsigned int seed_h, unsigned int seed_o, unsigned int b0, unsigned int s0,
+                      const void* seed_h, const void* seed_o, unsigned int b0, unsigned int s0,
                       unsigned int c0, int l_loc, int l_glob, int dff_glob, unsigned int t_h,
                       float ks_h, int drop_h, unsigned int t_c, float ks_c, int drop_c, float eps,
                       void* stream) {
   if (rows <= 0 || d < 16 || d % 16 || d_ff <= 0 || d_ff % 16 || l_loc <= 0 || l_glob <= 0 ||
-      (fmt != FMT_NONE && scales == nullptr))
+      (fmt != FMT_NONE && scales == nullptr) || (drop_h && seed_h == nullptr) ||
+      (drop_c && seed_o == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.h = h;
@@ -1058,8 +1068,8 @@ int fdt_fused_ffn_fwd(const void* h, const void* ln_s, const void* ln_b, const v
   a.rows = rows;
   a.d = d;
   a.d_ff = d_ff;
-  a.seed_h = seed_h;
-  a.seed_o = seed_o;
+  a.seed_h = static_cast<const uint32_t*>(seed_h);
+  a.seed_o = static_cast<const uint32_t*>(seed_o);
   a.b0 = b0;
   a.s0 = s0;
   a.c0 = c0;

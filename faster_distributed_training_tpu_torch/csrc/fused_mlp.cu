@@ -507,8 +507,8 @@ int fdt_fused_mlp_fwd(const void* x, const void* w1, const void* b1, const void*
   }
   const size_t bytes = ((size_t)R * d_in + (size_t)R * UNITS) * sizeof(float);
   if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    static int smem_set[FDT_MAX_DEVICES];
+    cudaError_t err = smem_attr_once(mlp_fwd_kernel, (int)bytes, smem_set);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((rows + R - 1) / R, (d_h + UNITS - 1) / UNITS);

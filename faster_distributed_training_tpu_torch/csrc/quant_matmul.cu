@@ -252,8 +252,8 @@ template <typename T, int FMT, bool UPCAST>
 cudaError_t launch_one(const void* xq, const void* wq, const float* sx, const float* sw,
                        void* out, int M, int N, int K, cudaStream_t s) {
   auto* kern = qmm_kernel_sm90<T, FMT, UPCAST>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  static int smem_set[FDT_MAX_DEVICES];
+  cudaError_t err = smem_attr_once(kern, SMEM_BYTES, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   kern<<<grid, NT, SMEM_BYTES, s>>>(static_cast<const uint8_t*>(xq),

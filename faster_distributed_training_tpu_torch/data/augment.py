@@ -18,16 +18,29 @@ from faster_distributed_training_tpu_torch.data.cifar10 import (CIFAR10_MEAN,
                                                                 CIFAR10_STD)
 
 
-def normalize(x: torch.Tensor, mean=CIFAR10_MEAN, std=CIFAR10_STD
-              ) -> torch.Tensor:
-    """uint8 NHWC -> normalized float32.  The constants reach a card by a
-    pinned, asynchronous copy: the step never waits for it.  255 is a
-    tensor too: CUDA divides by a Python scalar as a multiply by its
-    reciprocal, which rounds differently from JAX's division."""
+_CONSTANTS = {}
+
+
+def _constants(mean, std, device) -> torch.Tensor:
+    """[255, mean, std] as fp32 (3, C) on ``device``; on a card uploaded
+    once and kept (a captured step graph reads it where it lies)."""
     c = torch.tensor(np.stack([np.full_like(mean, 255.0), mean, std])
                      .astype(np.float32))
-    if x.device.type == "cuda":
-        c = c.pin_memory().to(x.device, non_blocking=True)
+    if device.type != "cuda":
+        return c
+    key = (str(device), c.numpy().tobytes())
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = c.to(device)
+    return _CONSTANTS[key]
+
+
+def normalize(x: torch.Tensor, mean=CIFAR10_MEAN, std=CIFAR10_STD
+              ) -> torch.Tensor:
+    """uint8 NHWC -> normalized float32.  The constants live on the card
+    from the first call: the step never waits for them.  255 is a tensor
+    too: CUDA divides by a Python scalar as a multiply by its reciprocal,
+    which rounds differently from JAX's division."""
+    c = _constants(mean, std, x.device)
     return (x.float() / c[0] - c[1]) / c[2]
 
 

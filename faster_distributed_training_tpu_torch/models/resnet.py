@@ -19,7 +19,10 @@ images, as the JAX model does, and runs NCHW inside (a ``permute`` view,
 which is ``torch.channels_last`` in memory: cuDNN's fast layout for bf16).
 Parameters stay fp32; each conv casts its kernel to the compute dtype.
 The running statistics are buffers (``mean``, ``var``) updated in place
-by a training forward.
+by a training forward.  ``remat=True`` (``--remat``, JAX's ``nn.remat`` of
+every residual block) checkpoints each block; the replay in the backward
+leaves the running statistics alone (``models.remat.replaying``), so they
+update once a step, as without remat.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from faster_distributed_training_tpu_torch.models.remat import (
+    remat as checkpointed, replaying)
 from faster_distributed_training_tpu_torch.ops.conv_bn import (
     conv2d, conv_bn_train, stats_dtype)
 
@@ -61,9 +66,10 @@ class FusedConvBNLayer(nn.Module):
             out, mean, var = conv_bn_train(xc, wc, self.stride, self.padding,
                                            self.eps, remat=self.conv_remat)
             m = self.momentum
-            with torch.no_grad():
-                self.mean.copy_((1 - m) * self.mean + m * mean)
-                self.var.copy_((1 - m) * self.var + m * var)
+            if not replaying():
+                with torch.no_grad():
+                    self.mean.copy_((1 - m) * self.mean + m * mean)
+                    self.var.copy_((1 - m) * self.var + m * var)
             return out
         y = conv2d(xc, wc, self.stride, self.padding)
         out = ((y.to(stats_dtype(y.dtype)) - self.mean[None, :, None, None])
@@ -93,9 +99,10 @@ class BatchNorm(nn.Module):
             mean_sq = torch.square(x32).mean(dim=(0, 2, 3))
             var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
             m = self.momentum
-            with torch.no_grad():
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
+            if not replaying():
+                with torch.no_grad():
+                    self.mean.copy_(m * self.mean + (1 - m) * mean)
+                    self.var.copy_(m * self.var + (1 - m) * var)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.eps) * self.scale
@@ -200,9 +207,10 @@ class ResNet(nn.Module):
 
     def __init__(self, block, stage_sizes: Sequence[int],
                  num_classes: int = 10, dtype: torch.dtype = torch.float32,
-                 conv_remat: bool = True):
+                 conv_remat: bool = True, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.FusedConvBNLayer_0 = FusedConvBNLayer(3, 64, 3, 1, 1, dtype=dtype,
                                                    conv_remat=conv_remat)
         self.blocks = []
@@ -249,7 +257,10 @@ class ResNet(nn.Module):
         x = x.permute(0, 3, 1, 2)
         x = celu(self.FusedConvBNLayer_0(x, train))
         for blk in self.blocks:
-            x = blk(x, train)
+            if self.remat and train and torch.is_grad_enabled():
+                x = checkpointed(lambda t, b=blk: b(t, True), blk, x)
+            else:
+                x = blk(x, train)
         # the global average pool: an fp32 mean, cast back (jnp.mean)
         x = x.to(stats_dtype(x.dtype)).mean(dim=(2, 3)).to(self.dtype)
         out = F.linear(x, self.fc_kernel.to(self.dtype),

@@ -27,6 +27,19 @@ backward; under a policy the quantized generalized core, whose amaxes
 roll the FFN histories); its parameters and buffers keep the flax
 branch's ``state_dict`` keys, so a checkpoint loads into either branch.
 
+``remat=True`` (``--remat``) checkpoints by ``remat_policy`` (the JAX
+model's ``REMAT_POLICIES``): ``layer`` the whole ``EncoderLayer``, ``ffn``
+the FFN sublayer only (the flax FFN or the fused kernel's call),
+``attn_out`` the whole layer with the attention context saved (the flash
+forward is not replayed), ``dots`` the whole layer with the matmul
+outputs saved and the elementwise chains replayed.  Under ``layer``,
+``attn_out`` and ``dots`` flash attention keeps input-only residuals
+(``save_stats=False``: the recompute backward, TPU row 5's route), as in
+the JAX model; ``ffn`` keeps the saved-stats backward.  Each layer's
+region draws its dropout seeds from a stream that restarts at the
+region's first seed each time the region runs, so the replay reuses the
+forward's seeds.
+
 ``train=True`` runs the training forward: hash dropout at every site of
 the JAX model (encodings; per layer the attention probabilities, the
 attention connection, the FFN hidden and the FFN connection; the pooler)
@@ -39,13 +52,15 @@ lambda and the permutation (``train.steps.StepDraws``).
 from __future__ import annotations
 
 import math
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from faster_distributed_training_tpu_torch.models.remat import (
+    remat, replaying, stashed_attention)
 from faster_distributed_training_tpu_torch.ops.attention import (
     NEG_INF, dense_attention_reference)
 from faster_distributed_training_tpu_torch.ops.dropout import hash_dropout
@@ -82,6 +97,37 @@ def _project(x: torch.Tensor, layer: nn.Module, dtype, train: bool
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+class SeedStream:
+    """A training forward's dropout seeds (``draws.seeds``: Python ints
+    or a 1-D device tensor), drawn in site order by ``next``."""
+
+    def __init__(self, seeds, pos: int = 0):
+        self.seeds, self.pos = seeds, pos
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.pos += 1
+        return self.seeds[self.pos - 1]
+
+
+def _remat_seeded(fn: Callable, module: nn.Module, x: torch.Tensor,
+                  seeds: SeedStream, dots: bool = False) -> torch.Tensor:
+    """``remat`` of ``fn(x, seeds)``: every run of the region (the
+    forward, then the replay) draws from the same first seed, and
+    ``seeds`` moves past the ones the forward drew."""
+    start = seeds.pos
+    own = SeedStream(seeds.seeds, start)
+
+    def region(y):
+        own.pos = start
+        return fn(y, own)
+    out = remat(region, module, x, dots=dots)
+    seeds.pos = own.pos
+    return out
 
 
 def _dropout(x: torch.Tensor, rate: float, train: bool,
@@ -209,6 +255,10 @@ class MultiheadAttention(nn.Module):
         if attention_impl not in ("dense", "flash"):
             raise ValueError(f"attention_impl {attention_impl!r}: the port "
                              f"has 'dense' and 'flash'")
+        # the flash backward's route (None: FDT_FLASH_SAVE_STATS decides)
+        # and whether an attn_out region stashes the context
+        self.save_stats: Optional[bool] = None
+        self.stash_context = False
         self.h = h
         self.d_model = d_model
         self.dropout = dropout
@@ -230,8 +280,12 @@ class MultiheadAttention(nn.Module):
         rate = self.dropout if train else 0.0
         seed = next(seeds) if rate > 0.0 else None
         if self.attention_impl == "flash":
-            if train:
-                ctx = flash_attention_qkv(qkv, mask, rate, seed)
+            if train and self.stash_context:
+                ctx = stashed_attention(qkv, lambda: flash_attention_qkv(
+                    qkv, mask, rate, seed, save_stats=self.save_stats))
+            elif train:
+                ctx = flash_attention_qkv(qkv, mask, rate, seed,
+                                          save_stats=self.save_stats)
             else:
                 ctx = flash_attention(q, k, v, mask=mask)
         elif rate > 0.0:
@@ -276,11 +330,12 @@ class EncoderLayer(nn.Module):
                  dropout_attention: float = 0.1, dropout_ffn: float = 0.1,
                  dtype=torch.float32, param_dtype=torch.float32,
                  attention_impl: str = "dense", ffn_impl: str = "flax",
-                 quant=None):
+                 quant=None, remat_ffn: bool = False):
         super().__init__()
         if ffn_impl not in ("flax", "pallas"):
             raise ValueError(f"ffn_impl {ffn_impl!r}: the port has 'flax' "
                              f"and 'pallas'")
+        self.remat_ffn = remat_ffn
         self.dtype = dtype
         self.ffn_impl = ffn_impl
         self.quant = quant
@@ -298,10 +353,23 @@ class EncoderLayer(nn.Module):
                 seeds: Optional[Iterator[int]] = None) -> torch.Tensor:
         a = self.attn(self.ln_attn(h), mask, train, seeds)
         h = h + _dropout(a, self.drop_attn_conn, train, seeds)
+        if self.remat_ffn and train:
+            return self._remat_ffn(h, seeds)
         if self.ffn_impl == "pallas":
             return self._fused_ffn(h, train, seeds)
         f = self.ffn(self.ln_ffn(h), train, seeds)
         return h + _dropout(f, self.drop_ffn_conn, train, seeds)
+
+    def _remat_ffn(self, h: torch.Tensor, seeds: SeedStream
+                   ) -> torch.Tensor:
+        """``--remat_policy ffn``: the FFN module (flax branch) or the
+        fused sublayer's call checkpointed."""
+        if self.ffn_impl == "pallas":
+            return _remat_seeded(lambda x, s: self._fused_ffn(x, True, s),
+                                 self.ffn, h, seeds)
+        f = _remat_seeded(lambda x, s: self.ffn(x, True, s), self.ffn,
+                          self.ln_ffn(h), seeds)
+        return h + _dropout(f, self.drop_ffn_conn, True, seeds)
 
     def _fused_ffn(self, h: torch.Tensor, train: bool,
                    seeds: Optional[Iterator[int]]) -> torch.Tensor:
@@ -334,14 +402,19 @@ class EncoderLayer(nn.Module):
             h, ln.scale, ln.bias, w1, b1, w2, b2, hid_seed, out_seed, 0, 0,
             0, r_h, r_c, ln.eps, 1, 1, dff_glob=w1.shape[0], quant_fmt=fmt,
             quant_scales=scales, grad_fmt=self.quant.grad_fmt)
-        if train and not self.quant.frozen_scales:
+        if train and not self.quant.frozen_scales and not replaying():
             # roll as QuantDense would: x-side amaxes from the kernel (LN
             # output, post-dropout activation), w-side from the cast weights
+            # (never in a --remat replay: once a step)
             with torch.no_grad():
                 for hist, amax in zip(hists, (amax2[0], tensor_amax(w1),
                                               amax2[1], tensor_amax(w2))):
                     hist.copy_(update_amax_history(hist, amax))
         return out
+
+
+# the JAX model's --remat_policy values
+REMAT_POLICIES = ("layer", "ffn", "attn_out", "dots")
 
 
 class Transformer(nn.Module):
@@ -360,8 +433,15 @@ class Transformer(nn.Module):
                  dtype=torch.float32, param_dtype=torch.float32,
                  attention_impl: str = "dense", ffn_impl: str = "flax",
                  quant=None, lm_head: bool = False,
-                 tie_lm_head: bool = False, mlp_impl: str = "fused"):
+                 tie_lm_head: bool = False, mlp_impl: str = "fused",
+                 remat: bool = False, remat_policy: str = "attn_out"):
         super().__init__()
+        if remat and remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r} not in "
+                             f"{REMAT_POLICIES}")
+        # the whole-layer policy, or None (no remat, or ffn: per layer)
+        self.remat_layer = (remat_policy if remat and remat_policy != "ffn"
+                            else None)
         self.h = h
         # "naive": the classifier MLP as plain autograd of its plain
         # version (the JAX --mlp_impl naive arm); else the kernel's Function
@@ -379,8 +459,16 @@ class Transformer(nn.Module):
             EncoderLayer(h, d_model, d_ff, dropout_connection_attention,
                          dropout_connection_ffn, dropout_attention,
                          dropout_ffn, dtype, param_dtype, attention_impl,
-                         ffn_impl, quant)
+                         ffn_impl, quant,
+                         remat_ffn=remat and remat_policy == "ffn")
             for _ in range(n_layers))
+        if self.remat_layer is not None:
+            # attention inside a checkpointed layer keeps input-only
+            # residuals (the JAX model's flash_save_stats)
+            for layer in self.layers:
+                layer.attn.save_stats = False
+                layer.attn.stash_context = (self.remat_layer == "attn_out"
+                                            and attention_impl == "flash")
         self.ln_final = TorchLayerNorm(d_model, dtype=dtype)
         if lm_head:
             # the next-token head: tied to the token table, or a Dense of
@@ -469,7 +557,7 @@ class Transformer(nn.Module):
             raise ValueError("the training forward takes its randomness "
                              "explicitly: pass draws (train.steps."
                              "StepDraws)")
-        seeds = iter(draws.seeds) if train else None
+        seeds = SeedStream(draws.seeds) if train else None
         L = x.shape[1]
         if token_types is None:
             token_types = torch.zeros_like(x)
@@ -480,7 +568,12 @@ class Transformer(nn.Module):
         if mask is not None and mask.dim() == 2:
             mask = mask[:, None, None, :]
         for layer in self.layers:
-            h = layer(h, mask, train, seeds)
+            if train and self.remat_layer is not None:
+                h = _remat_seeded(
+                    lambda x, s, lyr=layer: lyr(x, mask, True, s), layer, h,
+                    seeds, dots=self.remat_layer == "dots")
+            else:
+                h = layer(h, mask, train, seeds)
         h = self.ln_final(h)
         if self.lm:
             return self._lm_logits(h)
@@ -499,9 +592,12 @@ class Transformer(nn.Module):
         # in-forward sentence-embedding mixup (the JAX model's
         # models/transformer.py:1077-1088), lambda cast to the compute
         # dtype as there
-        lam = torch.tensor(draws.lam, dtype=torch.float32)
-        index = torch.as_tensor(np.array(draws.perm), dtype=torch.long,
-                                device=pooled.device)
+        lam = (draws.lam if torch.is_tensor(draws.lam)
+               else torch.tensor(draws.lam, dtype=torch.float32))
+        index = (draws.perm.to(pooled.device, torch.long)
+                 if torch.is_tensor(draws.perm) else
+                 torch.as_tensor(np.array(draws.perm), dtype=torch.long,
+                                 device=pooled.device))
         mixed = (lam.to(pooled.device, pooled.dtype) * pooled
                  + (1.0 - lam).to(pooled.device, pooled.dtype)
                  * pooled[index])

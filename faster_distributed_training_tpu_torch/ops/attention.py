@@ -61,10 +61,37 @@ def keep_scale(rate: float) -> float:
                  / torch.tensor(1.0 - rate, dtype=torch.float32))
 
 
+def seed_u32(seed):
+    """A dropout seed as a uint32 value: a Python int masked to 32 bits,
+    or an integer tensor (any device) masked in int64, never read back
+    to the host (``int()`` on a card's tensor would wait for the card)."""
+    if torch.is_tensor(seed):
+        if seed.dtype not in (torch.int32, torch.int64) or seed.numel() != 1:
+            raise TypeError(f"a dropout seed tensor holds one int32 or int64, "
+                            f"got {seed.dtype} {tuple(seed.shape)}")
+        return seed.reshape(()).to(torch.int64) & _M32
+    return int(seed) & _M32
+
+
+def seed_operand(seed, device) -> torch.Tensor:
+    """The seed as the CUDA kernels read it: a u32 at the address of an
+    integer tensor on ``device`` (an int64's low word).  A tensor there
+    passes through, so the kernel reads whatever it holds when it runs (a
+    replayed graph sees the slot of that step); a Python int is uploaded
+    as an int64."""
+    if torch.is_tensor(seed):
+        seed_u32(seed)
+        if seed.device != torch.device(device):
+            raise ValueError(f"dropout seed on {seed.device}, kernel on "
+                             f"{device}")
+        return seed
+    return torch.tensor(int(seed) & _M32, dtype=torch.int64, device=device)
+
+
 def dropout_keep(seed, bh, q_idx, k_idx, rate: float) -> torch.Tensor:
     """fp32 keep/(1-rate) factor, broadcast over bh/q_idx/k_idx.
 
-    seed: a uint32 value (python int or integer tensor); bh / q_idx /
+    seed: a uint32 value (python int or one-element integer tensor); bh / q_idx /
     k_idx: integer index tensors broadcastable to the score block's
     shape (GLOBAL indices); rate: python float in [0, 1)."""
     def u32(v):

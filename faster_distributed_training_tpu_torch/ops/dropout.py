@@ -23,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from faster_distributed_training_tpu_torch.ops.attention import _M32, _fmix32
+from faster_distributed_training_tpu_torch.ops.attention import (
+    _M32, _fmix32, seed_u32)
 
 _GRID = 1 << 16          # keep-prob quantization grid
 _INDEX_CEILING = 1 << 32
@@ -55,7 +56,8 @@ def keep_factor_rows(seed, global_rows, cols: int, rate: float, col0=0,
     """fp32 {0, GRID/t} keep factors [rows, cols] for a tile whose rows
     have GLOBAL ids ``global_rows``: element (r, c) keeps iff the top 16
     bits of ``fmix(seed ^ (global_rows[r] * width + col0 + c))`` clear
-    the threshold, with width = ``cols_glob`` or ``cols``."""
+    the threshold, with width = ``cols_glob`` or ``cols``.  ``seed``: a
+    Python int or a one-element integer tensor (on the tile's device)."""
     t = _thresh_u16(rate)
     rows_t = torch.as_tensor(global_rows).reshape(-1).to(torch.int64)
     rows = rows_t.shape[0]
@@ -66,7 +68,7 @@ def keep_factor_rows(seed, global_rows, cols: int, rate: float, col0=0,
     c = torch.arange(cols, dtype=torch.int64, device=rows_t.device)
     idx = ((rows_t & _M32)[:, None] * width) & _M32
     idx = (idx + (int(col0) & _M32) + c[None, :]) & _M32
-    h16 = _fmix32((int(seed) & _M32) ^ idx) >> 16
+    h16 = _fmix32(seed_u32(seed) ^ idx) >> 16
     inv = float(np.float32(_GRID / t))
     return (h16 < t).to(torch.float32) * inv
 
@@ -105,8 +107,9 @@ def hash_dropout(x: torch.Tensor, seed, rate: float,
                  deterministic: bool = False, offset: int = 0
                  ) -> torch.Tensor:
     """Stateless hash dropout.  seed: a uint32 (one fresh value per site
-    per step); rate: python float in [0, 1]; offset: global element index
-    of this tensor's element 0."""
+    per step), a Python int or a one-element integer tensor (a device
+    tensor is never read back to the host); rate: python float in [0, 1];
+    offset: global element index of this tensor's element 0."""
     if deterministic or rate <= 0.0:
         return x
     t = _thresh_u16(rate)
@@ -114,4 +117,4 @@ def hash_dropout(x: torch.Tensor, seed, rate: float,
         return x
     if t <= 0:         # rate above 1 - half a grid step: drop everything
         return torch.zeros_like(x)
-    return _HashDropout.apply(x, int(seed) & _M32, float(rate), int(offset))
+    return _HashDropout.apply(x, seed_u32(seed), float(rate), int(offset))

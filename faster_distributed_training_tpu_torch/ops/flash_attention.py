@@ -63,7 +63,8 @@ import torch
 
 from faster_distributed_training_tpu_torch.ops import _build
 from faster_distributed_training_tpu_torch.ops.attention import (
-    bh_index, dropout_keep, keep_scale, keep_threshold, mask_to_bias)
+    bh_index, dropout_keep, keep_scale, keep_threshold, mask_to_bias,
+    seed_operand, seed_u32)
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,15 +82,17 @@ def key_bias_from_mask(mask, B: int, Lk: int) -> Optional[torch.Tensor]:
     return mask_to_bias(kb).contiguous()
 
 
-def _seed_int(dropout_seed) -> int:
-    return 0 if dropout_seed is None else int(dropout_seed) & 0xFFFFFFFF
+def _seed(dropout_seed):
+    """The seed as a uint32 value (an int, or a device tensor left on the
+    device); None is 0."""
+    return 0 if dropout_seed is None else seed_u32(dropout_seed)
 
 
 def _keep(q, Lk, dropout_rate, dropout_seed, q0: int = 0) -> torch.Tensor:
     """The keep factors of q rows q0 .. q0 + Lq (q holds those rows)."""
     B, H, Lq, _ = q.shape
     return dropout_keep(
-        _seed_int(dropout_seed), bh_index(B, H, q.device),
+        _seed(dropout_seed), bh_index(B, H, q.device),
         torch.arange(q0, q0 + Lq, device=q.device)[None, None, :, None],
         torch.arange(Lk, device=q.device)[None, None, None, :], dropout_rate)
 
@@ -234,7 +237,7 @@ def _fwd_lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         u, f = ctypes.c_uint, ctypes.c_float
         lib.fdt_flash_fwd.argtypes = (
-            [p] * 7 + [i] * 6 + [ll] * 12 + [f, i, u, u, u, i, u, f, p])
+            [p] * 7 + [i] * 6 + [ll] * 12 + [f, i, p, u, u, i, u, f, p])
         lib.fdt_flash_fwd.restype = ctypes.c_int
         lib.fdt_flash_fwd_smem_bytes.argtypes = [i]
         lib.fdt_flash_fwd_smem_bytes.restype = ctypes.c_int
@@ -247,7 +250,7 @@ def _bwd_lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         u, f = ctypes.c_uint, ctypes.c_float
         lib.fdt_flash_bwd.argtypes = (
-            [p] * 11 + [i] * 6 + [ll] * 21 + [f, i, u, u, u, i, u, f, p])
+            [p] * 11 + [i] * 6 + [ll] * 21 + [f, i, p, u, u, i, u, f, p])
         lib.fdt_flash_bwd.restype = ctypes.c_int
         lib.fdt_flash_bwd_max_head_dim.argtypes = [i]
         lib.fdt_flash_bwd_max_head_dim.restype = ctypes.c_int
@@ -293,10 +296,19 @@ def _strides(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def _dropout_args(dropout_rate, dropout_seed, H):
+def _seed_arg(dropout_rate, dropout_seed, device):
+    """The seed operand of a launch: a u32 on the device (kept alive by
+    the caller until the launch is enqueued), or None without dropout."""
+    if float(dropout_rate) <= 0.0:
+        return None
+    return seed_operand(0 if dropout_seed is None else dropout_seed, device)
+
+
+def _dropout_args(dropout_rate, seed_t, H):
     rate = float(dropout_rate)
-    return (int(rate > 0.0), _seed_int(dropout_seed), 0, 0, H,
-            keep_threshold(rate), keep_scale(rate) if rate > 0.0 else 1.0)
+    return (int(rate > 0.0), None if seed_t is None else seed_t.data_ptr(),
+            0, 0, H, keep_threshold(rate),
+            keep_scale(rate) if rate > 0.0 else 1.0)
 
 
 def _launch_fwd(q, k, v, mask, dropout_rate, dropout_seed, emit_lse: int):
@@ -314,6 +326,7 @@ def _launch_fwd(q, k, v, mask, dropout_rate, dropout_seed, emit_lse: int):
         _check_rows16(q=q, k=k, v=v, out=out)
     stats = (torch.empty((emit_lse, B, H, Lq), dtype=torch.float32,
                          device=q.device) if emit_lse else None)
+    seed_t = _seed_arg(dropout_rate, dropout_seed, q.device)
     lib = _fwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -324,7 +337,7 @@ def _launch_fwd(q, k, v, mask, dropout_rate, dropout_seed, emit_lse: int):
             stats[1].data_ptr() if emit_lse == 2 else None,
             _DTYPES[q.dtype], B, H, Lq, Lk, D,
             *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-            1.0 / math.sqrt(D), *_dropout_args(dropout_rate, dropout_seed, H),
+            1.0 / math.sqrt(D), *_dropout_args(dropout_rate, seed_t, H),
             stream)
     _build.check(lib, err, "flash_fwd launch")
     flash_attention.launches += 1
@@ -339,7 +352,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     L; D contiguous; bf16 views with a 16-byte-aligned base and (b, h, l)
     strides that are multiples of 8, as the model's views of its fused
     projection are); mask: None or a key-padding mask (mask == 0 masked);
-    dropout_seed: a uint32 (python int or integer tensor).  Returns out
+    dropout_seed: a uint32 (python int, or a one-element integer tensor:
+    on the card the kernel reads it where it lies).  Returns out
     [B, H, Lq, D] (a view of a [B, Lq, H, D] buffer on CUDA) and, with
     emit_lse, the fp32 row lse [B, H, Lq].  No autograd: training goes
     through :func:`flash_attention_qkv`."""
@@ -417,6 +431,7 @@ def _launch_bwd(q, k, v, out, lse, dout, mask, dropout_rate, dropout_seed,
                              f"{like.dtype} on {q.device}, D contiguous")
     if q.dtype == torch.bfloat16:
         _check_rows16(q=q, k=k, v=v, dout=dout, dq=dq, dk=dk, dv=dv)
+    seed_t = _seed_arg(dropout_rate, dropout_seed, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fdt_flash_bwd(
@@ -428,7 +443,7 @@ def _launch_bwd(q, k, v, out, lse, dout, mask, dropout_rate, dropout_seed,
             _DTYPES[q.dtype], B, H, Lq, Lk, D,
             *_strides(q), *_strides(k), *_strides(v), *_strides(dout),
             *_strides(dq), *_strides(dk), *_strides(dv),
-            1.0 / math.sqrt(D), *_dropout_args(dropout_rate, dropout_seed, H),
+            1.0 / math.sqrt(D), *_dropout_args(dropout_rate, seed_t, H),
             stream)
     _build.check(lib, err, "flash_bwd launch")
     return dq, dk, dv
@@ -528,6 +543,5 @@ def flash_attention_qkv(qkv: torch.Tensor, mask: Optional[torch.Tensor] = None,
     (default) or the recompute route (``save_stats=False`` or
     ``FDT_FLASH_SAVE_STATS=0``).  Returns the context [B, H, L, D]; the
     gradient comes back as one [B, L, 3, H, D] buffer."""
-    seed = _seed_int(dropout_seed)
-    return _FlashQKV.apply(qkv, mask, float(dropout_rate), seed,
+    return _FlashQKV.apply(qkv, mask, float(dropout_rate), _seed(dropout_seed),
                            save_stats_enabled(save_stats))

@@ -43,6 +43,8 @@ import numpy as np
 import torch
 
 from faster_distributed_training_tpu_torch.ops import _build
+from faster_distributed_training_tpu_torch.ops.attention import (
+    seed_operand, seed_u32)
 from faster_distributed_training_tpu_torch.ops.dropout import (
     _GRID, _M32, _thresh_u16, guard_index_ceiling, keep_factor_rows)
 from faster_distributed_training_tpu_torch.ops.layernorm import (
@@ -162,7 +164,7 @@ def _lib() -> ctypes.CDLL:
         p, i, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                       ctypes.c_float)
         lib.fdt_fused_ffn_fwd.argtypes = (
-            [p] * 10 + [i] * 5 + [u] * 5 + [i] * 3
+            [p] * 10 + [i] * 5 + [p] * 2 + [u] * 3 + [i] * 3
             + [u, f, i, u, f, i, f, p])
         lib.fdt_fused_ffn_fwd.restype = ctypes.c_int
         lib.fdt_ffn_engine.argtypes = [i, i, i]
@@ -223,9 +225,10 @@ def _check_inputs(h2d, ln_scale, ln_bias, w1, b1, w2, b2, fmt):
 
 def _launch(h2d, ln_scale, ln_bias, w1, b1, w2, b2, seeds, scales,
             rate_hidden, rate_conn, eps, l_loc, l_glob, dff_glob, fmt):
-    """One kernel launch: (out [rows, d], amax (2,) fp32).  seeds: python
-    ints (hid, out, b0, s0, c0); scales: (4,) fp32 on the device or
-    None."""
+    """One kernel launch: (out [rows, d], amax (2,) fp32).  seeds: (hid,
+    out, b0, s0, c0), the two dropout seeds Python ints or one-element
+    integer tensors on the device (the kernel reads them there), the
+    offsets Python ints; scales: (4,) fp32 on the device or None."""
     if fmt is not None:
         # weights quantize once per call at their delayed scales
         w1, w2 = quantize(w1, scales[1], fmt), quantize(w2, scales[3], fmt)
@@ -242,7 +245,9 @@ def _launch(h2d, ln_scale, ln_bias, w1, b1, w2, b2, seeds, scales,
         return out, amax
     t_h, ks_h, on_h = _dropout_args(rate_hidden)
     t_c, ks_c, on_c = _dropout_args(rate_conn)
-    hid, out_seed, b0, s0, c0 = (int(s) & _M32 for s in seeds)
+    hid, out_seed = (seed_operand(sd, h2d.device) if on else None
+                     for sd, on in zip(seeds[:2], (on_h, on_c)))
+    b0, s0, c0 = (int(s) & _M32 for s in seeds[2:])
     lib = _lib()
     with torch.cuda.device(h2d.device):
         stream = torch.cuda.current_stream(h2d.device).cuda_stream
@@ -252,7 +257,9 @@ def _launch(h2d, ln_scale, ln_bias, w1, b1, w2, b2, seeds, scales,
             out.data_ptr(), amax.data_ptr(),
             scales.data_ptr() if fmt is not None else None,
             _DTYPES[h2d.dtype], _FMT_CODES[fmt], rows, d, w1.shape[0],
-            hid, out_seed, b0, s0, c0, int(l_loc), int(l_glob),
+            None if hid is None else hid.data_ptr(),
+            None if out_seed is None else out_seed.data_ptr(),
+            b0, s0, c0, int(l_loc), int(l_glob),
             int(dff_glob), t_h, ks_h, on_h, t_c, ks_c, on_c, float(eps),
             stream)
     _build.check(lib, err, "fused_ffn launch")
@@ -401,11 +408,11 @@ def fused_ffn_sublayer(h, ln_scale, ln_bias, w1, b1, w2, b2, hid_seed,
                        out_seed, rate_hidden: float = 0.0,
                        rate_conn: float = 0.0, eps: float = 1e-6):
     """out = h + drop(Dense2(drop(gelu(Dense1(LN(h)))))) in one kernel;
-    h [..., d]; w1 [d_ff, d], w2 [d, d_ff]; seeds python ints (ignored at
-    rate 0).  Differentiable in h, the LN parameters, weights and
-    biases."""
+    h [..., d]; w1 [d_ff, d], w2 [d, d_ff]; seeds python ints or
+    one-element integer tensors (ignored at rate 0).  Differentiable in h,
+    the LN parameters, weights and biases."""
     _guard(h, w1, rate_hidden, rate_conn, "fused FFN dropout")
-    args = (int(hid_seed), int(out_seed), 0, 0, float(rate_hidden),
+    args = (seed_u32(hid_seed), seed_u32(out_seed), 0, 0, float(rate_hidden),
             float(rate_conn), float(eps), 1, 1)
     inputs = (h, ln_scale, ln_bias, w1, b1, w2, b2)
     # eval and serving keep no residuals: the Function only under autograd
@@ -435,7 +442,8 @@ def ffn_core_generalized(h, ln_scale, ln_bias, w1, b1, w2, b2, hid_seed,
     _guard(h, w1, rate_hidden, rate_conn, "fused FFN dropout")
     scales = pack_scales(quant_scales if quant_fmt is not None else None,
                          h.device)
-    seeds = tuple(int(s) for s in (hid_seed, out_seed, b0, s0, c0))
+    seeds = (seed_u32(hid_seed), seed_u32(out_seed), int(b0), int(s0),
+             int(c0))
     args = (scales, seeds, float(rate_hidden), float(rate_conn), float(eps),
             int(l_loc), int(l_glob),
             int(dff_glob) if dff_glob else int(w1.shape[0]), quant_fmt,

@@ -115,7 +115,10 @@ def mlp_bwd(x, w1, b1, w2, b2, g, mean_bias_grad: bool = False):
     af = a.reshape(-1, a.shape[-1])
     xf = x.reshape(-1, x.shape[-1])
     d_w2 = torch.matmul(gf.T, af)
-    d_h = torch.where(h > 0, torch.matmul(g, w2), torch.zeros((), dtype=g.dtype))
+    # the zero on g's device: a CPU scalar here would be a host copy,
+    # which a captured step graph cannot hold
+    d_h = torch.where(h > 0, torch.matmul(g, w2),
+                      torch.zeros((), dtype=g.dtype, device=g.device))
     d_hf = d_h.reshape(-1, d_h.shape[-1])
     d_w1 = torch.matmul(d_hf.T, xf)
     d_x = torch.matmul(d_h, w1)

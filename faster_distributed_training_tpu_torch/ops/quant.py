@@ -296,6 +296,12 @@ def quant_dot(x: torch.Tensor, w: torch.Tensor, sx, sw, fmt: str,
 
 # -- the site module -----------------------------------------------------------
 
+def _replaying() -> bool:
+    from faster_distributed_training_tpu_torch.models.remat import replaying
+
+    return replaying()
+
+
 class QuantDense(nn.Module):
     """``nn.Linear`` with an int8/fp8 forward GEMM at delayed per-tensor
     scales (the JAX ``QuantDense`` without its pipeline cadence and tp
@@ -342,7 +348,8 @@ class QuantDense(nn.Module):
             out = torch.matmul(x2d.float(), w2d.float().T)
         else:
             sx, sw = self.scales()
-            if train and not self.frozen_scales:
+            if train and not self.frozen_scales and not _replaying():
+                # never in a --remat replay: the histories roll once a step
                 with torch.no_grad():
                     self.amax_history_x.copy_(update_amax_history(
                         self.amax_history_x, tensor_amax(x2d)))

@@ -46,10 +46,21 @@ class Optimizer:
     def init(self, params: Tensors) -> dict:
         return self.inner.init(params)
 
-    def update(self, grads: Tensors, state: dict, params: Tensors) -> dict:
+    def host_scalars(self, step: int) -> Dict[str, float]:
+        """The inner optimizer's per-step scalars at optimizer step
+        ``step`` (lr, or MADGRAD's lr sqrt(k + 1))."""
+        return self.inner.host_scalars(step)
+
+    def updating(self, state: dict) -> bool:
+        """Whether the next update syncs with the host (NGD's factor
+        refresh); a dispatch runs such a step eagerly."""
+        return bool(getattr(self.inner, "updating", lambda s: False)(state))
+
+    def update(self, grads: Tensors, state: dict, params: Tensors,
+               scalars: Optional[Dict[str, torch.Tensor]] = None) -> dict:
         if self.clip_norm:
             grads = clip_by_global_norm(grads, self.clip_norm)
-        return self.inner.update(grads, state, params)
+        return self.inner.update(grads, state, params, scalars)
 
 
 def _default_schedule(optimizer: str, cfg: TrainConfig) -> str:

@@ -12,12 +12,16 @@ Weight decay is L2 on the gradient (g + wd * x).  State is a dict of
 per-parameter tensors keyed by parameter name plus the step count.  The
 update works in place on the parameters and the state tensors (the JAX
 version returns new arrays; in place saves a copy of every parameter).
+``lamb_k`` is a Python float of the host count, or, under a K-step
+dispatch, a 0-dim fp32 tensor on the device (``scalars["lamb"]``, the
+same value rounded to fp32, as the Python float is rounded where it
+multiplies an fp32 tensor: the update is bitwise the same).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
@@ -48,12 +52,20 @@ class Madgrad:
         lr = self.learning_rate
         return float(lr(step) if callable(lr) else lr)
 
+    def host_scalars(self, step: int) -> Dict[str, float]:
+        """The per-step scalars of optimizer step ``step``, as the host
+        computes them (a dispatch uploads them as a table)."""
+        return {"lamb": self.lr(step) * math.sqrt(step + 1.0)}
+
     @torch.no_grad()
-    def update(self, grads: Tensors, state: dict, params: Tensors) -> dict:
+    def update(self, grads: Tensors, state: dict, params: Tensors,
+               scalars: Optional[Dict[str, torch.Tensor]] = None) -> dict:
         """Apply one step to ``params`` in place; returns ``state``
-        (updated in place, step advanced)."""
+        (updated in place, step advanced).  ``scalars``: the step's
+        device scalars (a dispatch), else the host count's."""
         k = state["step"]
-        lamb = self.lr(k) * math.sqrt(k + 1.0)
+        lamb = (scalars["lamb"] if scalars is not None
+                else self.host_scalars(k)["lamb"])
         ck = 1.0 - self.momentum
         for name, p in params.items():
             g = grads[name]

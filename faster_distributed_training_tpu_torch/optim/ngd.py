@@ -169,6 +169,13 @@ def _member_finalize(w, d, rho, w1, d1, rho1, x, x_hat, tr_xxt):
     return w1, d1, rho1, out
 
 
+def refreshes(t: int, hp: NGDHyperParams) -> bool:
+    """Whether step ``t`` refreshes the factors (an ``eigh`` a group):
+    each of the first ``NUM_INITIAL_ITERS`` steps, then every
+    ``update_period``-th."""
+    return t < NUM_INITIAL_ITERS or t % hp.update_period == 0
+
+
 def precondition_group(group: Tensors, t: int, xs: torch.Tensor,
                        hp: NGDHyperParams) -> torch.Tensor:
     """Precondition ``xs`` (G, N, dim) with the group's stacked factors
@@ -178,11 +185,14 @@ def precondition_group(group: Tensors, t: int, xs: torch.Tensor,
     trs = torch.square(xs).sum(dim=(1, 2))
     if t == 0:
         w, d, rho = _member_init(xs, trs, w.shape[1], hp)
-    updating = t < NUM_INITIAL_ITERS or t % hp.update_period == 0
-    (w1, d1, rho1), x_hat = _core_step(w, d, rho, xs, trs, updating, hp)
+    (w1, d1, rho1), x_hat = _core_step(w, d, rho, xs, trs, refreshes(t, hp),
+                                       hp)
     w1, d1, rho1, out = _member_finalize(w, d, rho, w1, d1, rho1, xs, x_hat,
                                          trs)
-    group["w"], group["d"], group["rho"] = w1, d1, rho1
+    # in place: a captured step graph reads and writes the same storage
+    # every replay
+    for key, new in (("w", w1), ("d", d1), ("rho", rho1)):
+        group[key].copy_(new)
     return out
 
 
@@ -331,6 +341,18 @@ class NGD:
         lr = self.learning_rate
         return float(lr(step) if callable(lr) else lr)
 
+    def host_scalars(self, step: int) -> Dict[str, float]:
+        """The per-step scalars of optimizer step ``step`` (a dispatch
+        uploads them as a table)."""
+        return {"lr": self.lr(step)}
+
+    def updating(self, state: dict) -> bool:
+        """Whether the next update refreshes NGD's factors (an
+        ``eigh`` a group, host syncs: a dispatch runs it eagerly)."""
+        if self.scale is None:
+            return False
+        return refreshes(int(state["ngd"]["t"]), self.scale.hp)
+
     def init(self, params: Tensors) -> dict:
         state = {"step": 0}
         if self.scale is not None:
@@ -341,7 +363,11 @@ class NGD:
         return state
 
     @torch.no_grad()
-    def update(self, grads: Tensors, state: dict, params: Tensors) -> dict:
+    def update(self, grads: Tensors, state: dict, params: Tensors,
+               scalars: Optional[Dict[str, torch.Tensor]] = None) -> dict:
+        """One step in place.  ``scalars``: the step's lr as a 0-dim fp32
+        device tensor (a dispatch), else the host count's float; either
+        multiplies as fp32, so the two are bitwise equal."""
         # each product rounds before its sum, as in the optax chain
         names = list(params)
         p = [params[n] for n in names]
@@ -357,7 +383,9 @@ class NGD:
             torch._foreach_mul_(buf, self.momentum)
             torch._foreach_add_(buf, g)
             g = buf
-        torch._foreach_add_(p, torch._foreach_mul(g, -self.lr(state["step"])))
+        neg_lr = (-scalars["lr"] if scalars is not None
+                  else -self.lr(state["step"]))
+        torch._foreach_add_(p, torch._foreach_mul(g, neg_lr))
         state["step"] += 1
         return state
 

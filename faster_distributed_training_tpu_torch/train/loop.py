@@ -8,10 +8,21 @@ older ones removed only after the new one commits) and ``maybe_resume``
 first batch the checkpoint had not trained: the loader's order is a pure
 function of (seed, epoch) and the step draws of (seed, step), so the
 remainder replays exactly, and the skipped batches are never built.
-Log lines follow the JAX format."""
+Log lines follow the JAX format.
+
+``--steps_per_dispatch K > 1`` (or ``--data_path resident``, at any K)
+trains through ``train.dispatch.FusedDispatch``: ``_run_epoch_fused_host``
+groups K loader batches into one dispatch, ``_run_epoch_resident``
+gathers them from the device-resident split (a mid-epoch resume is a
+seek: no host batch is built).  An epoch tail shorter than K runs fewer
+steps on the same graph.  Checkpoints land on dispatch boundaries (the
+cli rounds ``--checkpoint_every`` up to a multiple of K), and the live
+log line reads the loss at a dispatch boundary.  K=1 on the host path is
+the one-step loop above, unchanged."""
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable, Dict, Iterable, Optional
 
@@ -38,12 +49,15 @@ def _finite(x) -> bool:
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, train_step, eval_step, device,
-                 log: Callable[[str], None] = print):
+                 log: Callable[[str], None] = print, dispatch=None):
         self.cfg = cfg
         self.train_step = train_step
         self.eval_step = eval_step
         self.device = torch.device(device)
         self.log = log
+        # a train.dispatch.FusedDispatch: K steps a dispatch (its
+        # resident split, when it has one, replaces the train loader)
+        self.dispatch = dispatch
         self.best_acc = 0.0
         self.global_step = 0
         self._last_save_t = cadence_clock()
@@ -122,6 +136,92 @@ class Trainer:
         elapsed = time.monotonic() - t0
         return state, acc.summary(), elapsed
 
+    def _dispatch_done(self, state: TrainState, acc: MetricAccumulator,
+                       metrics, epoch: int, n: int, kk: int, last: tuple,
+                       ckpt_name: str) -> tuple:
+        """After a dispatch of kk steps ending at batch n: accumulate, log
+        when a ``--log_every`` boundary was crossed, and save when the
+        step cadence came due (a boundary crossed, or the clock)."""
+        cfg = self.cfg
+        acc.add(metrics)
+        before = self.global_step
+        self.global_step += kk
+        log_every = int(cfg.log_every or 0)
+        if log_every and n // log_every > (n - kk) // log_every:
+            last_t, last_n = last
+            now = time.monotonic()
+            loss = float(metrics["loss"])
+            acc_now = float(metrics["correct"]) / max(
+                float(metrics["total"]), 1e-9)
+            exs = ((n - last_n) * cfg.batch_size / max(now - last_t, 1e-9))
+            self.log(f"[epoch {epoch}] step {n}: loss={loss:.4f} "
+                     f"acc={acc_now:.4f} {exs:.0f} ex/s (K={kk} fused)")
+            last = (now, n)
+        every = int(cfg.checkpoint_every or 0)
+        if (every and self.global_step // every > before // every) or (
+                cfg.checkpoint_every_secs and cadence_clock()
+                - self._last_save_t >= cfg.checkpoint_every_secs):
+            self._save_step(state, ckpt_name, epoch, n)
+        return last
+
+    def _run_epoch_fused_host(self, state: TrainState, loader: Iterable,
+                              epoch: int, start_step: int = 0,
+                              ckpt_name: str = "ckpt") -> tuple:
+        """K>1 on the host data path (JAX ``_run_epoch_fused_host``): K
+        loader batches a dispatch, stacked and staged in one pinned copy
+        a leaf; the loader starts at ``start_step`` (a mid-epoch resume,
+        a whole number of dispatches)."""
+        acc = MetricAccumulator()
+        t0 = time.monotonic()
+        closer = getattr(loader, "close", None)
+        if start_step:
+            self.log(f"[resume] epoch {epoch}: skipped {start_step} "
+                     f"already-trained batches")
+        n, last, metrics = start_step, (t0, start_step), None
+        it = iter(loader)
+        try:
+            while True:
+                group = list(itertools.islice(it, self.dispatch.k))
+                if not group:
+                    break
+                kk = len(group)
+                metrics = self.dispatch.run(state, kk, batches=group)
+                n += kk
+                last = self._dispatch_done(state, acc, metrics, epoch, n,
+                                           kk, last, ckpt_name)
+        finally:
+            if closer is not None:
+                closer()
+        if metrics is not None:
+            float(metrics["loss"])     # the card finishes the epoch here
+        return state, acc.summary(), time.monotonic() - t0
+
+    def _run_epoch_resident(self, state: TrainState, epoch: int,
+                            start_step: int = 0,
+                            ckpt_name: str = "ckpt") -> tuple:
+        """The resident split (JAX ``_run_epoch_resident``): the epoch
+        order uploads once, each dispatch gathers its K batches on the
+        device; a mid-epoch resume seeks to ``start_step``."""
+        disp = self.dispatch
+        acc = MetricAccumulator()
+        t0 = time.monotonic()
+        disp.set_epoch(epoch)
+        n_steps = disp.resident.steps_per_epoch
+        if start_step:
+            self.log(f"[resume] epoch {epoch}: seeking to batch "
+                     f"{start_step} (device-resident order, no host "
+                     f"replay)")
+        n, last, metrics = start_step, (t0, start_step), None
+        while n < n_steps:
+            kk = min(disp.k, n_steps - n)
+            metrics = disp.run(state, kk, start=n)
+            n += kk
+            last = self._dispatch_done(state, acc, metrics, epoch, n, kk,
+                                       last, ckpt_name)
+        if metrics is not None:
+            float(metrics["loss"])
+        return state, acc.summary(), time.monotonic() - t0
+
     def evaluate(self, state: TrainState, loader: Iterable
                  ) -> Dict[str, float]:
         acc = MetricAccumulator()
@@ -149,9 +249,18 @@ class Trainer:
         while epoch < cfg.epochs:
             if cuda:
                 torch.cuda.reset_peak_memory_stats(self.device)
-            state, train_m, elapsed = self.run_epoch(
-                state, train_loader(epoch, resume_step), epoch,
-                start_step=resume_step, ckpt_name=ckpt_name)
+            disp = self.dispatch
+            if disp is not None and disp.resident is not None:
+                state, train_m, elapsed = self._run_epoch_resident(
+                    state, epoch, resume_step, ckpt_name)
+            elif disp is not None:
+                state, train_m, elapsed = self._run_epoch_fused_host(
+                    state, train_loader(epoch, resume_step), epoch,
+                    resume_step, ckpt_name)
+            else:
+                state, train_m, elapsed = self.run_epoch(
+                    state, train_loader(epoch, resume_step), epoch,
+                    start_step=resume_step, ckpt_name=ckpt_name)
             resumed_mid_epoch, resume_step = resume_step, 0
             if "loss" not in train_m:
                 if not resumed_mid_epoch:

@@ -32,14 +32,18 @@ def mixup_data(x: torch.Tensor, y: torch.Tensor, lam: float,
                perm: torch.Tensor, intra_only: bool = False) -> Mixed:
     """(mixed_x, y_a, y_b, lam): lam x + (1 - lam) x[perm]; with
     ``intra_only`` a sample whose partner has its class stays unmixed.
-    ``lam`` is a float32 value; it multiplies as a host scalar (no copy
-    to the card) and comes back as a host 0-d tensor."""
+    ``lam`` is a float32 value: a host float, which multiplies as a host
+    scalar (no copy to the card) and comes back as a host 0-d tensor, or
+    a 0-d fp32 tensor on x's device (a dispatch's table slot), the same
+    fp32 arithmetic, returned as it is."""
     mixed = lam * x + (1.0 - lam) * x[perm]
     y_b = y[perm]
     if intra_only:
         same = (y == y_b).reshape((-1,) + (1,) * (x.dim() - 1))
         mixed = torch.where(same, x, mixed)
-    return mixed, y, y_b, torch.tensor(lam, dtype=torch.float32)
+    if not torch.is_tensor(lam):
+        lam = torch.tensor(lam, dtype=torch.float32)
+    return mixed, y, y_b, lam
 
 
 def init_meta_lambda(generator: torch.Generator, batch_size: int

@@ -22,9 +22,20 @@ metrics as device scalars and never waits on the card.
 Under ``--quant`` the training forward rolls every amax history once (the
 JAX step's mutable ``batch_stats``); the eval step's forward does not.
 
+Under a dispatch the step takes ``scalars`` (the optimizer's per-step
+lr or lambda as 0-dim device tensors) and never branches on the device:
+the fp16 skip is a select (JAX's ``_tree_where``: parameters, optimizer
+state and buffers keep their old values where the grads are not
+finite), the loss scale moves in place, and the metrics stay on the
+device (``total`` too).
+
 Randomness is explicit.  A ``StepDraws`` holds one u32 seed per dropout
 site in the model's call order, the mixup lambda and the permutation,
-and for images the crop offsets and flip bits.
+and for images the crop offsets and flip bits: host values, or under a
+K-step dispatch (``train.dispatch``) device tensors read from its [K]
+tables by slot (seeds an int64 row, lambda a 0-dim fp32, the rest
+integer tensors).  On the card a step uploads the host seeds as one
+int64 row, so every kernel reads its seed from the device.
 The fused FFN (``--ffn_impl pallas``) takes its two seeds as one (hidden,
 connection) pair where the flax FFN takes its hidden and connection
 seeds, so the count is the same on both branches.  In a run they come
@@ -37,6 +48,7 @@ every dropout mask is bitwise equal given its seed.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -65,6 +77,17 @@ class StepDraws:
     flip: Optional[np.ndarray] = None   # images: (n,) horizontal flips
 
 
+def seeds_on(draws: StepDraws, device) -> StepDraws:
+    """``draws`` with its host seeds uploaded to a card as one int64 row
+    (a pinned, asynchronous copy): each kernel then reads its seed from
+    the device.  Unchanged on the CPU or when the seeds are a tensor."""
+    if (torch.device(device).type != "cuda" or torch.is_tensor(draws.seeds)
+            or not len(draws.seeds)):
+        return draws
+    row = _pinned(np.asarray(draws.seeds, dtype=np.int64), device)
+    return dataclasses.replace(draws, seeds=row)
+
+
 def resolve_mixup_mode(cfg: TrainConfig) -> str:
     """The image mixup mode: ``--mixup_mode``, else meta under
     ``--meta_learning``, else static when alpha != 0, else none."""
@@ -88,7 +111,9 @@ def image_draws(seed: int, step: int, batch_size: int, alpha: float,
 
 def _pinned(a, device) -> torch.Tensor:
     """A host array on ``device`` (pinned, an asynchronous copy to a
-    card)."""
+    card); a tensor already there passes through."""
+    if torch.is_tensor(a) and a.device == torch.device(device):
+        return a
     t = torch.tensor(np.asarray(a))
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
@@ -156,10 +181,16 @@ def lm_shift_metrics(logits: torch.Tensor, tokens: torch.Tensor,
 
 
 def _grads(loss, params: Dict[str, torch.Tensor], loss_scale=None):
-    """Grads by name of ``loss``, scaled by ``loss_scale`` (fp16)."""
+    """Grads by name of ``loss``, scaled by ``loss_scale`` (fp16).  The
+    backward runs on this thread, not on autograd's worker thread for the
+    card: cuDNN caches its autotuned plans per thread, so a ``--remat``
+    replay there would pick its own forward algorithms (other bits than
+    the forward's), and a rematted and a plain run would not share their
+    backward's."""
     scaled = scale_loss(loss, loss_scale, loss_scale is not None)
-    return dict(zip(params, torch.autograd.grad(scaled,
-                                                list(params.values()))))
+    with torch.autograd.set_multithreading_enabled(False):
+        return dict(zip(params, torch.autograd.grad(scaled,
+                                                    list(params.values()))))
 
 
 def lm_loss_and_grads(model, batch: Dict[str, torch.Tensor],
@@ -233,14 +264,48 @@ def image_loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
     return loss, grads, logits, y_a, y_b, lam
 
 
+def _opt_tensors(tree) -> list:
+    """Every tensor of an optimizer state tree (host counters skipped)."""
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _opt_tensors(v)]
+    return []
+
+
+def _select_(finite: torch.Tensor, live, old) -> None:
+    """``live`` keeps its values where ``finite``, else takes ``old``'s,
+    in place (JAX's ``_tree_where`` on the device)."""
+    with torch.no_grad():
+        for t, o in zip(live, old):
+            t.copy_(torch.where(finite, t, o))
+
+
 def apply_update(state: TrainState, grads: Dict[str, torch.Tensor],
-                 fp16: bool, buffers=None) -> None:
+                 fp16: bool, buffers=None, scalars=None) -> torch.Tensor:
     """Clip and update (the optimizer), then advance the step.  Under
     fp16 the grads are unscaled and checked first and the loss scale
     moves; on a non-finite grad the update is skipped and the model's
-    buffers go back to ``buffers`` (their values before the forward)."""
+    buffers go back to ``buffers`` (their values before the forward).
+    With ``scalars`` (a dispatch) the optimizer takes them, the skip is
+    a device select and the loss scale moves in place: nothing reads the
+    device.  Returns the device bool ``finite``."""
     grads, finite = unscale_and_check(grads, state.loss_scale, fp16)
     new_scale = update_loss_scale(state.loss_scale, finite, fp16)
+    if scalars is not None:
+        live = old = ()
+        if fp16:
+            live = (list(state.params().values())
+                    + _opt_tensors(state.opt_state))
+            old = [t.detach().clone() for t in live]
+        state.tx.update(grads, state.opt_state, state.params(), scalars)
+        if fp16:
+            _select_(finite, live + list(state.model.buffers()),
+                     old + list(buffers))
+            state.loss_scale.scale.copy_(new_scale.scale)
+            state.loss_scale.growth_count.copy_(new_scale.growth_count)
+        state.step += 1
+        return finite
     if fp16 and not bool(finite):
         with torch.no_grad():
             for b, old in zip(state.model.buffers(), buffers):
@@ -249,6 +314,7 @@ def apply_update(state: TrainState, grads: Dict[str, torch.Tensor],
         state.tx.update(grads, state.opt_state, state.params())
     state.loss_scale = new_scale
     state.step += 1
+    return finite
 
 
 def _snapshot(state: TrainState, fp16: bool):
@@ -260,10 +326,12 @@ def _snapshot(state: TrainState, fp16: bool):
 
 def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
                                                              Metrics]]:
-    """``step(state, batch, draws=None) -> (state, metrics)``; ``batch``
-    holds device tensors (``to_device``).  Without ``draws`` the step
-    derives them from (state.seed, state.step).  Updates the state in
-    place and advances its step."""
+    """``step(state, batch, draws=None, scalars=None) -> (state,
+    metrics)``; ``batch`` holds device tensors (``to_device``).  Without
+    ``draws`` the step derives them from (state.seed, state.step).
+    ``scalars``: a dispatch's device scalars for the optimizer (see the
+    module docstring); its metrics then also hold ``finite`` (fp16).
+    Updates the state in place and advances its step."""
     alpha = mixup_alpha(cfg)
     lm = cfg.task == "lm"
     image = cfg.model != "transformer"
@@ -271,7 +339,8 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
     fp16 = cfg.precision == "fp16"
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             draws: StepDraws = None) -> Tuple[TrainState, Metrics]:
+             draws: StepDraws = None, scalars=None
+             ) -> Tuple[TrainState, Metrics]:
         ls = state.loss_scale if fp16 else None
         buffers = _snapshot(state, fp16)
         if image:
@@ -284,12 +353,13 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
             # the LM draws lambda and the permutation too and never uses
             # them, as the JAX step threads its mixup key
             B = batch["tokens"].shape[0]
-            draws = draws or step_draws(state.seed, state.step, B,
-                                        state.model.n_dropout_sites(), alpha)
+            draws = seeds_on(draws or step_draws(
+                state.seed, state.step, B, state.model.n_dropout_sites(),
+                alpha), batch["tokens"].device)
         if lm:
             loss, grads, loss_total, correct, total = lm_loss_and_grads(
                 state.model, batch, draws, ls)
-            apply_update(state, grads, fp16, buffers)
+            finite = apply_update(state, grads, fp16, buffers, scalars)
             # loss is the per-token mean; loss_total / total the exact
             # token-weighted epoch loss; accuracy is next-token accuracy
             metrics = {"loss": loss.detach(),
@@ -300,7 +370,7 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
                 y_a = batch["label"]
                 loss, grads, logits, y_b, lam = loss_and_grads(
                     state.model, batch, draws, ls)
-            apply_update(state, grads, fp16, buffers)
+            finite = apply_update(state, grads, fp16, buffers, scalars)
             # the mixup-weighted accuracy: lam a scalar or one a sample
             with torch.no_grad():
                 pred = logits.argmax(dim=-1)
@@ -308,11 +378,14 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
                            * (pred == y_b)).sum() if lam.dim() else (
                     lam * (pred == y_a).sum()
                     + (1.0 - lam) * (pred == y_b).sum())
+            total = (torch.tensor(float(B)) if scalars is None else
+                     torch.full((), float(B), device=logits.device))
             metrics = {"loss": loss.detach().float(),
-                       "correct": correct.float(),
-                       "total": torch.tensor(float(B))}
+                       "correct": correct.float(), "total": total}
         if fp16:
             metrics["loss_scale"] = state.loss_scale.scale
+            if scalars is not None:
+                metrics["finite"] = finite
         return state, metrics
 
     return step

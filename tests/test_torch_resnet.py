@@ -35,7 +35,7 @@
     step and loss scale advance), as the JAX step does.
   * The entry points: ``resnet50_test`` trains, evaluates, checkpoints
     and resumes on the CPU at a tiny size, every mixup mode, SGD and fp16
-    run, ``--remat`` raises naming the flag.
+    run, ``--data_path stream`` raises naming the flag.
 """
 
 import jax
@@ -440,7 +440,7 @@ def test_resnet_unported_flags_raise(tmp_path):
     from faster_distributed_training_tpu_torch.resnet50_test import DEFAULTS
 
     argv = TINY + ["--checkpoint_dir", str(tmp_path)]
-    for flags, name in ((["--remat"], "--remat"),
+    for flags, name in ((["--data_path", "stream"], "--data_path stream"),
                         (["--dataset", "agnews"], "--dataset agnews"),
                         (["--optimizer", "adamw"], "adamw")):
         with pytest.raises(NotImplementedError, match=name):
@@ -448,3 +448,6 @@ def test_resnet_unported_flags_raise(tmp_path):
     with pytest.warns(UserWarning, match="full-precision"):
         out = cli.main(argv + ["--quant", "int8"], defaults=DEFAULTS)
     assert out["state"].step == 8
+    # block remat trains (slice 9)
+    out = cli.main(argv + ["--remat"], defaults=DEFAULTS)
+    assert out["state"].step == 8 and out["state"].model.remat

@@ -139,8 +139,9 @@ def test_attention_routing():
     assert cli.resolve_attention(odd, torch.device("cuda")) == "dense"
     assert cli.resolve_attention(pcfg.replace(attention="flash"),
                                  torch.device("cpu")) == "flash"
-    with pytest.raises(NotImplementedError, match="--remat"):
-        cli.build_model(pcfg.replace(remat=True), device="cpu")
+    with pytest.raises(ValueError, match="--remat_policy"):
+        cli.build_model(pcfg.replace(remat=True, remat_policy="all"),
+                        device="cpu")
 
 
 def _imports(path):

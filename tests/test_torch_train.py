@@ -13,8 +13,9 @@
     fresh state, restore, 3 more steps — parameters and optimizer state
     bitwise equal, at an epoch boundary and mid-epoch.
   * The entry points: ``cli.main`` trains on the CPU when asked (also
-    with ``--ffn_impl pallas --quant int8``), and the flags of unreached
-    features raise NotImplementedError.
+    with ``--ffn_impl pallas --quant int8``, ``--remat``,
+    ``--steps_per_dispatch 2`` and ``--data_path resident``), and the
+    flags of unreached features raise NotImplementedError.
 
 Small size: 2 layers, d_model 64, 4 heads (D = 16), d_ff 128, vocab 100.
 """
@@ -211,9 +212,7 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tmp_path):
     hist = out["history"]
     assert out["state"].step == out["steps_per_epoch"] == 4
     assert np.isfinite(hist["train_loss"]).all() and len(hist["test_acc"]) == 1
-    for flags, name in ((["--ngd"], "--ngd"), (["--remat"], "--remat"),
-                        (["--steps_per_dispatch", "2"], "steps_per_dispatch"),
-                        (["--data_path", "resident"], "--data_path"),
+    for flags, name in ((["--ngd"], "--ngd"),
                         (["--lm_causal"], "--lm_causal"),
                         (["--data_path", "stream"], "--data_path stream"),
                         (["--mesh", "dp=2"], "--mesh"),
@@ -221,6 +220,11 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tmp_path):
                         (["--dataset", "cifar10"], "--dataset cifar10")):
         with pytest.raises(NotImplementedError, match=name):
             cli.main(argv + flags, defaults=cli.TRANSFORMER_DEFAULTS)
+    # the one-card performance layers train (slice 9)
+    for flags in (["--remat"], ["--steps_per_dispatch", "2"],
+                  ["--data_path", "resident"]):
+        out = cli.main(argv + flags, defaults=cli.TRANSFORMER_DEFAULTS)
+        assert out["state"].step == 4, flags
     # fp16 loss scaling (fp32 compute) trains the transformer too
     out = cli.main(argv + ["--precision", "fp16"],
                    defaults=cli.TRANSFORMER_DEFAULTS)
