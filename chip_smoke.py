@@ -8,6 +8,7 @@ width.
     python3 chip_smoke.py --steps [DIR]
     python3 chip_smoke.py --resnet
     python3 chip_smoke.py --dispatch
+    python3 chip_smoke.py --mesh
 
 The second form prints only the device split of one record-width
 training step of the slice-2 path and paths B and C, and whether two
@@ -15,7 +16,8 @@ identical steps are bitwise equal, then path E's step split (the LM at
 seq 8192 on a random batch), for the port at DIR (default: this
 checkout): run it on a parent and a change in one call to compare them.
 The third runs phase R (the ResNet slice, no kernel build) alone; the
-fourth builds the kernels and runs phases K (without path E) and M.
+fourth builds the kernels and runs phases K (without path E) and M; the
+fifth builds them and runs phase P alone.
 Needs one CUDA card and the repo checkout beside this file; without
 either it exits non-zero and prints no result.  Phases, in order (any
 failure raises and exits non-zero):
@@ -189,6 +191,30 @@ failure raises and exits non-zero):
                ``--remat`` at batch 512: peak, step ms, gradients and BN
                running statistics bitwise against no remat (cuDNN
                deterministic);
+  P. mesh    — the data mesh (slice 10) on the one card.  P1, world 1
+               over NCCL, joined by the entry point (``--distributed
+               --mesh dp=1``, torchrun's variables): the record (8
+               steps), path B (4) and ResNet-50 NGD + meta at batch 512
+               (2, an NGD update among them) bitwise against the same
+               runs without a process group on every leaf, the hand
+               kernels of each path launched (counts set to 0 just
+               before each run), step ms with and without the group; the
+               record at K=4 bitwise against K=1 under dp=1 (the
+               all-reduce captured in the graph).  P2 ``--fsdp
+               --host_offload --offload_opt_state`` at world 1 bitwise
+               against dp=1, the card's bytes at rest between steps with
+               and without, the bytes parked (the fp32 parameters and
+               MirrorMADGRAD state, reckoned from the leaves), step ms.
+               P3 rows 1/2 and 4 at the record's and path E's shapes and
+               rows 7 and 8 at the record's, dropout 0.1, on the two
+               halves of the batch at b0 = 0 and B/2: outputs, lse,
+               gradients (and the FFN's amaxes, as a max) bitwise the
+               full launch's rows; the plain versions (on the CPU, at the
+               record's shape) the same.  P4 two ranks on the card over gloo (dp=2): the
+               record at 2 layers, fp32, 4 steps on fixed global batches,
+               both ranks' states bitwise equal after every step, held to
+               the world-1 run within the CPU tests' loss 1e-5 and params
+               1e-4, step ms;
   7. output  — p50/p99/qps, the phase-R summary, the kernels JSON line
                (launches from the
                training run, the recompute route's from phase M's
@@ -201,6 +227,7 @@ failure raises and exits non-zero):
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import os
@@ -3166,6 +3193,412 @@ def dispatch_main() -> int:
     return 0
 
 
+# -- slice 10: data-parallel and fully-sharded training (phase P) ----------
+
+P_STRIDE = 32            # the record on 128 rows: 8 steps of 16
+P_LAYERS = 2             # P4's depth
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_env(port: int, rank: int = 0, world: int = 1) -> dict:
+    """torchrun's variables for a group on this host."""
+    return {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+            "RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": "0"}
+
+
+def stepped_run(cli, cfg, tag: str):
+    """``cli.run_training(cfg)`` with every step synchronized and timed and
+    the card's bytes at rest read before each step, over what was
+    allocated before the run (the launch counts set to 0 just before,
+    read just after): (out, leaves, counts, step ms median after the
+    first, median bytes at rest, bytes parked)."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.train import steps as steps_mod
+    from faster_distributed_training_tpu_torch.train.state import (
+        state_leaves)
+
+    times, rest = [], []
+    make_step = steps_mod.make_train_step
+
+    def timing(cfg_):
+        inner = make_step(cfg_)
+
+        def run(state, batch, draws=None):
+            torch.cuda.synchronize()
+            rest.append(torch.cuda.memory_allocated() - base)
+            t0 = time.perf_counter()
+            state, metrics = inner(state, batch, draws)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return state, metrics
+        return run
+
+    steps_mod.make_train_step = timing
+    gc.collect()                # no earlier run's garbage freed mid-run
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    try:
+        out = cli.run_training(cfg, log=lambda line: print(line, flush=True))
+    finally:
+        steps_mod.make_train_step = make_step
+    torch.cuda.synchronize()
+    counts = read_counts()
+    state = out["state"]
+    pl = state.placement
+    parked = sum(b.numel() * b.element_size()
+                 for b in pl.host.values()) if pl is not None else 0
+    leaves = {k: v.detach().clone() for k, v in state_leaves(state).items()}
+    ms = statistics.median(times[1:] or times)
+    print(f"[mesh {tag}] {state.step} steps; step ms median {ms:.2f}; "
+          f"bytes at rest {statistics.median(rest) / 1e6:.1f} MB"
+          + (f", parked on the host {parked / 1e6:.1f} MB" if parked else "")
+          + f"; launches {counts}", flush=True)
+    return out, leaves, counts, ms, statistics.median(rest), parked
+
+
+def mesh_launches(what: str, counts: dict, want: tuple) -> None:
+    for name in want:
+        check(counts[name] > 0, f"{what}: {name} was not launched")
+
+
+def p4_steps(n_steps: int, batch: int, seq: int):
+    """The P4 record (fp32, ``P_LAYERS`` layers, full width) stepped
+    directly on ``n_steps`` fixed global batches with the global draws:
+    this process's rows of each (rank r of the running group), (losses,
+    digests of the whole state a step, the whole state, the median step
+    ms after the first)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.optim import build_optimizer
+    from faster_distributed_training_tpu_torch.parallel import (
+        DataGroup, Placement, make_mesh, make_put_batch)
+    from faster_distributed_training_tpu_torch.train.state import (
+        create_train_state, state_leaves)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_train_step, mixup_alpha, step_draws)
+
+    defaults = cli.TRANSFORMER_DEFAULTS
+    cfg = cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
+        ["--device", "cuda", "--precision", "fp32", "--n_layers",
+         str(P_LAYERS), "--bs", str(batch), "--attention", "flash"]),
+        defaults=defaults)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = cli.build_model(cfg, vocab_size=30522, device="cuda"
+                            ).init_weights(gen).cuda()
+    tx, _ = build_optimizer(cfg, 64)
+    state = create_train_state(model, tx, cfg.seed)
+    group = DataGroup()
+    if group.live:
+        state.placement = Placement(cfg, make_mesh(("dp",), (), "cuda"),
+                                    "cuda", group)
+        state.placement.shard_state(state)
+    put = make_put_batch(group, "cuda")
+    step = make_train_step(cfg)
+    rng = np.random.default_rng(7)
+    losses, digests, times = [], [], []
+    for i in range(n_steps):
+        lengths = rng.integers(seq // 4, seq + 1, batch)
+        mask = (np.arange(seq)[None] < lengths[:, None]).astype(np.int32)
+        tokens = rng.integers(1, 30522, (batch, seq)).astype(np.int32) * mask
+        glob = {"tokens": tokens, "token_types": np.zeros_like(tokens),
+                "mask": mask,
+                "label": rng.integers(0, 4, batch).astype(np.int32)}
+        draws = step_draws(cfg.seed, i, batch, model.n_dropout_sites(),
+                           mixup_alpha(cfg))
+        local = put(glob)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, local, draws)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+        leaves = state_leaves(state)
+        h = hashlib.sha256()
+        for k in sorted(leaves):
+            h.update(leaves[k].detach().cpu().numpy().tobytes())
+        digests.append(h.hexdigest())
+    whole = {k: v.detach().cpu() for k, v in state_leaves(state).items()}
+    return losses, digests, whole, statistics.median(times[1:])
+
+
+def p4_rank(rank: int, world: int, port: int, out_dir: str,
+            n_steps: int, batch: int, seq: int) -> None:
+    """One P4 rank: gloo on the one card, the steps, its result file."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        out = p4_steps(n_steps, batch, seq)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"p4_{rank}.pt"))
+
+
+def half_batch_kernels(gen) -> dict:
+    """P3: rows 1/2 and 4 (forward with lse, backward) at the record's and
+    path E's shapes and rows 7 and 8 (the fused FFN, int8) at the
+    record's, dropout 0.1, launched on the two halves of the batch at b0
+    = 0 and b0 = B/2: bitwise the full launch's rows; the plain versions
+    (on the CPU, at the record's shape) the same way.  Returns the worst
+    difference (0)."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.ops import fused_ffn as ffn
+    from faster_distributed_training_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_stats, flash_attention_stats_reference)
+
+    seed, rate = 0x2545F491, 0.1
+    worst = 0
+
+    def same(tag, got, want):
+        nonlocal worst
+        d = float((got.float() - want.float()).abs().max())
+        worst = max(worst, d)
+        check(torch.equal(got, want), f"P3 {tag}: half != full rows ({d})")
+
+    # the plain versions at the record's shape only: on the host CPU a
+    # path-E plain backward (B 4, L 8192) alone takes minutes
+    for B, H, L, D, plain in ((16, 8, 512, 64, True),
+                              (LONG["B"], LONG["H"], LONG["L"], LONG["D"],
+                               False)):
+        q, k, v = qkv_views(B, H, L, D, torch.bfloat16, gen)
+        dout = torch.randn(B, H, L, D, generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+        mask = ragged_mask(B, L, gen)
+        full = flash_attention_stats(q, k, v, mask, rate, seed)
+        grads = flash_attention_bwd(q, k, v, *full[:2], dout, mask, rate,
+                                    seed, full[2])
+        if plain:
+            cpu = [t.cpu() for t in (q, k, v, dout, mask)]
+            pfull = flash_attention_stats_reference(*cpu[:3], cpu[4], rate,
+                                                    seed)
+            pgrads = flash_attention_bwd_reference(
+                *cpu[:3], *pfull[:2], cpu[3], cpu[4], rate, seed, pfull[2])
+        for b0 in (0, B // 2):
+            s = slice(b0, b0 + B // 2)
+            got = flash_attention_stats(q[s], k[s], v[s], mask[s], rate,
+                                        seed, b0=b0)
+            for name, a, b in zip(("out", "lse", "lse_lo"), got, full):
+                same(f"flash L{L} b0={b0} {name}", a, b[s])
+            g = flash_attention_bwd(q[s], k[s], v[s], *got[:2], dout[s],
+                                    mask[s], rate, seed, got[2], b0=b0)
+            for name, a, b in zip(("dq", "dk", "dv"), g, grads):
+                same(f"flash bwd L{L} b0={b0} {name}", a, b[s])
+            if not plain:
+                continue
+            cs = [t[s] for t in cpu]
+            pg = flash_attention_stats_reference(*cs[:3], cs[4], rate, seed,
+                                                 b0=b0)
+            for name, a, b in zip(("out", "lse", "lse_lo"), pg, pfull):
+                same(f"plain L{L} b0={b0} {name}", a, b[s])
+            pgg = flash_attention_bwd_reference(
+                *cs[:3], *pg[:2], cs[3], cs[4], rate, seed, pg[2], b0=b0)
+            for name, a, b in zip(("dq", "dk", "dv"), pgg, pgrads):
+                same(f"plain bwd L{L} b0={b0} {name}", a, b[s])
+        print(f"[mesh P3] flash rows 1/2 and 4 at B {B} L {L}: the halves "
+              f"at b0 = 0 and {B // 2} bitwise the full launch (kernels"
+              + (" and plain versions)" if plain else ")"), flush=True)
+    B, L, d, d_ff = 16, 512, 512, 1024
+    h, ln_s, ln_b, w1, b1, w2, b2 = ffn_inputs(gen, B * L, d, d_ff,
+                                               torch.bfloat16)
+    scales = torch.tensor(FFN_SCALES, dtype=torch.float32, device="cuda")
+    for fmt in (None, "int8"):
+        def run(x, b0, plain=False):
+            args = [x, ln_s, ln_b, w1, b1, w2, b2]
+            sc = scales
+            if plain:
+                args, sc = [t.cpu() for t in args], scales.cpu()
+            return ffn.ffn_fwd_generalized(
+                *args, (FFN_SEEDS[0], FFN_SEEDS[1], b0, 0, 0), sc, rate,
+                rate, 1e-6, L, L, d_ff, fmt)
+        for plain in (False, True):
+            out, amax = run(h, 0, plain)
+            amaxes = []
+            for b0 in (0, B // 2):
+                rows = slice(b0 * L, (b0 + B // 2) * L)
+                o, a = run(h[rows], b0, plain)
+                same(f"ffn {fmt} plain={plain} b0={b0}", o, out[rows])
+                amaxes.append(a)
+            same(f"ffn {fmt} plain={plain} amax", torch.maximum(*amaxes),
+                 amax)
+    print(f"[mesh P3] fused FFN rows 7 and 8 (int8) at {B * L} x {d} -> "
+          f"{d_ff}: the halves bitwise the full launch, the amaxes' max "
+          f"the full amax (kernels and plain versions)", flush=True)
+    return {"worst": worst}
+
+
+def mesh_phase(cli, build_dir: str) -> dict:
+    """Phase P: the data mesh on the one card.  P1 world size 1 over NCCL
+    (``--distributed --mesh dp=1``) bitwise against no process group:
+    the record (8 steps), path B (4), ResNet-50 NGD + meta at batch 512
+    (2, an NGD update among them) and the record at K=4 against K=1.
+    P2 ``--fsdp --host_offload --offload_opt_state`` at world 1 bitwise
+    against no offload, the bytes at rest and parked.  P3 the kernels at
+    a nonzero batch origin.  P4 two ranks on the card over gloo (dp=2),
+    the record at 2 layers held to the world-1 run."""
+    import multiprocessing as mp
+
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    stride = ["--subset_stride", str(P_STRIDE)]
+    runs = {"record": (stride, "record"),
+            "path_b": (["--subset_stride", "64", "--ffn_impl", "pallas",
+                        "--quant", "int8"], "record"),
+            "resnet": (["--model", "resnet50", "--ngd", "--meta_learning",
+                        "--bs", "512", "--epoch", "1", "--subset_stride",
+                        "4"], "resnet")}
+    main_path = {"record": ("flash_fwd", "flash_bwd_stats", "fused_mlp"),
+                 "path_b": ("flash_fwd", "flash_bwd_stats", "fused_mlp",
+                            "fused_ffn_quant", "quant_matmul"),
+                 "resnet": ()}
+
+    def cfg_of(name, extra, tag):
+        argv, kind = runs[name]
+        if kind == "resnet":
+            return resnet_cfg(cli, argv + extra + [
+                "--checkpoint_dir", os.path.join(build_dir, f"p_{tag}")])
+        return record_cfg(cli, argv + extra, tag, build_dir)
+
+    t0 = time.monotonic()
+    # the plain runs (no process group)
+    plain = {name: stepped_run(cli, cfg_of(name, [], f"plain_{name}"),
+                               f"P1 {name} no group")
+             for name in runs}
+    plain["p4"] = p4_steps(4, 16, 512)
+    # P1: world 1 over NCCL, joined by the entry point (--distributed)
+    os.environ.update(mesh_env(free_port()))
+    dp1 = ["--distributed", "--mesh", "dp=1"]
+    for name in runs:
+        got = stepped_run(cli, cfg_of(name, dp1, f"dp1_{name}"),
+                          f"P1 {name} dp=1")
+        check(dist.is_initialized() and dist.get_backend() == "nccl",
+              "P1: --distributed joined no NCCL group")
+        mesh_launches(f"P1 {name}", got[2], main_path[name])
+        bitwise(f"P1 {name} dp=1 vs no group", plain[name][1], got[1])
+        out[f"p1_{name}_ms"] = got[3]
+        out[f"p1_{name}_plain_ms"] = plain[name][3]
+        if name == "record":
+            dp1_record = got
+    # (untimed: a synchronize inside the captured step would break it)
+    k4 = counted_run(cli, cfg_of("record", dp1 + ["--steps_per_dispatch",
+                                                  "4"], "dp1_k4"), "P1 K=4")
+    check(sum(k4[0]["trainer"].dispatch.replays.values()) > 0,
+          "P1 K=4: no graph replayed")
+    bitwise("P1 record dp=1 K=4 vs K=1 (the all-reduce captured)",
+            dp1_record[1], k4[1])
+    # P2: the host tiers at world 1, against the dp=1 run
+    off = stepped_run(cli, cfg_of("record", [
+        "--distributed", "--mesh", "fsdp=1", "--fsdp", "--host_offload",
+        "--offload_opt_state"], "dp1_off"), "P2 record fsdp + host offload")
+    mesh_launches("P2", off[2], main_path["record"])
+    bitwise("P2 offload vs no offload", dp1_record[1], off[1])
+    params = sum(v.numel() * v.element_size() for k, v in off[1].items()
+                 if k.startswith("model/") and "amax" not in k
+                 and k[len("model/"):] in dict(
+                     off[0]["state"].model.named_parameters()))
+    opt = sum(v.numel() * v.element_size() for k, v in off[1].items()
+              if k.startswith("opt/") and v.dim())
+    out.update(p2_rest_bytes=off[4], p2_rest_bytes_resident=dp1_record[4],
+               p2_parked_bytes=off[5], p2_param_bytes=params,
+               p2_opt_bytes=opt, p2_ms=off[3], p2_ms_resident=dp1_record[3])
+    check(off[5] == params + opt, f"P2: parked {off[5]} bytes, the leaves "
+          f"hold {params} + {opt}")
+    check(dp1_record[4] - off[4] >= 0.9 * off[5],
+          f"P2: the card's bytes at rest fell by {dp1_record[4] - off[4]}, "
+          f"{off[5]} were parked")
+    print(f"[mesh P2] bytes at rest between steps: {off[4] / 1e6:.1f} MB "
+          f"with offload, {dp1_record[4] / 1e6:.1f} MB without; parked "
+          f"{off[5] / 1e6:.1f} MB = fp32 params {params / 1e6:.1f} MB + "
+          f"optimizer state {opt / 1e6:.1f} MB; step ms {off[3]:.2f} with, "
+          f"{dp1_record[3]:.2f} without", flush=True)
+    # P4's world-1 reference, in the NCCL group
+    ref = p4_steps(4, 16, 512)
+    check(ref[1] == plain["p4"][1], "P4 reference: dp=1 != no group")
+    dist.destroy_process_group()
+    for k in mesh_env(0):
+        os.environ.pop(k, None)
+    print(f"[mesh] P1 and P2 in {time.monotonic() - t0:.1f}s", flush=True)
+    # P3: the kernels at a batch origin
+    t0 = time.monotonic()
+    out["p3"] = half_batch_kernels(torch.Generator(device="cuda"
+                                                   ).manual_seed(3))
+    print(f"[mesh] P3 in {time.monotonic() - t0:.1f}s", flush=True)
+    # P4: two ranks on the card over gloo
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    t0 = time.monotonic()
+    procs = [ctx.Process(target=p4_rank, args=(r, 2, port, build_dir, 4,
+                                               16, 512)) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    check(all(p.exitcode == 0 for p in procs),
+          f"P4: ranks exited {[p.exitcode for p in procs]}")
+    ranks = [torch.load(os.path.join(build_dir, f"p4_{r}.pt"))
+             for r in range(2)]
+    out["p4_s"] = time.monotonic() - t0
+    check(ranks[0][1] == ranks[1][1], "P4: the ranks' states differ")
+    loss_err = max(abs(a - b) for a, b in zip(ranks[0][0], ref[0]))
+    param_err = max(float((ranks[0][2][k] - v).abs().max())
+                    for k, v in ref[2].items()
+                    if k.startswith("model/") and v.is_floating_point())
+    out.update(p4_loss_err=loss_err, p4_param_err=param_err,
+               p4_ms=[r[3] for r in ranks], p4_ms_world1=ref[3],
+               p4_ms_no_group=plain["p4"][3])
+    print(f"[mesh P4] dp=2 over gloo on one card, {P_LAYERS} layers fp32, "
+          f"4 steps: both ranks bitwise equal after every step; vs world "
+          f"1: loss err {loss_err:.3g} (tol 1e-5), param err "
+          f"{param_err:.3g} (tol 1e-4); step ms median {out['p4_ms']} "
+          f"(ranks 0, 1) against {ref[3]:.2f} at world 1 over NCCL and "
+          f"{plain['p4'][3]:.2f} without a group; {out['p4_s']:.1f}s wall "
+          f"with the ranks' start", flush=True)
+    check(loss_err <= 1e-5 and param_err <= 1e-4, "P4: dp=2 vs world 1")
+    return out
+
+
+def mesh_main() -> int:
+    """``--mesh``: the kernels' build, then phase P alone."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_s, _ = _build.build()
+    print(f"[build] {build_s:.1f}s", flush=True)
+    pm = mesh_phase(cli, str(_build.BUILD_DIR))
+    print(json.dumps(pm))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -3534,7 +3967,20 @@ def main() -> int:
     mr = remat_phase(cli, str(_build.BUILD_DIR))
     dispatch_summary(kd, mr)
 
+    # -- phase P: the data mesh (slice 10) ---------------------------------
+    pm = mesh_phase(cli, str(_build.BUILD_DIR))
+
     # -- 7. output -----------------------------------------------------------
+    print(f"[mesh] P1 step ms (dp=1 over NCCL / no group): record "
+          f"{pm['p1_record_ms']:.2f} / {pm['p1_record_plain_ms']:.2f}, path B "
+          f"{pm['p1_path_b_ms']:.2f} / {pm['p1_path_b_plain_ms']:.2f}, "
+          f"ResNet-50 {pm['p1_resnet_ms']:.2f} / "
+          f"{pm['p1_resnet_plain_ms']:.2f}; P2 bytes at rest "
+          f"{pm['p2_rest_bytes']} with offload, "
+          f"{pm['p2_rest_bytes_resident']} without, parked "
+          f"{pm['p2_parked_bytes']}, step ms {pm['p2_ms']:.2f} / "
+          f"{pm['p2_ms_resident']:.2f}; P4 dp=2 gloo step ms "
+          f"{pm['p4_ms']} (world 1: {pm['p4_ms_world1']:.2f})")
     print(f"[serve] p50 {res['p50_ms']} ms, p99 {res['p99_ms']} ms, "
           f"{res['qps']} qps (64 requests, batch 8, 1 replica)")
     print(f"[train] step time median {tr['step_ms']:.2f} ms; fixed-batch "
@@ -3764,6 +4210,13 @@ if __name__ == "__main__":
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(2)
         sys.exit(dispatch_main())
+    if sys.argv[1:2] == ["--mesh"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(mesh_main())
     if sys.argv[1:2] == ["--steps"]:
         import torch
 

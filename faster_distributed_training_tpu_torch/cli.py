@@ -8,7 +8,11 @@ CIFAR-10 with NGD, the image mixup modes and fp16 loss scaling (slice 8:
 resnet50_test``), and the one-card performance layers (slice 9:
 ``--steps_per_dispatch K``, K steps a dispatch replaying a captured
 CUDA graph; ``--data_path resident``, the train split on the card;
-``--remat`` with ``--remat_policy``).
+``--remat`` with ``--remat_policy``), and data-parallel and
+fully-sharded training over ``torch.distributed`` (slice 10:
+``--distributed``, ``--mesh dp=N`` / ``fsdp=N``, ``--fsdp``, ``--zero1``,
+``--host_offload``, ``--offload_opt_state``, ``--overlap_grad_reduce``;
+one process a rank, launched by torchrun: ``run_distributed.sh``).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
 ``resolve_attention``, ``build_model``, ``load_dataset`` (the agnews,
@@ -28,6 +32,7 @@ the CPU runs the kernel's plain version).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
@@ -112,7 +117,8 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
                     cfg.task == "lm" and cfg.ffn_impl == "pallas"),
                 "--tricks off (unfused qkv)": cfg.tricks == "off",
                 "--dropout_impl xla": cfg.dropout_impl == "xla",
-                "--mesh": any(int(s) > 1 for s in cfg.mesh_shape)}
+                "serving under --mesh": serving and any(
+                    int(s) > 1 for s in cfg.mesh_shape)}
     missing = [k for k, v in unported.items() if v]
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
@@ -177,8 +183,21 @@ def _build_resnet(cfg: TrainConfig):
 
 
 def unported_training_flags(cfg: TrainConfig) -> list:
-    """The flags of features the training slice does not reach."""
+    """The flags of features the training slice does not reach.  Of the
+    mesh: tp, sp and pp above 1; --ngd with --fsdp or --zero1 (NGD
+    preconditions whole gradient leaves); --fsdp, --zero1 and the host
+    tiers under a dispatch (K > 1 or the resident split: their gathers
+    and copies are not captured); --resident_layout sharded."""
+    from faster_distributed_training_tpu_torch.parallel.mesh import (
+        unported_axes)
+
     datasets = IMAGE_DATASETS if is_resnet(cfg) else TEXT_DATASETS
+    k = max(int(cfg.steps_per_dispatch or 1), 1)
+    tiers = [f for f, on in (("--fsdp", cfg.fsdp), ("--zero1", cfg.zero1),
+                             ("--host_offload", cfg.host_offload),
+                             ("--offload_opt_state", cfg.offload_opt_state))
+             if on]
+    ngd = cfg.use_ngd or cfg.optimizer == "ngd"
     checks = {
         # NGD preconditions the axes in the JAX layout's order, and the
         # transformer's fused qkv kernel has no permutation onto it
@@ -189,10 +208,17 @@ def unported_training_flags(cfg: TrainConfig) -> list:
         f"--dataset {cfg.dataset} for {cfg.model}": (
             cfg.dataset not in datasets),
         "--lm_causal": bool(cfg.lm_causal),
-        "--mesh": any(int(s) > 1 for s in cfg.mesh_shape),
-        "--distributed": bool(cfg.distributed),
-        "--fsdp / --host_offload / --offload_opt_state": bool(
-            cfg.fsdp or cfg.host_offload or cfg.offload_opt_state),
+        **{bad: True for bad in unported_axes(cfg.mesh_axes,
+                                               cfg.mesh_shape)},
+        f"--ngd with {' / '.join(t for t in tiers if t in ('--fsdp', '--zero1'))}"
+        " (NGD preconditions whole gradient leaves)": ngd and (
+            cfg.fsdp or cfg.zero1),
+        f"{' / '.join(tiers)} with --steps_per_dispatch {k}": bool(
+            tiers) and k > 1,
+        f"{' / '.join(tiers)} with --data_path resident": bool(tiers) and (
+            cfg.data_path == "resident"),
+        "--resident_layout sharded": (cfg.data_path == "resident" and (
+            cfg.resident_layout or "auto") == "sharded"),
         f"--sentinel {cfg.sentinel}": (cfg.sentinel or "none") != "none",
         "--supervise": bool(cfg.supervise),
         "--auto_recover": bool(cfg.auto_recover),
@@ -310,14 +336,30 @@ def check_stream_corpus(cfg: TrainConfig, train_ds, log) -> TrainConfig:
     return cfg
 
 
-def make_loaders(cfg: TrainConfig, train_ds, eval_ds):
+def make_loaders(cfg: TrainConfig, train_ds, eval_ds, dp: int = 1,
+                 rank: int = 0):
     """(train_loader(epoch, start), eval_loader(epoch), steps_per_epoch);
     ``start`` is the epoch's first batch (a mid-epoch resume).
     ``max(1, --workers)`` threads materialize batches in order, at most
     ``max(--prefetch_depth, --workers)`` ahead; ``--prefetch_depth 0``
-    is synchronous."""
+    is synchronous.  ``--batch_size`` is the global batch: each of the
+    ``dp`` processes loads ``batch_size / dp`` rows of it, its contiguous
+    shard of the epoch's permutation (the JAX package's multi-host
+    contract); ``--debug`` checks the shards."""
     from faster_distributed_training_tpu_torch.data.loader import (
-        BatchLoader, ParallelBatchIterator)
+        BatchLoader, ParallelBatchIterator, dataset_len, verify_host_shards,
+        verify_host_shards_global)
+
+    if cfg.batch_size % dp:
+        raise ValueError(f"global batch {cfg.batch_size} not divisible by "
+                         f"{dp} processes")
+    local_bs = cfg.batch_size // dp
+    if cfg.debug:
+        n_train = dataset_len(train_ds)
+        verify_host_shards(n_train, epoch=0, seed=cfg.seed, process_count=dp)
+        verify_host_shards_global(n_train, epoch=0, seed=cfg.seed,
+                                  process_index=rank, process_count=dp)
+    shard = dict(process_index=rank, process_count=dp)
 
     def wrap(loader):
         if cfg.prefetch_depth <= 0:
@@ -326,16 +368,16 @@ def make_loaders(cfg: TrainConfig, train_ds, eval_ds):
                                      depth=cfg.prefetch_depth)
 
     def train_loader(epoch: int, start: int = 0):
-        return wrap(BatchLoader(train_ds, cfg.batch_size, epoch=epoch,
+        return wrap(BatchLoader(train_ds, local_bs, epoch=epoch,
                                 seed=cfg.seed, shuffle=True,
-                                max_len=cfg.seq_len, start=start))
+                                max_len=cfg.seq_len, start=start, **shard))
 
     def eval_loader(epoch: int):
-        return wrap(BatchLoader(eval_ds, cfg.batch_size, epoch=0,
+        return wrap(BatchLoader(eval_ds, local_bs, epoch=0,
                                 seed=cfg.seed, shuffle=False,
-                                max_len=cfg.seq_len, pad_last=True))
+                                max_len=cfg.seq_len, pad_last=True, **shard))
 
-    steps = len(BatchLoader(train_ds, cfg.batch_size))
+    steps = len(BatchLoader(train_ds, local_bs, **shard))
     return train_loader, eval_loader, max(steps, 1)
 
 
@@ -347,10 +389,20 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     init from ``cfg.seed`` when None; a ``{"params", "batch_stats"}``
     bundle also sets the amax histories of ``--quant`` or a ResNet's
     running statistics).  Runs on ``cfg.device`` (cuda by default)
-    unless ``device`` says otherwise."""
+    unless ``device`` says otherwise.  ``--distributed`` joins the
+    process group (``parallel.initialize_distributed``); in a group
+    (joined here or by the caller) the run is one rank of the data mesh
+    ``--mesh`` describes: this process trains on its rows of every global
+    batch, on ``cuda:LOCAL_RANK``, and logs, plots and writes checkpoints
+    on rank 0 only."""
     from faster_distributed_training_tpu_torch.interop import load_jax_tree
     from faster_distributed_training_tpu_torch.optim import (build_optimizer,
                                                              layouts_of)
+    import torch.distributed as dist
+
+    from faster_distributed_training_tpu_torch.parallel import (
+        DataGroup, Placement, dp_size, initialize_distributed, local_device,
+        make_mesh, shard_train_state)
     from faster_distributed_training_tpu_torch.train.loop import Trainer
     from faster_distributed_training_tpu_torch.train.state import (
         create_train_state)
@@ -361,6 +413,15 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
     dev = resolve_device(device if device is not None else cfg.device)
+    if cfg.distributed:
+        initialize_distributed(dev.type)
+    mesh = make_mesh(cfg.mesh_axes, cfg.mesh_shape, dev.type)
+    group = DataGroup()
+    if group.live and dev.type == "cuda" and dev.index is None:
+        dev = local_device("cuda")
+    if group.rank:
+        log = _silent
+    world = dp_size(mesh)
     resnet = is_resnet(cfg)
     train_ds = load_dataset(cfg, train=True)
     if cfg.dataset == "stream":
@@ -375,6 +436,7 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     else:
         model.init_weights(gen)
     model.to(dev)
+    local_bs = cfg.batch_size // world
     extra = {}
     if resnet:
         extra = resnet_extra_leaves(cfg, gen)
@@ -383,16 +445,35 @@ def run_training(cfg: TrainConfig, params=None, device=None,
             model.to(memory_format=torch.channels_last)
     elif params is None:
         # the JAX init's training forward on a zero batch (seeds the
-        # --quant amax histories; a no-op without quant)
-        model.seed_amax_histories(cfg.batch_size, cfg.seq_len, step_draws(
-            cfg.seed, 0, cfg.batch_size, model.n_dropout_sites(),
-            mixup_alpha(cfg)))
+        # --quant amax histories; a no-op without quant); this rank's
+        # rows, the amaxes over the global batch
+        draws = step_draws(cfg.seed, 0, cfg.batch_size,
+                           model.n_dropout_sites(), mixup_alpha(cfg))
+        with group.active():
+            model.seed_amax_histories(local_bs, cfg.seq_len, dataclasses.replace(
+                draws, b0=group.origin(local_bs)))
     train_loader, eval_loader, steps_per_epoch = make_loaders(
-        cfg, train_ds, eval_ds)
-    cfg, dispatch = build_dispatch(cfg, train_ds, dev, log)
-    tx, _ = build_optimizer(cfg, steps_per_epoch, layouts=layouts_of(model))
+        cfg, train_ds, eval_ds, dp=world, rank=group.rank)
+    cfg, dispatch = build_dispatch(cfg, train_ds, dev, log, group)
+    # the learning rate scales with the data-parallel world (JAX's
+    # lr_scale=dp_size(mesh))
+    tx, _ = build_optimizer(cfg, steps_per_epoch, lr_scale=float(world),
+                            layouts=layouts_of(model))
     state = create_train_state(
         model, tx, cfg.seed, extra={n: t.to(dev) for n, t in extra.items()})
+    if group.live:
+        state.placement = Placement(cfg, mesh, dev, group)
+        shard_train_state(state, state.placement)
+        log(f"[mesh] {dict(zip(cfg.mesh_axes, mesh.mesh.shape))} over "
+            f"{group.world} process(es) ({dist.get_backend()}): batch "
+            f"{cfg.batch_size} = {world} x {local_bs}, "
+            + ("fsdp" if cfg.fsdp else "zero1" if cfg.zero1 else "dp")
+            + (", params + optimizer state on the host between steps"
+               if cfg.host_offload else
+               ", big optimizer leaves on the host between steps"
+               if cfg.offload_opt_state else "")
+            + (f", gradients reduced in {cfg.overlap_bucket_mb} MB buckets"
+               if cfg.overlap_grad_reduce else ""))
     trainer = Trainer(cfg, make_train_step(cfg), make_eval_step(cfg), dev,
                       log=log, dispatch=dispatch)
     if cfg.telemetry:
@@ -431,7 +512,9 @@ def run_training(cfg: TrainConfig, params=None, device=None,
                             start_step_in_epoch=start_step)
     finally:
         cudnn.deterministic, cudnn.benchmark = flags
-    if cfg.plot and trainer.history["test_acc"]:
+    if state.placement is not None:
+        state.placement.unshard(state)     # the caller gets the whole state
+    if cfg.plot and trainer.history["test_acc"] and not group.rank:
         plot_history(trainer.history, ckpt_name, log)
     return {"state": state, "history": trainer.history,
             "best_acc": trainer.best_acc, "cfg": cfg, "trainer": trainer,
@@ -457,10 +540,16 @@ def round_checkpoint_every(cfg: TrainConfig, log) -> TrainConfig:
     return cfg
 
 
-def build_dispatch(cfg: TrainConfig, train_ds, dev, log):
+def _silent(line: str) -> None:
+    """The log of a rank other than 0."""
+
+
+def build_dispatch(cfg: TrainConfig, train_ds, dev, log, group=None):
     """(cfg, FusedDispatch or None): K steps a dispatch when
     ``--steps_per_dispatch`` > 1 or ``--data_path resident`` (the
-    resident split uploaded here); None keeps the one-step loop."""
+    resident split uploaded here); None keeps the one-step loop.  Under
+    a data ``group`` the resident split is the replicated layout in the
+    global order."""
     from faster_distributed_training_tpu_torch.data.device_resident import (
         build_device_resident)
     from faster_distributed_training_tpu_torch.train.dispatch import (
@@ -468,7 +557,8 @@ def build_dispatch(cfg: TrainConfig, train_ds, dev, log):
 
     k = max(int(cfg.steps_per_dispatch or 1), 1)
     cfg = round_checkpoint_every(cfg, log)
-    resident = build_device_resident(cfg, train_ds, dev)
+    world = 1 if group is None else group.world
+    resident = build_device_resident(cfg, train_ds, dev, world)
     if resident is not None:
         log(f"[data] device-resident train split (replicated): "
             f"{resident.n} samples, {resident.nbytes / 1e6:.0f} MB on "
@@ -482,7 +572,8 @@ def build_dispatch(cfg: TrainConfig, train_ds, dev, log):
     log(f"[dispatch] {k} step(s) a dispatch on {dev.type}"
         + (": the step captured once as a CUDA graph and replayed"
            if dev.type == "cuda" else ": the step body in a loop"))
-    return cfg, FusedDispatch(cfg, k, dev, resident=resident, log=log)
+    return cfg, FusedDispatch(cfg, k, dev, resident=resident, log=log,
+                              group=group if world > 1 else None)
 
 
 def resnet_extra_leaves(cfg: TrainConfig, gen: torch.Generator) -> dict:

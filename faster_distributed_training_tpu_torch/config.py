@@ -20,6 +20,9 @@ import argparse
 import dataclasses
 from typing import Optional, Tuple
 
+from faster_distributed_training_tpu_torch.parallel.mesh import (  # noqa: F401
+    AXIS_ALIASES, canonical_axes, parse_mesh)
+
 
 @dataclasses.dataclass
 class TrainConfig:
@@ -986,47 +989,6 @@ def build_parser(prog: str = "fdt",
                         "TimeoutError after this instead of waiting "
                         "forever (<=0 disables)")
     return p
-
-
-# canonical-name <- accepted spellings (the JAX package's
-# parallel/mesh.py table, copied so this package never imports it).
-# Unknown names pass through unchanged.
-AXIS_ALIASES = {
-    "dp": "dp", "data": "dp", "batch": "dp",
-    "fsdp": "fsdp", "zero": "fsdp", "zero3": "fsdp",
-    "tp": "tp", "model": "tp", "mp": "tp", "tensor": "tp",
-    "sp": "sp", "seq": "sp", "sequence": "sp", "context": "sp",
-    "pp": "pp", "pipe": "pp", "pipeline": "pp", "stage": "pp",
-}
-
-
-def canonical_axes(axes) -> Tuple[str, ...]:
-    out = tuple(AXIS_ALIASES.get(str(a).strip().lower(), str(a).strip())
-                for a in axes)
-    if len(set(out)) != len(out):
-        raise ValueError(f"mesh axes {tuple(axes)} collapse to duplicate "
-                         f"canonical names {out} (see AXIS_ALIASES)")
-    return out
-
-
-def parse_mesh(spec: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
-    """'dp=4,tp=2' -> (('dp','tp'), (4,2)).  Empty -> ((), ()).
-
-    Axis names are canonicalized through AXIS_ALIASES
-    ('model'/'mp' -> 'tp', 'seq'/'context' -> 'sp', ...) so every layer
-    downstream — TP rules, attention routing, shard_map fallbacks —
-    sees one spelling per role."""
-    if not spec:
-        return (), ()
-    axes, sizes = [], []
-    for part in spec.split(","):
-        name, _, size = part.partition("=")
-        name = name.strip()
-        if not name or not size:
-            raise ValueError(f"bad mesh spec {spec!r}; want 'axis=size,...'")
-        axes.append(name)
-        sizes.append(int(size))
-    return canonical_axes(axes), tuple(sizes)
 
 
 def config_from_args(args: argparse.Namespace, defaults: Optional[TrainConfig] = None,

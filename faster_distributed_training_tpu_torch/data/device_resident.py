@@ -12,8 +12,12 @@ uploaded once an epoch as int32.
 
 Text batches equal the host loader's modulo trailing padding: the host
 pads each batch to its own bucket, the resident split to the widest.
+Under a data mesh every rank holds the whole split (the replicated
+layout) and the epoch order is the global one of ``process_count``
+processes (``data.loader.pod_epoch_order``): a rank gathers its rows of
+each global batch, the rows its host loader would load.
 ``--resident_layout sharded`` (per-process row shards and an epoch
-re-shard) needs a multi-process group and is not ported.
+re-shard) is not ported.
 """
 
 from __future__ import annotations
@@ -24,8 +28,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from faster_distributed_training_tpu_torch.data.loader import (dataset_len,
-                                                               shard_for_host)
+from faster_distributed_training_tpu_torch.data.loader import (
+    dataset_len, pod_epoch_order)
 
 
 def _encode_split(data, max_len: int) -> Tuple[Dict[str, np.ndarray], bool,
@@ -59,13 +63,16 @@ class DeviceResidentData:
 
     def __init__(self, data, batch_size: int, seed: int = 0,
                  max_len: int = 512, device="cuda", shuffle: bool = True,
-                 checksum: bool = False):
-        self.batch_size = int(batch_size)
+                 checksum: bool = False, process_count: int = 1):
+        self.batch_size = int(batch_size)     # the global batch
         self.seed = int(seed)
         self.shuffle = bool(shuffle)
         self.device = torch.device(device)
+        self.process_count = int(process_count)
+        self.local_batch = self.batch_size // self.process_count
         self.n = dataset_len(data)
-        self.steps_per_epoch = self.n // self.batch_size
+        self.steps_per_epoch = ((self.n // self.process_count)
+                                // self.local_batch)
         if self.steps_per_epoch < 1:
             raise ValueError(
                 f"dataset ({self.n} samples) smaller than one batch "
@@ -78,11 +85,11 @@ class DeviceResidentData:
             for k, v in host.items()}
 
     def host_order(self, epoch: int) -> np.ndarray:
-        """The epoch's sample order on the host, int32, whole batches."""
-        idx = shard_for_host(self.n, epoch, self.seed, self.shuffle,
-                             process_index=0, process_count=1)
-        idx = idx[: self.steps_per_epoch * self.batch_size]
-        return np.ascontiguousarray(idx.astype(np.int32))
+        """The epoch's global sample order on the host, int32, whole
+        batches: global batch b is ``[b * B, (b + 1) * B)``, rank r's rows
+        of it ``r * Bl`` on."""
+        return pod_epoch_order(self.n, epoch, self.seed, self.shuffle,
+                               self.process_count, self.local_batch)
 
     def epoch_order(self, epoch: int) -> torch.Tensor:
         """The epoch's order on the device: ``BatchLoader.plan()``'s
@@ -106,26 +113,22 @@ class DeviceResidentData:
         return True
 
 
-def build_device_resident(cfg, train_ds, device):
+def build_device_resident(cfg, train_ds, device, process_count: int = 1):
     """None (the host path) unless ``--data_path resident``; then the
-    single-card layout.  ``--resident_layout sharded`` raises, as does
-    ``auto`` under more than one process (both need the multi-process
-    row-sharded layout)."""
+    replicated layout, every rank's card holding the whole split.
+    ``--resident_layout sharded`` raises (the per-process row-sharded
+    layout is not ported)."""
     if getattr(cfg, "data_path", "host") != "resident":
         return None
     layout = getattr(cfg, "resident_layout", "auto") or "auto"
-    procs = (torch.distributed.get_world_size()
-             if torch.distributed.is_available()
-             and torch.distributed.is_initialized() else 1)
-    if layout == "sharded" or (layout == "auto" and procs > 1):
+    if layout == "sharded":
         raise NotImplementedError(
-            f"not ported yet: --resident_layout {layout}"
-            + (f" with {procs} processes" if layout == "auto" else "")
-            + " (the per-process sharded layout)")
+            "not ported yet: --resident_layout sharded (the per-process "
+            "sharded layout)")
     if layout not in ("auto", "replicated"):
         raise ValueError(f"--resident_layout must be auto, replicated or "
                          f"sharded, got {layout!r}")
     return DeviceResidentData(
         train_ds, cfg.batch_size, seed=cfg.seed, max_len=cfg.seq_len,
-        device=device,
+        device=device, process_count=process_count,
         checksum=(getattr(cfg, "sentinel", "none") or "none") != "none")

@@ -7,7 +7,12 @@ datasets, ``ParallelBatchIterator`` in place of both its iterators,
 bucket_length``: the epoch batch stream is a pure function of
 (n, seed, epoch) and equals the JAX loader's bitwise, and serving bins
 requests into the same lengths.  One process: ``process_index`` 0 of
-``process_count`` 1 unless the caller says otherwise.
+``process_count`` 1 unless the caller says otherwise; under a data mesh
+each process loads its contiguous shard of the (seed, epoch) permutation
+in local batches, and global batch b is the ranks' b-th local batches in
+rank order (``pod_epoch_order``), the JAX package's multi-host contract.
+``verify_host_shards`` / ``verify_host_shards_global`` check it under
+``--debug``.
 """
 
 from __future__ import annotations
@@ -69,6 +74,90 @@ def shard_for_host(n: int, epoch: int, seed: int = 0, shuffle: bool = True,
         return padded[sl], valid[sl]
     per = n // pc
     return order[pi * per:(pi + 1) * per]
+
+
+def pod_epoch_order(n: int, epoch: int, seed: int = 0, shuffle: bool = True,
+                    process_count: int = 1,
+                    local_batch_size: int = 1) -> np.ndarray:
+    """The global batch stream of ``process_count`` processes as one flat
+    int32 index array: entry ``b * (pc * lbs) + pi * lbs + j`` is process
+    ``pi``'s ``j``-th sample of global batch ``b``.  One process: the
+    ``shard_for_host`` order truncated to whole batches."""
+    pc, lbs = int(process_count), int(local_batch_size)
+    per = n // pc
+    steps = per // lbs
+    order = (np.random.default_rng((seed, epoch)).permutation(n) if shuffle
+             else np.arange(n))
+    shards = order[: per * pc].reshape(pc, per)[:, : steps * lbs]
+    return np.ascontiguousarray(
+        shards.reshape(pc, steps, lbs).transpose(1, 0, 2).reshape(-1)
+        .astype(np.int32))
+
+
+def verify_host_shards(n: int, epoch: int, seed: int = 0,
+                       shuffle: bool = True, process_count: int = 1) -> None:
+    """The sharding algebra, for every process of ``process_count``: the
+    shards are pairwise disjoint and tile the first ``(n // pc) * pc``
+    entries of one global permutation.  Raises AssertionError (with the
+    JAX package's messages) otherwise."""
+    pc = int(process_count)
+    shards = [shard_for_host(n, epoch, seed, shuffle, pi, pc)
+              for pi in range(pc)]
+    allidx = np.concatenate(shards)
+    if len(np.unique(allidx)) != len(allidx):
+        raise AssertionError(
+            f"host shards overlap (epoch {epoch}, {pc} processes): "
+            f"{len(allidx) - len(np.unique(allidx))} duplicated samples")
+    per = n // pc
+    if len(allidx) != per * pc:
+        raise AssertionError(
+            f"host shards mis-sized: {len(allidx)} != {per * pc}")
+    full = (np.random.default_rng((seed, epoch)).permutation(n) if shuffle
+            else np.arange(n))
+    if not np.array_equal(np.sort(allidx), np.sort(full[:per * pc])):
+        raise AssertionError("host shards do not tile the global permutation")
+
+
+def check_shard_digests(digests: np.ndarray) -> None:
+    """Every process's ``[n, process_count, seed, epoch, shard_hash]``
+    row: raises when they disagree on the sharding inputs, or when two
+    non-empty shards are byte-identical (every rank loading the same
+    slice)."""
+    digests = np.asarray(digests)
+    for col, what in ((0, "dataset size n"), (1, "process_count"),
+                      (2, "seed"), (3, "epoch")):
+        if not (digests[:, col] == digests[0, col]).all():
+            raise AssertionError(
+                f"hosts disagree on {what}: {digests[:, col].tolist()} — "
+                f"each host is drawing from a different permutation")
+    per = int(digests[0, 0]) // max(int(digests[0, 1]), 1)
+    if digests.shape[0] > 1 and per > 0:
+        hashes = digests[:, 4]
+        if len(np.unique(hashes)) != len(hashes):
+            raise AssertionError(
+                "two hosts hold identical data shards — every rank is "
+                "loading the same slice (DistributedSampler-forgotten bug)")
+
+
+def verify_host_shards_global(n: int, epoch: int, seed: int = 0,
+                              shuffle: bool = True, process_index: int = 0,
+                              process_count: int = 1) -> None:
+    """Across processes (collective: every rank calls it): each one's
+    sharding inputs and a 64-bit hash of its real shard, gathered and
+    checked by ``check_shard_digests``."""
+    import hashlib
+
+    from faster_distributed_training_tpu_torch.parallel.collectives import (
+        all_gather_across_processes)
+
+    shard = shard_for_host(n, epoch, seed, shuffle, process_index,
+                           process_count)
+    shard_hash = int.from_bytes(
+        hashlib.sha1(np.ascontiguousarray(shard).tobytes()).digest()[:8],
+        "little", signed=True)
+    digest = np.asarray([n, process_count, seed, epoch, shard_hash],
+                        dtype=np.int64)
+    check_shard_digests(all_gather_across_processes(digest))
 
 
 class BatchLoader:

@@ -22,7 +22,11 @@ The running statistics are buffers (``mean``, ``var``) updated in place
 by a training forward.  ``remat=True`` (``--remat``, JAX's ``nn.remat`` of
 every residual block) checkpoints each block; the replay in the backward
 leaves the running statistics alone (``models.remat.replaying``), so they
-update once a step, as without remat.
+update once a step, as without remat.  Under a data mesh every
+BatchNorm's statistics are the global batch's (``ops.conv_bn``; the
+affine ``BatchNorm`` averages its per-channel means over the ranks with a
+gradient, ``DataGroup.mean``), so the running statistics are the same on
+every rank.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from faster_distributed_training_tpu_torch.models.remat import (
     remat as checkpointed, replaying)
 from faster_distributed_training_tpu_torch.ops.conv_bn import (
     conv2d, conv_bn_train, stats_dtype)
+from faster_distributed_training_tpu_torch.parallel import collectives
 
 CELU_ALPHA = 0.075
 
@@ -97,6 +102,10 @@ class BatchNorm(nn.Module):
         if train:
             mean = x32.mean(dim=(0, 2, 3))
             mean_sq = torch.square(x32).mean(dim=(0, 2, 3))
+            group = collectives.current()
+            if group is not None:
+                mean, mean_sq = group.mean(torch.stack([mean, mean_sq])
+                                           ).unbind(0)
             var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
             m = self.momentum
             if not replaying():

@@ -75,6 +75,9 @@ from faster_distributed_training_tpu_torch.ops.layernorm import (
 from faster_distributed_training_tpu_torch.ops.quant import (
     QuantDense, quant_enabled, scale_from_history, tensor_amax,
     update_amax_history)
+from faster_distributed_training_tpu_torch.parallel import collectives
+from faster_distributed_training_tpu_torch.parallel.collectives import (
+    all_max_)
 
 
 def _dense(d_in: int, d_out: int, quant, dtype, param_dtype) -> nn.Module:
@@ -101,10 +104,12 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
 
 class SeedStream:
     """A training forward's dropout seeds (``draws.seeds``: Python ints
-    or a 1-D device tensor), drawn in site order by ``next``."""
+    or a 1-D device tensor), drawn in site order by ``next``, and ``b0``,
+    the global index of the batch's first row (``draws.b0``: a
+    data-parallel rank's origin), which every site's stream adds."""
 
-    def __init__(self, seeds, pos: int = 0):
-        self.seeds, self.pos = seeds, pos
+    def __init__(self, seeds, pos: int = 0, b0: int = 0):
+        self.seeds, self.pos, self.b0 = seeds, pos, int(b0)
 
     def __iter__(self):
         return self
@@ -120,7 +125,7 @@ def _remat_seeded(fn: Callable, module: nn.Module, x: torch.Tensor,
     forward, then the replay) draws from the same first seed, and
     ``seeds`` moves past the ones the forward drew."""
     start = seeds.pos
-    own = SeedStream(seeds.seeds, start)
+    own = SeedStream(seeds.seeds, start, seeds.b0)
 
     def region(y):
         own.pos = start
@@ -130,12 +135,21 @@ def _remat_seeded(fn: Callable, module: nn.Module, x: torch.Tensor,
     return out
 
 
+def _origin(seeds) -> int:
+    """The batch origin a seed stream carries (0 for a plain iterator of
+    seeds, or none)."""
+    return getattr(seeds, "b0", 0)
+
+
 def _dropout(x: torch.Tensor, rate: float, train: bool,
-             seeds: Optional[Iterator[int]]) -> torch.Tensor:
-    """One FastDropout site: draws its seed only when it is active."""
+             seeds: Optional[SeedStream]) -> torch.Tensor:
+    """One FastDropout site: draws its seed only when it is active.  Its
+    stream addresses the global batch: element 0 of batch row 0 is
+    global element ``b0 * (elements a row)``."""
     if not train or rate <= 0.0:
         return x
-    return hash_dropout(x, next(seeds), rate)
+    row = int(np.prod(x.shape[1:]))
+    return hash_dropout(x, next(seeds), rate, offset=_origin(seeds) * row)
 
 
 class TorchLayerNorm(nn.Module):
@@ -280,19 +294,22 @@ class MultiheadAttention(nn.Module):
         rate = self.dropout if train else 0.0
         seed = next(seeds) if rate > 0.0 else None
         if self.attention_impl == "flash":
+            b0 = _origin(seeds)
             if train and self.stash_context:
                 ctx = stashed_attention(qkv, lambda: flash_attention_qkv(
-                    qkv, mask, rate, seed, save_stats=self.save_stats))
+                    qkv, mask, rate, seed, save_stats=self.save_stats,
+                    b0=b0))
             elif train:
                 ctx = flash_attention_qkv(qkv, mask, rate, seed,
-                                          save_stats=self.save_stats)
+                                          save_stats=self.save_stats, b0=b0)
             else:
                 ctx = flash_attention(q, k, v, mask=mask)
         elif rate > 0.0:
             # dense with the hash engine: softmax, then the same keep mask
             # the flash kernels apply
             ctx = dense_attention_reference(q, k, v, mask, rate,
-                                            dropout_seed=seed)
+                                            dropout_seed=seed,
+                                            b0=_origin(seeds))
         else:
             ctx = dense_attention(q, k, v, mask)
         ctx = ctx.transpose(1, 2).reshape(B, L, self.d_model)
@@ -378,6 +395,7 @@ class EncoderLayer(nn.Module):
         pair, drawn where the flax branch draws the FFN-hidden and
         FFN-connection seeds."""
         r_h, r_c = self.ffn.dropout, self.drop_ffn_conn
+        b0 = _origin(seeds)
         if train and (r_h > 0.0 or r_c > 0.0):
             hid_seed, out_seed = next(seeds), next(seeds)
         else:
@@ -393,20 +411,24 @@ class EncoderLayer(nn.Module):
             # FDT_QUANT=0 keeps the state allocated but runs the plain
             # kernel (the QuantDense contract)
             return fused_ffn_sublayer(h, ln.scale, ln.bias, w1, b1, w2, b2,
-                                      hid_seed, out_seed, r_h, r_c, ln.eps)
+                                      hid_seed, out_seed, r_h, r_c, ln.eps,
+                                      b0=b0)
         hists = (d0.amax_history_x, d0.amax_history_w, d1.amax_history_x,
                  d1.amax_history_w)
         scales = tuple(scale_from_history(t, fmt, self.quant.margin)
                        for t in hists)
+        seq = int(h.shape[-2])
         out, amax2 = ffn_core_generalized(
-            h, ln.scale, ln.bias, w1, b1, w2, b2, hid_seed, out_seed, 0, 0,
-            0, r_h, r_c, ln.eps, 1, 1, dff_glob=w1.shape[0], quant_fmt=fmt,
-            quant_scales=scales, grad_fmt=self.quant.grad_fmt)
+            h, ln.scale, ln.bias, w1, b1, w2, b2, hid_seed, out_seed, b0, 0,
+            0, r_h, r_c, ln.eps, seq, seq, dff_glob=w1.shape[0],
+            quant_fmt=fmt, quant_scales=scales, grad_fmt=self.quant.grad_fmt)
         if train and not self.quant.frozen_scales and not replaying():
             # roll as QuantDense would: x-side amaxes from the kernel (LN
-            # output, post-dropout activation), w-side from the cast weights
-            # (never in a --remat replay: once a step)
+            # output, post-dropout activation; over the global batch),
+            # w-side from the cast weights (never in a --remat replay:
+            # once a step)
             with torch.no_grad():
+                amax2 = all_max_(amax2.clone())
                 for hist, amax in zip(hists, (amax2[0], tensor_amax(w1),
                                               amax2[1], tensor_amax(w2))):
                     hist.copy_(update_amax_history(hist, amax))
@@ -557,7 +579,7 @@ class Transformer(nn.Module):
             raise ValueError("the training forward takes its randomness "
                              "explicitly: pass draws (train.steps."
                              "StepDraws)")
-        seeds = SeedStream(draws.seeds) if train else None
+        seeds = SeedStream(draws.seeds, b0=draws.b0) if train else None
         L = x.shape[1]
         if token_types is None:
             token_types = torch.zeros_like(x)
@@ -591,14 +613,19 @@ class Transformer(nn.Module):
             return classify(pooled)
         # in-forward sentence-embedding mixup (the JAX model's
         # models/transformer.py:1077-1088), lambda cast to the compute
-        # dtype as there
+        # dtype as there.  The permutation is over the global batch: this
+        # rank's rows take their partners from every rank's pooled rows
+        # (gathered; the partners' cotangents go back to their ranks)
         lam = (draws.lam if torch.is_tensor(draws.lam)
                else torch.tensor(draws.lam, dtype=torch.float32))
         index = (draws.perm.to(pooled.device, torch.long)
                  if torch.is_tensor(draws.perm) else
                  torch.as_tensor(np.array(draws.perm), dtype=torch.long,
                                  device=pooled.device))
+        index = index[draws.b0:draws.b0 + pooled.shape[0]]
+        group = collectives.current()
+        partners = pooled if group is None else group.gather_rows(pooled)
         mixed = (lam.to(pooled.device, pooled.dtype) * pooled
                  + (1.0 - lam).to(pooled.device, pooled.dtype)
-                 * pooled[index])
+                 * partners[index])
         return classify(mixed), index, lam

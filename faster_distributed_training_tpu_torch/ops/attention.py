@@ -105,10 +105,12 @@ def dropout_keep(seed, bh, q_idx, k_idx, rate: float) -> torch.Tensor:
     return keep * keep_scale(rate)
 
 
-def bh_index(B: int, H: int, device=None) -> torch.Tensor:
+def bh_index(B: int, H: int, device=None, b0: int = 0) -> torch.Tensor:
     """[B,H,1,1] flattened batch*head index — the dropout stream id every
-    attention path agrees on."""
-    return (torch.arange(B, dtype=torch.int64, device=device)[:, None] * H
+    attention path agrees on; ``b0`` is the global index of batch row 0
+    (a data-parallel rank's first row)."""
+    return ((torch.arange(B, dtype=torch.int64, device=device) + int(b0))
+            [:, None] * H
             + torch.arange(H, dtype=torch.int64, device=device)[None, :]
             )[:, :, None, None]
 
@@ -121,16 +123,18 @@ def _scores(q, k, mask):
 
 
 def dense_attention_reference(q, k, v, mask=None, dropout_rate: float = 0.0,
-                              dropout_seed=None, dropout_bh=None):
+                              dropout_seed=None, dropout_bh=None, b0: int = 0):
     """O(L²) reference: fp32 scores, fp32 softmax, then hash dropout
     (softmax first, then drop and rescale), probabilities cast to v's
-    dtype for the value product.  q/k/v [B, H, L, D]."""
+    dtype for the value product.  q/k/v [B, H, L, D]; ``b0`` the global
+    index of batch row 0."""
     B, H, Lq, _ = q.shape
     Lk = k.shape[2]
     p = torch.softmax(_scores(q, k, mask), dim=-1)
     if dropout_rate > 0.0:
         seed = 0 if dropout_seed is None else dropout_seed
-        bh = bh_index(B, H, q.device) if dropout_bh is None else dropout_bh
+        bh = (bh_index(B, H, q.device, b0) if dropout_bh is None
+              else dropout_bh)
         p = p * dropout_keep(
             seed, bh,
             torch.arange(Lq, device=q.device)[None, None, :, None],

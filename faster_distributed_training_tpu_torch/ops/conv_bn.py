@@ -16,6 +16,13 @@ Numerics are the JAX package's, which are the reference's:
   * eps is added to the standard deviation: ``(y − mean) / (sqrt(var) +
     eps)``, a division, default eps 1e-3.
 
+Under a data mesh (``parallel.collectives.current()``) the statistics
+are the global batch's, as the JAX package's BatchNorm computes them
+under GSPMD (SyncBatchNorm): the per-channel means of y and y² are
+averaged over the ranks (equal row counts: the mean of the ranks' means
+is the global mean) and n is the global count; the backward's two
+per-channel sums are all-reduced the same way.
+
 Layout: NCHW activations (``torch.channels_last`` in memory on the card,
 the JAX package's NHWC) and OIHW kernels.  No hand kernel: on the TPU the
 conv is one XLA op with the normalize fused into its epilogue, and on the
@@ -29,6 +36,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from faster_distributed_training_tpu_torch.parallel import collectives
 
 _STATS_DIMS = (0, 2, 3)
 
@@ -44,13 +53,17 @@ def stats_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def _bn_stats(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _bn_stats(y: torch.Tensor, group=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean, unbiased var) per channel, in fp32 or wider, in one pass
-    over y."""
+    over y; with a data ``group``, over every rank's y."""
     n = y.numel() // y.shape[1]
     y = y.to(stats_dtype(y.dtype))
     mean = y.mean(dim=_STATS_DIMS)
     mean_sq = torch.square(y).mean(dim=_STATS_DIMS)
+    if group is not None:
+        mean, mean_sq = group.mean(torch.stack([mean, mean_sq])).unbind(0)
+        n *= group.world
     var = torch.clamp(mean_sq - torch.square(mean), min=0.0) * (n / (n - 1))
     return mean, var
 
@@ -59,10 +72,10 @@ def _bcast(t: torch.Tensor) -> torch.Tensor:
     return t[None, :, None, None]
 
 
-def _conv_bn_forward(x, w, stride, padding, eps):
+def _conv_bn_forward(x, w, stride, padding, eps, group=None):
     """conv -> batch stats -> normalize; (out, y, mean, var)."""
     y = conv2d(x, w, stride, padding)
-    mean, var = _bn_stats(y)
+    mean, var = _bn_stats(y, group)
     out = ((y.to(mean.dtype) - _bcast(mean))
            / _bcast(torch.sqrt(var) + eps)).to(y.dtype)
     return out, y, mean, var
@@ -72,16 +85,20 @@ def conv_bn_reference(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                       padding: int = 1, eps: float = 1e-3) -> torch.Tensor:
     """The unfused conv + BN under plain autograd: the plain version the
     fused op is held against."""
-    return _conv_bn_forward(x, w, stride, padding, eps)[0]
+    return _conv_bn_forward(x, w, stride, padding, eps,
+                            collectives.current())[0]
 
 
 class _FusedConvBN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, stride, padding, eps):
-        out, _, mean, var = _conv_bn_forward(x, w, stride, padding, eps)
+        group = collectives.current()
+        out, _, mean, var = _conv_bn_forward(x, w, stride, padding, eps,
+                                             group)
         ctx.save_for_backward(x, w, mean, torch.sqrt(var))
         ctx.conf = (stride, padding, eps)
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -98,7 +115,13 @@ class _FusedConvBN(torch.autograd.Function):
         s = sqrt_var + eps
         centered = y32 - _bcast(mean)
         g_sum = g32.sum(dim=_STATS_DIMS)
-        d_s = -(g32 * centered).sum(dim=_STATS_DIMS) / (s * s)
+        gc_sum = (g32 * centered).sum(dim=_STATS_DIMS)
+        if ctx.group is not None:
+            # the global batch's sums (every rank's cotangents)
+            g_sum, gc_sum = ctx.group.sum_(torch.stack([g_sum, gc_sum])
+                                           ).unbind(0)
+            n *= ctx.group.world
+        d_s = -gc_sum / (s * s)
         # a constant channel has sqrt_var == 0: bound its d_var term
         d_var = d_s / (2.0 * torch.clamp(sqrt_var, min=1e-12))
         dy = (g32 / _bcast(s) + centered * _bcast(2.0 * d_var / (n - 1))
@@ -128,5 +151,6 @@ def conv_bn_train(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     keeps the conv output."""
     if remat:
         return fused_conv_bn(x, w, stride, padding, eps)
-    out, _, mean, var = _conv_bn_forward(x, w, stride, padding, eps)
+    out, _, mean, var = _conv_bn_forward(x, w, stride, padding, eps,
+                                         collectives.current())
     return out, mean.detach(), var.detach()

@@ -406,14 +406,18 @@ def _guard(h, w1, rate_hidden, rate_conn, site):
 
 def fused_ffn_sublayer(h, ln_scale, ln_bias, w1, b1, w2, b2, hid_seed,
                        out_seed, rate_hidden: float = 0.0,
-                       rate_conn: float = 0.0, eps: float = 1e-6):
+                       rate_conn: float = 0.0, eps: float = 1e-6,
+                       b0: int = 0):
     """out = h + drop(Dense2(drop(gelu(Dense1(LN(h)))))) in one kernel;
-    h [..., d]; w1 [d_ff, d], w2 [d, d_ff]; seeds python ints or
-    one-element integer tensors (ignored at rate 0).  Differentiable in h,
-    the LN parameters, weights and biases."""
+    h [..., d] ([B, L, d]: rows are (batch, position)); w1 [d_ff, d], w2
+    [d, d_ff]; seeds python ints or one-element integer tensors (ignored
+    at rate 0); ``b0`` the global index of batch row 0 (a data-parallel
+    rank's first row: global row (b0 + b) * L + l).  Differentiable in
+    h, the LN parameters, weights and biases."""
     _guard(h, w1, rate_hidden, rate_conn, "fused FFN dropout")
-    args = (seed_u32(hid_seed), seed_u32(out_seed), 0, 0, float(rate_hidden),
-            float(rate_conn), float(eps), 1, 1)
+    seq = int(h.shape[-2]) if h.dim() >= 3 else 1
+    args = (seed_u32(hid_seed), seed_u32(out_seed), int(b0), 0,
+            float(rate_hidden), float(rate_conn), float(eps), seq, seq)
     inputs = (h, ln_scale, ln_bias, w1, b1, w2, b2)
     # eval and serving keep no residuals: the Function only under autograd
     if _needs_grad(inputs):

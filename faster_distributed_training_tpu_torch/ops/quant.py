@@ -33,7 +33,10 @@ Counterpart of ``faster_distributed_training_tpu/ops/quant.py``:
 Weights are in ``nn.Linear``'s (out, in) layout throughout: the JAX
 package's (in, out) kernel transposed, so no transpose runs per call.
 Scales stay on the device: the kernel reads them through pointers and
-nothing here waits on the card.
+nothing here waits on the card.  Under a data mesh the activation and
+gradient amaxes are MAX all-reduced over the ranks before they are used
+(``parallel.collectives.all_max_``): every rank's histories are the
+global batch's, as in the JAX step.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ import torch
 from torch import nn
 
 from faster_distributed_training_tpu_torch.ops import _build
+from faster_distributed_training_tpu_torch.parallel.collectives import (
+    all_max_)
 
 ENV_KILL = "FDT_QUANT"
 
@@ -246,7 +251,8 @@ def _dot_q_mixed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _quant_dot_bwd(xq, wq, sx, sw, g, grad_fmt):
     """(dx [M, K], dw [N, K]) for the cotangent g [M, N]."""
     if grad_fmt is not None:
-        sg = _scale_from_amax(tensor_amax(g), grad_fmt)
+        # the just-in-time scale of the global batch's cotangent
+        sg = _scale_from_amax(all_max_(tensor_amax(g)), grad_fmt)
         gq = quantize(g, sg, grad_fmt)
         dx = (_dot_q_mixed(gq, wq) * rdiv(1.0, sg * sw.float())).to(g.dtype)
         dw = (_dot_q_mixed(gq.T, xq) * rdiv(1.0, sx.float() * sg)
@@ -350,9 +356,11 @@ class QuantDense(nn.Module):
             sx, sw = self.scales()
             if train and not self.frozen_scales and not _replaying():
                 # never in a --remat replay: the histories roll once a step
+                # the activation's amax over the global batch (every
+                # rank's rows), as the JAX step takes it
                 with torch.no_grad():
                     self.amax_history_x.copy_(update_amax_history(
-                        self.amax_history_x, tensor_amax(x2d)))
+                        self.amax_history_x, all_max_(tensor_amax(x2d))))
                     self.amax_history_w.copy_(update_amax_history(
                         self.amax_history_w, tensor_amax(w2d)))
             out = quant_dot(x2d, w2d, sx, sw, self.fmt,

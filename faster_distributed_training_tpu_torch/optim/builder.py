@@ -19,17 +19,27 @@ from faster_distributed_training_tpu_torch.optim.ngd import (NGD,
 Tensors = Dict[str, torch.Tensor]
 
 
-def global_norm(grads: Tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in grads.values()))
+def global_norm(grads: Tensors, shards=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf (optax.global_norm).
+    ``shards``: (names, sum_over_shards) when the leaves of ``names`` are
+    this rank's slices of sharded gradients: their sums of squares are
+    all-reduced over the shard group before the whole leaves' join."""
+    if not shards or not shards[0]:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in grads.values()))
+    names, sum_over_shards = shards
+    sq = {n: torch.sum(torch.square(g.float())) for n, g in grads.items()}
+    part = sum_over_shards(torch.stack([sq[n] for n in sq if n in names]
+                                       ).sum())
+    return torch.sqrt(part + sum(v for n, v in sq.items() if n not in names))
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tensors:
+def clip_by_global_norm(grads: Tensors, max_norm: float,
+                        shards=None) -> Tensors:
     """optax.clip_by_global_norm: leaves unchanged when the global norm is
     below max_norm, else (g / norm) * max_norm.  Decided on the device
     (no host sync)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, shards)
     keep = norm < max_norm
     return {n: torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
             for n, g in grads.items()}
@@ -37,11 +47,14 @@ def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tensors:
 
 class Optimizer:
     """clip_by_global_norm (when ``clip_norm``) chained before the inner
-    update, as ``optax.chain`` does in the JAX builder."""
+    update, as the JAX package chains them with ``optax.chain``.
+    ``shards``: the sharded leaves and their reduction (``global_norm``),
+    set by a sharded placement."""
 
     def __init__(self, inner, clip_norm: Optional[float] = None):
         self.inner = inner
         self.clip_norm = clip_norm
+        self.shards = None
 
     def init(self, params: Tensors) -> dict:
         return self.inner.init(params)
@@ -59,7 +72,7 @@ class Optimizer:
     def update(self, grads: Tensors, state: dict, params: Tensors,
                scalars: Optional[Dict[str, torch.Tensor]] = None) -> dict:
         if self.clip_norm:
-            grads = clip_by_global_norm(grads, self.clip_norm)
+            grads = clip_by_global_norm(grads, self.clip_norm, self.shards)
         return self.inner.update(grads, state, params, scalars)
 
 

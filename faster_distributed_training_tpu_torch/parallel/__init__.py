@@ -1,0 +1,42 @@
+"""Distributed execution of the port over ``torch.distributed`` (the JAX
+package's ``parallel/``): the data mesh and process group (``mesh``),
+the step's collectives (``collectives``), the data-axis sharding rules
+(``sharding``) and the state's placement (``placement``).  One process
+a rank, NCCL on the card and gloo on the CPU; the tp, sp and pp axes
+are not ported yet."""
+
+from faster_distributed_training_tpu_torch.parallel.mesh import (  # noqa: F401
+    AXIS_ALIASES,
+    MeshSpec,
+    axis_size,
+    canonical_axes,
+    canonical_axis,
+    initialize_distributed,
+    local_batch_slice,
+    local_device,
+    make_mesh,
+    parse_mesh,
+    pp_size,
+    sp_size,
+    tp_size,
+)
+from faster_distributed_training_tpu_torch.parallel.sharding import (  # noqa: F401
+    bucketed_grad_reduce,
+    fsdp_partition_params,
+    offload_opt_leaf,
+    zero1_opt_specs,
+)
+from faster_distributed_training_tpu_torch.parallel.placement import (  # noqa: F401
+    Placement,
+    data_axes,
+    dp_size,
+    make_put_batch,
+    shard_train_state,
+    train_state_shardings,
+)
+from faster_distributed_training_tpu_torch.parallel.collectives import (  # noqa: F401
+    DataGroup,
+    all_gather_across_processes,
+    all_reduce_metrics,
+    all_sum_across_processes,
+)

@@ -1,0 +1,203 @@
+"""The process group and the data mesh (the JAX package's
+``parallel/mesh.py``).
+
+JAX runs one SPMD program over a ``Mesh`` of devices; the port runs one
+process per card, joined by ``torch.distributed`` (NCCL on the card,
+gloo under ``--device cpu``), and the mesh is a ``DeviceMesh`` over the
+ranks.  This slice reaches the data axes, ``dp`` (batch split, state
+replicated) and ``fsdp`` (batch split, parameters and optimizer state
+sharded); a mesh with ``tp``, ``sp`` or ``pp`` above 1 raises by name.
+
+``AXIS_ALIASES`` is the one alias table: ``--mesh data=2`` and ``--mesh
+dp=2`` are the same mesh.  Ranks are laid out row-major over the mesh's
+axes, so with the batch split over every data axis rank r holds the
+global rows ``[r * Bl, (r + 1) * Bl)`` (JAX's ``batch_spec`` order).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from datetime import timedelta
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+# canonical name <- accepted spellings; unknown names pass through
+AXIS_ALIASES = {
+    "dp": "dp", "data": "dp", "batch": "dp",
+    "fsdp": "fsdp", "zero": "fsdp", "zero3": "fsdp",
+    "tp": "tp", "model": "tp", "mp": "tp", "tensor": "tp",
+    "sp": "sp", "seq": "sp", "sequence": "sp", "context": "sp",
+    "pp": "pp", "pipe": "pp", "pipeline": "pp", "stage": "pp",
+}
+DATA_AXES = ("dp", "fsdp")
+# the axes this slice does not reach, and what each would shard
+UNPORTED_AXES = {"tp": "tensor parallelism", "sp": "sequence parallelism",
+                 "pp": "pipeline parallelism"}
+# the process group's timeout: a rank that never arrives fails the run
+# instead of hanging it
+PG_TIMEOUT = timedelta(minutes=10)
+
+
+def canonical_axis(name: str) -> str:
+    """Canonical spelling of a mesh-axis name (AXIS_ALIASES)."""
+    return AXIS_ALIASES.get(str(name).strip().lower(), str(name).strip())
+
+
+def canonical_axes(axes: Sequence[str]) -> Tuple[str, ...]:
+    out = tuple(canonical_axis(a) for a in axes)
+    if len(set(out)) != len(out):
+        raise ValueError(f"mesh axes {tuple(axes)} collapse to duplicate "
+                         f"canonical names {out} (see AXIS_ALIASES)")
+    return out
+
+
+def parse_mesh(spec: str) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """'dp=4,tp=2' -> (('dp','tp'), (4,2)).  Empty -> ((), ()).  Axis
+    names are canonicalized through AXIS_ALIASES."""
+    if not spec:
+        return (), ()
+    axes, sizes = [], []
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        name = name.strip()
+        if not name or not size:
+            raise ValueError(f"bad mesh spec {spec!r}; want 'axis=size,...'")
+        axes.append(name)
+        sizes.append(int(size))
+    return canonical_axes(axes), tuple(sizes)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    axes: Tuple[str, ...]
+    shape: Tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape)) if self.shape else 1
+
+
+def unported_axes(axes: Sequence[str], shape: Sequence[int]) -> list:
+    """``--mesh <axis>=<n>`` for every tp, sp or pp axis above 1."""
+    return [f"--mesh {a}={n} ({UNPORTED_AXES[a]})"
+            for a, n in zip(canonical_axes(axes), shape)
+            if a in UNPORTED_AXES and int(n) > 1]
+
+
+def _env_int(*names: str) -> Optional[int]:
+    for n in names:
+        if os.environ.get(n):
+            return int(os.environ[n])
+    return None
+
+
+def initialize_distributed(device_type: str = "cuda",
+                           timeout: timedelta = PG_TIMEOUT) -> bool:
+    """Join the run's process group once (the JAX ``initialize_distributed``
+    and the reference's ``init_process_group``).  torchrun's ``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``
+    are read first; else JAX's ``FDT_COORDINATOR`` (host:port),
+    ``FDT_NUM_PROCESSES`` and ``FDT_PROCESS_ID``.  NCCL with the card
+    ``cuda:LOCAL_RANK`` made current, gloo for ``device_type="cpu"``.
+    Returns False (and joins nothing) without either set of variables or
+    when a group already exists."""
+    if dist.is_initialized():
+        return False
+    world = _env_int("WORLD_SIZE", "FDT_NUM_PROCESSES")
+    rank = _env_int("RANK", "FDT_PROCESS_ID")
+    if world is None:
+        return False
+    rank = rank or 0
+    if os.environ.get("MASTER_ADDR"):
+        init = (f"tcp://{os.environ['MASTER_ADDR']}:"
+                f"{os.environ.get('MASTER_PORT', '29500')}")
+    elif os.environ.get("FDT_COORDINATOR"):
+        init = f"tcp://{os.environ['FDT_COORDINATOR']}"
+    else:
+        raise ValueError("a distributed run needs MASTER_ADDR/MASTER_PORT "
+                         "(torchrun) or FDT_COORDINATOR=host:port")
+    backend = "gloo" if device_type == "cpu" else "nccl"
+    kw = {}
+    if backend == "nccl":
+        local = _env_int("LOCAL_RANK") or 0
+        torch.cuda.set_device(local)
+        kw["device_id"] = torch.device("cuda", local)
+    dist.init_process_group(backend, init_method=init, world_size=world,
+                            rank=rank, timeout=timeout, **kw)
+    return True
+
+
+def local_device(device_type: str) -> torch.device:
+    """The rank's device: ``cuda:LOCAL_RANK`` in a group over NCCL (the
+    current card otherwise), the CPU for ``cpu``."""
+    if device_type == "cpu":
+        return torch.device("cpu")
+    local = _env_int("LOCAL_RANK")
+    return torch.device("cuda", torch.cuda.current_device()
+                        if local is None else local)
+
+
+def make_mesh(axes: Sequence[str] = ("dp",), shape: Sequence[int] = (),
+              device_type: str = "cuda"):
+    """The ``DeviceMesh`` of the run's process group over the data axes,
+    or None without a group (one process: no collective anywhere).
+    Empty ``shape`` puts every rank on the first axis.  The mesh's size
+    must equal the world size; tp, sp and pp above 1 raise."""
+    axes = canonical_axes(axes)
+    shape = tuple(int(s) for s in shape)
+    bad = unported_axes(axes, shape)
+    if bad:
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if not shape:
+        shape = (world,) + (1,) * (len(axes) - 1)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh axes {axes} vs shape {shape} rank mismatch")
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"mesh shape {dict(zip(axes, shape))} needs "
+                         f"{int(np.prod(shape))} processes, the run has "
+                         f"{world} (launch one process a rank: torchrun "
+                         f"--nproc_per_node, or --distributed)")
+    if not dist.is_initialized():
+        return None
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu" if device_type == "cpu" else "cuda",
+                            shape, mesh_dim_names=axes)
+
+
+def axis_size(mesh, name: str) -> int:
+    """Size of canonical axis ``name`` in ``mesh`` (1 when absent/None)."""
+    if mesh is None:
+        return 1
+    name = canonical_axis(name)
+    names = mesh.mesh_dim_names or ()
+    return int(mesh.size(names.index(name))) if name in names else 1
+
+
+def tp_size(mesh) -> int:
+    return axis_size(mesh, "tp")
+
+
+def sp_size(mesh) -> int:
+    return axis_size(mesh, "sp")
+
+
+def pp_size(mesh) -> int:
+    return axis_size(mesh, "pp")
+
+
+def local_batch_slice(global_batch: int, world: int, rank: int
+                      ) -> Tuple[int, int]:
+    """(per-process batch, this process's row offset): each process loads
+    only its rows of the global batch (the DistributedSampler of the
+    reference)."""
+    if global_batch % world:
+        raise ValueError(f"global batch {global_batch} not divisible by "
+                         f"{world} processes")
+    per = global_batch // world
+    return per, per * rank

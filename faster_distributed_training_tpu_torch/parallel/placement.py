@@ -1,0 +1,415 @@
+"""Where the training state and the batches live under a data mesh (the
+JAX package's ``parallel/placement.py``), and the collectives around the
+step that XLA inserts for JAX.
+
+The reference's distribution strategies, as JAX maps them onto shardings
+and this module onto one process a rank:
+
+  * dp: the batch split over the ranks, the state replicated; the
+    gradients SUM all-reduced and divided by the world (DDP's mean);
+  * fsdp (ZeRO-3): the parameters and the optimizer state sharded by
+    ``sharding.fsdp_partition_params``; before a forward the parameters
+    are all-gathered, the gradients are reduced and each rank updates
+    its own shard, and between steps only the shard stays;
+  * zero1: the optimizer state alone sharded; each rank updates its
+    shard of every parameter and the slices are all-gathered after;
+  * ``--host_offload``: the parameters (their shards) and the optimizer
+    state rest in pinned host memory between steps; ``--offload_opt_state``
+    the optimizer leaves ``offload_opt_leaf`` picks.  They are copied to
+    the card on a side stream before use, updated on the card and copied
+    back, so the numbers are the resident run's bit for bit.  On the CPU
+    the tier is host memory too: the leaves are parked in separate
+    buffers and copied back, the same path.
+
+The reduce-scatter of the gradients is an all-reduce followed by the
+rank's slice (gloo has no reduce-scatter, and NCCL's cuts dim 0 only):
+every rank then holds the whole reduced gradient, and the global norm
+of a sharded update is summed over the shards (``optim.builder``).
+Ranks are row-major over the mesh: rank r holds global rows
+``[r * Bl, (r + 1) * Bl)`` of every batch.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from faster_distributed_training_tpu_torch.parallel.collectives import (
+    DataGroup, all_gather)
+from faster_distributed_training_tpu_torch.parallel.mesh import (DATA_AXES,
+                                                                 axis_size)
+from faster_distributed_training_tpu_torch.parallel.sharding import (
+    bucketed_grad_reduce, fsdp_partition_params, offload_opt_leaf)
+
+# the metrics summed over ranks (the loss is then divided by the world)
+_SUMMED = ("loss", "loss_total", "correct", "total")
+
+
+def data_axes(mesh) -> tuple:
+    """The mesh's data axes (dp, fsdp) that it has."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in DATA_AXES if a in (mesh.mesh_dim_names or ()))
+
+
+def dp_size(mesh) -> int:
+    """The number of batch shards: the product of the data axes."""
+    n = 1
+    for a in data_axes(mesh):
+        n *= axis_size(mesh, a)
+    return max(n, 1)
+
+
+def make_put_batch(group: DataGroup, device, stacked: bool = False
+                   ) -> Callable[[Dict[str, Any]], Dict[str, torch.Tensor]]:
+    """put(batch): a GLOBAL host batch -> this rank's rows of it as
+    tensors on ``device`` (``train.steps.to_device``).  ``stacked``: the
+    leaves carry a leading K (steps a dispatch) axis, split below it."""
+    from faster_distributed_training_tpu_torch.train.steps import to_device
+
+    def put(batch):
+        out = {}
+        for k, v in batch.items():
+            v = np.asarray(v)
+            ax = 1 if stacked else 0
+            if v.ndim > ax:
+                rows = v.shape[ax] // group.world
+                r0 = group.origin(rows)
+                v = np.take(v, np.arange(r0, r0 + rows), axis=ax)
+            out[k] = v
+        return to_device(out, device)
+
+    return put
+
+
+def _opt_items(tree, path=()):
+    """(path, parent dict, key, tensor) of every tensor of an optimizer
+    state tree."""
+    for k, v in tree.items():
+        if torch.is_tensor(v):
+            yield path + (k,), tree, k, v
+        elif isinstance(v, dict):
+            yield from _opt_items(v, path + (k,))
+
+
+class Placement:
+    """The state's layout under ``cfg``'s mesh strategy and the
+    collectives of the step.  Built once a run; ``shard_state`` takes the
+    whole state to its resting layout, ``unpark`` / ``park`` bracket
+    every use of the parameters (a train step, an eval pass), and
+    ``unshard`` brings the whole state back (a checkpoint)."""
+
+    def __init__(self, cfg, mesh, device, group: Optional[DataGroup] = None):
+        self.group = group if group is not None else DataGroup()
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.fsdp = bool(cfg.fsdp)
+        self.zero1 = bool(cfg.zero1) and not self.fsdp
+        axis = None
+        if self.fsdp:
+            axis = "fsdp"
+        elif self.zero1:
+            # JAX's zero1 axis: fsdp when the mesh splits it, else dp
+            axis = "fsdp" if axis_size(mesh, "fsdp") > 1 else "dp"
+        self.shard_pg, self.n, self.r = None, 1, 0
+        if axis is not None and mesh is not None and axis in (
+                mesh.mesh_dim_names or ()):
+            self.shard_pg = mesh.get_group(axis)
+            self.n = axis_size(mesh, axis)
+            self.r = mesh.get_local_rank(axis)
+        self.offload_params = bool(cfg.host_offload)
+        self.offload_opt = ("all" if cfg.host_offload else
+                            "big" if cfg.offload_opt_state else None)
+        self.bucket_bytes = (int(cfg.overlap_bucket_mb) << 20
+                             if cfg.overlap_grad_reduce else 0)
+        self.dims: Dict[str, Optional[int]] = {}
+        self.layout: Dict[str, tuple] = {}      # name -> (shape, stride)
+        self.rest: Dict[str, torch.Tensor] = {}  # parked parameter storage
+        self.host: Dict[Any, torch.Tensor] = {}  # persistent host buffers
+        self.parked_opt: Dict[tuple, torch.Tensor] = {}
+        self.parked = False
+        self.sharded = False
+        self.side = (torch.cuda.Stream(self.device) if self.cuda and (
+            self.offload_params or self.offload_opt) else None)
+
+    # -- the layout ---------------------------------------------------------
+    @property
+    def sharding(self) -> bool:
+        return (self.fsdp or self.zero1) and self.n > 1
+
+    def _plan(self, params) -> None:
+        """Each parameter's layout and shard dim (from the whole
+        parameters)."""
+        self.layout = {k: (tuple(p.shape), tuple(p.stride()))
+                       for k, p in params.items()}
+        self.dims = (fsdp_partition_params(params, self.n) if self.sharding
+                     else {k: None for k in params})
+
+    def table(self, state) -> Dict[str, dict]:
+        """Every parameter and optimizer leaf by path: the dim it shards
+        on (None: whole) and whether it rests in host memory."""
+        params = state.params()
+        if not self.layout:
+            self._plan(params)
+        out = {f"params/{k}": {"dim": self.dims[k] if self.fsdp else None,
+                               "host": self.offload_params}
+               for k in params}
+        for path, _, k, t in _opt_items(state.opt_state):
+            mirror = self._mirror_any(k, t)
+            out["opt/" + "/".join(path)] = {
+                "dim": self.dims[k] if mirror else None,
+                "host": self._offloads_opt(self._full_shape(k, t))}
+        return out
+
+    def _full_shape(self, k: str, t: torch.Tensor) -> tuple:
+        """The whole shape of optimizer leaf ``t`` of key ``k``."""
+        return self.layout[k][0] if self._mirror_any(k, t) else tuple(
+            t.shape)
+
+    def _offloads_opt(self, shape) -> bool:
+        return self.offload_opt == "all" or (
+            self.offload_opt == "big" and offload_opt_leaf(shape))
+
+    def _cut(self, t: torch.Tensor, d: int) -> torch.Tensor:
+        """This rank's slice of ``t`` along ``d`` (a view)."""
+        c = t.shape[d] // self.n
+        return t.narrow(d, self.r * c, c)
+
+    def _gather_dim(self, shard: torch.Tensor, d: int,
+                    out: torch.Tensor) -> torch.Tensor:
+        """The shards of every rank of the shard group, concatenated along
+        ``d`` into ``out``."""
+        parts = all_gather(shard, self.n, self.shard_pg)
+        out.copy_(torch.cat(parts, dim=d))
+        return out
+
+    def shard_state(self, state) -> None:
+        """Take a whole, resident state to its resting layout: the
+        optimizer leaves of sharded parameters cut to this rank's slice,
+        then ``park``."""
+        params = state.params()
+        self._plan(params)
+        if self.sharding:
+            for _, parent, k, t in list(_opt_items(state.opt_state)):
+                d = self.dims.get(k)
+                if d is not None and tuple(t.shape) == self.layout[k][0]:
+                    parent[k] = self._cut(t, d).clone()
+            # the global norm sums the shards' squares over the group
+            state.tx.shards = (self.sharded_names(), self.sum_over_shards)
+        self.sharded = True
+        self.park(state)
+
+    def unshard(self, state) -> None:
+        """Back to the whole state on the card: ``unpark``, then every
+        sharded optimizer leaf all-gathered whole."""
+        self.unpark(state)
+        if self.sharding and self.sharded:
+            for _, parent, k, t in list(_opt_items(state.opt_state)):
+                d = self.dims.get(k)
+                if (d is not None and self._mirror_any(k, t)
+                        and tuple(t.shape) != self.layout[k][0]):
+                    full = torch.empty(self.layout[k][0], dtype=t.dtype,
+                                       device=t.device)
+                    parent[k] = self._gather_dim(t, d, full)
+        self.sharded = False
+
+    @contextlib.contextmanager
+    def whole(self, state):
+        """The whole state resident for the ``with`` block (every rank
+        enters: the gathers are collective), then the resting layout."""
+        self.unshard(state)
+        try:
+            yield state
+        finally:
+            self.shard_state(state)
+
+    @contextlib.contextmanager
+    def materialized(self, state):
+        """The parameters whole on the card for the ``with`` block (an
+        eval pass), then parked."""
+        self.unpark(state)
+        try:
+            yield state
+        finally:
+            self.park(state)
+
+    # -- the host tier ------------------------------------------------------
+    def _to_host(self, key, t: torch.Tensor) -> torch.Tensor:
+        """``t`` copied into its persistent host buffer (pinned, on the
+        side stream, on a card; a plain copy on the CPU)."""
+        buf = self.host.get(key)
+        if buf is None or buf.shape != t.shape:
+            buf = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                      device="cpu", pin_memory=self.cuda)
+            self.host[key] = buf
+        if not self.cuda:
+            return buf.copy_(t)
+        self.side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.side):
+            buf.copy_(t, non_blocking=True)
+        t.record_stream(self.side)
+        return buf
+
+    def _to_device(self, buf: torch.Tensor) -> torch.Tensor:
+        """A host buffer back on the card (side stream; the compute stream
+        waits for it)."""
+        if not self.cuda:
+            return buf.clone()
+        cur = torch.cuda.current_stream(self.device)
+        self.side.wait_stream(cur)
+        with torch.cuda.stream(self.side):
+            t = torch.empty_strided(buf.shape, buf.stride(), dtype=buf.dtype,
+                                    device=self.device)
+            t.copy_(buf, non_blocking=True)
+        cur.wait_stream(self.side)
+        t.record_stream(cur)
+        return t
+
+    def park(self, state) -> None:
+        """The resting layout: an fsdp parameter keeps only its shard, an
+        offloaded one (or its shard) moves to the host; the offloaded
+        optimizer leaves move to the host."""
+        if self.parked or not self.sharded:
+            return
+        for k, p in state.params().items():
+            d = self.dims.get(k) if self.fsdp else None
+            if d is None and not self.offload_params:
+                continue
+            rest = p.data if d is None else self._cut(p.data, d).clone()
+            if self.offload_params:
+                rest = self._to_host(("param", k), rest)
+            self.rest[k] = rest
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        if self.offload_opt:
+            for path, parent, k, t in list(_opt_items(state.opt_state)):
+                if self._offloads_opt(self._full_shape(k, t)):
+                    parent[k] = self._to_host(("opt",) + path, t)
+                    self.parked_opt[path] = parent[k]
+        self.parked = True
+
+    def _mirror_any(self, k: str, t: torch.Tensor) -> bool:
+        """Whether ``t`` is a (possibly sliced) optimizer mirror of
+        parameter ``k``."""
+        if k not in self.layout:
+            return False
+        full = self.layout[k][0]
+        d = self.dims.get(k)
+        if tuple(t.shape) == full:
+            return True
+        return d is not None and tuple(t.shape) == tuple(
+            s // self.n if i == d else s for i, s in enumerate(full))
+
+    def unpark(self, state) -> None:
+        """Everything parked back on the card, the fsdp parameters
+        all-gathered whole."""
+        if not self.parked:
+            return
+        if self.parked_opt:
+            for path, parent, k, t in list(_opt_items(state.opt_state)):
+                if path in self.parked_opt:
+                    parent[k] = self._to_device(t)
+            self.parked_opt.clear()
+        for k, p in state.params().items():
+            if k not in self.rest:
+                continue
+            rest = self.rest.pop(k)
+            if self.offload_params:
+                rest = self._to_device(rest)
+            d = self.dims.get(k) if self.fsdp else None
+            if d is not None:
+                shape, stride = self.layout[k]
+                full = torch.empty_strided(shape, stride, dtype=rest.dtype,
+                                           device=rest.device)
+                rest = self._gather_dim(rest, d, full)
+            p.data = rest
+        self.parked = False
+
+    # -- the step's collectives --------------------------------------------
+    def reduce_grads(self, grads: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """The mean over the data ranks of every gradient: one SUM
+        all-reduce a flat bucket (``--overlap_grad_reduce``: asynchronous
+        buckets of ``--overlap_bucket_mb``), then / world."""
+        g = self.group
+        if not g.live:
+            return grads
+        return bucketed_grad_reduce(grads, g.group, self.bucket_bytes,
+                                    g.world)
+
+    def local(self, grads: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+        """The reduced gradients cut to this rank's shard of each sharded
+        parameter (the update's half of the reduce-scatter)."""
+        if not self.sharding:
+            return grads
+        return {k: (v if self.dims.get(k) is None else
+                    self._cut(v, self.dims[k])) for k, v in grads.items()}
+
+    def update_views(self, state) -> Dict[str, torch.Tensor]:
+        """The parameters the optimizer updates in place: this rank's
+        slice (a view) of each sharded one, the others whole."""
+        params = state.params()
+        if not self.sharding:
+            return params
+        return {k: (p if self.dims.get(k) is None else
+                    self._cut(p.data, self.dims[k]))
+                for k, p in params.items()}
+
+    def after_update(self, state) -> None:
+        """zero1: every rank's updated slices all-gathered into the whole
+        parameters (fsdp keeps its slice: ``park`` takes it)."""
+        if not (self.zero1 and self.sharding):
+            return
+        with torch.no_grad():
+            for k, p in state.params().items():
+                d = self.dims.get(k)
+                if d is not None:
+                    self._gather_dim(self._cut(p.data, d), d, p.data)
+
+    def sharded_names(self) -> set:
+        """The parameters whose update this rank holds a slice of."""
+        if not self.sharding:
+            return set()
+        return {k for k, d in self.dims.items() if d is not None}
+
+    def sum_over_shards(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM all-reduce over the shard group (in place)."""
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.shard_pg)
+        return t
+
+    def reduce_metrics(self, metrics: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """The step's metrics over the global batch: the sums of every
+        rank's ``loss``, ``loss_total``, ``correct`` and ``total`` in one
+        all-reduce, the loss divided by the world."""
+        g = self.group
+        keys = [k for k in _SUMMED if k in metrics]
+        if not g.live or not keys:
+            return metrics
+        dev = metrics[keys[0]].device
+        vec = g.sum_(torch.stack([metrics[k].detach().to(dev).float()
+                                  .reshape(()) for k in keys]))
+        out = dict(metrics)
+        for i, k in enumerate(keys):
+            out[k] = vec[i] / g.world if k == "loss" else vec[i]
+        return out
+
+    def barrier(self) -> None:
+        if self.group.live:
+            dist.barrier(group=self.group.group)
+
+
+def train_state_shardings(state, placement: Placement) -> Dict[str, dict]:
+    """The layout table of ``state`` under ``placement`` (every leaf's
+    shard dim and host tier)."""
+    return placement.table(state)
+
+
+def shard_train_state(state, placement: Placement):
+    """Place a whole, resident ``state`` by ``placement``'s table."""
+    placement.shard_state(state)
+    return state

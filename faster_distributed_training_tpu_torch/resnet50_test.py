@@ -15,5 +15,8 @@ from faster_distributed_training_tpu_torch.cli import RESNET50_DEFAULTS, main
 DEFAULTS = RESNET50_DEFAULTS
 
 if __name__ == "__main__":
+    import torch.distributed as dist
+
     result = main(defaults=DEFAULTS, prog="resnet50_test")
-    print(f"best test accuracy: {result['best_acc']:.4f}")
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(f"best test accuracy: {result['best_acc']:.4f}")

@@ -1,0 +1,22 @@
+#!/usr/bin/env bash
+# Data-parallel launch of the port's two entry points under torchrun, one
+# process a card (the twin of the repository's root run_distributed.sh).
+#
+# Every process joins the NCCL group from torchrun's RANK / WORLD_SIZE /
+# LOCAL_RANK / MASTER_ADDR / MASTER_PORT (--distributed) and trains on its
+# rows of each global batch (--bs is the global batch).  Extra arguments
+# go to both entries, e.g. a fully-sharded run with the host tiers:
+#   NPROC=4 bash faster_distributed_training_tpu_torch/run_distributed.sh \
+#     --fsdp --host_offload --offload_opt_state
+# (--ngd, which the ResNet entry takes, cannot be combined with --fsdp or
+# --zero1; NGD on the transformer is not ported, so its line has none).
+# On the CPU: NPROC=2 ... --device cpu (gloo).
+set -euo pipefail
+
+NPROC="${NPROC:-$(python -c 'import torch; print(max(torch.cuda.device_count(), 1))')}"
+RUN=(torchrun --standalone --nproc_per_node="${NPROC}" -m)
+
+"${RUN[@]}" faster_distributed_training_tpu_torch.resnet50_test --distributed \
+  --bs 256 --lr 0.01 --meta_learning --ngd "$@"
+"${RUN[@]}" faster_distributed_training_tpu_torch.transformer_test \
+  --distributed --bs 64 "$@"

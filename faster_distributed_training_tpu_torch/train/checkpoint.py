@@ -13,11 +13,18 @@ of the JAX package's ``train/checkpoint.py::save_pytree_checkpoint``.
 Step-cadence checkpoints form a series named by global step,
 ``<name>_<step:09d>`` (``series_member``); reading a series by its name
 (``read_meta(d, "transformer_step")``) reads its newest committed member.
+Under a data mesh (``state.placement``) every rank gathers the whole
+state (the collectives of ``Placement.whole``), rank 0 writes it, and
+all wait for the write; every rank restores the whole state and takes
+its own layout again.  A checkpoint is the same file at any mesh, so a
+dp=2 or fsdp=2 run resumes at dp=1 and the other way round (the JAX
+package's interchange contract).
 Reading the JAX package's Orbax checkpoints is not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -112,11 +119,35 @@ def _to_cpu(tree: Any) -> Any:
     return tree
 
 
+def _whole(state: TrainState):
+    """The whole state for a ``with`` block (collective under a mesh)."""
+    pl = state.placement
+    return contextlib.nullcontext() if pl is None else pl.whole(state)
+
+
+def is_writer(state: TrainState) -> bool:
+    """Whether this process writes the run's files (rank 0)."""
+    pl = state.placement
+    return pl is None or pl.group.rank == 0
+
+
 def save_checkpoint(checkpoint_dir: str, name: str, state: TrainState,
                     epoch: int, best_acc: float, step_in_epoch: int = 0
                     ) -> str:
-    """Overwrite ``<checkpoint_dir>/<name>`` with the full state."""
+    """Overwrite ``<checkpoint_dir>/<name>`` with the full state (under a
+    mesh: gathered, written by rank 0; every rank returns after the
+    write)."""
     path = ckpt_dir(checkpoint_dir, name)
+    with _whole(state):
+        if is_writer(state):
+            _write(path, state, epoch, best_acc, step_in_epoch)
+    if state.placement is not None:
+        state.placement.barrier()
+    return path
+
+
+def _write(path: str, state: TrainState, epoch: int, best_acc: float,
+           step_in_epoch: int) -> None:
     os.makedirs(path, exist_ok=True)
     commit = os.path.join(path, _COMMIT)
     if os.path.exists(commit):
@@ -134,7 +165,6 @@ def save_checkpoint(checkpoint_dir: str, name: str, state: TrainState,
                 {"epoch": int(epoch), "step_in_epoch": int(step_in_epoch),
                  "best_acc": float(best_acc), "step": int(state.step)})
     _write_json(commit, {"committed_unix_time": round(time.time(), 3)})
-    return path
 
 
 def read_meta(checkpoint_dir: str, name: str) -> Dict[str, Any]:
@@ -171,7 +201,7 @@ def restore_checkpoint(checkpoint_dir: str, name: str, state: TrainState
     path = ckpt_dir(checkpoint_dir, name)
     payload = torch.load(os.path.join(path, _STATE), map_location="cpu",
                          weights_only=True)
-    with torch.no_grad():
+    with torch.no_grad(), _whole(state):
         state.model.load_state_dict(payload["model"])
         state.opt_state = _copy_into(state.opt_state, payload["opt_state"],
                                      "opt_state")

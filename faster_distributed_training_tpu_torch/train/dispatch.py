@@ -39,6 +39,13 @@ them; a replay makes no Python call and adds nothing there (``replays``
 counts the replays; the kernels a replay runs are seen on the device,
 by a profiler).  On the CPU (the tests) the same body runs in a Python
 loop over the same tables.
+
+Under a data mesh (dp) the body is the data-parallel step: its
+collectives (the gradient and metric all-reduces, BatchNorm's and the
+amaxes') are captured in the graph with the rest, NCCL's collectives
+being capturable; the draws are the global batch's, and the resident
+split is gathered at this rank's rows of each global batch.  fsdp, zero1
+and the host tiers run K=1 only (the cli raises).
 """
 
 from __future__ import annotations
@@ -103,13 +110,18 @@ class FusedDispatch:
     or None (the host path)."""
 
     def __init__(self, cfg: TrainConfig, k: int, device, resident=None,
-                 log: Callable[[str], None] = print):
+                 log: Callable[[str], None] = print, group=None):
         if k < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {k}")
         self.cfg, self.k, self.log = cfg, int(k), log
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.resident = resident
+        # this rank's rows of a global batch: (count, first)
+        world = 1 if group is None else group.world
+        self.rows = (cfg.batch_size // world,
+                     0 if group is None else group.origin(
+                         cfg.batch_size // world))
         self.image = cfg.model != "transformer"
         self.fp16 = cfg.precision == "fp16"
         self.alpha = mixup_alpha(cfg)
@@ -182,7 +194,9 @@ class FusedDispatch:
         if self.resident is None:
             return {n: _slot(t, slot) for n, t in self.staged[key].items()}
         B = self.cfg.batch_size
-        pos = (self.start + slot) * B + torch.arange(B, device=self.device)
+        n, r0 = self.rows
+        pos = ((self.start + slot) * B + r0
+               + torch.arange(n, device=self.device))
         rows = self.order_buf.index_select(0, pos).long()
         out = {n: t.index_select(0, rows)
                for n, t in self.resident.arrays.items()}

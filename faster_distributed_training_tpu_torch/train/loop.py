@@ -18,17 +18,27 @@ seek: no host batch is built).  An epoch tail shorter than K runs fewer
 steps on the same graph.  Checkpoints land on dispatch boundaries (the
 cli rounds ``--checkpoint_every`` up to a multiple of K), and the live
 log line reads the loss at a dispatch boundary.  K=1 on the host path is
-the one-step loop above, unchanged."""
+the one-step loop above, unchanged.
+
+Under a data mesh (``state.placement``) every rank runs this loop on its
+rows; the step's and the eval's metrics come back summed over the ranks,
+the eval pass runs with the parameters whole (``Placement.materialized``),
+rank 0 writes the checkpoints (``train.checkpoint``), and the caller
+logs on rank 0 only."""
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
 from typing import Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 from faster_distributed_training_tpu_torch.config import TrainConfig
+from faster_distributed_training_tpu_torch.parallel.collectives import (
+    all_gather_across_processes)
 from faster_distributed_training_tpu_torch.train import checkpoint as ckpt
 from faster_distributed_training_tpu_torch.train.metrics import (
     MetricAccumulator, perplexity)
@@ -74,12 +84,24 @@ class Trainer:
         """The step checkpoints' series name."""
         return ckpt_name + "_step"
 
-    def _cadence_due(self) -> bool:
+    def _cadence_due(self, state: TrainState) -> bool:
         cfg = self.cfg
         if cfg.checkpoint_every and self.global_step % cfg.checkpoint_every == 0:
             return True
-        return bool(cfg.checkpoint_every_secs) and (
-            cadence_clock() - self._last_save_t >= cfg.checkpoint_every_secs)
+        return self._clock_due(state)
+
+    def _clock_due(self, state: TrainState) -> bool:
+        """Whether ``--checkpoint_every_secs`` has passed since the last
+        save.  Under a mesh rank 0's clock decides for every rank: a save
+        is collective, and the ranks' clocks differ."""
+        cfg = self.cfg
+        if not cfg.checkpoint_every_secs:
+            return False
+        due = cadence_clock() - self._last_save_t >= cfg.checkpoint_every_secs
+        pl = state.placement
+        if pl is not None and pl.group.live:
+            due = bool(all_gather_across_processes(np.int8(due))[0])
+        return due
 
     def _save_step(self, state: TrainState, ckpt_name: str, epoch: int,
                    step_in_epoch: int) -> None:
@@ -92,7 +114,9 @@ class Trainer:
                              state, epoch, self.best_acc,
                              step_in_epoch=step_in_epoch)
         self._last_save_t = cadence_clock()
-        ckpt.prune_series(cfg.checkpoint_dir, series, cfg.checkpoint_keep)
+        if ckpt.is_writer(state):
+            ckpt.prune_series(cfg.checkpoint_dir, series,
+                              cfg.checkpoint_keep)
 
     def run_epoch(self, state: TrainState, loader: Iterable, epoch: int = 0,
                   start_step: int = 0, ckpt_name: str = "ckpt") -> tuple:
@@ -126,7 +150,7 @@ class Trainer:
                     self.log(f"[epoch {epoch}] step {n}: loss={loss:.4f} "
                              f"acc={acc_now:.4f} {exs:.0f} ex/s")
                     last_t, last_n = now, n
-                if self._cadence_due():
+                if self._cadence_due(state):
                     self._save_step(state, ckpt_name, epoch, n)
         finally:
             if closer is not None:
@@ -159,8 +183,7 @@ class Trainer:
             last = (now, n)
         every = int(cfg.checkpoint_every or 0)
         if (every and self.global_step // every > before // every) or (
-                cfg.checkpoint_every_secs and cadence_clock()
-                - self._last_save_t >= cfg.checkpoint_every_secs):
+                self._clock_due(state)):
             self._save_step(state, ckpt_name, epoch, n)
         return last
 
@@ -226,8 +249,12 @@ class Trainer:
                  ) -> Dict[str, float]:
         acc = MetricAccumulator()
         t0 = time.monotonic()
-        for batch in loader:
-            acc.add(self.eval_step(state, to_device(batch, self.device)))
+        pl = state.placement
+        with (contextlib.nullcontext() if pl is None
+              else pl.materialized(state)):
+            for batch in loader:
+                acc.add(self.eval_step(state, to_device(batch,
+                                                        self.device)))
         summary = acc.summary()
         elapsed = time.monotonic() - t0
         total = summary.get("total_sum")

@@ -4,7 +4,9 @@ ResNet, the BN running statistics as buffers), trainable leaves outside
 the model (``extra``: the meta / attn mixup lambda, JAX's
 ``params["mixup_lambda"]``), the optimizer and its state (NGD's factors
 and counter among them), the fp16 loss scale, the step count and the run
-seed the per-step draws derive from."""
+seed the per-step draws derive from.  Under a data mesh ``placement``
+(``parallel.placement.Placement``) says where the leaves rest between
+steps and runs the step's collectives; None on one process."""
 
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ class TrainState:
     seed: int = 0
     extra: Dict[str, torch.Tensor] = field(default_factory=dict)
     loss_scale: Optional[LossScaleState] = None
+    placement: Optional[object] = None
 
     def params(self) -> Dict[str, torch.Tensor]:
         """The trainable leaves by name: the model's (its state_dict

@@ -44,10 +44,22 @@ permutation, a ``torch.Generator`` for the seeds — so a resumed run
 redraws identical values.  They are not the JAX package's
 threefry bits; the parity tests hand both packages the same draws, and
 every dropout mask is bitwise equal given its seed.
+
+Under a data mesh (``state.placement``, ``parallel.placement``) each
+process runs the step on its rows of the global batch, and the step is
+the JAX global-batch step: the draws are the global batch's (``b0``, the
+rank's first global row, offsets every dropout stream and selects the
+rank's mixup partners and crops), the model's collectives (BatchNorm's
+global statistics, the amax MAX, the mixup partners) run inside
+``DataGroup.active()``, the gradients are reduced to the global mean
+(``Placement.reduce_grads``; the LM's loss divides by the global target
+count), the update runs on the rank's shard (fsdp / zero1), and the
+metrics come back summed over the ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -56,6 +68,7 @@ import numpy as np
 import torch
 
 from faster_distributed_training_tpu_torch.config import TrainConfig
+from faster_distributed_training_tpu_torch.parallel import collectives
 from faster_distributed_training_tpu_torch.train import mixup as mx
 from faster_distributed_training_tpu_torch.train.amp import (
     scale_loss, unscale_and_check, update_loss_scale)
@@ -75,6 +88,7 @@ class StepDraws:
     perm: np.ndarray       # mixup partner index per row
     crop: Optional[np.ndarray] = None   # images: (n, 2) offsets in [0, 8]
     flip: Optional[np.ndarray] = None   # images: (n,) horizontal flips
+    b0: int = 0            # global index of this process's first row
 
 
 def seeds_on(draws: StepDraws, device) -> StepDraws:
@@ -194,17 +208,23 @@ def _grads(loss, params: Dict[str, torch.Tensor], loss_scale=None):
 
 
 def lm_loss_and_grads(model, batch: Dict[str, torch.Tensor],
-                      draws: StepDraws, loss_scale=None):
+                      draws: StepDraws, loss_scale=None, group=None):
     """The LM training forward (``mask=None``: packed rows have nothing to
     mask in attention; padded targets leave the loss through
     ``lm_shift_metrics``' token mask), the per-token mean loss and the
-    gradients.  Returns (loss, grads by name, loss_total, correct,
-    total)."""
+    gradients.  Under a data ``group`` the mean is over the global batch's
+    targets: this rank's loss is ``world * loss_total / global total``,
+    so the mean of the ranks' gradients is the global loss's.  Returns
+    (loss, grads by name, loss_total, correct, total)."""
     logits = model(batch["tokens"], token_types=batch.get("token_types"),
                    mask=None, train=True, draws=draws)
     loss_total, correct, total = lm_shift_metrics(logits, batch["tokens"],
                                                   batch.get("mask"))
-    loss = loss_total / torch.clamp(total, min=1.0)
+    if group is not None and group.live:
+        every = group.sum_(total.detach().clone())
+        loss = loss_total * float(group.world) / torch.clamp(every, min=1.0)
+    else:
+        loss = loss_total / torch.clamp(total, min=1.0)
     grads = _grads(loss, dict(model.named_parameters()), loss_scale)
     return loss, grads, loss_total, correct, total
 
@@ -220,7 +240,8 @@ def loss_and_grads(model, batch: Dict[str, torch.Tensor], draws: StepDraws,
                                mask=batch.get("mask"), train=True,
                                draws=draws)
     lam = lam.to(logits.device)
-    y_b = y[index]
+    group = collectives.current()
+    y_b = (y if group is None else group.gather(y))[index]
     loss = mixup_criterion(cross_entropy, logits, y, y_b, lam)
     grads = _grads(loss, dict(model.named_parameters()), loss_scale)
     return loss, grads, logits, y_b, lam
@@ -237,9 +258,10 @@ def image_loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
 
     x, y = batch["image"], batch["label"]
     dev = x.device
+    rows = slice(draws.b0, draws.b0 + x.shape[0])
     if x.dtype == torch.uint8:
-        x = augment_batch(x, _pinned(draws.crop, dev),
-                          _pinned(draws.flip, dev), train=True)
+        x = augment_batch(x, _pinned(draws.crop, dev)[rows],
+                          _pinned(draws.flip, dev)[rows], train=True)
     perm = _pinned(draws.perm, dev)
     if mode == "meta":
         x, y_a, y_b, lam = mx.meta_mixup_apply(state.extra["mixup_lambda"],
@@ -281,6 +303,20 @@ def _select_(finite: torch.Tensor, live, old) -> None:
             t.copy_(torch.where(finite, t, o))
 
 
+def _update(state: TrainState, grads: Dict[str, torch.Tensor],
+            scalars=None) -> None:
+    """The optimizer's update of the parameters in place: under a
+    placement on this rank's shard of each sharded parameter, then the
+    shards made whole again where the placement says."""
+    pl = state.placement
+    if pl is None:
+        state.tx.update(grads, state.opt_state, state.params(), scalars)
+        return
+    state.tx.update(pl.local(grads), state.opt_state, pl.update_views(state),
+                    scalars)
+    pl.after_update(state)
+
+
 def apply_update(state: TrainState, grads: Dict[str, torch.Tensor],
                  fp16: bool, buffers=None, scalars=None) -> torch.Tensor:
     """Clip and update (the optimizer), then advance the step.  Under
@@ -289,7 +325,8 @@ def apply_update(state: TrainState, grads: Dict[str, torch.Tensor],
     buffers go back to ``buffers`` (their values before the forward).
     With ``scalars`` (a dispatch) the optimizer takes them, the skip is
     a device select and the loss scale moves in place: nothing reads the
-    device.  Returns the device bool ``finite``."""
+    device.  ``grads`` are the reduced (global) gradients.  Returns the
+    device bool ``finite``."""
     grads, finite = unscale_and_check(grads, state.loss_scale, fp16)
     new_scale = update_loss_scale(state.loss_scale, finite, fp16)
     if scalars is not None:
@@ -298,7 +335,7 @@ def apply_update(state: TrainState, grads: Dict[str, torch.Tensor],
             live = (list(state.params().values())
                     + _opt_tensors(state.opt_state))
             old = [t.detach().clone() for t in live]
-        state.tx.update(grads, state.opt_state, state.params(), scalars)
+        _update(state, grads, scalars)
         if fp16:
             _select_(finite, live + list(state.model.buffers()),
                      old + list(buffers))
@@ -311,7 +348,7 @@ def apply_update(state: TrainState, grads: Dict[str, torch.Tensor],
             for b, old in zip(state.model.buffers(), buffers):
                 b.copy_(old)
     else:
-        state.tx.update(grads, state.opt_state, state.params())
+        _update(state, grads)
     state.loss_scale = new_scale
     state.step += 1
     return finite
@@ -324,11 +361,18 @@ def _snapshot(state: TrainState, fp16: bool):
     return [b.detach().clone() for b in state.model.buffers()]
 
 
+def _data_group(state: TrainState):
+    """The step's live DataGroup, or None (one process)."""
+    pl = state.placement
+    return pl.group if pl is not None and pl.group.live else None
+
+
 def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
                                                              Metrics]]:
     """``step(state, batch, draws=None, scalars=None) -> (state,
-    metrics)``; ``batch`` holds device tensors (``to_device``).  Without
-    ``draws`` the step derives them from (state.seed, state.step).
+    metrics)``; ``batch`` holds device tensors (``to_device``): this
+    process's rows of the global batch.  Without ``draws`` the step
+    derives the global batch's from (state.seed, state.step).
     ``scalars``: a dispatch's device scalars for the optimizer (see the
     module docstring); its metrics then also hold ``finite`` (fp16).
     Updates the state in place and advances its step."""
@@ -338,39 +382,59 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
     mode = resolve_mixup_mode(cfg)
     fp16 = cfg.precision == "fp16"
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             draws: StepDraws = None, scalars=None
-             ) -> Tuple[TrainState, Metrics]:
+    def forward_backward(state, batch, draws, group):
+        """(draws, loss, grads, metric inputs) of this rank's rows."""
         ls = state.loss_scale if fp16 else None
-        buffers = _snapshot(state, fp16)
+        world = 1 if group is None else group.world
+        B = batch["image" if image else "tokens"].shape[0]
         if image:
-            B = batch["image"].shape[0]
-            draws = draws or image_draws(state.seed, state.step, B,
+            draws = draws or image_draws(state.seed, state.step, B * world,
                                          cfg.alpha)
-            loss, grads, logits, y_a, y_b, lam = image_loss_and_grads(
-                state, batch, draws, mode, ls)
         else:
             # the LM draws lambda and the permutation too and never uses
             # them, as the JAX step threads its mixup key
-            B = batch["tokens"].shape[0]
             draws = seeds_on(draws or step_draws(
-                state.seed, state.step, B, state.model.n_dropout_sites(),
-                alpha), batch["tokens"].device)
+                state.seed, state.step, B * world,
+                state.model.n_dropout_sites(), alpha),
+                batch["tokens"].device)
+        if group is not None:
+            draws = dataclasses.replace(draws, b0=group.origin(B))
+        if image:
+            loss, grads, logits, y_a, y_b, lam = image_loss_and_grads(
+                state, batch, draws, mode, ls)
+            return B, loss, grads, (logits, y_a, y_b, lam)
         if lm:
             loss, grads, loss_total, correct, total = lm_loss_and_grads(
-                state.model, batch, draws, ls)
-            finite = apply_update(state, grads, fp16, buffers, scalars)
+                state.model, batch, draws, ls, group)
+            return B, loss, grads, (loss_total, correct, total)
+        loss, grads, logits, y_b, lam = loss_and_grads(state.model, batch,
+                                                       draws, ls)
+        return B, loss, grads, (logits, batch["label"], y_b, lam)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             draws: StepDraws = None, scalars=None
+             ) -> Tuple[TrainState, Metrics]:
+        pl = state.placement
+        if pl is not None:
+            pl.unpark(state)
+        group = _data_group(state)
+        buffers = _snapshot(state, fp16)
+        with (group.active() if group is not None
+              else contextlib.nullcontext()):
+            B, loss, grads, out = forward_backward(state, batch, draws,
+                                                   group)
+        if pl is not None:
+            grads = pl.reduce_grads(grads)
+        finite = apply_update(state, grads, fp16, buffers, scalars)
+        if lm:
+            loss_total, correct, total = out
             # loss is the per-token mean; loss_total / total the exact
             # token-weighted epoch loss; accuracy is next-token accuracy
             metrics = {"loss": loss.detach(),
                        "loss_total": loss_total.detach(),
                        "correct": correct, "total": total}
         else:
-            if not image:
-                y_a = batch["label"]
-                loss, grads, logits, y_b, lam = loss_and_grads(
-                    state.model, batch, draws, ls)
-            finite = apply_update(state, grads, fp16, buffers, scalars)
+            logits, y_a, y_b, lam = out
             # the mixup-weighted accuracy: lam a scalar or one a sample
             with torch.no_grad():
                 pred = logits.argmax(dim=-1)
@@ -382,6 +446,9 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
                      torch.full((), float(B), device=logits.device))
             metrics = {"loss": loss.detach().float(),
                        "correct": correct.float(), "total": total}
+        if pl is not None:
+            metrics = pl.reduce_metrics(metrics)
+            pl.park(state)
         if fp16:
             metrics["loss_scale"] = state.loss_scale.scale
             if scalars is not None:
@@ -395,12 +462,22 @@ def make_eval_step(cfg: TrainConfig) -> Callable[[TrainState, Dict],
                                                  Metrics]:
     """Eval: deterministic forward (no dropout, no mixup); a padded final
     batch's ``valid`` mask keeps its pad rows out of every sum.  The LM
-    evaluates the shifted next-token objective."""
+    evaluates the shifted next-token objective.  Under a data mesh the
+    sums are over every rank's rows."""
     lm = cfg.task == "lm"
     image = cfg.model != "transformer"
 
-    @torch.no_grad()
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Metrics:
+        m = local_step(state, batch)
+        if state.placement is None or not state.placement.group.live:
+            return m
+        m = state.placement.reduce_metrics(m)
+        m["loss"] = m["loss_total"] / torch.clamp(m["total"], min=1.0)
+        return m
+
+    @torch.no_grad()
+    def local_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                   ) -> Metrics:
         if image:
             from faster_distributed_training_tpu_torch.data.augment import (
                 normalize)

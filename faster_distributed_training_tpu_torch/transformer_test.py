@@ -14,5 +14,8 @@ from faster_distributed_training_tpu_torch.cli import TRANSFORMER_DEFAULTS, main
 DEFAULTS = TRANSFORMER_DEFAULTS
 
 if __name__ == "__main__":
+    import torch.distributed as dist
+
     result = main(defaults=DEFAULTS, prog="transformer_test")
-    print(f"best test accuracy: {result['best_acc']:.4f}")
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(f"best test accuracy: {result['best_acc']:.4f}")

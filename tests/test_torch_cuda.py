@@ -1077,3 +1077,106 @@ def test_a_host_sync_inside_capture_raises(card, tmp_path, monkeypatch):
         _k_run(tmp_path, ["--steps_per_dispatch", "4"])
     # the warm-up step ran eagerly and the capture raised: one call each
     assert len(calls) == 1
+
+
+# -- slice 10: the data mesh on the card ---------------------------------------
+
+def test_kernels_at_a_batch_origin_are_bitwise_the_full_rows(card):
+    """Rows 1 and 4 (the flash forward with lse, its backward) and rows 7
+    and 8 (the fused FFN, plain and int8) at D 64, dropout 0.1, launched
+    on the two halves of a batch at b0 = 0 and b0 = B/2: bitwise the
+    full launch's rows (the FFN's 64-row blocks divide the half)."""
+    from faster_distributed_training_tpu_torch.ops import fused_ffn as ffn
+
+    B, H, L, D, seed, rate = 4, 4, 128, 64, 0x2545F491, 0.1
+    q, k, v = _qkv(card, B, H, L, D, torch.bfloat16)
+    dout = torch.randn(B, H, L, D, generator=card, device="cuda").to(
+        torch.bfloat16)
+    mask = _mask(card, B, L)
+    full = flash_attention_stats(q, k, v, mask, rate, seed)
+    grads = flash_attention_bwd(q, k, v, *full[:2], dout, mask, rate, seed,
+                                full[2])
+    for b0 in (0, B // 2):
+        s = slice(b0, b0 + B // 2)
+        got = flash_attention_stats(q[s], k[s], v[s], mask[s], rate, seed,
+                                    b0=b0)
+        for a, b in zip(got, full):
+            assert torch.equal(a, b[s]), b0
+        g = flash_attention_bwd(q[s], k[s], v[s], *got[:2], dout[s],
+                                mask[s], rate, seed, got[2], b0=b0)
+        for a, b in zip(g, grads):
+            assert torch.equal(a, b[s]), b0
+    d, d_ff = 64, 128
+    h = torch.randn(B * L, d, generator=card, device="cuda").to(
+        torch.bfloat16)
+    ws = [(torch.randn(*shape, generator=card, device="cuda") * 0.1).to(dt)
+          for shape, dt in (((d,), torch.float32), ((d,), torch.float32),
+                            ((d_ff, d), torch.bfloat16),
+                            ((d_ff,), torch.bfloat16),
+                            ((d, d_ff), torch.bfloat16),
+                            ((d,), torch.bfloat16))]
+    scales = torch.tensor([30.0, 300.0, 60.0, 250.0], device="cuda")
+    for fmt in (None, "int8"):
+        def run(x, b0):
+            return ffn.ffn_fwd_generalized(x, *ws, (11, 12, b0, 0, 0), scales,
+                                           rate, rate, 1e-6, L, L, d_ff, fmt)
+        out, amax = run(h, 0)
+        halves = [run(h[b0 * L:(b0 + B // 2) * L], b0)
+                  for b0 in (0, B // 2)]
+        assert torch.equal(torch.cat([o for o, _ in halves]), out), fmt
+        assert torch.equal(torch.maximum(halves[0][1], halves[1][1]), amax)
+
+
+@pytest.fixture
+def nccl_env(monkeypatch):
+    """torchrun's variables for a world-1 NCCL group on this host (the
+    entry point joins it under ``--distributed``); the group is left
+    after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port)),
+                 ("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_world1_nccl_step_is_bitwise_the_plain_step(card, tmp_path,
+                                                   nccl_env):
+    """The entry point under ``--distributed --mesh dp=1`` (world 1 over
+    NCCL: every collective of the data mesh runs) against no process
+    group: every leaf bitwise equal."""
+    import torch.distributed as dist
+
+    one, want = _k_run(tmp_path, [])
+    dp1, got = _k_run(tmp_path, ["--distributed", "--mesh", "dp=1"])
+    assert dist.is_initialized() and dist.get_backend() == "nccl"
+    assert dp1["state"].placement is not None
+    assert want.keys() == got.keys()
+    for key in want:
+        assert torch.equal(want[key], got[key]), key
+
+
+def test_host_offload_is_bitwise_no_offload(card, tmp_path, nccl_env):
+    """``--fsdp --host_offload --offload_opt_state`` at world 1: the
+    parameters and optimizer state rest in pinned host memory between
+    steps and every leaf ends bitwise equal to the resident run's."""
+    from faster_distributed_training_tpu_torch.train.state import (
+        state_leaves)
+
+    dp1 = ["--distributed", "--mesh", "fsdp=1", "--fsdp"]
+    _, want = _k_run(tmp_path, dp1)
+    out, _ = _k_run(tmp_path, dp1 + ["--host_offload",
+                                     "--offload_opt_state"])
+    pl = out["state"].placement
+    assert pl.host and all(b.is_pinned() for b in pl.host.values())
+    got = state_leaves(out["state"])
+    assert want.keys() == got.keys()
+    for key in want:
+        assert torch.equal(want[key], got[key]), key
