@@ -9,6 +9,7 @@ width.
     python3 chip_smoke.py --resnet
     python3 chip_smoke.py --dispatch
     python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --tp
 
 The second form prints only the device split of one record-width
 training step of the slice-2 path and paths B and C, and whether two
@@ -17,7 +18,7 @@ seq 8192 on a random batch), for the port at DIR (default: this
 checkout): run it on a parent and a change in one call to compare them.
 The third runs phase R (the ResNet slice, no kernel build) alone; the
 fourth builds the kernels and runs phases K (without path E) and M; the
-fifth builds them and runs phase P alone.
+fifth builds them and runs phase P alone, the sixth phase T alone.
 Needs one CUDA card and the repo checkout beside this file; without
 either it exits non-zero and prints no result.  Phases, in order (any
 failure raises and exits non-zero):
@@ -215,13 +216,44 @@ failure raises and exits non-zero):
                both ranks' states bitwise equal after every step, held to
                the world-1 run within the CPU tests' loss 1e-5 and params
                1e-4, step ms;
+  T. tp      — tensor parallelism (slice 11) on the one card (NCCL
+               refuses two ranks on one device: a multi-card tp mesh is
+               not measured).  T1, one process: rows 1 and 4 at the
+               record's shape and 2 and 3 at path E's, dropout 0.1, on
+               the head halves at h0 = 0 and H/2 (h_glob = H): out, lse,
+               dq, dk, dv bitwise the full launch's heads (the plain
+               versions too at the record's shape); row 8' (the fused
+               FFN's tp ``partial`` tile) for none, int8 and E4M3 at
+               8192 x 512 -> 512 of d_ff 1024, c0 = 0 and 512: each tile
+               against its plain version (2e-2 of max |plain|, E4M3 of
+               max |h + plain|; amaxes 1e-2), two launches bitwise, the
+               two tiles summed + b2, connection dropout and residual
+               against the full row 8 launch (2e-2), the tiles' amaxes'
+               MAX against the full launch's; its timing (kernel, plain,
+               the shard's two cuBLAS GEMMs, bound); row 9's column shards
+               (qkv on H/2 heads, Dense_0 on d_ff/2) bitwise the full
+               launch's columns and its row shards (out, Dense_1) summed
+               against the full GEMM (2e-2), the qkv shard's timing.  T2,
+               two ranks on the card over gloo at ``--mesh tp=2``: (a)
+               fp32, the record's widths at 2 layers, flash and the fused
+               FFN, 4 fixed batches, against world 1 (loss 1e-5, params
+               1e-4; the ranks' replicated leaves bitwise after every
+               step); (b) path B (``--ffn_impl pallas --quant int8``,
+               bf16) at full width, 4 steps: finite losses, replicated
+               leaves bitwise, each hand kernel's device launches in one
+               step from torch.profiler (rows 1 and 4: 6 on 4 of 8 heads,
+               row 8': 6, row 9: 24; the wrappers' counts set to 0 just
+               before the run and read after), step ms beside world 1's
+               (printed, not a claim);
   7. output  — p50/p99/qps, the phase-R summary, the kernels JSON line
                (launches from the
                training run, the recompute route's from phase M's
                ``--remat`` run, each kernel's under K=4 beside them,
                fused_ffn's from path A, fused_ffn_quant's and
                quant_matmul's from path B, rows 2 and 3's from path E;
-               the serving runs' beside them),
+               the serving runs' beside them; each kernel's device
+               launches in one T2(b) step at tp=2; row 8''s partial tile
+               with its T2(b) launches and T1's times),
                the card line, and last the ok line.
 """
 
@@ -3582,6 +3614,509 @@ def mesh_phase(cli, build_dir: str) -> dict:
     return out
 
 
+T_LAYERS = 2             # T2(a)'s depth
+T_RECORD_LAYERS = 6      # T2(b): the record's depth
+
+
+def tp_kernels(gen) -> dict:
+    """T1: every hand kernel on a tp rank's shard, in one process.  Rows 1
+    and 4 at the record's shape (and 2, 3 at path E's), dropout 0.1, on
+    heads [0, H/2) and [H/2, H) (h0 = 0 and H/2, h_glob = H): out, lse,
+    dq, dk, dv bitwise the full launch's heads (the plain versions too at
+    the record's shape).  Row 8' (the fused FFN's tp ``partial`` tile) for
+    none, int8 and E4M3 at 8192 rows, d 512 -> d_ff/2 = 512 -> 512, c0 = 0
+    and 512: each against its plain version (2e-2 of max |plain|; E4M3 of
+    max |h + plain|, the scale the sublayer's output reads; amaxes 1e-2),
+    two launches bitwise, the two tiles summed + b2, connection dropout
+    and residual against the full row 8 launch (2e-2 of max |full|), the
+    halves' amaxes against the full one's; its timing.  Row 9: the column
+    shards (qkv on H/2 heads, Dense_0 on d_ff/2) bitwise the full launch's
+    columns, the row shards (out, Dense_1) summed against the full launch
+    (2e-2 of max |plain|); the qkv shard's timing."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.ops.dropout import (
+        keep_factor_rows)
+    from faster_distributed_training_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_stats, flash_attention_stats_reference)
+    from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+        _ffn_body_reference, ffn_fwd_generalized)
+    from faster_distributed_training_tpu_torch.ops.quant import (
+        quant_dot_reference, quant_matmul, quantize)
+    from faster_distributed_training_tpu_torch.parallel.sharding import (
+        tp_shard)
+
+    seed, rate, bf16 = 0x2545F491, 0.1, torch.bfloat16
+    out = {}
+
+    def same(tag, got, want):
+        d = float((got.float() - want.float()).abs().max())
+        check(torch.equal(got, want), f"T1 {tag}: shard != full ({d})")
+
+    for B, H, L, D, plain in ((16, 8, 512, 64, True),
+                              (LONG["B"], LONG["H"], LONG["L"], LONG["D"],
+                               False)):
+        q, k, v = qkv_views(B, H, L, D, bf16, gen)
+        dout = torch.randn(B, H, L, D, generator=gen, device="cuda"
+                           ).to(bf16)
+        mask = ragged_mask(B, L, gen)
+        full = flash_attention_stats(q, k, v, mask, rate, seed)
+        grads = flash_attention_bwd(q, k, v, *full[:2], dout, mask, rate,
+                                    seed, full[2])
+        if plain:
+            cpu = [t.cpu() for t in (q, k, v, dout, mask)]
+            pfull = flash_attention_stats_reference(*cpu[:3], cpu[4], rate,
+                                                    seed)
+            pgrads = flash_attention_bwd_reference(
+                *cpu[:3], *pfull[:2], cpu[3], cpu[4], rate, seed, pfull[2])
+        for h0 in (0, H // 2):
+            s = slice(h0, h0 + H // 2)
+            got = flash_attention_stats(q[:, s], k[:, s], v[:, s], mask,
+                                        rate, seed, h0=h0, h_glob=H)
+            for name, a, b in zip(("out", "lse", "lse_lo"), got, full):
+                same(f"flash L{L} h0={h0} {name}", a, b[:, s])
+            g = flash_attention_bwd(q[:, s], k[:, s], v[:, s], *got[:2],
+                                    dout[:, s], mask, rate, seed, got[2],
+                                    h0=h0, h_glob=H)
+            for name, a, b in zip(("dq", "dk", "dv"), g, grads):
+                same(f"flash bwd L{L} h0={h0} {name}", a, b[:, s])
+            if not plain:
+                continue
+            cs = [t[:, s] for t in cpu[:4]]
+            pg = flash_attention_stats_reference(*cs[:3], cpu[4], rate, seed,
+                                                 h0=h0, h_glob=H)
+            for name, a, b in zip(("out", "lse", "lse_lo"), pg, pfull):
+                same(f"plain L{L} h0={h0} {name}", a, b[:, s])
+            pgg = flash_attention_bwd_reference(
+                *cs[:3], *pg[:2], cs[3], cpu[4], rate, seed, pg[2], h0=h0,
+                h_glob=H)
+            for name, a, b in zip(("dq", "dk", "dv"), pgg, pgrads):
+                same(f"plain bwd L{L} h0={h0} {name}", a, b[:, s])
+        print(f"[tp T1] flash rows {'1 and 4' if plain else '2 and 3'} at "
+              f"B {B} H {H} L {L}: the head halves at h0 = 0 and {H // 2} "
+              f"(h_glob {H}) bitwise the full launch's heads (kernels"
+              + (" and plain versions)" if plain else ")"), flush=True)
+    rows, d, d_ff = FFN_SHAPE
+    half = d_ff // 2
+    args = ffn_inputs(gen, rows, d, d_ff, bf16)
+    h, ln_s, ln_b, w1, b1, w2, b2 = args
+    scales = torch.tensor(FFN_SCALES, device="cuda")
+    keep = keep_factor_rows(FFN_SEEDS[1], torch.arange(rows, device="cuda"),
+                            d, rate)
+    errs, amax_same = {}, {}
+    for fmt in (None, "int8", "fp8"):
+        tag = fmt or "none"
+        full, amax = ffn_fwd_generalized(*args, FFN_SEEDS, scales, rate,
+                                         rate, 1e-6, 1, 1, d_ff, fmt)
+        quant = None if fmt is None else (fmt, *scales.unbind(), None)
+        tiles, worst, worst_abs = [], 0.0, 0.0
+        for c0 in (0, half):
+            shard = (h, ln_s, ln_b, w1[c0:c0 + half].contiguous(),
+                     b1[c0:c0 + half].contiguous(),
+                     w2[:, c0:c0 + half].contiguous(), b2)
+            seeds = FFN_SEEDS[:4] + (c0,)
+            p, a = ffn_fwd_generalized(*shard, seeds, scales, rate, 0.0,
+                                       1e-6, 1, 1, d_ff, fmt, partial=True)
+            p2, a2 = ffn_fwd_generalized(*shard, seeds, scales, rate, 0.0,
+                                         1e-6, 1, 1, d_ff, fmt, partial=True)
+            check(torch.equal(p, p2) and torch.equal(a, a2),
+                  f"T1 row 8' {tag} c0={c0}: two launches differ")
+            want, want_amax = _ffn_body_reference(
+                *[t.cpu() for t in shard], seeds[0], seeds[1], rate, 0.0,
+                1e-6, c0=c0, dff_glob=d_ff,
+                quant=None if quant is None else (
+                    fmt, *[s.cpu() for s in scales.unbind()], None),
+                return_amax=True, plain_gemm=True, partial=True)
+            want, want_amax = want.cuda(), want_amax.cuda()
+            e = (p - want).abs().max().item()
+            scale = (h.float() + want if fmt == "fp8" else want
+                     ).abs().max().item()
+            worst, worst_abs = max(worst, e / scale), max(worst_abs, e)
+            check(e <= 2e-2 * scale, f"T1 row 8' {tag} c0={c0}: err {e} "
+                  f"over 2e-2 x {scale}")
+            if fmt is not None:
+                check(torch.allclose(a, want_amax, rtol=1e-2, atol=0),
+                      f"T1 row 8' {tag} c0={c0}: amax {a} vs {want_amax}")
+            tiles.append((p, a))
+        got = (h.float() + (tiles[0][0] + tiles[1][0] + b2.float()) * keep
+               ).to(bf16)
+        e_sum = (got.float() - full.float()).abs().max().item()
+        rel_sum = e_sum / full.float().abs().max().item()
+        check(rel_sum <= 2e-2, f"T1 row 8' {tag}: the tiles' sum vs the full "
+              f"launch {rel_sum}")
+        if fmt is not None:
+            m = torch.maximum(tiles[0][1], tiles[1][1])
+            amax_same[tag] = bool(torch.equal(m, amax))
+            check(torch.allclose(m, amax, rtol=1e-2, atol=0),
+                  f"T1 row 8' {tag}: the tiles' amax MAX {m} vs {amax}")
+            check(torch.equal(tiles[0][1][0], tiles[1][1][0]),
+                  f"T1 row 8' {tag}: the tiles' amax_f differ")
+        errs[tag] = {"rel": worst, "abs": worst_abs, "sum_rel": rel_sum}
+        print(f"[tp T1] row 8' partial {tag} at {rows} x {d} -> {half} of "
+              f"{d_ff}: each tile vs its plain version {worst:.5f} of max "
+              f"|" + ("h + " if fmt == "fp8" else "") + "plain| (tol 2e-2); "
+              f"two launches bitwise; tiles summed + b2, dropout, residual "
+              f"vs the full launch {rel_sum:.5f} of max |full| (tol 2e-2)"
+              + (f"; amax_f equal, the amax MAX "
+                 + ("bitwise" if amax_same[tag] else "within 1e-2")
+                 + " the full launch's" if fmt else ""), flush=True)
+    out["row8p_err"] = errs
+    out["row8p_amax_bitwise"] = amax_same
+    # timing at rank 1's tile (c0 = 512): kernel, plain, library (the
+    # shard's two cuBLAS GEMMs), bound
+    shard = (h, ln_s, ln_b, w1[half:].contiguous(), b1[half:].contiguous(),
+             w2[:, half:].contiguous(), b2)
+    seeds = FFN_SEEDS[:4] + (half,)
+    f = torch.randn(rows, d, generator=gen, device="cuda").to(bf16)
+    a = torch.randn(rows, half, generator=gen, device="cuda").to(bf16)
+    inv = [(1.0 / v).reshape(()) for v in scales.unbind()]
+    timings = {}
+    for fmt in (None, "int8", "fp8"):
+        quant = None if fmt is None else (fmt, *scales.unbind(), None)
+        t = {"kernel": measure(lambda: ffn_fwd_generalized(
+                 *shard, seeds, scales, rate, 0.0, 1e-6, 1, 1, d_ff, fmt,
+                 partial=True)),
+             "plain": measure(lambda: _ffn_body_reference(
+                 *shard, seeds[0], seeds[1], rate, 0.0, 1e-6, c0=half,
+                 dff_glob=d_ff, quant=quant, return_amax=True,
+                 plain_gemm=True, partial=True))}
+        if fmt is None:
+            t["library"] = library(lambda: (
+                torch.matmul(f, shard[3].t()), torch.matmul(a, shard[5].t())))
+        else:
+            fq, aq = quantize(f, scales[0], fmt), quantize(a, scales[2], fmt)
+            w1q = quantize(shard[3], scales[1], fmt)
+            w2q = quantize(shard[5], scales[3], fmt)
+            if fmt == "int8":
+                t["library"] = library(lambda: (torch._int_mm(fq, w1q.t()),
+                                                torch._int_mm(aq, w2q.t())))
+            else:
+                t["library"] = library(lambda: (
+                    torch._scaled_mm(fq, w1q.t(), scale_a=inv[0],
+                                     scale_b=inv[1], out_dtype=bf16),
+                    torch._scaled_mm(aq, w2q.t(), scale_a=inv[2],
+                                     scale_b=inv[3], out_dtype=bf16)))
+        w_bytes = 2 if fmt is None else 1
+        # read h (bf16), the shard's weights, biases and LN parameters
+        # once; write the fp32 tile (and two amaxes)
+        t["bound_ms"], t["bound_by"] = bound(
+            rows * d * 2 + rows * d * 4 + 2 * d * half * w_bytes
+            + 2 * (half + d) + 8 * d + 8, 4 * rows * d * half,
+            "bf16" if fmt is None else fmt)
+        timings[fmt or "none"] = t
+        lib = t["library"]
+        print(f"[tp T1] row 8' partial {fmt or 'none'} timing: device ms per "
+              f"call ({t['kernel']['timer']}): kernel {t['kernel']['ms']:.5f}"
+              f", plain {t['plain']['ms']:.5f}, library "
+              + (f"{lib['ms']:.5f}" if lib else "n/a")
+              + f" (the shard's two cuBLAS GEMMs); per call incl. launch "
+              f"(events): kernel {t['kernel']['call_ms']:.5f}; bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']})", flush=True)
+    out["row8p"] = timings
+    # row 9 per shard
+    worst_row = 0.0
+    for fmt in ("int8", "fp8"):
+        for name, (M, K, N), cut in (("qkv", QMM_SHAPES["qkv"], "heads"),
+                                     ("Dense_0", (8192, 512, 1024), "rows")):
+            xq, wq, sx, sw = quant_operands(gen, M, K, N, fmt)
+            full = quant_matmul(xq, wq, sx, sw, fmt, bf16)
+            for r in range(2):
+                w_r = tp_shard(wq.view(torch.uint8), cut, r, 2, 8).view(
+                    wq.dtype)
+                got = quant_matmul(xq, w_r, sx, sw, fmt, bf16)
+                same(f"row 9 {name} {fmt} column shard {r}", got,
+                     tp_shard(full.T, cut, r, 2, 8).T)
+        for name, (M, K, N) in (("out", (8192, 512, 512)),
+                                ("Dense_1", (8192, 1024, 512))):
+            xq, wq, sx, sw = quant_operands(gen, M, K, N, fmt)
+            want = quant_dot_reference(xq, wq, sx, sw, fmt, torch.float32)
+            kh = K // 2
+            got = sum(quant_matmul(
+                xq[:, r * kh:(r + 1) * kh].contiguous(),
+                wq[:, r * kh:(r + 1) * kh].contiguous(), sx, sw, fmt,
+                bf16).float() for r in range(2))
+            e = ((got - want).abs().max() / want.abs().max()).item()
+            worst_row = max(worst_row, e)
+            check(e <= 2e-2, f"T1 row 9 {name} {fmt} row shards: {e}")
+    print(f"[tp T1] row 9: column shards (qkv on H/2 heads, Dense_0 on "
+          f"d_ff/2) bitwise the full launch's columns; row shards (out, "
+          f"Dense_1) summed vs the full GEMM {worst_row:.5f} of max |plain| "
+          f"(tol 2e-2), int8 and E4M3", flush=True)
+    out["row9_row_err"] = worst_row
+    M, K, N = QMM_SHAPES["qkv"]
+    xq, wq, sx, sw = quant_operands(gen, M, K, N, "int8")
+    w_r = tp_shard(wq, "heads", 1, 2, 8)
+    t = {"kernel": measure(lambda: quant_matmul(xq, w_r, sx, sw, "int8",
+                                                bf16)),
+         "plain": measure(lambda: quant_dot_reference(xq, w_r, sx, sw,
+                                                      "int8", bf16)),
+         "library": library(lambda: torch._int_mm(xq, w_r.t()))}
+    n_r = w_r.shape[0]
+    t["bound_ms"], t["bound_by"] = bound(M * K + n_r * K + 2 * M * n_r,
+                                         2 * M * K * n_r, "int8")
+    out["row9_qkv_shard"] = t
+    print(f"[tp T1] row 9 qkv column shard {M}x{K}->{n_r} int8: device ms "
+          f"per call: kernel {t['kernel']['ms']:.5f}, plain "
+          f"{t['plain']['ms']:.5f}, library "
+          + (f"{t['library']['ms']:.5f}" if t["library"] else "n/a")
+          + f"; bound {t['bound_ms']:.5f} ms ({t['bound_by']})", flush=True)
+    return out
+
+
+def t2_steps(flags, n_layers: int, n_steps: int, batch: int, seq: int,
+             profile_last: bool = False):
+    """The record at ``n_layers`` with ``flags`` stepped on ``n_steps``
+    fixed global batches with the global draws, as rank r of the running
+    group at ``--mesh tp=<world>`` (no group: one card, no tp).  The
+    wrappers' launch counts set to 0 just before and read just after;
+    with ``profile_last`` the last step runs under torch.profiler (the
+    hand kernels' device launches, the step's device ms).  Returns a
+    dict: losses, per-step digests of the replicated leaves (this rank's
+    copies), the whole state at the end, step ms (median after the
+    first), launches, the profiled step's."""
+    import contextlib
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.ops import fused_ffn as ffn
+    from faster_distributed_training_tpu_torch.optim import build_optimizer
+    from faster_distributed_training_tpu_torch.parallel import (
+        Placement, make_mesh, make_put_batch, mesh_groups)
+    from faster_distributed_training_tpu_torch.parallel.collectives import (
+        DataGroup)
+    from faster_distributed_training_tpu_torch.parallel.sharding import (
+        tp_cut)
+    from faster_distributed_training_tpu_torch.train.state import (
+        create_train_state, state_leaves)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_train_step, mixup_alpha, step_draws)
+
+    defaults = cli.TRANSFORMER_DEFAULTS
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh_flags = ["--mesh", f"tp={world}"] if world > 1 else []
+    cfg = cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
+        ["--device", "cuda", "--n_layers", str(n_layers), "--bs",
+         str(batch), "--attention", "flash"] + mesh_flags + list(flags)),
+        defaults=defaults)
+    group, tp, mesh = DataGroup(), None, None
+    if world > 1:
+        mesh = make_mesh(cfg.mesh_axes, cfg.mesh_shape, "cuda")
+        group, tp = mesh_groups(mesh)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = cli.build_model(cfg, vocab_size=30522, device="cuda", tp=tp
+                            ).init_weights(gen).cuda()
+    draws0 = step_draws(cfg.seed, 0, batch, model.n_dropout_sites(),
+                        mixup_alpha(cfg))
+    with group.active():
+        model.seed_amax_histories(batch, seq, draws0)
+    tx, _ = build_optimizer(cfg, 64)
+    state = create_train_state(model, tx, cfg.seed)
+    if world > 1:
+        state.placement = Placement(cfg, mesh, "cuda", group, tp)
+        state.placement.shard_state(state)
+    put = make_put_batch(group, "cuda")
+    step = make_train_step(cfg)
+    rng = np.random.default_rng(7)
+    losses, digests, times, prof = [], [], [], None
+    reset_counts()
+    ffn.ffn_fwd_generalized.partial_launches = 0
+    for i in range(n_steps):
+        lengths = rng.integers(seq // 4, seq + 1, batch)
+        mask = (np.arange(seq)[None] < lengths[:, None]).astype(np.int32)
+        tokens = rng.integers(1, 30522, (batch, seq)).astype(np.int32) * mask
+        glob = {"tokens": tokens, "token_types": np.zeros_like(tokens),
+                "mask": mask,
+                "label": rng.integers(0, 4, batch).astype(np.int32)}
+        draws = step_draws(cfg.seed, i, batch, model.n_dropout_sites(),
+                           mixup_alpha(cfg))
+        local = put(glob)
+        torch.cuda.synchronize()
+        if profile_last and i == n_steps - 1:
+            counts, got = read_counts(), {}
+            wall = time.perf_counter()
+            kern = device_kernels(
+                lambda: got.update(m=step(state, local, draws)[1]), 1)
+            wall = (time.perf_counter() - wall) * 1e3
+            prof = {"hand": hand_launches(kern), "wall_ms": wall,
+                    "device_ms": sum(us for us, _ in kern.values()) / 1e3,
+                    "launches": {k: read_counts()[k] - counts[k]
+                                 for k in counts}}
+            losses.append(float(got["m"]["loss"]))
+        else:
+            t0 = time.perf_counter()
+            state, m = step(state, local, draws)
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        leaves = {k: v for k, v in state_leaves(state).items()
+                  if k.startswith("model/") and tp_cut(k[6:]) is None}
+        h = hashlib.sha256()
+        for k in sorted(leaves):
+            h.update(leaves[k].detach().float().cpu().numpy().tobytes())
+        digests.append(h.hexdigest())
+    launches = dict(read_counts(),
+                    fused_ffn_partial=ffn.ffn_fwd_generalized.partial_launches)
+    pl = state.placement
+    with (pl.whole(state) if pl is not None else contextlib.nullcontext()):
+        whole = {k: v.detach().cpu() for k, v in state_leaves(state).items()}
+    return {"losses": losses, "digests": digests, "whole": whole,
+            "ms": statistics.median(times[1:] or times),
+            "launches": launches, "profile": prof,
+            "h_loc": model.layers[0].attn.h_loc}
+
+
+def t2_rank(rank: int, world: int, port: int, out_dir: str, tag: str,
+            args: tuple) -> None:
+    """One T2 rank: gloo on the one card, ``t2_steps(*args)``, its result
+    file."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        out = t2_steps(*args)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"t2_{tag}_{rank}.pt"))
+
+
+def t2_group(tag: str, args: tuple, out_dir: str, world: int = 2) -> list:
+    """``t2_steps(*args)`` on ``world`` gloo ranks sharing the card."""
+    import multiprocessing as mp
+
+    import torch
+
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=t2_rank, args=(r, world, port, out_dir, tag,
+                                               args)) for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    check(all(p.exitcode == 0 for p in procs),
+          f"T2 {tag}: ranks exited {[p.exitcode for p in procs]}")
+    return [torch.load(os.path.join(out_dir, f"t2_{tag}_{r}.pt"))
+            for r in range(world)]
+
+
+def tp_phase(build_dir: str) -> dict:
+    """Phase T: tensor parallelism on the one card (NCCL refuses two
+    ranks on one device, so no real tp mesh over NVLink).  T1 the kernels
+    per shard (``tp_kernels``).  T2 two gloo ranks at ``--mesh tp=2``:
+    (a) fp32, the record's widths, 2 layers, flash and ``--ffn_impl
+    pallas``, 4 fixed batches, against world 1 (loss 1e-5, params 1e-4),
+    the ranks' replicated leaves bitwise equal after every step; (b)
+    path B (``--ffn_impl pallas --quant int8``, bf16) at full width, 4
+    steps: finite losses, replicated leaves bitwise, each hand kernel's
+    device launches in one step from the profiler (rows 1 and 4: 6 on
+    H/2 heads, row 8': 6, row 9: 24), step ms beside world 1's."""
+    import numpy as np
+    import torch
+
+    out = {}
+    t0 = time.monotonic()
+    out.update(tp_kernels(torch.Generator(device="cuda").manual_seed(11)))
+    print(f"[tp] T1 in {time.monotonic() - t0:.1f}s", flush=True)
+    t0 = time.monotonic()
+    a_args = (["--precision", "fp32", "--ffn_impl", "pallas"], T_LAYERS, 4,
+              16, 512)
+    ref = t2_steps(*a_args)
+    ranks = t2_group("a", a_args, build_dir)
+    check(ranks[0]["digests"] == ranks[1]["digests"],
+          "T2(a): the ranks' replicated leaves differ")
+    loss_err = max(abs(x - y) for x, y in zip(ranks[0]["losses"],
+                                               ref["losses"]))
+    param_err = max(float((ranks[0]["whole"][k] - v).abs().max())
+                    for k, v in ref["whole"].items()
+                    if k.startswith("model/") and v.is_floating_point())
+    check(sorted(ranks[0]["whole"]) == sorted(ref["whole"]),
+          "T2(a): the gathered state's leaves differ from world 1's")
+    out.update(t2a_loss_err=loss_err, t2a_param_err=param_err,
+               t2a_ms=[r["ms"] for r in ranks], t2a_ms_world1=ref["ms"])
+    print(f"[tp T2a] tp=2 over gloo on one card, {T_LAYERS} layers fp32, "
+          f"flash + fused FFN, 4 steps: the ranks' replicated leaves bitwise "
+          f"equal after every step; vs world 1: loss err {loss_err:.3g} (tol "
+          f"1e-5), param err {param_err:.3g} (tol 1e-4); step ms median "
+          f"{out['t2a_ms']} (ranks 0, 1) against {ref['ms']:.2f} at world 1",
+          flush=True)
+    check(loss_err <= 1e-5 and param_err <= 1e-4, "T2(a): tp=2 vs world 1")
+    b_args = (["--ffn_impl", "pallas", "--quant", "int8"], T_RECORD_LAYERS,
+              4, 16, 512, True)
+    ref_b = t2_steps(*b_args)
+    rb = t2_group("b", b_args, build_dir)
+    check(rb[0]["digests"] == rb[1]["digests"],
+          "T2(b): the ranks' replicated leaves differ")
+    check(all(np.isfinite(r["losses"]).all() for r in rb),
+          f"T2(b): non-finite losses {[r['losses'] for r in rb]}")
+    n = T_RECORD_LAYERS
+    want = {"flash_fwd_kernel": n, "dkdv_kernel": n, "dq_kernel": n,
+            "ffn_kernel": n, "qmm_kernel": 4 * n, "mlp_fwd_kernel": 1}
+    for r in rb:
+        got = r["profile"]["hand"]
+        check(got == want and r["h_loc"] == 4,
+              f"T2(b): device launches a step {got} (heads a rank "
+              f"{r['h_loc']}), want {want} on 4 of 8 heads")
+        check(r["profile"]["launches"]["fused_ffn_quant"] == n
+              and r["launches"]["fused_ffn_partial"] == 4 * n,
+              f"T2(b): row 8' wrapper launches {r['launches']}")
+    out.update(t2b_launches=rb[0]["launches"],
+               t2b_device_launches=rb[0]["profile"]["hand"],
+               t2b_ms=[r["ms"] for r in rb], t2b_ms_world1=ref_b["ms"],
+               t2b_wall_ms=[r["profile"]["wall_ms"] for r in rb],
+               t2b_device_ms=[r["profile"]["device_ms"] for r in rb],
+               t2b_wall_ms_world1=ref_b["profile"]["wall_ms"],
+               t2b_device_ms_world1=ref_b["profile"]["device_ms"],
+               t2b_losses=rb[0]["losses"])
+    print(f"[tp T2b] path B (--ffn_impl pallas --quant int8, bf16) at "
+          f"{n} layers, tp=2 over gloo on one card, 4 steps: losses "
+          f"{[round(x, 4) for x in rb[0]['losses']]} finite; the ranks' "
+          f"replicated leaves bitwise equal after every step; device "
+          f"launches of one step {rb[0]['profile']['hand']} (rows 1 and 4 "
+          f"on {rb[0]['h_loc']} of 8 heads; row 8' the partial tile); "
+          f"step host wall ms median {out['t2b_ms']} (ranks 0, 1) against "
+          f"{ref_b['ms']:.2f} at world 1; the profiled step's device ms "
+          f"{out['t2b_device_ms']} against {ref_b['profile']['device_ms']:.2f}"
+          f" (printed, not a claim: gloo stages every collective through "
+          f"the host)", flush=True)
+    print(f"[tp] T2 in {time.monotonic() - t0:.1f}s", flush=True)
+    return out
+
+
+def tp_main() -> int:
+    """``--tp``: the kernels' build, then phase T alone."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from faster_distributed_training_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}",
+          flush=True)
+    build_s, _ = _build.build()
+    print(f"[build] {build_s:.1f}s", flush=True)
+    tp = tp_phase(str(_build.BUILD_DIR))
+    print(json.dumps(tp, default=str))
+    return 0
+
+
 def mesh_main() -> int:
     """``--mesh``: the kernels' build, then phase P alone."""
     import torch
@@ -3970,6 +4505,9 @@ def main() -> int:
     # -- phase P: the data mesh (slice 10) ---------------------------------
     pm = mesh_phase(cli, str(_build.BUILD_DIR))
 
+    # -- phase T: tensor parallelism (slice 11) ------------------------------
+    tpm = tp_phase(str(_build.BUILD_DIR))
+
     # -- 7. output -----------------------------------------------------------
     print(f"[mesh] P1 step ms (dp=1 over NCCL / no group): record "
           f"{pm['p1_record_ms']:.2f} / {pm['p1_record_plain_ms']:.2f}, path B "
@@ -3981,6 +4519,10 @@ def main() -> int:
           f"{pm['p2_parked_bytes']}, step ms {pm['p2_ms']:.2f} / "
           f"{pm['p2_ms_resident']:.2f}; P4 dp=2 gloo step ms "
           f"{pm['p4_ms']} (world 1: {pm['p4_ms_world1']:.2f})")
+    print(f"[tp] T2(a) tp=2 vs world 1: loss err {tpm['t2a_loss_err']:.3g}, "
+          f"param err {tpm['t2a_param_err']:.3g}; T2(b) path B tp=2 gloo "
+          f"step ms {tpm['t2b_ms']} (world 1: {tpm['t2b_ms_world1']:.2f}), "
+          f"device launches a step {tpm['t2b_device_launches']}")
     print(f"[serve] p50 {res['p50_ms']} ms, p99 {res['p99_ms']} ms, "
           f"{res['qps']} qps (64 requests, batch 8, 1 replica)")
     print(f"[train] step time median {tr['step_ms']:.2f} ms; fixed-batch "
@@ -4161,6 +4703,42 @@ def main() -> int:
             entry.update(library_fwd_bwd_ms=lfb["ms"] if lfb else None,
                          ms_dropout0=t["kernel_p0"]["ms"], build=bwd_d64)
         kernels.append(entry)
+    # slice 11: row 8's tp partial tile (T1's timing at rank 1's shard,
+    # int8 as path B runs it; the main path's launches from T2(b)'s run),
+    # and every kernel's device launches in one T2(b) step at tp=2
+    tp_dev = tpm["t2b_device_launches"]
+    for entry in kernels:
+        entry["launches_tp2_step"] = tp_dev.get({
+            "flash_fwd": "flash_fwd_kernel",
+            "flash_bwd_stats": "dkdv_kernel", "fused_mlp": "mlp_fwd_kernel",
+            "quant_matmul": "qmm_kernel"}.get(entry["name"], ""))
+    t = tpm["row8p"]["int8"]
+    entry = {"name": "fused_ffn_partial", "route": "cuda",
+             "source": f"{src}fused_ffn.cu",
+             "replaces": jax_ops + "fused_ffn.py:624 (partial=True)",
+             "launches": tpm["t2b_launches"]["fused_ffn_partial"],
+             "launches_tp2_step": tp_dev.get("ffn_kernel"),
+             "launches_serve": 0,
+             "max_abs_err": tpm["row8p_err"]["int8"]["abs"],
+             "ms": t["kernel"]["ms"], "call_ms": t["kernel"]["call_ms"],
+             "plain_ms": t["plain"]["ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"],
+             "library_ms": t["library"]["ms"] if t["library"] else None,
+             "library_is": "the shard's two cuBLAS GEMMs only",
+             "shape": "8192 x 512 -> 512 of d_ff 1024 -> 512, c0 512, "
+                      "dropout 0.1, fp32 out; int8",
+             "err_of_max_plain": tpm["row8p_err"],
+             "amax_max_bitwise_full": tpm["row8p_amax_bitwise"]}
+    for fmt in ("none", "fp8"):
+        t = tpm["row8p"][fmt]
+        entry.update({f"{fmt}_ms": t["kernel"]["ms"],
+                      f"{fmt}_call_ms": t["kernel"]["call_ms"],
+                      f"{fmt}_plain_ms": t["plain"]["ms"],
+                      f"{fmt}_bound_ms": t["bound_ms"],
+                      f"{fmt}_bound_by": t["bound_by"],
+                      f"{fmt}_library_ms": t["library"]["ms"]
+                      if t["library"] else None})
+    kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4210,6 +4788,13 @@ if __name__ == "__main__":
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(2)
         sys.exit(dispatch_main())
+    if sys.argv[1:2] == ["--tp"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(tp_main())
     if sys.argv[1:2] == ["--mesh"]:
         import torch
 

@@ -12,7 +12,10 @@ CUDA graph; ``--data_path resident``, the train split on the card;
 fully-sharded training over ``torch.distributed`` (slice 10:
 ``--distributed``, ``--mesh dp=N`` / ``fsdp=N``, ``--fsdp``, ``--zero1``,
 ``--host_offload``, ``--offload_opt_state``, ``--overlap_grad_reduce``;
-one process a rank, launched by torchrun: ``run_distributed.sh``).
+one process a rank, launched by torchrun: ``run_distributed.sh``), and
+tensor parallelism for the Transformer classifier (slice 11: ``--mesh
+dp=D,tp=T``, every hand kernel on the rank's shard, ZeRO over tp unless
+``--no_zero_opt``).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
 ``resolve_attention``, ``build_model``, ``load_dataset`` (the agnews,
@@ -86,7 +89,7 @@ def resolve_attention(cfg: TrainConfig, device: torch.device) -> str:
 
 
 def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
-                serving: bool = False, device=None):
+                serving: bool = False, device=None, tp=None):
     """The port's Transformer for ``cfg``.  ``serving=True`` builds the
     inference twin: GEMM weights stored in the compute dtype (the JAX
     model casts its fp32 weights at every call; serving rounds them once
@@ -98,7 +101,8 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
     ``--task lm`` builds the next-token LM: the head tied to the token
     table unless ``--untie_lm_head``.  Features the port has not reached
     raise, among them ``--task lm`` with ``--quant`` or ``--ffn_impl
-    pallas``."""
+    pallas``.  ``tp`` (a ``TensorGroup``): the rank's tp shard of the
+    model (a vocabulary tp does not divide pads the last shards)."""
     from faster_distributed_training_tpu_torch.models import get_model
     from faster_distributed_training_tpu_torch.ops.quant import (
         warn_if_killed)
@@ -157,7 +161,7 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
                      lm_head=cfg.task == "lm",
                      tie_lm_head=cfg.task == "lm" and cfg.tie_lm_head,
                      remat=bool(cfg.remat) and not serving,
-                     remat_policy=cfg.remat_policy, **rates)
+                     remat_policy=cfg.remat_policy, tp=tp, **rates)
 
 
 def _build_resnet(cfg: TrainConfig):
@@ -182,12 +186,50 @@ def _build_resnet(cfg: TrainConfig):
                      conv_remat=cfg.tricks != "off", remat=bool(cfg.remat))
 
 
+def tp_unported(cfg: TrainConfig) -> list:
+    """What ``--mesh tp=N`` (N > 1) does not reach, by flag or shape:
+    --task lm (a vocab-parallel tied head and loss), a ResNet, a dispatch
+    or the resident split (the tp collectives in a captured graph),
+    --ngd, --remat, fsdp / zero1 / the host tiers beside tp, and heads,
+    d_ff or d_model tp does not divide (JAX routes those to warned
+    fallbacks; the port has none)."""
+    from faster_distributed_training_tpu_torch.parallel.mesh import (
+        canonical_axes)
+
+    sizes = dict(zip(canonical_axes(cfg.mesh_axes), cfg.mesh_shape))
+    tp = int(sizes.get("tp", 1))
+    if tp <= 1:
+        return []
+    on = f"under --mesh tp={tp}"
+    k = max(int(cfg.steps_per_dispatch or 1), 1)
+    checks = {
+        f"--task lm {on} (vocab-parallel tied head and loss)":
+            cfg.task == "lm",
+        f"--model {cfg.model} {on}": cfg.model != "transformer",
+        f"--steps_per_dispatch {k} {on}": k > 1,
+        f"--data_path {cfg.data_path} {on}": cfg.data_path != "host",
+        f"--ngd {on}": bool(cfg.use_ngd or cfg.optimizer == "ngd"),
+        f"--remat {on}": bool(cfg.remat),
+        **{f"{flag} {on}": bool(v) for flag, v in (
+            ("--fsdp", cfg.fsdp), ("--zero1", cfg.zero1),
+            ("--host_offload", cfg.host_offload),
+            ("--offload_opt_state", cfg.offload_opt_state))},
+        # the heads (qkv, flash), Dense_0's d_ff columns, the out
+        # projection's d_model input rows
+        **{f"--{flag} {n} not divisible by --mesh tp={tp}": n % tp != 0
+           for flag, n in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff),
+                           ("d_model", cfg.d_model))},
+    }
+    return [k for k, v in checks.items() if v]
+
+
 def unported_training_flags(cfg: TrainConfig) -> list:
     """The flags of features the training slice does not reach.  Of the
-    mesh: tp, sp and pp above 1; --ngd with --fsdp or --zero1 (NGD
-    preconditions whole gradient leaves); --fsdp, --zero1 and the host
-    tiers under a dispatch (K > 1 or the resident split: their gathers
-    and copies are not captured); --resident_layout sharded."""
+    mesh: sp and pp above 1 and what tp does not reach (``tp_unported``);
+    --ngd with --fsdp or --zero1 (NGD preconditions whole gradient
+    leaves); --fsdp, --zero1 and the host tiers under a dispatch (K > 1
+    or the resident split: their gathers and copies are not captured);
+    --resident_layout sharded."""
     from faster_distributed_training_tpu_torch.parallel.mesh import (
         unported_axes)
 
@@ -210,6 +252,7 @@ def unported_training_flags(cfg: TrainConfig) -> list:
         "--lm_causal": bool(cfg.lm_causal),
         **{bad: True for bad in unported_axes(cfg.mesh_axes,
                                                cfg.mesh_shape)},
+        **{bad: True for bad in tp_unported(cfg)},
         f"--ngd with {' / '.join(t for t in tiers if t in ('--fsdp', '--zero1'))}"
         " (NGD preconditions whole gradient leaves)": ngd and (
             cfg.fsdp or cfg.zero1),
@@ -337,7 +380,7 @@ def check_stream_corpus(cfg: TrainConfig, train_ds, log) -> TrainConfig:
 
 
 def make_loaders(cfg: TrainConfig, train_ds, eval_ds, dp: int = 1,
-                 rank: int = 0):
+                 rank: int = 0, group=None):
     """(train_loader(epoch, start), eval_loader(epoch), steps_per_epoch);
     ``start`` is the epoch's first batch (a mid-epoch resume).
     ``max(1, --workers)`` threads materialize batches in order, at most
@@ -345,7 +388,8 @@ def make_loaders(cfg: TrainConfig, train_ds, eval_ds, dp: int = 1,
     is synchronous.  ``--batch_size`` is the global batch: each of the
     ``dp`` processes loads ``batch_size / dp`` rows of it, its contiguous
     shard of the epoch's permutation (the JAX package's multi-host
-    contract); ``--debug`` checks the shards."""
+    contract); ``--debug`` checks the shards (over the data ``group``:
+    the ranks of a tp group load the same rows)."""
     from faster_distributed_training_tpu_torch.data.loader import (
         BatchLoader, ParallelBatchIterator, dataset_len, verify_host_shards,
         verify_host_shards_global)
@@ -358,7 +402,9 @@ def make_loaders(cfg: TrainConfig, train_ds, eval_ds, dp: int = 1,
         n_train = dataset_len(train_ds)
         verify_host_shards(n_train, epoch=0, seed=cfg.seed, process_count=dp)
         verify_host_shards_global(n_train, epoch=0, seed=cfg.seed,
-                                  process_index=rank, process_count=dp)
+                                  process_index=rank, process_count=dp,
+                                  group=None if group is None
+                                  else group.group)
     shard = dict(process_index=rank, process_count=dp)
 
     def wrap(loader):
@@ -402,7 +448,7 @@ def run_training(cfg: TrainConfig, params=None, device=None,
 
     from faster_distributed_training_tpu_torch.parallel import (
         DataGroup, Placement, dp_size, initialize_distributed, local_device,
-        make_mesh, shard_train_state)
+        make_mesh, mesh_groups, shard_train_state)
     from faster_distributed_training_tpu_torch.train.loop import Trainer
     from faster_distributed_training_tpu_torch.train.state import (
         create_train_state)
@@ -416,10 +462,12 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     if cfg.distributed:
         initialize_distributed(dev.type)
     mesh = make_mesh(cfg.mesh_axes, cfg.mesh_shape, dev.type)
-    group = DataGroup()
+    group, tp = (mesh_groups(mesh) if mesh is not None
+                 else (DataGroup(), None))
     if group.live and dev.type == "cuda" and dev.index is None:
         dev = local_device("cuda")
-    if group.rank:
+    rank0 = not group.live or dist.get_rank() == 0
+    if not rank0:
         log = _silent
     world = dp_size(mesh)
     resnet = is_resnet(cfg)
@@ -430,7 +478,7 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     eval_ds = apply_subset(load_dataset(cfg, train=False), cfg.subset_stride)
     gen = torch.Generator().manual_seed(cfg.seed)
     model = build_model(cfg, vocab_size=None if resnet
-                        else train_ds.vocab_size(), device=dev)
+                        else train_ds.vocab_size(), device=dev, tp=tp)
     if params is not None:
         load_jax_tree(model, params)
     else:
@@ -453,7 +501,7 @@ def run_training(cfg: TrainConfig, params=None, device=None,
             model.seed_amax_histories(local_bs, cfg.seq_len, dataclasses.replace(
                 draws, b0=group.origin(local_bs)))
     train_loader, eval_loader, steps_per_epoch = make_loaders(
-        cfg, train_ds, eval_ds, dp=world, rank=group.rank)
+        cfg, train_ds, eval_ds, dp=world, rank=group.rank, group=group)
     cfg, dispatch = build_dispatch(cfg, train_ds, dev, log, group)
     # the learning rate scales with the data-parallel world (JAX's
     # lr_scale=dp_size(mesh))
@@ -462,12 +510,17 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     state = create_train_state(
         model, tx, cfg.seed, extra={n: t.to(dev) for n, t in extra.items()})
     if group.live:
-        state.placement = Placement(cfg, mesh, dev, group)
+        state.placement = Placement(cfg, mesh, dev, group, tp)
         shard_train_state(state, state.placement)
-        log(f"[mesh] {dict(zip(cfg.mesh_axes, mesh.mesh.shape))} over "
-            f"{group.world} process(es) ({dist.get_backend()}): batch "
+        log(f"[mesh] {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} "
+            f"over {dist.get_world_size()} process(es) "
+            f"({dist.get_backend()}): batch "
             f"{cfg.batch_size} = {world} x {local_bs}, "
             + ("fsdp" if cfg.fsdp else "zero1" if cfg.zero1 else "dp")
+            + (f", tp={tp.size} (heads, the FFN's d_ff and the vocab "
+               f"split; optimizer state "
+               + ("ZeRO-sharded over tp)" if cfg.zero_opt
+                  else "replicated over tp)") if tp is not None else "")
             + (", params + optimizer state on the host between steps"
                if cfg.host_offload else
                ", big optimizer leaves on the host between steps"
@@ -514,7 +567,7 @@ def run_training(cfg: TrainConfig, params=None, device=None,
         cudnn.deterministic, cudnn.benchmark = flags
     if state.placement is not None:
         state.placement.unshard(state)     # the caller gets the whole state
-    if cfg.plot and trainer.history["test_acc"] and not group.rank:
+    if cfg.plot and trainer.history["test_acc"] and rank0:
         plot_history(trainer.history, ckpt_name, log)
     return {"state": state, "history": trainer.history,
             "best_acc": trainer.best_acc, "cfg": cfg, "trainer": trainer,

@@ -4,7 +4,8 @@
 // Replaces two TPU kernels of faster_distributed_training_tpu/ops/
 // fused_ffn.py: _ffn_fwd_pallas (def :208, pallas_call :242, kernel
 // _ffn_kernel :153) and its generalized twin _ffn_fwd_pallas2 (:624 /
-// :679 / _ffn_kernel2 :537) without the tp `partial` output.  Per row of h [rows, d]:
+// :679 / _ffn_kernel2 :537), its tp `partial` mode included.  Per row of
+// h [rows, d]:
 //
 //   f   = TorchLayerNorm(h) in fp32 (unbiased variance, eps added to the
 //         std), cast to the compute dtype T
@@ -13,6 +14,14 @@
 //         dropout, cast to T
 //   f2  = a . w2^T + b2, connection hash dropout over width d
 //   out = cast_T(h + f2)       (residual in fp32)
+//
+// partial (the Megatron column-then-row tile of a tensor-parallel rank):
+// w1 is the rank's [d_ff/tp, d] rows and w2 its [d, d_ff/tp] columns, the
+// hidden dropout addresses the global columns (c0, dff_glob), and the
+// kernel stops before b2: out [rows, d] is fp32 a . w2^T (descaled, and
+// under quant rounded to T first, as quant_dot's output is), which the
+// caller sums over the tp group before b2, the connection dropout and the
+// residual.  Only the epilogue differs; both engines take it.
 //
 // Under quant (fmt int8 or E4M3) f and a are quantized here at the delayed
 // scales sx1 / sx2, the weights arrive quantized, each GEMM descales by
@@ -181,6 +190,8 @@ struct Args {
   float ks_h, ks_c;
   int drop_h, drop_c;
   float eps;
+  int partial;  // out is float [rows, d]: GEMM2's product, no b2 / dropout /
+                // residual
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -501,13 +512,17 @@ __global__ void __launch_bounds__(NT) ffn_kernel(const Args a) {
   }
   __syncthreads();
 
-  // -- 3. b2, connection dropout, residual ---------------------------------------
+  // -- 3. b2, connection dropout, residual (partial: the product alone) ---------
   T* out = static_cast<T*>(a.out);
   for (int e = tid; e < BM * d; e += NT) {
     const int r = e / d, j = e % d, g = row0 + r;
     if (g >= a.rows) continue;
     float v = ENG == ENG_S8 ? __int2float_rn(acci[r * L.AS + j]) : accf[r * L.AS + j];
     if constexpr (FMT != FMT_NONE) v = to_f(from_f<T>(__fmul_rn(v, inv2)));
+    if (a.partial) {
+      static_cast<float*>(a.out)[(size_t)g * d + j] = v;
+      continue;
+    }
     v = __fadd_rn(v, to_f(b2[j]));
     if (a.drop_c) {
       const uint32_t idx = global_row(a, g) * (uint32_t)d + (uint32_t)j;
@@ -932,7 +947,8 @@ __global__ void __launch_bounds__(NT, 1) ffn_kernel_sm90(const Args a) {
   }
   cp_async_wait<0>();
 
-  // -- 3. b2, connection dropout, residual, from the fragments -----------------
+  // -- 3. b2, connection dropout, residual, from the fragments (partial: the
+  //    fp32 product alone) ------------------------------------------------------
   T* out = static_cast<T*>(a.out);
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
@@ -941,6 +957,17 @@ __global__ void __launch_bounds__(NT, 1) ffn_kernel_sm90(const Args a) {
       const int r = 16 * w + (l >> 2) + 8 * hh, g = row0 + r;
       const int col = DH * wg + 8 * j + 2 * (l & 3);
       if (g >= a.rows || col >= d) continue;
+      if (a.partial) {
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          p[e] = E::f(acc2[4 * j + 2 * hh + e]);
+          if constexpr (FMT != FMT_NONE) p[e] = to_f(from_f<T>(__fmul_rn(p[e], inv2)));
+        }
+        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + (size_t)g * d + col) =
+            make_float2(p[0], p[1]);
+        continue;
+      }
       float o[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -1036,20 +1063,22 @@ long long fdt_ffn_smem_bytes(int dtype, int fmt, int d) {
   return (long long)layout(engine_of(dtype == 1, fmt), d).total;
 }
 
-// h [rows, d], out [rows, d] in the compute dtype; ln_s, ln_b [d] fp32;
+// h [rows, d], out [rows, d] in the compute dtype (fp32 under partial); ln_s,
+// ln_b [d] fp32;
 // w1 [d_ff, d], w2 [d, d_ff] in the compute dtype (fmt 0) or quantized
 // (int8 / E4M3 bytes); b1 [d_ff], b2 [d] in the compute dtype; amax [2]
 // fp32 zeroed; scales [4] fp32 (fmt != 0); seed_h, seed_o the two dropout
 // seeds, u32s on the device (null where the site is off), read by the
 // kernel so a captured graph replays with the values they hold then.  d
-// and d_ff multiples of 16; every pointer 32-byte aligned.
+// and d_ff multiples of 16; every pointer 32-byte aligned.  partial: the tp
+// tile (w1 / w2 a rank's d_ff shard), out the fp32 GEMM2 product.
 int fdt_fused_ffn_fwd(const void* h, const void* ln_s, const void* ln_b, const void* w1,
                       const void* b1, const void* w2, const void* b2, void* out, void* amax,
                       const void* scales, int dtype, int fmt, int rows, int d, int d_ff,
                       const void* seed_h, const void* seed_o, unsigned int b0, unsigned int s0,
                       unsigned int c0, int l_loc, int l_glob, int dff_glob, unsigned int t_h,
                       float ks_h, int drop_h, unsigned int t_c, float ks_c, int drop_c, float eps,
-                      void* stream) {
+                      int partial, void* stream) {
   if (rows <= 0 || d < 16 || d % 16 || d_ff <= 0 || d_ff % 16 || l_loc <= 0 || l_glob <= 0 ||
       (fmt != FMT_NONE && scales == nullptr) || (drop_h && seed_h == nullptr) ||
       (drop_c && seed_o == nullptr))
@@ -1083,6 +1112,7 @@ int fdt_fused_ffn_fwd(const void* h, const void* ln_s, const void* ln_b, const v
   a.drop_h = drop_h;
   a.drop_c = drop_c;
   a.eps = eps;
+  a.partial = partial != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (engine_for(dtype == 1, fmt, d)) return (int)dispatch_sm90(a, dtype == 1, fmt, s);
   cudaError_t err = dtype == 1 ? dispatch_fmt<__nv_bfloat16>(a, fmt, s)

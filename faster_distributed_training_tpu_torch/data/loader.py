@@ -141,10 +141,10 @@ def check_shard_digests(digests: np.ndarray) -> None:
 
 def verify_host_shards_global(n: int, epoch: int, seed: int = 0,
                               shuffle: bool = True, process_index: int = 0,
-                              process_count: int = 1) -> None:
-    """Across processes (collective: every rank calls it): each one's
-    sharding inputs and a 64-bit hash of its real shard, gathered and
-    checked by ``check_shard_digests``."""
+                              process_count: int = 1, group=None) -> None:
+    """Across processes (collective: every rank of ``group``, the data
+    group, calls it): each one's sharding inputs and a 64-bit hash of its
+    real shard, gathered and checked by ``check_shard_digests``."""
     import hashlib
 
     from faster_distributed_training_tpu_torch.parallel.collectives import (
@@ -157,7 +157,7 @@ def verify_host_shards_global(n: int, epoch: int, seed: int = 0,
         "little", signed=True)
     digest = np.asarray([n, process_count, seed, epoch, shard_hash],
                         dtype=np.int64)
-    check_shard_digests(all_gather_across_processes(digest))
+    check_shard_digests(all_gather_across_processes(digest, group))
 
 
 class BatchLoader:

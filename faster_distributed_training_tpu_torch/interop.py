@@ -33,6 +33,12 @@ conv kernels HWIO -> OIHW, ``fc_kernel`` (in, out) -> (out, in), and the
 ``batch_stats`` tree's ``mean`` / ``var`` onto the running-stat buffers
 (``resnet_from_jax`` / ``resnet_to_jax``).
 
+Under tensor parallelism a rank's model holds its tp shards:
+``tp_state_dict`` cuts a whole ``state_dict`` (JAX's, through
+``params_from_jax``) to rank r's shards by the tp rules
+(``parallel.sharding.tp_cut``), and ``load_jax_tree`` does so for a
+model built with a tp group.
+
 Arrays cross as numpy (the tests hand the same arrays to both packages);
 nothing here imports JAX.
 """
@@ -209,18 +215,32 @@ def resnet_to_jax(sd: Mapping[str, torch.Tensor]):
     return unflatten(params), unflatten(stats)
 
 
+def tp_state_dict(sd: Mapping[str, torch.Tensor], rank: int, n: int,
+                  n_heads: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s shards, of ``n``, of a whole Transformer
+    ``state_dict`` (replicated leaves unchanged)."""
+    from faster_distributed_training_tpu_torch.parallel.sharding import (
+        tp_cut, tp_shard)
+
+    return {k: tp_shard(v, tp_cut(k), rank, n, n_heads)
+            for k, v in sd.items()}
+
+
 def load_jax_tree(model: torch.nn.Module, tree: Mapping[str, Any]) -> None:
     """Load a JAX parameter tree (and the ``batch_stats`` of a variables
-    bundle, when it has them) into ``model``.  Histories the tree lacks
-    stay as they are (fresh zeros); anything else missing raises.  A
-    ResNet's tree must hold every leaf, its running statistics
-    included."""
+    bundle, when it has them) into ``model``; a model built with a tp
+    group takes its rank's shards.  Histories the tree lacks stay as they
+    are (fresh zeros); anything else missing raises.  A ResNet's tree
+    must hold every leaf, its running statistics included."""
     from faster_distributed_training_tpu_torch.models.resnet import ResNet
 
     if isinstance(model, ResNet):
         model.load_state_dict(resnet_from_jax(tree, stats_tree(tree)))
         return
     sd = params_from_jax(tree, stats_tree(tree))
+    tp = getattr(model, "tp", None)
+    if tp is not None:
+        sd = tp_state_dict(sd, tp.rank, tp.size, model.h)
     missing, unexpected = model.load_state_dict(sd, strict=False)
     bad = [k for k in missing if k.rsplit(".", 1)[-1] not in _HISTS]
     if bad or unexpected:

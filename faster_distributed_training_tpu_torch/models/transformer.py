@@ -40,6 +40,21 @@ region draws its dropout seeds from a stream that restarts at the
 region's first seed each time the region runs, so the replay reuses the
 forward's seeds.
 
+Under tensor parallelism (``tp``, a ``parallel.collectives.TensorGroup``
+of size above 1: ``--mesh tp=N``) each rank holds its shards of the
+weights (``parallel.sharding.tp_cut``) and runs the Megatron layout
+(JAX's ``_TP_RULES`` and ``parallel/kernel_shard.py``): the token table
+on its ceil(V/tp) vocab rows (a masked local lookup, then a SUM over
+tp); per layer the qkv projection column-parallel on H/tp heads (the
+flash kernels or the dense softmax at the head origin ``h0``), the out
+projection row-parallel (one SUM), the FFN column then row (the flax
+branch's hidden dropout at the global columns, one SUM; the fused branch
+row 8's ``partial`` tile, one SUM); the LayerNorms, the pooler, the
+classifier and the other embeddings replicated.  Where a replicated
+activation enters a rank's shard, its cotangent is summed over tp
+(``TensorGroup.copy_in``), so every replicated parameter's gradient
+comes out the same on every rank.
+
 ``train=True`` runs the training forward: hash dropout at every site of
 the JAX model (encodings; per layer the attention probabilities, the
 attention connection, the FFN hidden and the FFN connection; the pooler)
@@ -75,27 +90,43 @@ from faster_distributed_training_tpu_torch.ops.layernorm import (
 from faster_distributed_training_tpu_torch.ops.quant import (
     QuantDense, quant_enabled, scale_from_history, tensor_amax,
     update_amax_history)
-from faster_distributed_training_tpu_torch.parallel import collectives
+from faster_distributed_training_tpu_torch.parallel import (collectives,
+                                                            kernel_shard)
 from faster_distributed_training_tpu_torch.parallel.collectives import (
-    all_max_)
+    TensorGroup, all_max_)
+from faster_distributed_training_tpu_torch.parallel.sharding import (
+    tp_cut, tp_shard)
 
 
-def _dense(d_in: int, d_out: int, quant, dtype, param_dtype) -> nn.Module:
-    """nn.Linear, or its quantized twin under a QuantPolicy."""
+def _tp(tp):
+    """The TensorGroup a module shards over, or None (one shard)."""
+    return tp if tp is not None and tp.size > 1 else None
+
+
+def _dense(d_in: int, d_out: int, quant, dtype, param_dtype, tp=None,
+           tp_dim: Optional[int] = None) -> nn.Module:
+    """nn.Linear, or its quantized twin under a QuantPolicy; under tp the
+    caller passes the rank's shard's features, and ``tp_dim`` the JAX
+    kernel dim the site's rule shards (QuantDense's role)."""
     if quant is None:
         return nn.Linear(d_in, d_out, dtype=param_dtype)
     return QuantDense(d_in, d_out, fmt=quant.fmt,
                       amax_history_len=quant.amax_history_len,
                       margin=quant.margin, frozen_scales=quant.frozen_scales,
                       grad_fmt=quant.grad_fmt, dtype=dtype,
-                      param_dtype=param_dtype)
+                      param_dtype=param_dtype, tp=tp, tp_dim=tp_dim)
 
 
-def _project(x: torch.Tensor, layer: nn.Module, dtype, train: bool
-             ) -> torch.Tensor:
+def _project(x: torch.Tensor, layer: nn.Module, dtype, train: bool,
+             tp=None) -> torch.Tensor:
+    """A projection; with ``tp`` a row-parallel one: the partial product
+    of the rank's input columns SUMmed over tp, then the whole bias."""
     if isinstance(layer, QuantDense):
         return layer(x, train)
-    return _linear(x, layer, dtype)
+    if tp is None:
+        return _linear(x, layer, dtype)
+    return tp.reduce_out(F.linear(x, layer.weight.to(dtype))
+                         ) + layer.bias.to(dtype)
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
@@ -228,19 +259,41 @@ class _Lookup(torch.autograd.Function):
 
 class Embeddings(nn.Module):
     """token + learned-position + segment embeddings scaled by
-    sqrt(d_model); tables and the sum stay fp32."""
+    sqrt(d_model); tables and the sum stay fp32.  Under tp the token
+    table holds the rank's vocab rows ``[v0, v0 + ceil(V/tp))``: the tokens
+    outside look up zeros, and the SUM over tp (each token found on one
+    rank: exact) is the whole lookup; its identity backward leaves each
+    rank's cotangents to its own rows."""
 
-    def __init__(self, d_model: int, vocab: int, maxlen: int):
+    def __init__(self, d_model: int, vocab: int, maxlen: int, tp=None):
         super().__init__()
         self.d_model = d_model
-        self.token_embedding = nn.Parameter(torch.empty(vocab, d_model))
+        self.tp = _tp(tp)
+        self.vocab = vocab
+        # a rank's ceil(V/tp) rows: past V the last shards hold padding,
+        # never looked up (zero gradient), dropped when gathered whole
+        rows = vocab if self.tp is None else -(-vocab // self.tp.size)
+        self.v0 = 0 if self.tp is None else self.tp.rank * rows
+        self.token_embedding = nn.Parameter(torch.empty(rows, d_model))
         self.pos_embedding = nn.Parameter(torch.empty(maxlen, d_model))
         self.segment_embedding = nn.Parameter(torch.empty(3, d_model))
+
+    def _tokens(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return _Lookup.apply(self.token_embedding, x).float()
+        rows = self.token_embedding.shape[0]
+        local = x.long() - self.v0
+        mine = (local >= 0) & (local < rows)
+        # another rank's token reads row 0 and is zeroed (its cotangent
+        # too: row 0 gains exact zeros)
+        part = _Lookup.apply(self.token_embedding,
+                             torch.where(mine, local, 0)).float()
+        return self.tp.reduce_out(part * mine[..., None])
 
     def forward(self, x: torch.Tensor, token_types: torch.Tensor
                 ) -> torch.Tensor:
         L = x.shape[1]
-        tokens = _Lookup.apply(self.token_embedding, x).float()
+        tokens = self._tokens(x)
         positions = self.pos_embedding[None, :L, :].float()
         segments = _Lookup.apply(self.segment_embedding,
                                  token_types[:, :L]).float()
@@ -260,11 +313,14 @@ def dense_attention(q, k, v, mask):
 class MultiheadAttention(nn.Module):
     """Fused qkv projection (one d_model -> 3*d_model GEMM laid out
     (3, h, d_k) like the JAX kernel), flash or dense context with
-    attention-probability hash dropout in training, output projection."""
+    attention-probability hash dropout in training, output projection.
+    Under tp: the rank's H/tp heads (qkv column-parallel, its rows
+    ``{i*H*d_k + (h0 + j)*d_k + k}``), the context of those heads, the
+    out projection row-parallel on the matching d_model/tp inputs."""
 
     def __init__(self, h: int, d_model: int, dropout: float = 0.1,
                  dtype=torch.float32, param_dtype=torch.float32,
-                 attention_impl: str = "dense", quant=None):
+                 attention_impl: str = "dense", quant=None, tp=None):
         super().__init__()
         if attention_impl not in ("dense", "flash"):
             raise ValueError(f"attention_impl {attention_impl!r}: the port "
@@ -278,30 +334,42 @@ class MultiheadAttention(nn.Module):
         self.dropout = dropout
         self.dtype = dtype
         self.attention_impl = attention_impl
-        self.qkv = _dense(d_model, 3 * d_model, quant, dtype, param_dtype)
-        self.out = _dense(d_model, d_model, quant, dtype, param_dtype)
+        self.tp = _tp(tp)
+        # the rank's heads [h0, h0 + h_loc) of h
+        self.h_loc = h if self.tp is None else self.tp.part(h)
+        self.h0 = 0 if self.tp is None else self.tp.rank * self.h_loc
+        d_loc = d_model // h * self.h_loc
+        self.qkv = _dense(d_model, 3 * d_loc, quant, dtype, param_dtype,
+                          self.tp, 2)
+        self.out = _dense(d_loc, d_model, quant, dtype, param_dtype,
+                          self.tp, 0)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 train: bool = False,
                 seeds: Optional[Iterator[int]] = None) -> torch.Tensor:
         B, L, _ = x.shape
         d_k = self.d_model // self.h
-        qkv = _project(x, self.qkv, self.dtype, train).view(B, L, 3, self.h,
-                                                            d_k)
+        tp = self.tp
+        if tp is not None:
+            x = tp.copy_in(x)
+        qkv = _project(x, self.qkv, self.dtype, train).view(
+            B, L, 3, self.h_loc, d_k)
         # [B, h, L, d_k] strided views of the fused projection: the flash
         # kernels read them (and write their gradient) in place
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         rate = self.dropout if train else 0.0
         seed = next(seeds) if rate > 0.0 else None
         if self.attention_impl == "flash":
-            b0 = _origin(seeds)
+            # the dropout stream addresses the global (b, h): the batch
+            # origin b0, the head origin h0 of h (h0 = 0 without tp)
+            org = dict(b0=_origin(seeds), h0=self.h0, h_glob=self.h)
             if train and self.stash_context:
                 ctx = stashed_attention(qkv, lambda: flash_attention_qkv(
                     qkv, mask, rate, seed, save_stats=self.save_stats,
-                    b0=b0))
+                    **org))
             elif train:
                 ctx = flash_attention_qkv(qkv, mask, rate, seed,
-                                          save_stats=self.save_stats, b0=b0)
+                                          save_stats=self.save_stats, **org)
             else:
                 ctx = flash_attention(q, k, v, mask=mask)
         elif rate > 0.0:
@@ -309,30 +377,50 @@ class MultiheadAttention(nn.Module):
             # the flash kernels apply
             ctx = dense_attention_reference(q, k, v, mask, rate,
                                             dropout_seed=seed,
-                                            b0=_origin(seeds))
+                                            b0=_origin(seeds), h0=self.h0,
+                                            h_glob=self.h)
         else:
             ctx = dense_attention(q, k, v, mask)
-        ctx = ctx.transpose(1, 2).reshape(B, L, self.d_model)
-        return _project(ctx, self.out, self.dtype, train)
+        ctx = ctx.transpose(1, 2).reshape(B, L, self.h_loc * d_k)
+        return _project(ctx, self.out, self.dtype, train, tp)
 
 
 class PositionalWiseFFN(nn.Module):
-    """Linear -> exact (erf) GELU -> dropout -> Linear."""
+    """Linear -> exact (erf) GELU -> dropout -> Linear.  Under tp: Dense_0
+    column-parallel on the rank's d_ff/tp hidden columns ``[c0, c0 +
+    d_ff/tp)``, whose dropout draws the words of the global columns,
+    Dense_1 row-parallel (one SUM)."""
 
     def __init__(self, d_model: int, d_ff: int, dropout: float = 0.1,
-                 dtype=torch.float32, param_dtype=torch.float32, quant=None):
+                 dtype=torch.float32, param_dtype=torch.float32, quant=None,
+                 tp=None):
         super().__init__()
         self.dtype = dtype
         self.dropout = dropout
-        self.Dense_0 = _dense(d_model, d_ff, quant, dtype, param_dtype)
-        self.Dense_1 = _dense(d_ff, d_model, quant, dtype, param_dtype)
+        self.tp = _tp(tp)
+        self.d_ff = d_ff
+        dff_loc = d_ff if self.tp is None else self.tp.part(d_ff)
+        self.c0 = 0 if self.tp is None else self.tp.rank * dff_loc
+        self.Dense_0 = _dense(d_model, dff_loc, quant, dtype, param_dtype,
+                              self.tp, 1)
+        self.Dense_1 = _dense(dff_loc, d_model, quant, dtype, param_dtype,
+                              self.tp, 0)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 seeds: Optional[Iterator[int]] = None) -> torch.Tensor:
+        tp = self.tp
+        if tp is not None:
+            x = tp.copy_in(x)
         h = F.gelu(_project(x, self.Dense_0, self.dtype, train),
                    approximate="none")
-        h = _dropout(h, self.dropout, train, seeds)
-        return _project(h, self.Dense_1, self.dtype, train)
+        if tp is None:
+            h = _dropout(h, self.dropout, train, seeds)
+        elif train and self.dropout > 0.0:
+            # the global [B, L, d_ff] stream's words at this rank's columns
+            h = hash_dropout(h, next(seeds), self.dropout,
+                             offset=_origin(seeds) * h.shape[1] * self.d_ff,
+                             col0=self.c0, cols_glob=self.d_ff)
+        return _project(h, self.Dense_1, self.dtype, train, tp)
 
 
 class EncoderLayer(nn.Module):
@@ -347,11 +435,12 @@ class EncoderLayer(nn.Module):
                  dropout_attention: float = 0.1, dropout_ffn: float = 0.1,
                  dtype=torch.float32, param_dtype=torch.float32,
                  attention_impl: str = "dense", ffn_impl: str = "flax",
-                 quant=None, remat_ffn: bool = False):
+                 quant=None, remat_ffn: bool = False, tp=None):
         super().__init__()
         if ffn_impl not in ("flax", "pallas"):
             raise ValueError(f"ffn_impl {ffn_impl!r}: the port has 'flax' "
                              f"and 'pallas'")
+        self.tp = _tp(tp)
         self.remat_ffn = remat_ffn
         self.dtype = dtype
         self.ffn_impl = ffn_impl
@@ -360,10 +449,11 @@ class EncoderLayer(nn.Module):
         self.drop_ffn_conn = dropout_connection_ffn
         self.ln_attn = TorchLayerNorm(d_model, dtype=dtype)
         self.attn = MultiheadAttention(h, d_model, dropout_attention, dtype,
-                                       param_dtype, attention_impl, quant)
+                                       param_dtype, attention_impl, quant,
+                                       tp)
         self.ln_ffn = TorchLayerNorm(d_model, dtype=dtype)
         self.ffn = PositionalWiseFFN(d_model, d_ff, dropout_ffn, dtype,
-                                     param_dtype, quant)
+                                     param_dtype, quant, tp)
 
     def forward(self, h: torch.Tensor, mask: Optional[torch.Tensor],
                 train: bool = False,
@@ -401,36 +491,49 @@ class EncoderLayer(nn.Module):
         else:
             hid_seed = out_seed = 0
             r_h = r_c = 0.0
-        d0, d1, dt = self.ffn.Dense_0, self.ffn.Dense_1, self.dtype
+        fmt = self.quant.fmt if (self.quant is not None
+                                 and quant_enabled()) else None
+        d0, d1, dt, tp = self.ffn.Dense_0, self.ffn.Dense_1, self.dtype, \
+            self.tp
         w1, b1 = d0.weight.to(dt), d0.bias.to(dt)
         w2, b2 = d1.weight.to(dt), d1.bias.to(dt)
         ln = self.ln_ffn
-        fmt = self.quant.fmt if (self.quant is not None
-                                 and quant_enabled()) else None
-        if fmt is None:
+        args = (h, ln.scale, ln.bias, w1, b1, w2, b2, hid_seed, out_seed)
+        quant = {}
+        if fmt is not None:
+            hists = (d0.amax_history_x, d0.amax_history_w,
+                     d1.amax_history_x, d1.amax_history_w)
+            quant = dict(quant_fmt=fmt, quant_scales=tuple(
+                scale_from_history(t, fmt, self.quant.margin)
+                for t in hists), grad_fmt=self.quant.grad_fmt)
+        if tp is not None:
+            # row 8's partial tile on the rank's d_ff shard, one SUM
+            res = kernel_shard.fused_ffn_sublayer_tp(
+                *args, tp, r_h, r_c, ln.eps, b0, **quant)
+        elif fmt is None:
             # FDT_QUANT=0 keeps the state allocated but runs the plain
             # kernel (the QuantDense contract)
-            return fused_ffn_sublayer(h, ln.scale, ln.bias, w1, b1, w2, b2,
-                                      hid_seed, out_seed, r_h, r_c, ln.eps,
-                                      b0=b0)
-        hists = (d0.amax_history_x, d0.amax_history_w, d1.amax_history_x,
-                 d1.amax_history_w)
-        scales = tuple(scale_from_history(t, fmt, self.quant.margin)
-                       for t in hists)
-        seq = int(h.shape[-2])
-        out, amax2 = ffn_core_generalized(
-            h, ln.scale, ln.bias, w1, b1, w2, b2, hid_seed, out_seed, b0, 0,
-            0, r_h, r_c, ln.eps, seq, seq, dff_glob=w1.shape[0],
-            quant_fmt=fmt, quant_scales=scales, grad_fmt=self.quant.grad_fmt)
+            return fused_ffn_sublayer(*args, r_h, r_c, ln.eps, b0=b0)
+        else:
+            seq = int(h.shape[-2])
+            res = ffn_core_generalized(
+                *args, b0, 0, 0, r_h, r_c, ln.eps, seq, seq,
+                dff_glob=w1.shape[0], **quant)
+        if fmt is None:
+            return res
+        out, amax2 = res
         if train and not self.quant.frozen_scales and not replaying():
             # roll as QuantDense would: x-side amaxes from the kernel (LN
-            # output, post-dropout activation; over the global batch),
-            # w-side from the cast weights (never in a --remat replay:
-            # once a step)
+            # output, post-dropout activation; over the global batch and,
+            # under tp, the rank's columns MAXed with the others'), w-side
+            # from the cast weights (their shards' MAX over tp; never in a
+            # --remat replay: once a step)
+            g = tp if tp is not None else TensorGroup()
             with torch.no_grad():
-                amax2 = all_max_(amax2.clone())
-                for hist, amax in zip(hists, (amax2[0], tensor_amax(w1),
-                                              amax2[1], tensor_amax(w2))):
+                amax2 = g.max_(all_max_(amax2.clone()))
+                for hist, amax in zip(hists, (
+                        amax2[0], g.max_(tensor_amax(w1)), amax2[1],
+                        g.max_(tensor_amax(w2)))):
                     hist.copy_(update_amax_history(hist, amax))
         return out
 
@@ -456,8 +559,10 @@ class Transformer(nn.Module):
                  attention_impl: str = "dense", ffn_impl: str = "flax",
                  quant=None, lm_head: bool = False,
                  tie_lm_head: bool = False, mlp_impl: str = "fused",
-                 remat: bool = False, remat_policy: str = "attn_out"):
+                 remat: bool = False, remat_policy: str = "attn_out",
+                 tp=None):
         super().__init__()
+        self.tp = _tp(tp)
         if remat and remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {remat_policy!r} not in "
                              f"{REMAT_POLICIES}")
@@ -473,7 +578,7 @@ class Transformer(nn.Module):
         self.drop_pool = dropout_pooler
         self.lm = lm_head
         self.tie_lm_head = lm_head and tie_lm_head
-        self.embeddings = Embeddings(d_model, vocab, maxlen)
+        self.embeddings = Embeddings(d_model, vocab, maxlen, self.tp)
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_table(maxlen, d_model)),
             persistent=False)
@@ -482,7 +587,8 @@ class Transformer(nn.Module):
                          dropout_connection_ffn, dropout_attention,
                          dropout_ffn, dtype, param_dtype, attention_impl,
                          ffn_impl, quant,
-                         remat_ffn=remat and remat_policy == "ffn")
+                         remat_ffn=remat and remat_policy == "ffn",
+                         tp=self.tp)
             for _ in range(n_layers))
         if self.remat_layer is not None:
             # attention inside a checkpointed layer keeps input-only
@@ -520,22 +626,40 @@ class Transformer(nn.Module):
         """The JAX package's initialisation drawn from ``generator``:
         Xavier-uniform for every matrix (the fused qkv kernel at the
         per-projection bound sqrt(3/d_model)), zero biases, unit LN
-        scales."""
+        scales.  Under tp each sharded leaf is drawn whole, in the same
+        order, and cut to the rank's shard: the same weights as one
+        card's."""
         def xavier(t, fan_in, fan_out):
             bound = math.sqrt(6.0 / (fan_in + fan_out))
             t.uniform_(-bound, bound, generator=generator)
 
         for name, p in self.named_parameters():
+            t = p if self.tp is None else torch.empty(
+                self.whole_shape(name, p.shape), dtype=p.dtype,
+                device=p.device)
             if name.endswith("qkv.weight"):
-                bound = math.sqrt(3.0 / p.shape[1])
-                p.uniform_(-bound, bound, generator=generator)
+                bound = math.sqrt(3.0 / t.shape[1])
+                t.uniform_(-bound, bound, generator=generator)
             elif name.endswith("scale"):
-                p.fill_(1.0)
-            elif p.dim() == 1 or name in ("cls_b1", "cls_b2"):
-                p.zero_()
+                t.fill_(1.0)
+            elif t.dim() == 1 or name in ("cls_b1", "cls_b2"):
+                t.zero_()
             else:
-                xavier(p, p.shape[1], p.shape[0])
+                xavier(t, t.shape[1], t.shape[0])
+            if t is not p:
+                p.copy_(tp_shard(t, tp_cut(name), self.tp.rank,
+                                 self.tp.size, self.h))
         return self
+
+    def whole_shape(self, name: str, shape) -> tuple:
+        """The whole shape of parameter ``name`` whose tp shard has
+        ``shape``."""
+        cut, shape = tp_cut(name), list(shape)
+        if self.tp is not None and cut is not None:
+            shape[1 if cut == "cols" else 0] *= self.tp.size
+        if name == "embeddings.token_embedding":
+            shape[0] = self.embeddings.vocab     # the padding dropped
+        return tuple(shape)
 
     @torch.no_grad()
     def seed_amax_histories(self, batch_size: int, seq_len: int,

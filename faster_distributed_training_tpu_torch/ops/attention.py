@@ -105,12 +105,16 @@ def dropout_keep(seed, bh, q_idx, k_idx, rate: float) -> torch.Tensor:
     return keep * keep_scale(rate)
 
 
-def bh_index(B: int, H: int, device=None, b0: int = 0) -> torch.Tensor:
+def bh_index(B: int, H: int, device=None, b0: int = 0, h0: int = 0,
+             h_glob: Optional[int] = None) -> torch.Tensor:
     """[B,H,1,1] flattened batch*head index — the dropout stream id every
-    attention path agrees on; ``b0`` is the global index of batch row 0
-    (a data-parallel rank's first row)."""
+    attention path agrees on: ``(b0 + b) * h_glob + h0 + h``.  ``b0`` is
+    the global index of batch row 0 (a data-parallel rank's first row),
+    ``h0`` of head 0 and ``h_glob`` the global head count (a tp rank's
+    head shard; default H)."""
+    hg = H if h_glob is None else int(h_glob)
     return ((torch.arange(B, dtype=torch.int64, device=device) + int(b0))
-            [:, None] * H
+            [:, None] * hg + int(h0)
             + torch.arange(H, dtype=torch.int64, device=device)[None, :]
             )[:, :, None, None]
 
@@ -123,17 +127,19 @@ def _scores(q, k, mask):
 
 
 def dense_attention_reference(q, k, v, mask=None, dropout_rate: float = 0.0,
-                              dropout_seed=None, dropout_bh=None, b0: int = 0):
+                              dropout_seed=None, dropout_bh=None, b0: int = 0,
+                              h0: int = 0, h_glob: Optional[int] = None):
     """O(L²) reference: fp32 scores, fp32 softmax, then hash dropout
     (softmax first, then drop and rescale), probabilities cast to v's
     dtype for the value product.  q/k/v [B, H, L, D]; ``b0`` the global
-    index of batch row 0."""
+    index of batch row 0, ``h0`` of head 0 and ``h_glob`` the global head
+    count (``bh_index``)."""
     B, H, Lq, _ = q.shape
     Lk = k.shape[2]
     p = torch.softmax(_scores(q, k, mask), dim=-1)
     if dropout_rate > 0.0:
         seed = 0 if dropout_seed is None else dropout_seed
-        bh = (bh_index(B, H, q.device, b0) if dropout_bh is None
+        bh = (bh_index(B, H, q.device, b0, h0, h_glob) if dropout_bh is None
               else dropout_bh)
         p = p * dropout_keep(
             seed, bh,

@@ -73,15 +73,20 @@ def keep_factor_rows(seed, global_rows, cols: int, rate: float, col0=0,
     return (h16 < t).to(torch.float32) * inv
 
 
-def _keep_factor(seed, shape, rate: float, offset: int = 0,
-                 device=None) -> torch.Tensor:
+def _keep_factor(seed, shape, rate: float, offset: int = 0, col0: int = 0,
+                 cols_glob: int = 0, device=None) -> torch.Tensor:
     """0 or 1/realized_keep per element, shaped like the input, always
-    fp32; element i draws the stream word of global element offset + i."""
-    n = int(np.prod(shape)) if len(shape) else 1
-    guard_index_ceiling(int(offset) + n)
-    rows = torch.zeros(1, dtype=torch.int64, device=device)
-    return keep_factor_rows(seed, rows, n, rate,
-                            col0=int(offset)).reshape(shape)
+    fp32.  Element (r, c) of the rows (the leading dims flattened) draws
+    the stream word of global element ``offset + r * width + col0 + c``,
+    width = ``cols_glob`` or the last dim: without a column shard,
+    element i draws the word of ``offset + i``."""
+    cols = int(shape[-1]) if len(shape) else 1
+    rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+    width = int(cols_glob) or cols
+    guard_index_ceiling(int(offset) + (rows - 1) * width + int(col0) + cols)
+    r = torch.arange(rows, dtype=torch.int64, device=device)
+    return keep_factor_rows(seed, r, cols, rate, int(offset) + int(col0),
+                            width).reshape(shape)
 
 
 def _scale(x: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
@@ -91,25 +96,31 @@ def _scale(x: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
 
 class _HashDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed: int, rate: float, offset: int):
+    def forward(ctx, x, seed: int, rate: float, where: tuple):
         # residual: the seed only; the mask is regenerated in backward
-        ctx.args = (seed, rate, offset)
-        return _scale(x, _keep_factor(seed, x.shape, rate, offset, x.device))
+        ctx.args = (seed, rate, where)
+        return _scale(x, _keep_factor(seed, x.shape, rate, *where,
+                                      device=x.device))
 
     @staticmethod
     def backward(ctx, g):
-        seed, rate, offset = ctx.args
-        return (_scale(g, _keep_factor(seed, g.shape, rate, offset,
-                                       g.device)), None, None, None)
+        seed, rate, where = ctx.args
+        return (_scale(g, _keep_factor(seed, g.shape, rate, *where,
+                                       device=g.device)), None, None, None)
 
 
 def hash_dropout(x: torch.Tensor, seed, rate: float,
-                 deterministic: bool = False, offset: int = 0
-                 ) -> torch.Tensor:
+                 deterministic: bool = False, offset: int = 0,
+                 col0: int = 0, cols_glob: int = 0) -> torch.Tensor:
     """Stateless hash dropout.  seed: a uint32 (one fresh value per site
     per step), a Python int or a one-element integer tensor (a device
     tensor is never read back to the host); rate: python float in [0, 1];
-    offset: global element index of this tensor's element 0."""
+    offset: the global element index where this tensor's first row
+    starts.  Element (r, c) of its rows (the leading dims flattened)
+    draws the word of global element ``offset + r * width + col0 + c``,
+    width = ``cols_glob`` or x's last dim: by default element i draws
+    ``offset + i``; a tp rank's column shard (its columns ``col0 ..`` of
+    a last dim ``cols_glob`` wide) draws the global array's words."""
     if deterministic or rate <= 0.0:
         return x
     t = _thresh_u16(rate)
@@ -117,4 +128,5 @@ def hash_dropout(x: torch.Tensor, seed, rate: float,
         return x
     if t <= 0:         # rate above 1 - half a grid step: drop everything
         return torch.zeros_like(x)
-    return _HashDropout.apply(x, seed_u32(seed), float(rate), int(offset))
+    return _HashDropout.apply(x, seed_u32(seed), float(rate),
+                              (int(offset), int(col0), int(cols_glob)))

@@ -89,12 +89,13 @@ def _seed(dropout_seed):
 
 
 def _keep(q, Lk, dropout_rate, dropout_seed, q0: int = 0,
-          b0: int = 0) -> torch.Tensor:
+          b0: int = 0, h0: int = 0, h_glob=None) -> torch.Tensor:
     """The keep factors of q rows q0 .. q0 + Lq (q holds those rows) of
-    batch rows whose first has global index ``b0``."""
+    batch rows whose first has global index ``b0`` and heads whose first
+    is global head ``h0`` of ``h_glob``."""
     B, H, Lq, _ = q.shape
     return dropout_keep(
-        _seed(dropout_seed), bh_index(B, H, q.device, b0),
+        _seed(dropout_seed), bh_index(B, H, q.device, b0, h0, h_glob),
         torch.arange(q0, q0 + Lq, device=q.device)[None, None, :, None],
         torch.arange(Lk, device=q.device)[None, None, None, :], dropout_rate)
 
@@ -118,14 +119,16 @@ def _scores(q, k, mask):
     return s
 
 
-def _stats_rows(q, k, v, mask, dropout_rate, dropout_seed, q0, b0=0):
+def _stats_rows(q, k, v, mask, dropout_rate, dropout_seed, q0, b0=0, h0=0,
+                h_glob=None):
     """(out, lse, lse_lo) of the q rows q0 .. q0 + Lq that ``q`` holds."""
     s = _scores(q, k, mask)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     if dropout_rate > 0.0:
-        p = p * _keep(q, k.shape[2], dropout_rate, dropout_seed, q0, b0)
+        p = p * _keep(q, k.shape[2], dropout_rate, dropout_seed, q0, b0,
+                      h0, h_glob)
     out = (torch.matmul(p.to(v.dtype).float(), v.float()) / l).to(q.dtype)
     log_l = torch.log(l)
     lse = m + log_l
@@ -136,13 +139,14 @@ def flash_attention_stats_reference(q, k, v, mask=None,
                                     dropout_rate: float = 0.0,
                                     dropout_seed=None,
                                     q_chunk: Optional[int] = None,
-                                    b0: int = 0):
+                                    b0: int = 0, h0: int = 0,
+                                    h_glob: Optional[int] = None):
     """Plain version of :func:`flash_attention_stats`: (out, lse, lse_lo),
     lse = m + log l rounded to fp32 and lse_lo = (m - lse) + log l, its
     low-order tail.  Rows are independent, so ``q_chunk`` rows at a time
     give the same values."""
     parts = [_stats_rows(q[:, :, a:b], k, v, mask, dropout_rate,
-                         dropout_seed, a, b0)
+                         dropout_seed, a, b0, h0, h_glob)
              for a, b in _row_chunks(q.shape[2], q_chunk)]
     if len(parts) == 1:
         return parts[0]
@@ -151,19 +155,20 @@ def flash_attention_stats_reference(q, k, v, mask=None,
 
 def flash_attention_reference(q, k, v, mask=None, dropout_rate: float = 0.0,
                               dropout_seed=None, emit_lse: bool = False,
-                              q_chunk: Optional[int] = None, b0: int = 0):
+                              q_chunk: Optional[int] = None, b0: int = 0,
+                              h0: int = 0, h_glob: Optional[int] = None):
     """Plain PyTorch version of the forward kernel: whole-row softmax, the
     same rounding points (fp32 scores and statistics, p cast to v's dtype
     before the value product, division by l last).  ``q_chunk`` walks the
     q rows that many at a time, so the [B, H, Lq, Lk] temporaries of a
     long sequence fit in memory; the values do not change."""
     out, lse, _ = flash_attention_stats_reference(
-        q, k, v, mask, dropout_rate, dropout_seed, q_chunk, b0)
+        q, k, v, mask, dropout_rate, dropout_seed, q_chunk, b0, h0, h_glob)
     return (out, lse) if emit_lse else out
 
 
 def _bwd_rows(q, k, v, out, lse, dout, mask, dropout_rate, dropout_seed,
-              lse_lo, q0, b0=0):
+              lse_lo, q0, b0=0, h0=0, h_glob=None):
     """fp32 (dq, dk, dv) of the q rows q0 .. q0 + Lq that ``q`` holds: dq
     of those rows, dk and dv summed over them only."""
     D = q.shape[-1]
@@ -176,7 +181,8 @@ def _bwd_rows(q, k, v, out, lse, dout, mask, dropout_rate, dropout_seed,
     dp = torch.matmul(g, v.float().transpose(-1, -2))
     pt = p
     if dropout_rate > 0.0:
-        keep = _keep(q, k.shape[2], dropout_rate, dropout_seed, q0, b0)
+        keep = _keep(q, k.shape[2], dropout_rate, dropout_seed, q0, b0, h0,
+                     h_glob)
         pt = p * keep
         dp = dp * keep
     delta = (g * out.float()).sum(dim=-1, keepdim=True)
@@ -191,7 +197,8 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, mask=None,
                                   dropout_rate: float = 0.0,
                                   dropout_seed=None, lse_lo=None,
                                   q_chunk: Optional[int] = None,
-                                  b0: int = 0):
+                                  b0: int = 0, h0: int = 0,
+                                  h_glob: Optional[int] = None):
     """Plain PyTorch version of the saved-stats backward kernels (JAX's
     ``_flash_bwd_pallas_stats``): (dq, dk, dv) in q/k/v's dtypes from the
     forward's out [B, H, Lq, D], fp32 lse [B, H, Lq] and, optionally, the
@@ -204,7 +211,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, mask=None,
         dq_c, dk_c, dv_c = _bwd_rows(
             q[:, :, a:b], k, v, out[:, :, a:b], lse[:, :, a:b],
             dout[:, :, a:b], mask, dropout_rate, dropout_seed,
-            None if lse_lo is None else lse_lo[:, :, a:b], a, b0)
+            None if lse_lo is None else lse_lo[:, :, a:b], a, b0, h0, h_glob)
         dq_parts.append(dq_c)
         dk = dk_c if dk is None else dk + dk_c
         dv = dv_c if dv is None else dv + dv_c
@@ -216,15 +223,16 @@ def flash_attention_bwd_recompute_reference(q, k, v, dout, mask=None,
                                             dropout_rate: float = 0.0,
                                             dropout_seed=None,
                                             q_chunk: Optional[int] = None,
-                                            b0: int = 0):
+                                            b0: int = 0, h0: int = 0,
+                                            h_glob: Optional[int] = None):
     """Plain PyTorch version of the recompute route (JAX's
     ``_flash_bwd_pallas``, residuals = inputs only): the forward's out and
     lse rebuilt, then the saved-stats backward."""
     out, lse, lse_lo = flash_attention_stats_reference(
-        q, k, v, mask, dropout_rate, dropout_seed, q_chunk, b0)
+        q, k, v, mask, dropout_rate, dropout_seed, q_chunk, b0, h0, h_glob)
     return flash_attention_bwd_reference(q, k, v, out, lse, dout, mask,
                                          dropout_rate, dropout_seed, lse_lo,
-                                         q_chunk, b0)
+                                         q_chunk, b0, h0, h_glob)
 
 
 def save_stats_enabled(save_stats: Optional[bool] = None) -> bool:
@@ -309,18 +317,20 @@ def _seed_arg(dropout_rate, dropout_seed, device):
     return seed_operand(0 if dropout_seed is None else dropout_seed, device)
 
 
-def _dropout_args(dropout_rate, seed_t, H, b0: int = 0):
+def _dropout_args(dropout_rate, seed_t, H, b0: int = 0, h0: int = 0,
+                  h_glob: Optional[int] = None):
     """(dropout, seed pointer, b0, h0, h_glob, threshold, keep scale):
-    the batch origin ``b0`` is a launch operand; h0 = 0 and h_glob = H
-    (no head sharding)."""
+    the batch origin ``b0``, the head origin ``h0`` and the global head
+    count ``h_glob`` (H without head sharding) are launch operands."""
     rate = float(dropout_rate)
     return (int(rate > 0.0), None if seed_t is None else seed_t.data_ptr(),
-            int(b0) & 0xFFFFFFFF, 0, H, keep_threshold(rate),
+            int(b0) & 0xFFFFFFFF, int(h0) & 0xFFFFFFFF,
+            H if h_glob is None else int(h_glob), keep_threshold(rate),
             keep_scale(rate) if rate > 0.0 else 1.0)
 
 
 def _launch_fwd(q, k, v, mask, dropout_rate, dropout_seed, emit_lse: int,
-                b0: int = 0):
+                b0: int = 0, h0: int = 0, h_glob: Optional[int] = None):
     """The forward kernel; emit_lse 0: out, 1: (out, lse), 2: (out, lse,
     lse_lo).  Counts one forward launch."""
     _check_inputs(q, k, v)
@@ -346,8 +356,8 @@ def _launch_fwd(q, k, v, mask, dropout_rate, dropout_seed, emit_lse: int,
             stats[1].data_ptr() if emit_lse == 2 else None,
             _DTYPES[q.dtype], B, H, Lq, Lk, D,
             *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-            1.0 / math.sqrt(D), *_dropout_args(dropout_rate, seed_t, H, b0),
-            stream)
+            1.0 / math.sqrt(D),
+            *_dropout_args(dropout_rate, seed_t, H, b0, h0, h_glob), stream)
     _build.check(lib, err, "flash_fwd launch")
     flash_attention.launches += 1
     return (out,) + (tuple(stats) if emit_lse else ())
@@ -356,7 +366,8 @@ def _launch_fwd(q, k, v, mask, dropout_rate, dropout_seed, emit_lse: int,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
                     dropout_rate: float = 0.0, dropout_seed=None,
-                    emit_lse: bool = False, b0: int = 0):
+                    emit_lse: bool = False, b0: int = 0, h0: int = 0,
+                    h_glob: Optional[int] = None):
     """The forward kernel.  q/k/v [B, H, L, D] (any strides over B, H and
     L; D contiguous; bf16 views with a 16-byte-aligned base and (b, h, l)
     strides that are multiples of 8, as the model's views of its fused
@@ -365,18 +376,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on the card the kernel reads it where it lies).  Returns out
     [B, H, Lq, D] (a view of a [B, Lq, H, D] buffer on CUDA) and, with
     emit_lse, the fp32 row lse [B, H, Lq].  ``b0``: the global index of
-    batch row 0 (the dropout stream's batch origin).  No autograd:
-    training goes through :func:`flash_attention_qkv`."""
+    batch row 0 (the dropout stream's batch origin); ``h0``: of head 0,
+    and ``h_glob`` the global head count (a tp rank's head shard: the
+    dropout stream's head origin; default H).  No autograd: training
+    goes through :func:`flash_attention_qkv`."""
     if not _on_card(q, "flash_attention"):
         return flash_attention_reference(q, k, v, mask, dropout_rate,
-                                         dropout_seed, emit_lse, b0=b0)
+                                         dropout_seed, emit_lse, b0=b0,
+                                         h0=h0, h_glob=h_glob)
     got = _launch_fwd(q, k, v, mask, dropout_rate, dropout_seed,
-                      int(bool(emit_lse)), b0)
+                      int(bool(emit_lse)), b0, h0, h_glob)
     return got if emit_lse else got[0]
 
 
 def flash_attention_stats(q, k, v, mask=None, dropout_rate: float = 0.0,
-                          dropout_seed=None, b0: int = 0):
+                          dropout_seed=None, b0: int = 0, h0: int = 0,
+                          h_glob: Optional[int] = None):
     """The forward with everything the saved-stats backward takes:
     (out, lse, lse_lo), lse_lo being the low-order tail of the lse.  Its
     launches count here (the forwards a backward will use: training's and
@@ -384,8 +399,10 @@ def flash_attention_stats(q, k, v, mask=None, dropout_rate: float = 0.0,
     forward kernel launch)."""
     if not _on_card(q, "flash_attention"):
         return flash_attention_stats_reference(q, k, v, mask, dropout_rate,
-                                               dropout_seed, b0=b0)
-    got = _launch_fwd(q, k, v, mask, dropout_rate, dropout_seed, 2, b0)
+                                               dropout_seed, b0=b0, h0=h0,
+                                               h_glob=h_glob)
+    got = _launch_fwd(q, k, v, mask, dropout_rate, dropout_seed, 2, b0, h0,
+                      h_glob)
     flash_attention_stats.launches += 1
     return got
 
@@ -409,7 +426,8 @@ def _check_rows16(**tensors):
 
 
 def _launch_bwd(q, k, v, out, lse, dout, mask, dropout_rate, dropout_seed,
-                lse_lo, grads, b0: int = 0):
+                lse_lo, grads, b0: int = 0, h0: int = 0,
+                h_glob: Optional[int] = None):
     """The dkdv + dq kernel pair of csrc/flash_bwd.cu (no launch count):
     the wgmma kernels for bf16, the FMA kernels for fp32."""
     _check_inputs(q, k, v)
@@ -453,8 +471,8 @@ def _launch_bwd(q, k, v, out, lse, dout, mask, dropout_rate, dropout_seed,
             _DTYPES[q.dtype], B, H, Lq, Lk, D,
             *_strides(q), *_strides(k), *_strides(v), *_strides(dout),
             *_strides(dq), *_strides(dk), *_strides(dv),
-            1.0 / math.sqrt(D), *_dropout_args(dropout_rate, seed_t, H, b0),
-            stream)
+            1.0 / math.sqrt(D),
+            *_dropout_args(dropout_rate, seed_t, H, b0, h0, h_glob), stream)
     _build.check(lib, err, "flash_bwd launch")
     return dq, dk, dv
 
@@ -469,7 +487,8 @@ def _fill(grads, got):
 
 def flash_attention_bwd(q, k, v, out, lse, dout, mask=None,
                         dropout_rate: float = 0.0, dropout_seed=None,
-                        lse_lo=None, grads=None, b0: int = 0):
+                        lse_lo=None, grads=None, b0: int = 0, h0: int = 0,
+                        h_glob: Optional[int] = None):
     """Saved-stats backward (JAX's ``_flash_bwd_pallas_stats``): (dq, dk,
     dv) from the forward's out, fp32 lse and (optionally) its low-order
     tail ``lse_lo`` (``flash_attention_stats``).  ``grads``: optional
@@ -478,9 +497,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, mask=None,
     if not _on_card(q, "flash_attention_bwd"):
         return _fill(grads, flash_attention_bwd_reference(
             q, k, v, out, lse, dout, mask, dropout_rate, dropout_seed,
-            lse_lo, b0=b0))
+            lse_lo, b0=b0, h0=h0, h_glob=h_glob))
     got = _launch_bwd(q, k, v, out, lse, dout, mask, dropout_rate,
-                      dropout_seed, lse_lo, grads, b0)
+                      dropout_seed, lse_lo, grads, b0, h0, h_glob)
     flash_attention_bwd.launches += 1
     return got
 
@@ -491,17 +510,19 @@ flash_attention_bwd.launches = 0
 def flash_attention_bwd_recompute(q, k, v, dout, mask=None,
                                   dropout_rate: float = 0.0,
                                   dropout_seed=None, grads=None,
-                                  b0: int = 0):
+                                  b0: int = 0, h0: int = 0,
+                                  h_glob: Optional[int] = None):
     """Recompute backward (JAX's ``_flash_bwd_pallas``, residuals = the
     inputs only): the forward kernel re-run with ``emit_lse`` (counted as
     a forward launch), then the saved-stats backward kernels."""
     if not _on_card(q, "flash_attention_bwd_recompute"):
         return _fill(grads, flash_attention_bwd_recompute_reference(
-            q, k, v, dout, mask, dropout_rate, dropout_seed, b0=b0))
+            q, k, v, dout, mask, dropout_rate, dropout_seed, b0=b0, h0=h0,
+            h_glob=h_glob))
     out, lse, lse_lo = flash_attention_stats(q, k, v, mask, dropout_rate,
-                                             dropout_seed, b0)
+                                             dropout_seed, b0, h0, h_glob)
     got = _launch_bwd(q, k, v, out, lse, dout, mask, dropout_rate,
-                      dropout_seed, lse_lo, grads, b0)
+                      dropout_seed, lse_lo, grads, b0, h0, h_glob)
     flash_attention_bwd_recompute.launches += 1
     return got
 
@@ -516,16 +537,17 @@ def _split_qkv(qkv):
 
 class _FlashQKV(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv, mask, dropout_rate, dropout_seed, save_stats, b0):
+    def forward(ctx, qkv, mask, dropout_rate, dropout_seed, save_stats, b0,
+                h0, h_glob):
         q, k, v = _split_qkv(qkv)
-        ctx.args = (mask, dropout_rate, dropout_seed, b0)
+        ctx.args = (mask, dropout_rate, dropout_seed, b0, h0, h_glob)
         if save_stats:
             out, lse, lse_lo = flash_attention_stats(
-                q, k, v, mask, dropout_rate, dropout_seed, b0)
+                q, k, v, mask, dropout_rate, dropout_seed, b0, h0, h_glob)
             ctx.save_for_backward(qkv, out, lse, lse_lo)
         else:
             out = flash_attention(q, k, v, mask, dropout_rate, dropout_seed,
-                                  b0=b0)
+                                  b0=b0, h0=h0, h_glob=h_glob)
             ctx.save_for_backward(qkv)
         ctx.save_stats = save_stats
         return out
@@ -536,26 +558,32 @@ class _FlashQKV(torch.autograd.Function):
         q, k, v = _split_qkv(qkv)
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
         grads = _split_qkv(dqkv)
-        mask, rate, seed, b0 = ctx.args
+        mask, rate, seed, b0, h0, h_glob = ctx.args
         if ctx.save_stats:
             _, out, lse, lse_lo = ctx.saved_tensors
             flash_attention_bwd(q, k, v, out, lse, dout, mask, rate, seed,
-                                lse_lo, grads=grads, b0=b0)
+                                lse_lo, grads=grads, b0=b0, h0=h0,
+                                h_glob=h_glob)
         else:
             flash_attention_bwd_recompute(q, k, v, dout, mask, rate, seed,
-                                          grads=grads, b0=b0)
-        return dqkv, None, None, None, None, None
+                                          grads=grads, b0=b0, h0=h0,
+                                          h_glob=h_glob)
+        return dqkv, None, None, None, None, None, None, None
 
 
 def flash_attention_qkv(qkv: torch.Tensor, mask: Optional[torch.Tensor] = None,
                         dropout_rate: float = 0.0, dropout_seed=None,
                         save_stats: Optional[bool] = None,
-                        b0: int = 0) -> torch.Tensor:
+                        b0: int = 0, h0: int = 0,
+                        h_glob: Optional[int] = None) -> torch.Tensor:
     """Flash attention over a fused projection qkv [B, L, 3, H, D] with
     autograd: the forward kernel, and on backward the saved-stats kernels
     (default) or the recompute route (``save_stats=False`` or
     ``FDT_FLASH_SAVE_STATS=0``).  ``b0``: the global index of batch row
-    0 (a data-parallel rank's first row).  Returns the context [B, H, L,
-    D]; the gradient comes back as one [B, L, 3, H, D] buffer."""
+    0 (a data-parallel rank's first row); under tp, qkv is a rank's head
+    shard [B, L, 3, H/tp, D] whose first head is global head ``h0`` of
+    ``h_glob``.  Returns the context [B, H, L, D]; the gradient comes
+    back as one [B, L, 3, H, D] buffer."""
     return _FlashQKV.apply(qkv, mask, float(dropout_rate), _seed(dropout_seed),
-                           save_stats_enabled(save_stats), int(b0))
+                           save_stats_enabled(save_stats), int(b0), int(h0),
+                           None if h_glob is None else int(h_glob))

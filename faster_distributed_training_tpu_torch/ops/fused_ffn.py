@@ -29,9 +29,14 @@ recomputes through the plain version under autograd (the JAX
 through ``ops.quant.quant_dot``, which launches the quantized-GEMM kernel
 on the card, and the unquantized ones stay ``torch.matmul``.
 
-The tp ``partial`` output of the JAX generalized core comes with the
-multi-GPU slice; the kernel and the plain versions already take the
-global offsets b0/s0/c0/dff_glob, and the model passes 0 and d_ff.
+The generalized core's ``partial`` mode is the Megatron column-then-row
+tile a tensor-parallel rank runs (JAX ``_ffn_fwd_pallas2(partial=True)``,
+``parallel/kernel_shard.py::fused_ffn_sublayer_tp``): w1 the rank's
+[d_ff/tp, d] rows, w2 its [d, d_ff/tp] columns, the hidden dropout at the
+global columns (``c0``, ``dff_glob``), and the kernel stops before b2,
+the connection dropout and the residual, writing GEMM2's fp32 product
+for the SUM over tp.  Under quant its GEMMs' E5M2 gradient amaxes reduce
+over the tp group too (``grad_tp``).
 """
 
 from __future__ import annotations
@@ -107,20 +112,24 @@ def _ffn_body_reference(h, ln_scale, ln_bias, w1, b1, w2, b2, hid_seed,
                         out_seed, rate_hidden, rate_conn, eps, b0=0, s0=0,
                         l_loc: int = 1, l_glob: int = 1, c0=0,
                         dff_glob: int = 0, quant=None,
-                        return_amax: bool = False, plain_gemm: bool = False):
-    """The generalized plain version (JAX ``_ffn_body_reference`` without
-    ``partial``).  quant: None or (fmt, sx1, sw1, sx2, sw2, grad_fmt).
-    return_amax: also return the (2,) fp32 [amax_f, amax_a] (zeros
-    without quant).  The quantized GEMMs go through ``quant_dot`` (the
-    kernel on the card, as in the recompute backward), or with
-    ``plain_gemm`` through ``quant_dot_reference`` (forward only)."""
+                        return_amax: bool = False, plain_gemm: bool = False,
+                        partial: bool = False):
+    """The generalized plain version (JAX ``_ffn_body_reference``).
+    quant: None or (fmt, sx1, sw1, sx2, sw2, grad_fmt[, grad_tp]), grad_tp
+    the ``TensorGroup`` the E5M2 gradient amaxes also reduce over (JAX's
+    ``grad_axes``).  partial: stop before b2, the connection dropout and
+    the residual, and return GEMM2's fp32 product.  return_amax: also
+    return the (2,) fp32 [amax_f, amax_a] (zeros without quant).  The
+    quantized GEMMs go through ``quant_dot`` (the kernel on the card, as
+    in the recompute backward), or with ``plain_gemm`` through
+    ``quant_dot_reference`` (forward only)."""
 
     def qdot(x, w, sx, sw):
         if plain_gemm:
             return quant_dot_reference(quantize(x, sx, fmt),
                                        quantize(w, sw, fmt), sx, sw, fmt,
                                        x.dtype)
-        return quant_dot(x, w, sx, sw, fmt, gfmt)
+        return quant_dot(x, w, sx, sw, fmt, gfmt, grad_tp=gtp)
 
     lead, d = h.shape[:-1], h.shape[-1]
     x32 = h.reshape(-1, d).float()
@@ -130,7 +139,8 @@ def _ffn_body_reference(h, ln_scale, ln_bias, w1, b1, w2, b2, hid_seed,
                         eps).to(h.dtype)
     amax_f = amax_a = torch.zeros((), dtype=torch.float32, device=h.device)
     if quant is not None:
-        fmt, sx1, sw1, sx2, sw2, gfmt = quant
+        fmt, sx1, sw1, sx2, sw2, gfmt, *rest = quant
+        gtp = rest[0] if rest else None
         if return_amax:
             amax_f = tensor_amax(f)
         h1 = qdot(f, w1, sx1, sw1).float() + b1.float()
@@ -147,10 +157,14 @@ def _ffn_body_reference(h, ln_scale, ln_bias, w1, b1, w2, b2, hid_seed,
         f2 = qdot(a, w2, sx2, sw2).float()
     else:
         f2 = _mm32(a, w2)
-    f2 = f2 + b2.float()
-    if rate_conn > 0.0:
-        f2 = f2 * keep_factor_rows(out_seed, grows, f2.shape[1], rate_conn)
-    out = (x32 + f2).to(h.dtype).reshape(*lead, d)
+    if partial:
+        out = f2.reshape(*lead, d)
+    else:
+        f2 = f2 + b2.float()
+        if rate_conn > 0.0:
+            f2 = f2 * keep_factor_rows(out_seed, grows, f2.shape[1],
+                                       rate_conn)
+        out = (x32 + f2).to(h.dtype).reshape(*lead, d)
     if return_amax:
         return out, torch.stack([amax_f, amax_a])
     return out
@@ -165,7 +179,7 @@ def _lib() -> ctypes.CDLL:
                       ctypes.c_float)
         lib.fdt_fused_ffn_fwd.argtypes = (
             [p] * 10 + [i] * 5 + [p] * 2 + [u] * 3 + [i] * 3
-            + [u, f, i, u, f, i, f, p])
+            + [u, f, i, u, f, i, f, i, p])
         lib.fdt_fused_ffn_fwd.restype = ctypes.c_int
         lib.fdt_ffn_engine.argtypes = [i, i, i]
         lib.fdt_ffn_engine.restype = ctypes.c_int
@@ -224,11 +238,14 @@ def _check_inputs(h2d, ln_scale, ln_bias, w1, b1, w2, b2, fmt):
 
 
 def _launch(h2d, ln_scale, ln_bias, w1, b1, w2, b2, seeds, scales,
-            rate_hidden, rate_conn, eps, l_loc, l_glob, dff_glob, fmt):
+            rate_hidden, rate_conn, eps, l_loc, l_glob, dff_glob, fmt,
+            partial: bool = False):
     """One kernel launch: (out [rows, d], amax (2,) fp32).  seeds: (hid,
     out, b0, s0, c0), the two dropout seeds Python ints or one-element
     integer tensors on the device (the kernel reads them there), the
-    offsets Python ints; scales: (4,) fp32 on the device or None."""
+    offsets Python ints; scales: (4,) fp32 on the device or None.
+    ``partial``: out is GEMM2's fp32 product (no b2, connection dropout
+    or residual)."""
     if fmt is not None:
         # weights quantize once per call at their delayed scales
         w1, w2 = quantize(w1, scales[1], fmt), quantize(w2, scales[3], fmt)
@@ -239,7 +256,8 @@ def _launch(h2d, ln_scale, ln_bias, w1, b1, w2, b2, seeds, scales,
     w1, b1, w2, b2 = (t.contiguous() for t in (w1, b1, w2, b2))
     _check_inputs(h2d, ln_scale, ln_bias, w1, b1, w2, b2, fmt)
     rows, d = h2d.shape
-    out = torch.empty_like(h2d)
+    out = (torch.empty(rows, d, dtype=torch.float32, device=h2d.device)
+           if partial else torch.empty_like(h2d))
     amax = torch.zeros(2, dtype=torch.float32, device=h2d.device)
     if rows == 0:
         return out, amax
@@ -261,7 +279,7 @@ def _launch(h2d, ln_scale, ln_bias, w1, b1, w2, b2, seeds, scales,
             None if out_seed is None else out_seed.data_ptr(),
             b0, s0, c0, int(l_loc), int(l_glob),
             int(dff_glob), t_h, ks_h, on_h, t_c, ks_c, on_c, float(eps),
-            stream)
+            int(bool(partial)), stream)
     _build.check(lib, err, "fused_ffn launch")
     return out, amax
 
@@ -295,10 +313,12 @@ ffn_fwd.launches = 0
 
 def ffn_fwd_generalized(h2d, ln_scale, ln_bias, w1, b1, w2, b2, seeds,
                         scales, rate_hidden, rate_conn, eps, l_loc, l_glob,
-                        dff_glob, fmt, grad_fmt=None):
+                        dff_glob, fmt, grad_fmt=None, partial: bool = False):
     """The generalized forward (JAX ``_ffn_fwd_pallas2``): (out, amax2).
     seeds (hid, out, b0, s0, c0) python ints; scales (4,) fp32 [sx1, sw1,
-    sx2, sw2] (ignored when fmt is None)."""
+    sx2, sw2] (ignored when fmt is None).  ``partial``: the tp tile's fp32
+    GEMM2 product (a tp rank's w1 rows and w2 columns; its launches also
+    count in ``ffn_fwd_generalized.partial_launches``)."""
     if not _on_card(h2d):
         hid, out_seed, b0, s0, c0 = seeds
         quant = (None if fmt is None else
@@ -306,14 +326,18 @@ def ffn_fwd_generalized(h2d, ln_scale, ln_bias, w1, b1, w2, b2, seeds,
         return _ffn_body_reference(h2d, ln_scale, ln_bias, w1, b1, w2, b2,
                                    hid, out_seed, rate_hidden, rate_conn,
                                    eps, b0, s0, l_loc, l_glob, c0, dff_glob,
-                                   quant, return_amax=True)
+                                   quant, return_amax=True, partial=partial)
     res = _launch(h2d, ln_scale, ln_bias, w1, b1, w2, b2, seeds, scales,
-                  rate_hidden, rate_conn, eps, l_loc, l_glob, dff_glob, fmt)
+                  rate_hidden, rate_conn, eps, l_loc, l_glob, dff_glob, fmt,
+                  partial)
     ffn_fwd_generalized.launches += 1
+    if partial:
+        ffn_fwd_generalized.partial_launches += 1
     return res
 
 
 ffn_fwd_generalized.launches = 0
+ffn_fwd_generalized.partial_launches = 0
 
 
 # -- autograd: inputs-only residuals, recompute backward ------------------------
@@ -329,11 +353,12 @@ def _core_fwd(h, ln_scale, ln_bias, w1, b1, w2, b2, hid_seed, out_seed, b0,
 
 def _core2_fwd(h, ln_scale, ln_bias, w1, b1, w2, b2, scales, seeds,
                rate_hidden, rate_conn, eps, l_loc, l_glob, dff_glob, fmt,
-               grad_fmt):
+               grad_fmt, grad_tp=None, partial=False):
     lead, d = h.shape[:-1], h.shape[-1]
     out, amax2 = ffn_fwd_generalized(
         h.reshape(-1, d), ln_scale, ln_bias, w1, b1, w2, b2, seeds, scales,
-        rate_hidden, rate_conn, eps, l_loc, l_glob, dff_glob, fmt, grad_fmt)
+        rate_hidden, rate_conn, eps, l_loc, l_glob, dff_glob, fmt, grad_fmt,
+        partial)
     return out.reshape(*lead, d), amax2
 
 
@@ -379,15 +404,17 @@ class _FFNCore2(torch.autograd.Function):
     def backward(ctx, g, _g_amax):
         *inputs, scales = ctx.saved_tensors
         (seeds, r_h, r_c, eps, l_loc, l_glob, dff_glob, fmt,
-         gfmt) = ctx.args
+         gfmt, gtp, partial) = ctx.args
         hid, out_seed, b0, s0, c0 = seeds
         quant = (None if fmt is None else
-                 (fmt, scales[0], scales[1], scales[2], scales[3], gfmt))
+                 (fmt, scales[0], scales[1], scales[2], scales[3], gfmt,
+                  gtp))
 
         def fn(h, ls, lb, w1, b1, w2, b2):
             return _ffn_body_reference(h, ls, lb, w1, b1, w2, b2, hid,
                                        out_seed, r_h, r_c, eps, b0, s0,
-                                       l_loc, l_glob, c0, dff_glob, quant)
+                                       l_loc, l_glob, c0, dff_glob, quant,
+                                       partial=partial)
         grads = _recompute_grads(fn, inputs, g)
         return (*grads, *([None] * (1 + len(ctx.args))))
 
@@ -439,10 +466,13 @@ def ffn_core_generalized(h, ln_scale, ln_bias, w1, b1, w2, b2, hid_seed,
                          rate_conn: float, eps: float, l_loc: int,
                          l_glob: int, dff_glob: int = 0,
                          quant_fmt: Optional[str] = None, quant_scales=None,
-                         grad_fmt: Optional[str] = None):
+                         grad_fmt: Optional[str] = None, grad_tp=None,
+                         partial: bool = False):
     """The generalized core: (out, amax2), amax2 = (2,) fp32 [amax_f,
     amax_a] of this call (zeros without quant).  quant_scales: (sx1, sw1,
-    sx2, sw2) fp32 scalars when quant_fmt is set."""
+    sx2, sw2) fp32 scalars when quant_fmt is set.  partial: out is the tp
+    tile's fp32 GEMM2 product (row 8's tp mode), grad_tp the
+    ``TensorGroup`` the tile's E5M2 gradient amaxes reduce over."""
     _guard(h, w1, rate_hidden, rate_conn, "fused FFN dropout")
     scales = pack_scales(quant_scales if quant_fmt is not None else None,
                          h.device)
@@ -451,7 +481,7 @@ def ffn_core_generalized(h, ln_scale, ln_bias, w1, b1, w2, b2, hid_seed,
     args = (scales, seeds, float(rate_hidden), float(rate_conn), float(eps),
             int(l_loc), int(l_glob),
             int(dff_glob) if dff_glob else int(w1.shape[0]), quant_fmt,
-            grad_fmt)
+            grad_fmt, grad_tp, bool(partial))
     inputs = (h, ln_scale, ln_bias, w1, b1, w2, b2)
     if _needs_grad(inputs):
         return _FFNCore2.apply(*inputs, *args)

@@ -28,7 +28,15 @@ Counterpart of ``faster_distributed_training_tpu/ops/quant.py``:
     in plain torch as the JAX package leaves them to XLA);
   * ``QuantDense``: ``nn.Linear``'s parameters (weight [out, in], bias
     [out]) plus two persistent fp32 buffers ``amax_history_x`` /
-    ``amax_history_w``.
+    ``amax_history_w``.  Under tensor parallelism a site holds its tp
+    shard (JAX ``QuantDense(tp_dim=...)`` and ``parallel/kernel_shard.py::
+    quant_dense_sharded``): column-parallel (``tp_dim`` > 0:
+    qkv, ``Dense_0``) contracts locally into its output columns,
+    row-parallel (``tp_dim`` 0: out, ``Dense_1``) contracts its input rows
+    and SUMs the partial products over tp before the (whole) bias; the
+    scales stay global per-tensor scalars, so the amax of each sharded
+    operand is MAX-reduced over tp, and the E5M2 gradient amax of a
+    column site too.
 
 Weights are in ``nn.Linear``'s (out, in) layout throughout: the JAX
 package's (in, out) kernel transposed, so no transpose runs per call.
@@ -248,11 +256,16 @@ def _dot_q_mixed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.float(), b.float())
 
 
-def _quant_dot_bwd(xq, wq, sx, sw, g, grad_fmt):
-    """(dx [M, K], dw [N, K]) for the cotangent g [M, N]."""
+def _quant_dot_bwd(xq, wq, sx, sw, g, grad_fmt, grad_tp=None):
+    """(dx [M, K], dw [N, K]) for the cotangent g [M, N].  ``grad_tp``: the
+    tp group g's columns are sharded over (its amax is the MAX over the
+    group too: JAX's ``grad_axes``)."""
     if grad_fmt is not None:
         # the just-in-time scale of the global batch's cotangent
-        sg = _scale_from_amax(all_max_(tensor_amax(g)), grad_fmt)
+        amax = all_max_(tensor_amax(g))
+        if grad_tp is not None:
+            amax = grad_tp.max_(amax)
+        sg = _scale_from_amax(amax, grad_fmt)
         gq = quantize(g, sg, grad_fmt)
         dx = (_dot_q_mixed(gq, wq) * rdiv(1.0, sg * sw.float())).to(g.dtype)
         dw = (_dot_q_mixed(gq.T, xq) * rdiv(1.0, sx.float() * sg)
@@ -267,25 +280,28 @@ def _quant_dot_bwd(xq, wq, sx, sw, g, grad_fmt):
 
 class _QuantDot(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, sx, sw, fmt: str, grad_fmt):
+    def forward(ctx, x, w, sx, sw, fmt: str, grad_fmt, grad_tp):
         # quantize once: the same tensors feed the GEMM and are the
         # residuals (1 byte an element)
         xq, wq = quantize(x, sx, fmt), quantize(w, sw, fmt)
         ctx.save_for_backward(xq, wq, sx, sw)
-        ctx.grad_fmt = grad_fmt
+        ctx.grad_fmt, ctx.grad_tp = grad_fmt, grad_tp
         return quant_matmul(xq, wq, sx, sw, fmt, x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         xq, wq, sx, sw = ctx.saved_tensors
-        dx, dw = _quant_dot_bwd(xq, wq, sx, sw, g, ctx.grad_fmt)
-        return dx, dw, None, None, None, None
+        dx, dw = _quant_dot_bwd(xq, wq, sx, sw, g, ctx.grad_fmt,
+                                ctx.grad_tp)
+        return dx, dw, None, None, None, None, None
 
 
 def quant_dot(x: torch.Tensor, w: torch.Tensor, sx, sw, fmt: str,
-              grad_fmt: Optional[str] = None) -> torch.Tensor:
+              grad_fmt: Optional[str] = None, grad_tp=None) -> torch.Tensor:
     """out [M, N] = dequant(quant(x) . quant(w)^T) in x's dtype; x [M, K],
-    w [N, K]; sx/sw the fp32 delayed scales."""
+    w [N, K]; sx/sw the fp32 delayed scales.  ``grad_tp``: the
+    ``TensorGroup`` the cotangent's columns are sharded over (a
+    column-parallel site; None otherwise)."""
     if fmt not in _FMTS:
         raise ValueError(f"quant_dot fmt must be one of {_FMTS}, got "
                          f"{fmt!r}")
@@ -295,7 +311,7 @@ def quant_dot(x: torch.Tensor, w: torch.Tensor, sx, sw, fmt: str,
     sx = torch.as_tensor(sx, dtype=torch.float32, device=x.device)
     sw = torch.as_tensor(sw, dtype=torch.float32, device=x.device)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _QuantDot.apply(x, w, sx, sw, fmt, grad_fmt)
+        return _QuantDot.apply(x, w, sx, sw, fmt, grad_fmt, grad_tp)
     return quant_matmul(quantize(x, sx, fmt), quantize(w, sw, fmt), sx, sw,
                         fmt, x.dtype)
 
@@ -310,19 +326,27 @@ def _replaying() -> bool:
 
 class QuantDense(nn.Module):
     """``nn.Linear`` with an int8/fp8 forward GEMM at delayed per-tensor
-    scales (the JAX ``QuantDense`` without its pipeline cadence and tp
-    branches).  ``forward(x, train)`` quantizes at the scales of the
-    pre-step histories and rolls them only in a training forward with
-    ``frozen_scales=False`` (serving freezes them)."""
+    scales (the JAX ``QuantDense`` without its pipeline cadence).
+    ``forward(x, train)`` quantizes at the scales of the pre-step
+    histories and rolls them only in a training forward with
+    ``frozen_scales=False`` (serving freezes them).  Under tp (``tp`` a
+    ``TensorGroup``; ``tp_dim`` the dim of the JAX kernel its rule
+    shards, 0 row-parallel, above 0 column-parallel) the features are
+    the rank's shard's: column [out/tp, in], row [out, in/tp] with the
+    whole bias added after the SUM over tp."""
 
     def __init__(self, in_features: int, out_features: int, fmt: str = "int8",
                  amax_history_len: int = 16, margin: float = 1.0,
                  frozen_scales: bool = False, grad_fmt: Optional[str] = None,
-                 dtype=torch.float32, param_dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=torch.float32, tp=None,
+                 tp_dim: Optional[int] = None):
         super().__init__()
         if fmt not in _FMTS:
             raise ValueError(f"QuantDense fmt must be one of {_FMTS}, got "
                              f"{fmt!r}")
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        self.tp_dim = tp_dim if self.tp is not None else None
+        self.row = self.tp_dim == 0
         self.in_features, self.out_features = in_features, out_features
         self.fmt, self.margin = fmt, float(margin)
         self.frozen_scales, self.grad_fmt = bool(frozen_scales), grad_fmt
@@ -352,19 +376,36 @@ class QuantDense(nn.Module):
         if not quant_enabled():
             # FDT_QUANT=0: the plain matmul with fp32 output, state untouched
             out = torch.matmul(x2d.float(), w2d.float().T)
+            if self.row:
+                out = self.tp.reduce_out(out)
         else:
             sx, sw = self.scales()
+            tp = self.tp
             if train and not self.frozen_scales and not _replaying():
                 # never in a --remat replay: the histories roll once a step
                 # the activation's amax over the global batch (every
-                # rank's rows), as the JAX step takes it
+                # rank's rows), as the JAX step takes it; under tp the
+                # amaxes of the logical operands: the weight's over its
+                # shards, a row site's input's too
                 with torch.no_grad():
+                    ax = all_max_(tensor_amax(x2d))
+                    aw = tensor_amax(w2d)
+                    if tp is not None:
+                        aw = tp.max_(aw)
+                        if self.row:
+                            ax = tp.max_(ax)
                     self.amax_history_x.copy_(update_amax_history(
-                        self.amax_history_x, all_max_(tensor_amax(x2d))))
+                        self.amax_history_x, ax))
                     self.amax_history_w.copy_(update_amax_history(
-                        self.amax_history_w, tensor_amax(w2d)))
-            out = quant_dot(x2d, w2d, sx, sw, self.fmt,
-                            self.grad_fmt).float()
+                        self.amax_history_w, aw))
+            # row 9 on the rank's shard: a column site's cotangent is
+            # sharded over tp (its E5M2 amax MAXes over tp too), a row
+            # site SUMs its partial products, in x's dtype (JAX's psum)
+            out = quant_dot(x2d, w2d, sx, sw, self.fmt, self.grad_fmt,
+                            grad_tp=None if self.row else tp)
+            if self.row:
+                out = tp.reduce_out(out)
+            out = out.float()
         out = out + self.bias.float()
         return out.to(self.dtype).reshape(*lead, self.out_features)
 

@@ -22,8 +22,10 @@ Tensors = Dict[str, torch.Tensor]
 def global_norm(grads: Tensors, shards=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf (optax.global_norm).
     ``shards``: (names, sum_over_shards) when the leaves of ``names`` are
-    this rank's slices of sharded gradients: their sums of squares are
-    all-reduced over the shard group before the whole leaves' join."""
+    this rank's slices of sharded gradients (fsdp, zero1, ZeRO over tp,
+    and under tp the rank's tp shards): their sums of squares are
+    all-reduced over the shard group before the whole leaves' join, so a
+    replicated leaf counts once."""
     if not shards or not shards[0]:
         return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                               for g in grads.values()))

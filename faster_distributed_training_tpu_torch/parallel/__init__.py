@@ -1,9 +1,10 @@
 """Distributed execution of the port over ``torch.distributed`` (the JAX
 package's ``parallel/``): the data mesh and process group (``mesh``),
-the step's collectives (``collectives``), the data-axis sharding rules
-(``sharding``) and the state's placement (``placement``).  One process
-a rank, NCCL on the card and gloo on the CPU; the tp, sp and pp axes
-are not ported yet."""
+the step's collectives (``collectives``: the data group, and the tp
+group's Megatron pairs), the sharding rules (``sharding``: the data axes
+and tp), the fused FFN's tp tile (``kernel_shard``) and the
+state's placement (``placement``).  One process a rank, NCCL on the
+card and gloo on the CPU; the sp and pp axes are not ported yet."""
 
 from faster_distributed_training_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_ALIASES,
@@ -15,6 +16,7 @@ from faster_distributed_training_tpu_torch.parallel.mesh import (  # noqa: F401
     local_batch_slice,
     local_device,
     make_mesh,
+    mesh_groups,
     parse_mesh,
     pp_size,
     sp_size,
@@ -22,9 +24,14 @@ from faster_distributed_training_tpu_torch.parallel.mesh import (  # noqa: F401
 )
 from faster_distributed_training_tpu_torch.parallel.sharding import (  # noqa: F401
     bucketed_grad_reduce,
+    apply_tp_rules,
+    classify_opt_state_leaf,
     fsdp_partition_params,
     offload_opt_leaf,
+    tensor_parallel_rules,
+    tp_cut,
     zero1_opt_specs,
+    zero_opt_dims,
 )
 from faster_distributed_training_tpu_torch.parallel.placement import (  # noqa: F401
     Placement,
@@ -36,6 +43,7 @@ from faster_distributed_training_tpu_torch.parallel.placement import (  # noqa: 
 )
 from faster_distributed_training_tpu_torch.parallel.collectives import (  # noqa: F401
     DataGroup,
+    TensorGroup,
     all_gather_across_processes,
     all_reduce_metrics,
     all_sum_across_processes,

@@ -15,6 +15,16 @@ the group of the step that calls them through ``DataGroup.active()``, a
 ``with`` block around the step's forward and backward on the calling
 thread (the backward runs there too, ``train.steps._grads``);
 ``current()`` is None outside one.
+
+Under tensor parallelism (``--mesh tp=N``) the data group holds one rank
+of each tp group, and ``TensorGroup`` is the rank's tp group: the two
+Megatron autograd pairs around every sharded sublayer (``copy_in``:
+identity forward, SUM backward, where a replicated activation enters a
+column-parallel GEMM; ``reduce_out``: SUM forward, identity backward,
+after a row-parallel GEMM) and the MAX of the quantizers' amaxes over
+the shards; ``all_gather`` over its group rebuilds a leaf from its
+shards (``Placement``).  The model holds its
+TensorGroup (no thread-local: the shapes of its shards depend on it).
 """
 
 from __future__ import annotations
@@ -119,6 +129,68 @@ class _GatherRows(torch.autograd.Function):
         g = ctx.group.sum_(g.contiguous().clone())
         r0 = ctx.group.origin(ctx.rows)
         return g[r0:r0 + ctx.rows], None
+
+
+class TensorGroup:
+    """A rank's tensor-parallel group: ``group`` (a process group; None:
+    collectives are the identity, for the per-shard math of one process),
+    this rank's index ``rank`` in it and its ``size``."""
+
+    def __init__(self, group=None, rank: int = 0, size: int = 1):
+        self.group, self.rank, self.size = group, int(rank), int(size)
+        self.live = group is not None and self.size > 1
+
+    def part(self, n: int) -> int:
+        """This rank's share of ``n`` (``n`` must divide)."""
+        if n % self.size:
+            raise ValueError(f"{n} does not divide over tp={self.size}")
+        return n // self.size
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM all-reduce in place."""
+        if self.live:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
+    def max_(self, t: torch.Tensor) -> torch.Tensor:
+        """MAX all-reduce in place (the amaxes of sharded operands)."""
+        if self.live:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """Identity forward, SUM of the cotangents over the group
+        backward: a replicated tensor entering this rank's shard of a
+        computation."""
+        return _CopyIn.apply(x, self) if self.live else x
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        """SUM over the group forward (a new tensor), identity backward:
+        the partial products of a row-parallel GEMM recombined."""
+        return _ReduceOut.apply(x, self) if self.live else x
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: TensorGroup):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.sum_(g.clone(
+            memory_format=torch.contiguous_format)), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: TensorGroup):
+        return group.sum_(x.detach().clone(
+            memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def all_gather(t: torch.Tensor, world: int, group=None) -> list:

@@ -4,14 +4,23 @@
 JAX runs one SPMD program over a ``Mesh`` of devices; the port runs one
 process per card, joined by ``torch.distributed`` (NCCL on the card,
 gloo under ``--device cpu``), and the mesh is a ``DeviceMesh`` over the
-ranks.  This slice reaches the data axes, ``dp`` (batch split, state
+ranks.  The port reaches the data axes, ``dp`` (batch split, state
 replicated) and ``fsdp`` (batch split, parameters and optimizer state
-sharded); a mesh with ``tp``, ``sp`` or ``pp`` above 1 raises by name.
+sharded), and ``tp`` (Megatron tensor parallelism: heads, the FFN's
+hidden columns and the vocabulary split over the ranks of a tp group);
+a mesh with ``sp`` or ``pp`` above 1 raises by name.
 
 ``AXIS_ALIASES`` is the one alias table: ``--mesh data=2`` and ``--mesh
-dp=2`` are the same mesh.  Ranks are laid out row-major over the mesh's
-axes, so with the batch split over every data axis rank r holds the
-global rows ``[r * Bl, (r + 1) * Bl)`` (JAX's ``batch_spec`` order).
+dp=2`` are the same mesh.  tp is the innermost axis whatever place
+``--mesh`` names it in (the JAX package's ICI policy, ``_AXIS_SPEED``:
+tp on the fastest links; the other axes keep their order), so the
+ranks of a tp group are adjacent (``r = data_rank * tp + tp_rank``: on
+one host, the cards that share the fastest links carry the per-layer
+collectives).  With the batch split over every data axis, data rank d
+holds the global rows ``[d * Bl, (d + 1) * Bl)`` (JAX's ``batch_spec``
+order) on every rank of its tp group.  ``mesh_groups`` gives a rank its
+data group (the gradient reduce, the BatchNorm and amax collectives,
+the mixup partners, the metrics) and its tp group.
 """
 
 from __future__ import annotations
@@ -34,9 +43,11 @@ AXIS_ALIASES = {
     "pp": "pp", "pipe": "pp", "pipeline": "pp", "stage": "pp",
 }
 DATA_AXES = ("dp", "fsdp")
-# the axes this slice does not reach, and what each would shard
-UNPORTED_AXES = {"tp": "tensor parallelism", "sp": "sequence parallelism",
-                 "pp": "pipeline parallelism"}
+# the axes the port does not reach, and what each would shard
+UNPORTED_AXES = {"sp": "sequence parallelism", "pp": "pipeline parallelism"}
+# the axis laid out innermost (adjacent ranks): the fastest of the JAX
+# package's _AXIS_SPEED, whose per-layer collectives want the fastest links
+INNER_AXIS = "tp"
 # the process group's timeout: a rank that never arrives fails the run
 # instead of hanging it
 PG_TIMEOUT = timedelta(minutes=10)
@@ -82,7 +93,7 @@ class MeshSpec:
 
 
 def unported_axes(axes: Sequence[str], shape: Sequence[int]) -> list:
-    """``--mesh <axis>=<n>`` for every tp, sp or pp axis above 1."""
+    """``--mesh <axis>=<n>`` for every sp or pp axis above 1."""
     return [f"--mesh {a}={n} ({UNPORTED_AXES[a]})"
             for a, n in zip(canonical_axes(axes), shape)
             if a in UNPORTED_AXES and int(n) > 1]
@@ -141,12 +152,23 @@ def local_device(device_type: str) -> torch.device:
                         if local is None else local)
 
 
+def ordered_axes(axes: Sequence[str], shape: Sequence[int]
+                 ) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """``(axes, shape)`` with tp moved innermost (last), the other axes in
+    their order."""
+    order = sorted(range(len(axes)), key=lambda i: (axes[i] == INNER_AXIS,
+                                                     i))
+    return (tuple(axes[i] for i in order),
+            tuple(int(shape[i]) for i in order))
+
+
 def make_mesh(axes: Sequence[str] = ("dp",), shape: Sequence[int] = (),
               device_type: str = "cuda"):
-    """The ``DeviceMesh`` of the run's process group over the data axes,
-    or None without a group (one process: no collective anywhere).
-    Empty ``shape`` puts every rank on the first axis.  The mesh's size
-    must equal the world size; tp, sp and pp above 1 raise."""
+    """The ``DeviceMesh`` of the run's process group, its axes ordered by
+    ``ordered_axes`` (tp innermost), or None without a group (one
+    process: no collective anywhere).  Empty ``shape`` puts every rank
+    on the first axis.  The mesh's size must equal the world size; sp
+    and pp above 1 raise."""
     axes = canonical_axes(axes)
     shape = tuple(int(s) for s in shape)
     bad = unported_axes(axes, shape)
@@ -157,6 +179,7 @@ def make_mesh(axes: Sequence[str] = ("dp",), shape: Sequence[int] = (),
         shape = (world,) + (1,) * (len(axes) - 1)
     if len(shape) != len(axes):
         raise ValueError(f"mesh axes {axes} vs shape {shape} rank mismatch")
+    axes, shape = ordered_axes(axes, shape)
     if int(np.prod(shape)) != world:
         raise ValueError(f"mesh shape {dict(zip(axes, shape))} needs "
                          f"{int(np.prod(shape))} processes, the run has "
@@ -181,6 +204,27 @@ def axis_size(mesh, name: str) -> int:
 
 def tp_size(mesh) -> int:
     return axis_size(mesh, "tp")
+
+
+def mesh_groups(mesh):
+    """``(DataGroup, TensorGroup or None)`` of this rank (collective: every
+    rank calls it once a mesh, as it builds every rank's subgroups).
+    Without tp the data group is the world, as a data mesh had it; with
+    tp above 1 the data group holds the ranks of this rank's tp index
+    (``r % tp``: one a data rank) and the tp group the ``tp`` adjacent
+    ranks of its data rank."""
+    from faster_distributed_training_tpu_torch.parallel.collectives import (
+        DataGroup, TensorGroup)
+
+    tp = tp_size(mesh)
+    if tp <= 1:
+        return DataGroup(), None
+    world, rank = dist.get_world_size(), dist.get_rank()
+    data_pg, _ = dist.new_subgroups_by_enumeration(
+        [list(range(t, world, tp)) for t in range(tp)])
+    tp_pg, _ = dist.new_subgroups_by_enumeration(
+        [list(range(d * tp, (d + 1) * tp)) for d in range(world // tp)])
+    return DataGroup(data_pg), TensorGroup(tp_pg, rank % tp, tp)
 
 
 def sp_size(mesh) -> int:

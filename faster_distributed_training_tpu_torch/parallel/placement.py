@@ -13,6 +13,14 @@ and this module onto one process a rank:
     its own shard, and between steps only the shard stays;
   * zero1: the optimizer state alone sharded; each rank updates its
     shard of every parameter and the slices are all-gathered after;
+  * tp (``--mesh tp=N``): each rank's model holds its tp shards of the
+    weights (``sharding.tp_cut``; the data group is then one rank of
+    each tp group), and unless ``--no_zero_opt`` (JAX's ZeRO over
+    tp) the optimizer mirrors of the replicated parameters are sharded
+    over the tp group by ``sharding.zero_opt_dims``: each rank updates
+    its slice and the slices are all-gathered after, zero1's machinery
+    over tp.  ``whole()`` gathers the tp shards too, so a checkpoint
+    holds whole leaves at any mesh;
   * ``--host_offload``: the parameters (their shards) and the optimizer
     state rest in pinned host memory between steps; ``--offload_opt_state``
     the optimizer leaves ``offload_opt_leaf`` picks.  They are copied to
@@ -43,7 +51,8 @@ from faster_distributed_training_tpu_torch.parallel.collectives import (
 from faster_distributed_training_tpu_torch.parallel.mesh import (DATA_AXES,
                                                                  axis_size)
 from faster_distributed_training_tpu_torch.parallel.sharding import (
-    bucketed_grad_reduce, fsdp_partition_params, offload_opt_leaf)
+    apply_tp_rules, bucketed_grad_reduce, fsdp_partition_params,
+    offload_opt_leaf, tp_shard, tp_unshard, zero_opt_dims)
 
 # the metrics summed over ranks (the loss is then divided by the world)
 _SUMMED = ("loss", "loss_total", "correct", "total")
@@ -103,12 +112,16 @@ class Placement:
     every use of the parameters (a train step, an eval pass), and
     ``unshard`` brings the whole state back (a checkpoint)."""
 
-    def __init__(self, cfg, mesh, device, group: Optional[DataGroup] = None):
+    def __init__(self, cfg, mesh, device, group: Optional[DataGroup] = None,
+                 tp=None):
         self.group = group if group is not None else DataGroup()
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.fsdp = bool(cfg.fsdp)
         self.zero1 = bool(cfg.zero1) and not self.fsdp
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        self.zero_tp = (self.tp is not None and bool(cfg.zero_opt)
+                        and not (self.fsdp or self.zero1))
         axis = None
         if self.fsdp:
             axis = "fsdp"
@@ -116,11 +129,18 @@ class Placement:
             # JAX's zero1 axis: fsdp when the mesh splits it, else dp
             axis = "fsdp" if axis_size(mesh, "fsdp") > 1 else "dp"
         self.shard_pg, self.n, self.r = None, 1, 0
-        if axis is not None and mesh is not None and axis in (
+        if self.zero_tp:
+            self.shard_pg, self.n, self.r = (self.tp.group, self.tp.size,
+                                             self.tp.rank)
+        elif axis is not None and mesh is not None and axis in (
                 mesh.mesh_dim_names or ()):
             self.shard_pg = mesh.get_group(axis)
             self.n = axis_size(mesh, axis)
             self.r = mesh.get_local_rank(axis)
+        self.cuts: Dict[str, Optional[str]] = {}   # name -> tp cut
+        self._whole: Dict[str, tuple] = {}        # name -> whole shape
+        self.heads = 0
+        self.tp_whole = False
         self.offload_params = bool(cfg.host_offload)
         self.offload_opt = ("all" if cfg.host_offload else
                             "big" if cfg.offload_opt_state else None)
@@ -139,15 +159,20 @@ class Placement:
     # -- the layout ---------------------------------------------------------
     @property
     def sharding(self) -> bool:
-        return (self.fsdp or self.zero1) and self.n > 1
+        return (self.fsdp or self.zero1 or self.zero_tp) and self.n > 1
 
     def _plan(self, params) -> None:
         """Each parameter's layout and shard dim (from the whole
-        parameters)."""
+        parameters: under tp, the rank's tp shards)."""
         self.layout = {k: (tuple(p.shape), tuple(p.stride()))
                        for k, p in params.items()}
-        self.dims = (fsdp_partition_params(params, self.n) if self.sharding
-                     else {k: None for k in params})
+        if self.tp is not None:
+            self.cuts = apply_tp_rules(params)
+        if self.zero_tp:
+            self.dims = zero_opt_dims(params, self.cuts, self.n)
+        else:
+            self.dims = (fsdp_partition_params(params, self.n)
+                         if self.sharding else {k: None for k in params})
 
     def table(self, state) -> Dict[str, dict]:
         """Every parameter and optimizer leaf by path: the dim it shards
@@ -156,13 +181,15 @@ class Placement:
         if not self.layout:
             self._plan(params)
         out = {f"params/{k}": {"dim": self.dims[k] if self.fsdp else None,
-                               "host": self.offload_params}
+                               "host": self.offload_params,
+                               "tp": self.cuts.get(k)}
                for k in params}
         for path, _, k, t in _opt_items(state.opt_state):
             mirror = self._mirror_any(k, t)
             out["opt/" + "/".join(path)] = {
                 "dim": self.dims[k] if mirror else None,
-                "host": self._offloads_opt(self._full_shape(k, t))}
+                "host": self._offloads_opt(self._full_shape(k, t)),
+                "tp": self.cuts.get(k) if mirror else None}
         return out
 
     def _full_shape(self, k: str, t: torch.Tensor) -> tuple:
@@ -188,9 +215,12 @@ class Placement:
         return out
 
     def shard_state(self, state) -> None:
-        """Take a whole, resident state to its resting layout: the
-        optimizer leaves of sharded parameters cut to this rank's slice,
-        then ``park``."""
+        """Take a whole, resident state to its resting layout: under tp
+        the whole leaves (after ``unshard``) cut to the rank's tp shards,
+        the optimizer leaves of sharded parameters cut to this rank's
+        slice, then ``park``."""
+        if self.tp_whole:
+            self._tp_cut(state)
         params = state.params()
         self._plan(params)
         if self.sharding:
@@ -198,6 +228,7 @@ class Placement:
                 d = self.dims.get(k)
                 if d is not None and tuple(t.shape) == self.layout[k][0]:
                     parent[k] = self._cut(t, d).clone()
+        if self.sharding or self.tp is not None:
             # the global norm sums the shards' squares over the group
             state.tx.shards = (self.sharded_names(), self.sum_over_shards)
         self.sharded = True
@@ -205,7 +236,10 @@ class Placement:
 
     def unshard(self, state) -> None:
         """Back to the whole state on the card: ``unpark``, then every
-        sharded optimizer leaf all-gathered whole."""
+        sharded optimizer leaf all-gathered whole, and under tp every
+        tp-cut parameter and its optimizer mirrors gathered whole (the
+        model's parameters then hold whole tensors: for a checkpoint, not
+        a forward)."""
         self.unpark(state)
         if self.sharding and self.sharded:
             for _, parent, k, t in list(_opt_items(state.opt_state)):
@@ -215,7 +249,44 @@ class Placement:
                     full = torch.empty(self.layout[k][0], dtype=t.dtype,
                                        device=t.device)
                     parent[k] = self._gather_dim(t, d, full)
+        if self.tp is not None and self.sharded and not self.tp_whole:
+            self._tp_gather(state)
         self.sharded = False
+
+    def _tp_leaves(self, state):
+        """(setter, name, tensor) of every tp-cut parameter and optimizer
+        mirror of one."""
+        for k, p in state.params().items():
+            if self.cuts.get(k) is not None:
+                yield (lambda t, p=p: setattr(p, "data", t)), k, p.data
+        for _, parent, k, t in list(_opt_items(state.opt_state)):
+            if self.cuts.get(k) is not None and k in self.layout and tuple(
+                    t.shape) in (self.layout[k][0], self._whole[k]):
+                yield (lambda v, parent=parent, k=k:
+                       parent.__setitem__(k, v)), k, t
+
+    def _tp_gather(self, state) -> None:
+        """Every tp-cut leaf all-gathered whole over the tp group."""
+        self._whole = {k: state.model.whole_shape(k, self.layout[k][0])
+                       for k in self.cuts if self.cuts[k] is not None}
+        self.heads = int(getattr(state.model, "h", 0))
+        with torch.no_grad():
+            for put, k, t in list(self._tp_leaves(state)):
+                parts = all_gather(t.contiguous(), self.tp.size,
+                                   self.tp.group)
+                cut = self.cuts[k]
+                put(tp_unshard(parts, cut, self.heads, None if cut == "heads"
+                               else self._whole[k][cut == "cols"]))
+        self.tp_whole = True
+
+    def _tp_cut(self, state) -> None:
+        """Every whole tp-cut leaf cut back to this rank's shard."""
+        with torch.no_grad():
+            for put, k, t in list(self._tp_leaves(state)):
+                if tuple(t.shape) == self._whole[k]:
+                    put(tp_shard(t, self.cuts[k], self.tp.rank, self.tp.size,
+                                 self.heads))
+        self.tp_whole = False
 
     @contextlib.contextmanager
     def whole(self, state):
@@ -360,9 +431,10 @@ class Placement:
                 for k, p in params.items()}
 
     def after_update(self, state) -> None:
-        """zero1: every rank's updated slices all-gathered into the whole
-        parameters (fsdp keeps its slice: ``park`` takes it)."""
-        if not (self.zero1 and self.sharding):
+        """zero1 and ZeRO over tp: every rank's updated slices all-gathered
+        into the whole parameters (fsdp keeps its slice: ``park`` takes
+        it)."""
+        if not ((self.zero1 or self.zero_tp) and self.sharding):
             return
         with torch.no_grad():
             for k, p in state.params().items():
@@ -371,14 +443,19 @@ class Placement:
                     self._gather_dim(self._cut(p.data, d), d, p.data)
 
     def sharded_names(self) -> set:
-        """The parameters whose update this rank holds a slice of."""
-        if not self.sharding:
-            return set()
-        return {k for k, d in self.dims.items() if d is not None}
+        """The parameters whose update this rank holds a slice of: its
+        shard (fsdp, zero1, ZeRO over tp) or its tp shard."""
+        names = {k for k, c in self.cuts.items() if c is not None}
+        if self.sharding:
+            names |= {k for k, d in self.dims.items() if d is not None}
+        return names
 
     def sum_over_shards(self, t: torch.Tensor) -> torch.Tensor:
-        """SUM all-reduce over the shard group (in place)."""
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.shard_pg)
+        """SUM all-reduce over the shard group (in place): the tp group
+        under tp."""
+        dist.all_reduce(t, op=dist.ReduceOp.SUM,
+                        group=self.tp.group if self.tp is not None
+                        else self.shard_pg)
         return t
 
     def reduce_metrics(self, metrics: Dict[str, torch.Tensor]
@@ -399,8 +476,9 @@ class Placement:
         return out
 
     def barrier(self) -> None:
+        """Every rank of the run (the data and the tp groups) waits."""
         if self.group.live:
-            dist.barrier(group=self.group.group)
+            dist.barrier()
 
 
 def train_state_shardings(state, placement: Placement) -> Dict[str, dict]:

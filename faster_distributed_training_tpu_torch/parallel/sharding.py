@@ -16,13 +16,32 @@ package's ``parallel/sharding.py``).
     leaf: a per-leaf all-reduce cost the record 21 ms of host time a
     step at world 1 on an H100 (NCCL).
 
-The tp rules, the pp residency rules and ZeRO over tp belong to the next
-slice.
+And the tensor-parallel rules (the JAX package's ``_TP_RULES``,
+``tensor_parallel_rules``, ``apply_tp_rules`` and the ZeRO-over-tp
+opt-state classification, ``classify_opt_state_leaf``):
+
+  * ``_TP_RULES`` is JAX's table, regexes on the JAX parameter paths:
+    the fused qkv kernel and bias on the head axis, the out kernel on its
+    input rows, the FFN's ``Dense_0`` kernel and bias on d_ff and
+    ``Dense_1`` on its d_ff rows, the token embedding on its vocab rows;
+  * ``tp_cut`` maps a port parameter (``nn.Linear`` layout, ``[out, in]``)
+    through its JAX path (``jax_param_path``) to how its tp shard is cut:
+    ``rows`` (dim 0, contiguous), ``cols`` (dim 1, contiguous) or
+    ``heads`` (the fused qkv's rows ``{i*H*D + (h0 + j)*D + k}``, not
+    contiguous); None replicates it;
+  * ``zero_opt_dims``: ZeRO over tp (on unless ``--no_zero_opt``): an
+    optimizer leaf mirroring a tp-cut parameter is this rank's shard
+    already; one mirroring a replicated parameter shards its largest
+    dim tp divides, counted in the JAX layout's axis order (1024
+    elements and up); scalars stay whole.
+
+The pp residency rules belong to a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+import re
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -122,4 +141,164 @@ def bucketed_grad_reduce(grads: Dict[str, torch.Tensor], group=None,
             n = grads[k].numel()
             out[k] = vec[off:off + n].view(grads[k].shape)
             off += n
+    return out
+
+
+# -- tensor parallelism -------------------------------------------------------
+
+# the JAX package's _TP_RULES (parallel/sharding.py): a regex on the
+# lowercased JAX parameter path and the PartitionSpec as a tuple
+_TP_RULES = (
+    (r".*(attn|attention).*/qkv/kernel", (None, None, "tp", None)),
+    (r".*(attn|attention).*/qkv/bias", (None, "tp", None)),
+    (r".*(attn|attention).*/(query|key|value)/kernel", (None, "tp")),
+    (r".*(attn|attention).*/(query|key|value)/bias", ("tp",)),
+    (r".*(attn|attention).*/out/kernel", ("tp", None)),
+    (r".*(ffn|mlp).*/(dense_0|fc1|wi)/kernel", (None, "tp")),
+    (r".*(ffn|mlp).*/(dense_0|fc1|wi)/bias", ("tp",)),
+    (r".*(ffn|mlp).*/(dense_1|fc2|wo)/kernel", ("tp", None)),
+    (r".*token_embedding", ("tp", None)),
+)
+# elements below this stay whole under ZeRO over tp (JAX's ZERO_MIN_SIZE)
+ZERO_MIN_SIZE = 1024
+
+
+def tensor_parallel_rules(flat_name: str) -> tuple:
+    """A '/'-joined JAX parameter path -> its tp spec (() if no rule
+    hits)."""
+    low = flat_name.lower()
+    for pat, spec in _TP_RULES:
+        if re.match(pat, low):
+            return spec
+    return ()
+
+
+def jax_param_path(name: str) -> str:
+    """The JAX path of a port parameter or buffer: ``embeddings.x`` ->
+    ``Embeddings_0/x``, ``layers.i.`` -> ``layer_i/``, ``.weight`` ->
+    ``/kernel`` (``interop``'s mapping)."""
+    parts = name.split(".")
+    if parts[0] == "embeddings":
+        parts[0] = "Embeddings_0"
+    elif parts[0] == "layers":
+        parts[:2] = [f"layer_{parts[1]}"]
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "/".join(parts)
+
+
+def _linear_weight(name: str) -> bool:
+    """An ``nn.Linear`` weight: the JAX kernel transposed."""
+    return name.endswith(".weight")
+
+
+def tp_cut(name: str) -> Optional[str]:
+    """How the tp shard of port parameter ``name`` is cut ("rows", "cols"
+    or "heads"),
+    from its JAX spec: the qkv kernel's and bias's head axis -> heads; a
+    Linear weight's JAX dim i -> port dim 1 - i (cols, rows); a bias or
+    the token table's dim 0 -> rows.  None: replicated."""
+    spec = tensor_parallel_rules(jax_param_path(name))
+    if "tp" not in spec:
+        return None
+    i = spec.index("tp")
+    if len(spec) > 2:
+        return "heads"
+    if _linear_weight(name):
+        return ("cols", "rows")[i]
+    return "rows"
+
+
+def apply_tp_rules(names) -> Dict[str, Optional[str]]:
+    """name -> ``tp_cut`` of every parameter name."""
+    return {k: tp_cut(k) for k in names}
+
+
+def tp_shard(t: torch.Tensor, cut: Optional[str], rank: int, n: int,
+             heads: int = 0) -> torch.Tensor:
+    """This rank's tp shard of the whole leaf ``t`` (a copy; ``t``
+    itself for a replicated one).  ``heads``: the head count (qkv).  A
+    rows / cols cut takes ceil(size / n) of the dim, the last shards'
+    tail past the whole leaf zeros (the token table at a vocabulary tp
+    does not divide)."""
+    if cut is None or n <= 1:
+        return t
+    if cut == "heads":
+        hl = heads // n
+        v = t.reshape((3, heads, -1) + tuple(t.shape[1:]))
+        return v[:, rank * hl:(rank + 1) * hl].reshape(
+            (-1,) + tuple(t.shape[1:])).clone()
+    d = 0 if cut == "rows" else 1
+    size = t.shape[d]
+    c = -(-size // n)
+    a = min(rank * c, size)
+    part = t.narrow(d, a, min(a + c, size) - a)
+    if part.shape[d] == c:
+        return part.clone()
+    shape = list(t.shape)
+    shape[d] = c
+    out = t.new_zeros(shape)
+    out.narrow(d, 0, part.shape[d]).copy_(part)
+    return out
+
+
+def tp_unshard(parts: Sequence[torch.Tensor], cut: Optional[str],
+               heads: int = 0, size: Optional[int] = None) -> torch.Tensor:
+    """The whole leaf from every rank's shard, in rank order (the inverse
+    of ``tp_shard``); ``size``: the whole leaf's extent on a rows / cols
+    cut (the padding past it dropped)."""
+    if cut is None or len(parts) <= 1:
+        return parts[0]
+    if cut == "heads":
+        hl = heads // len(parts)
+        rest = tuple(parts[0].shape[1:])
+        return torch.cat([p.reshape((3, hl, -1) + rest) for p in parts],
+                         dim=1).reshape((-1,) + rest)
+    d = 0 if cut == "rows" else 1
+    whole = torch.cat(list(parts), dim=d)
+    return whole if size is None else whole.narrow(d, 0, size)
+
+
+def _jax_order(name: str, ndim: int) -> list:
+    """The port axes of leaf ``name`` in the JAX layout's order."""
+    return list(range(ndim))[::-1] if (
+        _linear_weight(name) and ndim == 2) else list(range(ndim))
+
+
+def classify_opt_state_leaf(name: str, shape, cut: Optional[str], n: int,
+                            min_size: int = ZERO_MIN_SIZE
+                            ) -> Tuple[str, object]:
+    """(rule or replicated class, how it shards) for an optimizer leaf of
+    ``shape`` mirroring parameter ``name`` (JAX's
+    ``classify_opt_state_leaf``, its param_mirror rule): the parameter's
+    tp cut when it has one; else the largest dim ``n`` divides in the
+    JAX layout's axis order (the first of equals), as a port dim; else
+    a replicated class (scalar, small, indivisible)."""
+    shape = tuple(int(d) for d in shape)
+    if not shape:
+        return "scalar", None
+    if cut is not None:
+        return "param_mirror", cut
+    if int(np.prod(shape)) < min_size:
+        return "small", None
+    order = _jax_order(name, len(shape))
+    best, best_dim = None, 0
+    for port_dim in order:
+        d = shape[port_dim]
+        if d % n == 0 and d > best_dim:
+            best, best_dim = port_dim, d
+    if best is None:
+        return "indivisible", None
+    return "param_mirror", best
+
+
+def zero_opt_dims(params: Mapping[str, torch.Tensor], cuts: Mapping[str,
+                  Optional[str]], n: int) -> Dict[str, Optional[int]]:
+    """name -> the dim ZeRO over tp cuts the optimizer mirrors of each
+    replicated parameter on (None: whole, or tp-cut already)."""
+    out = {}
+    for k, p in params.items():
+        rule, how = classify_opt_state_leaf(k, tuple(p.shape), cuts.get(k),
+                                            n)
+        out[k] = how if isinstance(how, int) else None
     return out

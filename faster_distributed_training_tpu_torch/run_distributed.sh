@@ -11,12 +11,25 @@
 # (--ngd, which the ResNet entry takes, cannot be combined with --fsdp or
 # --zero1; NGD on the transformer is not ported, so its line has none).
 # On the CPU: NPROC=2 ... --device cpu (gloo).
+#
+# Tensor parallelism trains the transformer only: TP=1 runs just its
+# line, the ranks laid out dp-outer and tp-inner, e.g. two data ranks of
+# two tp ranks each (--mesh's product must equal NPROC):
+#   TP=1 NPROC=4 bash faster_distributed_training_tpu_torch/run_distributed.sh \
+#     --mesh dp=2,tp=2
+# and on the CPU at a tiny width:
+#   TP=1 NPROC=2 bash faster_distributed_training_tpu_torch/run_distributed.sh \
+#     --mesh tp=2 --device cpu --dataset synthetic --epoch 1 --n_layers 2 \
+#     --d_model 64 --n_heads 4 --d_ff 128 --seq_len 64 --subset_stride 32 \
+#     --bs 16
 set -euo pipefail
 
 NPROC="${NPROC:-$(python -c 'import torch; print(max(torch.cuda.device_count(), 1))')}"
 RUN=(torchrun --standalone --nproc_per_node="${NPROC}" -m)
 
-"${RUN[@]}" faster_distributed_training_tpu_torch.resnet50_test --distributed \
-  --bs 256 --lr 0.01 --meta_learning --ngd "$@"
+if [[ -z "${TP:-}" ]]; then
+  "${RUN[@]}" faster_distributed_training_tpu_torch.resnet50_test \
+    --distributed --bs 256 --lr 0.01 --meta_learning --ngd "$@"
+fi
 "${RUN[@]}" faster_distributed_training_tpu_torch.transformer_test \
   --distributed --bs 64 "$@"

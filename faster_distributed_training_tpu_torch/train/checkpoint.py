@@ -13,12 +13,13 @@ of the JAX package's ``train/checkpoint.py::save_pytree_checkpoint``.
 Step-cadence checkpoints form a series named by global step,
 ``<name>_<step:09d>`` (``series_member``); reading a series by its name
 (``read_meta(d, "transformer_step")``) reads its newest committed member.
-Under a data mesh (``state.placement``) every rank gathers the whole
-state (the collectives of ``Placement.whole``), rank 0 writes it, and
-all wait for the write; every rank restores the whole state and takes
-its own layout again.  A checkpoint is the same file at any mesh, so a
-dp=2 or fsdp=2 run resumes at dp=1 and the other way round (the JAX
-package's interchange contract).
+Under a mesh (``state.placement``) every rank gathers the whole state
+(the collectives of ``Placement.whole``: the fsdp / zero shards and the
+tp shards), rank 0 of the run writes it, and all wait for the write;
+every rank restores the whole state and takes its own layout again.  A
+checkpoint is the same file at any mesh, so a dp=2, fsdp=2 or tp=2 run
+resumes at dp=1 and the other way round (the JAX package's interchange
+contract).
 Reading the JAX package's Orbax checkpoints is not ported yet.
 """
 
@@ -126,9 +127,11 @@ def _whole(state: TrainState):
 
 
 def is_writer(state: TrainState) -> bool:
-    """Whether this process writes the run's files (rank 0)."""
+    """Whether this process writes the run's files (rank 0 of the run)."""
+    import torch.distributed as dist
+
     pl = state.placement
-    return pl is None or pl.group.rank == 0
+    return pl is None or not dist.is_initialized() or dist.get_rank() == 0
 
 
 def save_checkpoint(checkpoint_dir: str, name: str, state: TrainState,

@@ -54,7 +54,13 @@ global statistics, the amax MAX, the mixup partners) run inside
 ``DataGroup.active()``, the gradients are reduced to the global mean
 (``Placement.reduce_grads``; the LM's loss divides by the global target
 count), the update runs on the rank's shard (fsdp / zero1), and the
-metrics come back summed over the ranks.
+metrics come back summed over the ranks.  Under tp the data group holds
+one rank of each tp group: the model's tp collectives (``TensorGroup``)
+make every replicated leaf's gradient the same on each rank of a tp
+group, the tp-sharded leaves' gradients stay the rank's, the data
+all-reduce runs over the data group alone, and the clip's global norm
+sums each sharded leaf's squares over tp and counts each replicated
+leaf once (``optim.builder.global_norm``).
 """
 
 from __future__ import annotations

@@ -1180,3 +1180,127 @@ def test_host_offload_is_bitwise_no_offload(card, tmp_path, nccl_env):
     assert want.keys() == got.keys()
     for key in want:
         assert torch.equal(want[key], got[key]), key
+
+
+@pytest.mark.parametrize("rows,d,dff_loc", [(r, d, f) for r in (64, 100, 512)
+                                            for d in (64, 512)
+                                            for f in (128, 512)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fmt", [None, "int8", "fp8"])
+def test_fused_ffn_partial_matches_plain(card, rows, d, dff_loc, dtype, fmt):
+    """Row 8's tp ``partial`` tile (rank 1 of 2: c0 = d_ff/2, hidden
+    dropout at the global columns) against its plain version: the fp32
+    GEMM2 product at the tolerances of the full output, two launches
+    bitwise.  E4M3's tile is held on the scale the sublayer's output
+    reads it at, max |h + plain| (its fp8 ``wgmma`` sums and the hidden
+    activation's 3-bit mantissa rounding put 1.1-2.2% of max |plain|
+    on the bare product, 0.7-1.2% of max |h + plain|, in
+    ``scripts/port_ffn_partial_errors.py``)."""
+    from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+        _ffn_body_reference, ffn_fwd_generalized)
+
+    args = _ffn_inputs(card, rows, d, dff_loc, dtype)
+    scales = torch.tensor([30.0, 300.0, 60.0, 250.0], device="cuda")
+    seeds = (0x1234567, 0x89ABCDE, 0, 0, dff_loc)
+    run = lambda: ffn_fwd_generalized(  # noqa: E731
+        *args, seeds, scales, 0.1, 0.1, 1e-6, 1, 1, 2 * dff_loc, fmt,
+        partial=True)
+    n0 = ffn_fwd_generalized.partial_launches
+    out, amax = run()
+    out2, amax2 = run()
+    quant = None if fmt is None else (fmt, *scales.unbind(), None)
+    want, want_amax = _ffn_body_reference(
+        *args, seeds[0], seeds[1], 0.1, 0.1, 1e-6, c0=dff_loc,
+        dff_glob=2 * dff_loc, quant=quant, return_amax=True,
+        plain_gemm=True, partial=True)
+    torch.cuda.synchronize()
+    assert ffn_fwd_generalized.partial_launches == n0 + 2
+    assert out.dtype == torch.float32 and out.shape == (rows, d)
+    assert torch.equal(out, out2) and torch.equal(amax, amax2)
+    tol = 2e-2 if dtype == torch.bfloat16 or fmt is not None else 1e-4
+    err = (out - want).abs().max().item()
+    scale = (args[0].float() + want if fmt == "fp8" else want).abs().max()
+    assert err <= tol * scale.item()
+    if fmt is not None:
+        assert torch.allclose(amax, want_amax, rtol=1e-2, atol=0)
+
+
+@pytest.mark.parametrize("fmt", [None, "int8", "fp8"])
+def test_fused_ffn_partials_sum_to_the_full_launch(card, fmt):
+    """The two tp ranks' partial tiles (c0 = 0 and d_ff/2) summed, then
+    b2, the connection dropout and the residual, against the full
+    launch: 2e-2 of max |full| (bf16 GEMM2 sums split in two); the
+    halves' amax_f equal, their amax_a's MAX the full one's (1e-2)."""
+    from faster_distributed_training_tpu_torch.ops.dropout import (
+        keep_factor_rows)
+    from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+        ffn_fwd_generalized)
+
+    rows, d, d_ff, rate = 512, 512, 1024, 0.1
+    h, ln_s, ln_b, w1, b1, w2, b2 = _ffn_inputs(card, rows, d, d_ff,
+                                                torch.bfloat16)
+    scales = torch.tensor([30.0, 300.0, 60.0, 250.0], device="cuda")
+    seeds = (0x1234567, 0x89ABCDE, 0, 0, 0)
+    full, amax = ffn_fwd_generalized(h, ln_s, ln_b, w1, b1, w2, b2, seeds,
+                                     scales, rate, rate, 1e-6, 1, 1, d_ff,
+                                     fmt)
+    half = d_ff // 2
+    parts = [ffn_fwd_generalized(
+        h, ln_s, ln_b, w1[c:c + half].contiguous(),
+        b1[c:c + half].contiguous(), w2[:, c:c + half].contiguous(), b2,
+        seeds[:4] + (c,), scales, rate, 0.0, 1e-6, 1, 1, d_ff, fmt,
+        partial=True) for c in (0, half)]
+    keep = keep_factor_rows(seeds[1], torch.arange(rows, device="cuda"), d,
+                            rate)
+    got = (h.float() + (parts[0][0] + parts[1][0] + b2.float()) * keep
+           ).to(h.dtype)
+    err = (got.float() - full.float()).abs().max().item()
+    assert err <= 2e-2 * full.float().abs().max().item()
+    if fmt is not None:
+        assert torch.equal(parts[0][1][0], parts[1][1][0])
+        assert torch.allclose(torch.maximum(parts[0][1], parts[1][1]), amax,
+                              rtol=1e-2, atol=0)
+
+
+def test_flash_at_a_head_origin_is_bitwise_the_full_heads(card):
+    """Rows 1 and 4 (forward with lse, backward) at D 64, dropout 0.1, on
+    the two head halves at h0 = 0 and H/2 (h_glob = H): bitwise the full
+    launch's heads (a tp rank's heads)."""
+    B, H, L, D, seed, rate = 2, 8, 256, 64, 0x2545F491, 0.1
+    q, k, v = _qkv(card, B, H, L, D, torch.bfloat16)
+    dout = torch.randn(B, H, L, D, generator=card, device="cuda").to(
+        torch.bfloat16)
+    mask = _mask(card, B, L)
+    full = flash_attention_stats(q, k, v, mask, rate, seed)
+    grads = flash_attention_bwd(q, k, v, *full[:2], dout, mask, rate, seed,
+                                full[2])
+    for h0 in (0, H // 2):
+        s = slice(h0, h0 + H // 2)
+        got = flash_attention_stats(q[:, s], k[:, s], v[:, s], mask, rate,
+                                    seed, h0=h0, h_glob=H)
+        for a, b in zip(got, full):
+            assert torch.equal(a, b[:, s]), h0
+        g = flash_attention_bwd(q[:, s], k[:, s], v[:, s], *got[:2],
+                                dout[:, s], mask, rate, seed, got[2], h0=h0,
+                                h_glob=H)
+        for a, b in zip(g, grads):
+            assert torch.equal(a, b[:, s]), h0
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quant_matmul_column_shard_is_bitwise(card, fmt):
+    """Row 9 on a tp rank's column shard (qkv's head rows, Dense_0's d_ff
+    rows): bitwise the full launch's columns."""
+    from faster_distributed_training_tpu_torch.ops.quant import quant_matmul
+    from faster_distributed_training_tpu_torch.parallel.sharding import (
+        tp_shard)
+
+    for (M, K, N), cut in (((1024, 512, 1536), "heads"),
+                           ((1024, 512, 1024), "rows")):
+        xq, wq, sx, sw = _quant_operands(card, M, K, N, fmt)
+        full = quant_matmul(xq, wq, sx, sw, fmt, torch.bfloat16)
+        for r in range(2):
+            w_r = tp_shard(wq.view(torch.uint8), cut, r, 2, 8).view(wq.dtype)
+            got = quant_matmul(xq, w_r, sx, sw, fmt, torch.bfloat16)
+            want = tp_shard(full.T, cut, r, 2, 8).T
+            assert torch.equal(got, want), (cut, r)

@@ -1,8 +1,8 @@
 """The port's data-mesh layer in one process, against the JAX package.
 
   * The axis alias table and the ``--mesh`` parse against JAX's
-    ``canonical_axis`` / ``parse_mesh`` / ``MeshSpec``; tp, sp and pp
-    above 1 raise by name.
+    ``canonical_axis`` / ``parse_mesh`` / ``MeshSpec``; sp and pp above
+    1 raise by name, tp is laid out innermost.
   * The fsdp shard dim of every parameter of the record (6 layers,
     d_model 512, vocab 30522) and of resnet50 against JAX
     ``fsdp_partition_params`` on the same shapes, at 2, 4 and 8 shards;
@@ -45,6 +45,7 @@ from faster_distributed_training_tpu_torch.parallel import (
     AXIS_ALIASES, DataGroup, MeshSpec, canonical_axis, fsdp_partition_params,
     local_batch_slice, make_mesh, make_put_batch, offload_opt_leaf,
     parse_mesh, zero1_opt_specs)
+from faster_distributed_training_tpu_torch.parallel.mesh import ordered_axes
 from faster_distributed_training_tpu_torch.train.state import (
     create_train_state)
 
@@ -67,11 +68,17 @@ def test_axis_aliases_and_mesh_parse_match_jax():
         parse_mesh("dp=2,data=2")
     assert MeshSpec(("dp", "tp"), (4, 2)).size == jmesh.MeshSpec(
         ("dp", "tp"), (4, 2)).size == 8
-    for spec, name in (("dp=1,tp=2", "--mesh tp=2"),
-                       ("seq=2", "--mesh sp=2"), ("pipe=4", "--mesh pp=4")):
+    for spec, name in (("seq=2", "--mesh sp=2"), ("pipe=4", "--mesh pp=4")):
         axes, shape = parse_mesh(spec)
         with pytest.raises(NotImplementedError, match=name):
             make_mesh(axes, shape, "cpu")
+    # tp is ported: a tp=2 mesh needs its two processes (and one process
+    # has none), and tp is laid out innermost whatever order --mesh names
+    axes, shape = parse_mesh("dp=1,tp=2")
+    with pytest.raises(ValueError, match="needs 2 processes"):
+        make_mesh(axes, shape, "cpu")
+    assert ordered_axes(*parse_mesh("model=2,dp=4")) == (("dp", "tp"),
+                                                         (4, 2))
 
 
 def _meta_model(model: str, **kw):

@@ -215,7 +215,7 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tmp_path):
     for flags, name in ((["--ngd"], "--ngd"),
                         (["--lm_causal"], "--lm_causal"),
                         (["--data_path", "stream"], "--data_path stream"),
-                        (["--mesh", "dp=1,tp=2"], "--mesh"),
+                        (["--mesh", "dp=1,tp=3"], "--mesh"),
                         (["--supervise"], "--supervise"),
                         (["--dataset", "cifar10"], "--dataset cifar10")):
         with pytest.raises(NotImplementedError, match=name):

@@ -1,5 +1,6 @@
-"""The rank side of ``tests/test_torch_distributed.py``: the port's
-training steps under a data mesh, run in spawned processes joined by
+"""The rank side of ``tests/test_torch_distributed.py`` and
+``tests/test_torch_tp_distributed*.py``: the port's training steps under
+a data mesh or a (dp, tp) mesh, run in spawned processes joined by
 gloo.
 
 Imports the port and torch only (never JAX, never the test module), so a
@@ -147,31 +148,57 @@ def whole_leaves(state) -> dict:
 def build_state(cfg_kw: dict, init: dict, extra=None, vocab: int = 100,
                 spe: int = 4, lr_scale: float = 1.0, mesh_axes=("dp",),
                 place: bool = True):
-    """The port's train state of ``cfg_kw`` from the model state dict
-    ``init`` (numpy), placed on the running group's mesh."""
+    """The port's train state of ``cfg_kw`` from the whole model state
+    dict ``init`` (numpy), placed on the running group's mesh: ``cfg_kw``
+    may name its ``mesh_shape`` (a (dp, tp) mesh: the model holds this
+    rank's tp shards of ``init``)."""
     from faster_distributed_training_tpu_torch import cli
     from faster_distributed_training_tpu_torch.config import TrainConfig
+    from faster_distributed_training_tpu_torch.interop import tp_state_dict
     from faster_distributed_training_tpu_torch.optim import (build_optimizer,
                                                              layouts_of)
     from faster_distributed_training_tpu_torch.parallel import (
-        DataGroup, Placement, make_mesh, shard_train_state)
+        Placement, make_mesh, mesh_groups, shard_train_state)
     from faster_distributed_training_tpu_torch.train.state import (
         create_train_state)
 
     cfg = TrainConfig(**{**SMALL, **cfg_kw}, mesh_axes=tuple(mesh_axes))
+    mesh = group = tp = None
+    if place and dist.is_initialized():
+        mesh = make_mesh(cfg.mesh_axes, cfg.mesh_shape, "cpu")
+        group, tp = mesh_groups(mesh)
     model = cli.build_model(cfg, vocab_size=None if cli.is_resnet(cfg)
-                            else vocab, device="cpu")
-    model.load_state_dict({k: torch.from_numpy(np.array(v))
-                           for k, v in init.items()})
+                            else vocab, device="cpu", tp=tp)
+    sd = {k: torch.from_numpy(np.array(v)) for k, v in init.items()}
+    if tp is not None:
+        sd = tp_state_dict(sd, tp.rank, tp.size, cfg.n_heads)
+    model.load_state_dict(sd)
     tx, _ = build_optimizer(cfg, steps_per_epoch=spe, lr_scale=lr_scale,
                             layouts=layouts_of(model))
     state = create_train_state(model, tx, cfg.seed, extra={
         k: torch.from_numpy(np.array(v)) for k, v in (extra or {}).items()})
-    if place and dist.is_initialized():
-        mesh = make_mesh(cfg.mesh_axes, (), "cpu")
-        state.placement = Placement(cfg, mesh, "cpu", DataGroup())
+    if mesh is not None:
+        state.placement = Placement(cfg, mesh, "cpu", group, tp)
         shard_train_state(state, state.placement)
     return cfg, state
+
+
+def _spy_grads(state) -> list:
+    """Record, each step, the digest of the reduced gradients of the
+    replicated leaves (those with no tp cut): under tp they must come
+    out equal on every rank of a tp group."""
+    pl, seen = state.placement, []
+    if pl is None:
+        return seen
+    reduce = pl.reduce_grads
+
+    def spy(grads):
+        out = reduce(grads)
+        seen.append(digest({k: v.detach().numpy() for k, v in out.items()
+                            if pl.cuts.get(k) is None}))
+        return out
+    pl.reduce_grads = spy
+    return seen
 
 
 def run_steps(cfg_kw: dict, init: dict, batches: list, draws: list,
@@ -188,21 +215,24 @@ def run_steps(cfg_kw: dict, init: dict, batches: list, draws: list,
     from faster_distributed_training_tpu_torch.train.steps import (
         StepDraws, make_train_step)
 
-    group = DataGroup()
-    put = make_put_batch(group, "cpu")
     out = {}
     for name, (over, axes) in variants.items():
         cfg, state = build_state({**cfg_kw, **over}, init, extra, vocab,
                                  lr_scale=lr_scale, mesh_axes=axes)
+        group = (state.placement.group if state.placement is not None
+                 else DataGroup())
+        put = make_put_batch(group, "cpu")
+        grads = _spy_grads(state)
         step = make_train_step(cfg)
         metrics, digests = [], []
         for batch, d in zip(batches, draws):
             state, m = step(state, put(batch), StepDraws(**d))
             metrics.append({k: float(v) for k, v in m.items()})
             digests.append(digest(whole_leaves(state)))
-        res = {"metrics": metrics, "digests": digests}
+        res = {"metrics": metrics, "digests": digests,
+               "replicated_grads": grads}
         leaves = whole_leaves(state)      # collective: every rank
-        if group.rank == 0:
+        if not dist.is_initialized() or dist.get_rank() == 0:
             res["leaves"] = leaves
             if state.placement is not None:
                 res["table"] = train_state_shardings(state,
@@ -275,6 +305,26 @@ def cli_runs(ckpt_root: str) -> dict:
     return out
 
 
+def cli_tp_run(ckpt_root: str) -> dict:
+    """``cli.main`` of the transformer entry at ``--mesh tp=2`` (ZeRO over
+    tp), one epoch at a tiny width: (steps, steps an epoch, train
+    loss)."""
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.transformer_test import (
+        DEFAULTS as TRANSFORMER)
+
+    argv = ["--dataset", "synthetic", "--epoch", "1", "--device", "cpu",
+            "--n_layers", "2", "--d_model", "32", "--n_heads", "4",
+            "--d_ff", "64", "--seq_len", "16", "--subset_stride", "128",
+            "--bs", "8", "--precision", "fp32", "--log_every", "0",
+            "--no_telemetry", "--no_plot", "--distributed", "--debug",
+            "--mesh", "tp=2", "--checkpoint_dir", ckpt_root]
+    res = cli.main(argv, defaults=TRANSFORMER)
+    return {"step": int(res["state"].step),
+            "steps_per_epoch": int(res["steps_per_epoch"]),
+            "train_loss": float(res["history"]["train_loss"][0])}
+
+
 def _first_scalar(tx) -> float:
     """The optimizer's first step's learning-rate scalar."""
     return float(next(iter(tx.host_scalars(0).values())))
@@ -324,4 +374,5 @@ def many(cases: dict) -> dict:
 
 
 CASES = {"run_steps": run_steps, "restore": restore, "cli_runs": cli_runs,
-         "collectives": collectives, "clock_skew": clock_skew, "many": many}
+         "cli_tp_run": cli_tp_run, "collectives": collectives,
+         "clock_skew": clock_skew, "many": many}
