@@ -10,6 +10,7 @@ width.
     python3 chip_smoke.py --dispatch
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --tp
+    python3 chip_smoke.py --sp
 
 The second form prints only the device split of one record-width
 training step of the slice-2 path and paths B and C, and whether two
@@ -18,7 +19,8 @@ seq 8192 on a random batch), for the port at DIR (default: this
 checkout): run it on a parent and a change in one call to compare them.
 The third runs phase R (the ResNet slice, no kernel build) alone; the
 fourth builds the kernels and runs phases K (without path E) and M; the
-fifth builds them and runs phase P alone, the sixth phase T alone.
+fifth builds them and runs phase P alone, the sixth phase T alone, the
+seventh phase S alone.
 Needs one CUDA card and the repo checkout beside this file; without
 either it exits non-zero and prints no result.  Phases, in order (any
 failure raises and exits non-zero):
@@ -245,6 +247,25 @@ failure raises and exits non-zero):
                row 8': 6, row 9: 24; the wrappers' counts set to 0 just
                before the run and read after), step ms beside world 1's
                (printed, not a claim);
+  S. sp      — sequence parallelism (slice 12) on the one card (a
+               multi-card sp mesh is not measured either).  S1, one
+               process: rows 7 and 8 (none, int8, E4M3) on the two
+               sequence halves of 16 x 512 rows (512 -> 1024 -> 512,
+               dropout 0.1) at s0 = 0 and 256, l_loc 256, l_glob 512:
+               each half bitwise the full launch's rows and its plain
+               version within 2e-2 (amaxes 1e-2), two launches bitwise,
+               the halves' amax MAX bitwise the full's; one half's
+               timing.  S2, two ranks on the card over gloo at ``--mesh
+               sp=2`` in one group: (a) fp32, 2 layers, the fused FFN,
+               ring and Ulysses against world 1 (loss 1e-5, params 1e-4,
+               the ranks' replicated leaves bitwise after every step);
+               (b) path B with Ulysses at full width, 4 steps, each hand
+               kernel's device launches in one step (rows 1 and 4: 6 on
+               4 of 8 heads of the whole sequence, row 8: 6, row 9: 24,
+               row 6: 1), host wall and device ms beside world 1's
+               (printed, not a claim); (c) path E with Ulysses (rows 2
+               and 3 at h0 = 0 and 4), 2 steps: host wall, device ms and
+               peak a rank beside world 1's;
   7. output  — p50/p99/qps, the phase-R summary, the kernels JSON line
                (launches from the
                training run, the recompute route's from phase M's
@@ -253,7 +274,9 @@ failure raises and exits non-zero):
                quant_matmul's from path B, rows 2 and 3's from path E;
                the serving runs' beside them; each kernel's device
                launches in one T2(b) step at tp=2; row 8''s partial tile
-               with its T2(b) launches and T1's times),
+               with its T2(b) launches and T1's times; each kernel's
+               launches in one S2 step at sp=2 and rows 7 and 8's S1
+               half-launch times),
                the card line, and last the ok line.
 """
 
@@ -3865,16 +3888,20 @@ def tp_kernels(gen) -> dict:
 
 
 def t2_steps(flags, n_layers: int, n_steps: int, batch: int, seq: int,
-             profile_last: bool = False):
+             profile_last: bool = False, axis: str = "tp",
+             attention: str = "flash", vocab: int = 30522):
     """The record at ``n_layers`` with ``flags`` stepped on ``n_steps``
     fixed global batches with the global draws, as rank r of the running
-    group at ``--mesh tp=<world>`` (no group: one card, no tp).  The
-    wrappers' launch counts set to 0 just before and read just after;
-    with ``profile_last`` the last step runs under torch.profiler (the
-    hand kernels' device launches, the step's device ms).  Returns a
-    dict: losses, per-step digests of the replicated leaves (this rank's
-    copies), the whole state at the end, step ms (median after the
-    first), launches, the profiled step's."""
+    group at ``--mesh <axis>=<world>`` (``tp`` or ``sp``, with
+    ``attention`` under sp; no group: one card, flash attention).  The
+    classifier's rows are ragged; under ``--task lm`` packed token rows
+    of ``vocab``.  The wrappers' launch counts set to 0 just before and
+    read just after; with ``profile_last`` the last step runs under
+    torch.profiler (the hand kernels' device launches, the step's device
+    ms).  Returns a dict: losses, per-step digests of the replicated
+    leaves (this rank's copies), the whole state at the end, step ms
+    (median after the first), launches, the profiled step's, the peak
+    of the card's allocated bytes over the steps."""
     import contextlib
     import hashlib
 
@@ -3898,18 +3925,20 @@ def t2_steps(flags, n_layers: int, n_steps: int, batch: int, seq: int,
 
     defaults = cli.TRANSFORMER_DEFAULTS
     world = dist.get_world_size() if dist.is_initialized() else 1
-    mesh_flags = ["--mesh", f"tp={world}"] if world > 1 else []
+    mesh_flags = ["--mesh", f"{axis}={world}"] if world > 1 else []
+    attn = attention if world > 1 and axis == "sp" else "flash"
     cfg = cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
         ["--device", "cuda", "--n_layers", str(n_layers), "--bs",
-         str(batch), "--attention", "flash"] + mesh_flags + list(flags)),
-        defaults=defaults)
+         str(batch), "--seq_len", str(seq), "--attention", attn]
+        + mesh_flags + list(flags)), defaults=defaults)
+    lm = cfg.task == "lm"
     group, tp, mesh = DataGroup(), None, None
     if world > 1:
         mesh = make_mesh(cfg.mesh_axes, cfg.mesh_shape, "cuda")
         group, tp = mesh_groups(mesh)
     gen = torch.Generator().manual_seed(cfg.seed)
-    model = cli.build_model(cfg, vocab_size=30522, device="cuda", tp=tp
-                            ).init_weights(gen).cuda()
+    model = cli.build_model(cfg, vocab_size=vocab, device="cuda", tp=tp,
+                            sp=group.seq).init_weights(gen).cuda()
     draws0 = step_draws(cfg.seed, 0, batch, model.n_dropout_sites(),
                         mixup_alpha(cfg))
     with group.active():
@@ -3923,12 +3952,15 @@ def t2_steps(flags, n_layers: int, n_steps: int, batch: int, seq: int,
     step = make_train_step(cfg)
     rng = np.random.default_rng(7)
     losses, digests, times, prof = [], [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     ffn.ffn_fwd_generalized.partial_launches = 0
     for i in range(n_steps):
-        lengths = rng.integers(seq // 4, seq + 1, batch)
+        lengths = (np.full(batch, seq) if lm
+                   else rng.integers(seq // 4, seq + 1, batch))
         mask = (np.arange(seq)[None] < lengths[:, None]).astype(np.int32)
-        tokens = rng.integers(1, 30522, (batch, seq)).astype(np.int32) * mask
+        tokens = rng.integers(1, vocab, (batch, seq)).astype(np.int32) * mask
         glob = {"tokens": tokens, "token_types": np.zeros_like(tokens),
                 "mask": mask,
                 "label": rng.integers(0, 4, batch).astype(np.int32)}
@@ -3966,7 +3998,9 @@ def t2_steps(flags, n_layers: int, n_steps: int, batch: int, seq: int,
     return {"losses": losses, "digests": digests, "whole": whole,
             "ms": statistics.median(times[1:] or times),
             "launches": launches, "profile": prof,
-            "h_loc": model.layers[0].attn.h_loc}
+            "h_loc": model.layers[0].attn.h_loc,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "sp_rank": group.seq.rank if group.seq is not None else None}
 
 
 def t2_rank(rank: int, world: int, port: int, out_dir: str, tag: str,
@@ -4114,6 +4148,325 @@ def tp_main() -> int:
     print(f"[build] {build_s:.1f}s", flush=True)
     tp = tp_phase(str(_build.BUILD_DIR))
     print(json.dumps(tp, default=str))
+    return 0
+
+
+S_LAYERS = 2             # S2(a)'s depth
+
+
+def sp_kernels(gen) -> dict:
+    """S1: rows 7 and 8 (the fused FFN: none, int8, E4M3) on the two
+    sequence halves of the record's training rows (B 16 x L 512 = 8192
+    rows, 512 -> 1024 -> 512, dropout 0.1 at both sites), launched at s0
+    = 0 and L/2 with l_loc = L/2, l_glob = L: each half bitwise the full
+    launch's rows, two launches bitwise, the halves' amax MAX the full
+    launch's (bitwise), each half against its plain version on the card
+    (2e-2 of max |plain|, amaxes 1e-2); the second half's timing."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+        _ffn_body_reference, ffn_fwd, ffn_fwd_generalized)
+    from faster_distributed_training_tpu_torch.ops.quant import quantize
+
+    rate, bf16 = 0.1, torch.bfloat16
+    B, L = 16, 512
+    rows, d, d_ff = FFN_SHAPE
+    half = L // 2
+    args = ffn_inputs(gen, rows, d, d_ff, bf16)
+    h, rest = args[0], args[1:]
+    scales = torch.tensor(FFN_SCALES, device="cuda")
+    parts = [h.view(B, L, d)[:, s * half:(s + 1) * half].reshape(
+        B * half, d).contiguous() for s in range(2)]
+    seeds = FFN_SEEDS[:2]
+
+    def launch(x, s0, l_loc, fmt):
+        if fmt is None:     # row 7's wrapper
+            return ffn_fwd(x, *rest, *seeds, rate, rate, 1e-6, 0, s0, l_loc,
+                           L), None
+        return ffn_fwd_generalized(x, *rest, (*seeds, 0, s0, 0), scales,
+                                   rate, rate, 1e-6, l_loc, L, d_ff, fmt)
+
+    def plain(x, s0, fmt):
+        quant = None if fmt is None else (fmt, *scales.unbind(), None)
+        return _ffn_body_reference(x, *rest, *seeds, rate, rate, 1e-6, 0,
+                                   s0, half, L, quant=quant,
+                                   return_amax=True, plain_gemm=True)
+
+    out, errs = {}, {}
+    for fmt in (None, "int8", "fp8"):
+        tag = fmt or "none"
+        full, famax = launch(h, 0, L, fmt)
+        fullv = full.view(B, L, d)
+        amaxes, worst, worst_abs = [], 0.0, 0.0
+        for s in range(2):
+            s0 = s * half
+            got, a = launch(parts[s], s0, half, fmt)
+            again, a2 = launch(parts[s], s0, half, fmt)
+            check(torch.equal(got, again) and (a is None or torch.equal(
+                a, a2)), f"S1 row {7 if fmt is None else 8} {tag} s0={s0}: "
+                f"two launches differ")
+            d_full = float((got.view(B, half, d).float() - fullv[
+                :, s0:s0 + half].float()).abs().max())
+            check(torch.equal(got.view(B, half, d),
+                              fullv[:, s0:s0 + half]),
+                  f"S1 {tag} s0={s0}: the half != the full launch's rows "
+                  f"({d_full})")
+            want, want_amax = plain(parts[s], s0, fmt)
+            e = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            worst, worst_abs = max(worst, e / scale), max(worst_abs, e)
+            check(e <= 2e-2 * scale, f"S1 {tag} s0={s0}: err {e} over 2e-2 "
+                  f"x {scale} of its plain version")
+            if fmt is not None:
+                check(torch.allclose(a, want_amax, rtol=1e-2, atol=0),
+                      f"S1 {tag} s0={s0}: amax {a} vs plain {want_amax}")
+                amaxes.append(a)
+        if fmt is not None:
+            check(torch.equal(torch.maximum(*amaxes), famax),
+                  f"S1 {tag}: the halves' amax MAX "
+                  f"{torch.maximum(*amaxes)} != the full launch's {famax}")
+        errs[tag] = {"rel": worst, "abs": worst_abs}
+        print(f"[sp S1] row {7 if fmt is None else 8} {tag} at {B} x {L} "
+              f"rows x {d} -> {d_ff}: the sequence halves (s0 = 0, {half}; "
+              f"l_loc {half}, l_glob {L}) bitwise the full launch's rows, "
+              f"two launches bitwise"
+              + (", the halves' amax MAX bitwise the full's" if fmt else "")
+              + f"; vs the plain version {worst:.5f} of max |plain| (tol "
+              f"2e-2)", flush=True)
+    out["s1_err"] = errs
+    # timing at the second half (s0 = L/2): kernel, plain, library (the
+    # half's two cuBLAS GEMMs), bound
+    x = parts[1]
+    n = x.shape[0]
+    f = torch.randn(n, d, generator=gen, device="cuda").to(bf16)
+    a = torch.randn(n, d_ff, generator=gen, device="cuda").to(bf16)
+    inv = [(1.0 / v).reshape(()) for v in scales.unbind()]
+    timings = {}
+    for fmt in (None, "int8", "fp8"):
+        t = {"kernel": measure(lambda: launch(x, half, half, fmt)),
+             "full": measure(lambda: launch(h, 0, L, fmt)),
+             "plain": measure(lambda: plain(x, half, fmt))}
+        if fmt is None:
+            t["library"] = library(lambda: (torch.matmul(f, rest[2].t()),
+                                            torch.matmul(a, rest[4].t())))
+        else:
+            fq, aq = quantize(f, scales[0], fmt), quantize(a, scales[2], fmt)
+            w1q = quantize(rest[2], scales[1], fmt)
+            w2q = quantize(rest[4], scales[3], fmt)
+            if fmt == "int8":
+                t["library"] = library(lambda: (torch._int_mm(fq, w1q.t()),
+                                                torch._int_mm(aq, w2q.t())))
+            else:
+                t["library"] = library(lambda: (
+                    torch._scaled_mm(fq, w1q.t(), scale_a=inv[0],
+                                     scale_b=inv[1], out_dtype=bf16),
+                    torch._scaled_mm(aq, w2q.t(), scale_a=inv[2],
+                                     scale_b=inv[3], out_dtype=bf16)))
+        w_bytes = 2 if fmt is None else 1
+        # read the half's rows, both weight matrices, the biases and LN
+        # parameters once; write the half's output (and two amaxes)
+        t["bound_ms"], t["bound_by"] = bound(
+            2 * n * d * 2 + 2 * d * d_ff * w_bytes + 2 * (d_ff + d) + 8 * d
+            + 8, 4 * n * d * d_ff, "bf16" if fmt is None else fmt)
+        timings[fmt or "none"] = t
+        lib = t["library"]
+        print(f"[sp S1] row {7 if fmt is None else 8} {fmt or 'none'} half "
+              f"({n} rows at s0 {half}) timing: device ms per call "
+              f"({t['kernel']['timer']}): kernel {t['kernel']['ms']:.5f}, "
+              f"plain {t['plain']['ms']:.5f}, library "
+              + (f"{lib['ms']:.5f}" if lib else "n/a")
+              + f" (the half's two cuBLAS GEMMs); per call incl. launch "
+              f"(events): kernel {t['kernel']['call_ms']:.5f}; bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}); the full launch "
+              f"({rows} rows) {t['full']['ms']:.5f}", flush=True)
+    out["s1"] = timings
+    return out
+
+
+def s2_rank(rank: int, world: int, port: int, out_dir: str,
+            cases: dict) -> None:
+    """One S2 rank: gloo on the one card, ``t2_steps(*args)`` of every case
+    in one process group, their results in one file."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        out = {tag: t2_steps(*args) for tag, args in cases.items()}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"s2_{rank}.pt"))
+
+
+def sp_phase(build_dir: str) -> dict:
+    """Phase S: sequence parallelism on the one card (NCCL refuses two
+    ranks on one device, so no real sp mesh over NVLink).  S1 rows 7 and
+    8 on sequence halves (``sp_kernels``).  S2 two gloo ranks at
+    ``--mesh sp=2`` in one group: (a) fp32, the record's widths, 2
+    layers, ``--ffn_impl pallas`` (row 7 at s0), ring and Ulysses (the
+    flash kernels at h0 = 0, 4), 4 fixed batches each, against world 1
+    (flash, loss 1e-5, params 1e-4), the ranks' replicated leaves bitwise
+    equal after every step; (b) path B (``--ffn_impl pallas --quant
+    int8``, Ulysses) at full width, 4 steps: finite losses, replicated
+    leaves bitwise, each hand kernel's device launches in one step from
+    the profiler (rows 1 and 4 on 4 of 8 heads of the whole sequence,
+    row 8 on half the positions, row 9, row 6: 6, 6, 6, 24, 1), host
+    wall and device ms a step beside world 1's; (c) path E (the LM at
+    seq 8192, B 4, Ulysses, rows 2 and 3 at h0 = 0 and 4), 2 steps: host
+    wall, device ms and peak a rank beside world 1's."""
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+
+    out = {}
+    t0 = time.monotonic()
+    out.update(sp_kernels(torch.Generator(device="cuda").manual_seed(13)))
+    print(f"[sp] S1 in {time.monotonic() - t0:.1f}s", flush=True)
+    t0 = time.monotonic()
+    a_flags = ["--precision", "fp32", "--ffn_impl", "pallas"]
+    b_flags = ["--ffn_impl", "pallas", "--quant", "int8"]
+    e_flags = ["--task", "lm", "--precision", "bf16"]
+    cases = {
+        "a_ring": (a_flags, S_LAYERS, 4, 16, 512, False, "sp", "ring"),
+        "a_ulysses": (a_flags, S_LAYERS, 4, 16, 512, False, "sp",
+                      "ulysses"),
+        "b": (b_flags, T_RECORD_LAYERS, 4, 16, 512, True, "sp", "ulysses"),
+        "e": (e_flags, T_RECORD_LAYERS, 2, LONG["B"], LONG["L"], True, "sp",
+              "ulysses", 605)}
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=s2_rank, args=(r, 2, port, build_dir, cases))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    # the world-1 references while the ranks start
+    ref = {tag: t2_steps(*args) for tag, args in (
+        ("a", cases["a_ring"]), ("b", cases["b"]), ("e", cases["e"]))}
+    for p in procs:
+        p.join(900)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    check(all(p.exitcode == 0 for p in procs),
+          f"S2: ranks exited {[p.exitcode for p in procs]}")
+    ranks = [torch.load(os.path.join(build_dir, f"s2_{r}.pt"))
+             for r in range(2)]
+    for tag in ("a_ring", "a_ulysses"):
+        rs = [r[tag] for r in ranks]
+        check(rs[0]["digests"] == rs[1]["digests"],
+              f"S2({tag}): the ranks' replicated leaves differ")
+        check(sorted(rs[0]["whole"]) == sorted(ref["a"]["whole"]),
+              f"S2({tag}): the state's leaves differ from world 1's")
+        loss_err = max(abs(x - y) for x, y in zip(rs[0]["losses"],
+                                                   ref["a"]["losses"]))
+        param_err = max(float((rs[0]["whole"][k] - v).abs().max())
+                        for k, v in ref["a"]["whole"].items()
+                        if k.startswith("model/") and v.is_floating_point())
+        out.update({f"s2{tag}_loss_err": loss_err,
+                    f"s2{tag}_param_err": param_err,
+                    f"s2{tag}_ms": [r["ms"] for r in rs],
+                    f"s2{tag}_launches": rs[0]["launches"]})
+        check(rs[0]["launches"]["fused_ffn"] == 4 * S_LAYERS,
+              f"S2({tag}): row 7 launches {rs[0]['launches']}")
+        print(f"[sp S2{tag[0]}] {tag[2:]} at sp=2 over gloo on one card, "
+              f"{S_LAYERS} layers fp32, fused FFN (row 7 at s0 = 0, 256), 4 "
+              f"steps: the ranks' replicated leaves bitwise equal after "
+              f"every step; vs world 1 (flash): loss err {loss_err:.3g} (tol "
+              f"1e-5), param err {param_err:.3g} (tol 1e-4); step ms median "
+              f"{out[f's2{tag}_ms']} (ranks 0, 1) against "
+              f"{ref['a']['ms']:.2f} at world 1; wrapper launches "
+              f"{rs[0]['launches']}", flush=True)
+        check(loss_err <= 1e-5 and param_err <= 1e-4,
+              f"S2({tag}): sp=2 vs world 1")
+    n = T_RECORD_LAYERS
+    rb = [r["b"] for r in ranks]
+    check(rb[0]["digests"] == rb[1]["digests"],
+          "S2(b): the ranks' replicated leaves differ")
+    check(all(np.isfinite(r["losses"]).all() for r in rb),
+          f"S2(b): non-finite losses {[r['losses'] for r in rb]}")
+    want = {"flash_fwd_kernel": n, "dkdv_kernel": n, "dq_kernel": n,
+            "ffn_kernel": n, "qmm_kernel": 4 * n, "mlp_fwd_kernel": 1}
+    for r in rb:
+        check(r["profile"]["hand"] == want,
+              f"S2(b): device launches a step {r['profile']['hand']}, want "
+              f"{want}")
+    out.update(s2b_device_launches=rb[0]["profile"]["hand"],
+               s2b_launches=rb[0]["launches"],
+               s2b_ms=[r["ms"] for r in rb], s2b_ms_world1=ref["b"]["ms"],
+               s2b_wall_ms=[r["profile"]["wall_ms"] for r in rb],
+               s2b_device_ms=[r["profile"]["device_ms"] for r in rb],
+               s2b_wall_ms_world1=ref["b"]["profile"]["wall_ms"],
+               s2b_device_ms_world1=ref["b"]["profile"]["device_ms"],
+               s2b_losses=rb[0]["losses"])
+    print(f"[sp S2b] path B (--ffn_impl pallas --quant int8, bf16, Ulysses) "
+          f"at {n} layers, sp=2 over gloo on one card, 4 steps: losses "
+          f"{[round(x, 4) for x in rb[0]['losses']]} finite; the ranks' "
+          f"replicated leaves bitwise equal after every step; device "
+          f"launches of one step {rb[0]['profile']['hand']} (a rank: rows "
+          f"1 and 4 on 4 of 8 heads of all 512 positions, row 8 on its 256 "
+          f"positions); step host wall ms median {out['s2b_ms']} (ranks 0, "
+          f"1) against {ref['b']['ms']:.2f} at world 1; the profiled step's "
+          f"device ms {out['s2b_device_ms']} against "
+          f"{ref['b']['profile']['device_ms']:.2f} (gloo stages every "
+          f"collective through the host)", flush=True)
+    re_ = [r["e"] for r in ranks]
+    check(re_[0]["digests"] == re_[1]["digests"],
+          "S2(c): the ranks' replicated leaves differ")
+    check(all(np.isfinite(r["losses"]).all() for r in re_),
+          f"S2(c): non-finite losses {[r['losses'] for r in re_]}")
+    for r in re_:
+        got = r["profile"]["hand"]
+        check(got.get("flash_fwd_kernel") == n and got.get("dkdv_kernel")
+              == n and got.get("dq_kernel") == n,
+              f"S2(c): rows 2 and 3 launches a step {got}")
+    out.update(s2c_wall_ms=[r["profile"]["wall_ms"] for r in re_],
+               s2c_device_ms=[r["profile"]["device_ms"] for r in re_],
+               s2c_peak_bytes=[r["peak_bytes"] for r in re_],
+               s2c_h0=[r["sp_rank"] * 4 for r in re_],
+               s2c_device_launches=re_[0]["profile"]["hand"],
+               s2c_wall_ms_world1=ref["e"]["profile"]["wall_ms"],
+               s2c_device_ms_world1=ref["e"]["profile"]["device_ms"],
+               s2c_peak_bytes_world1=ref["e"]["peak_bytes"],
+               s2c_losses=re_[0]["losses"])
+    print(f"[sp S2c] path E (--task lm, B {LONG['B']} L {LONG['L']}, "
+          f"Ulysses) at sp=2 over gloo on one card, 2 steps: losses "
+          f"{[round(x, 4) for x in re_[0]['losses']]}; rows 2 and 3 at h0 "
+          f"{out['s2c_h0']} (ranks 0, 1), {n} each a step; the profiled "
+          f"step's host wall ms {[round(x, 2) for x in out['s2c_wall_ms']]}"
+          f", device ms {[round(x, 2) for x in out['s2c_device_ms']]}, "
+          f"peak {[round(b / 2**30, 2) for b in out['s2c_peak_bytes']]} "
+          f"GiB a rank; world 1: {ref['e']['profile']['wall_ms']:.2f} ms "
+          f"wall, {ref['e']['profile']['device_ms']:.2f} ms device, peak "
+          f"{ref['e']['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"[sp] S2 in {time.monotonic() - t0:.1f}s", flush=True)
+    return out
+
+
+def sp_main() -> int:
+    """``--sp``: the kernels' build, then phase S alone."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from faster_distributed_training_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}",
+          flush=True)
+    build_s, _ = _build.build()
+    print(f"[build] {build_s:.1f}s", flush=True)
+    sp = sp_phase(str(_build.BUILD_DIR))
+    print(json.dumps(sp, default=str))
     return 0
 
 
@@ -4508,6 +4861,9 @@ def main() -> int:
     # -- phase T: tensor parallelism (slice 11) ------------------------------
     tpm = tp_phase(str(_build.BUILD_DIR))
 
+    # -- phase S: sequence parallelism (slice 12) ----------------------------
+    spm = sp_phase(str(_build.BUILD_DIR))
+
     # -- 7. output -----------------------------------------------------------
     print(f"[mesh] P1 step ms (dp=1 over NCCL / no group): record "
           f"{pm['p1_record_ms']:.2f} / {pm['p1_record_plain_ms']:.2f}, path B "
@@ -4523,6 +4879,13 @@ def main() -> int:
           f"param err {tpm['t2a_param_err']:.3g}; T2(b) path B tp=2 gloo "
           f"step ms {tpm['t2b_ms']} (world 1: {tpm['t2b_ms_world1']:.2f}), "
           f"device launches a step {tpm['t2b_device_launches']}")
+    print(f"[sp] S2(a) sp=2 vs world 1: ring loss err "
+          f"{spm['s2a_ring_loss_err']:.3g}, param err "
+          f"{spm['s2a_ring_param_err']:.3g}; Ulysses loss err "
+          f"{spm['s2a_ulysses_loss_err']:.3g}, param err "
+          f"{spm['s2a_ulysses_param_err']:.3g}; S2(b) path B sp=2 gloo step "
+          f"ms {spm['s2b_ms']} (world 1: {spm['s2b_ms_world1']:.2f}); S2(c) "
+          f"path E sp=2 peak {spm['s2c_peak_bytes']} bytes a rank")
     print(f"[serve] p50 {res['p50_ms']} ms, p99 {res['p99_ms']} ms, "
           f"{res['qps']} qps (64 requests, batch 8, 1 replica)")
     print(f"[train] step time median {tr['step_ms']:.2f} ms; fixed-batch "
@@ -4739,6 +5102,44 @@ def main() -> int:
                       f"{fmt}_library_ms": t["library"]["ms"]
                       if t["library"] else None})
     kernels.append(entry)
+    # slice 12: each kernel's device launches in one S2(b) step at sp=2
+    # (rows 2 and 3: path E's S2(c) step; row 7: S2(a)'s fp32 run, its
+    # wrapper's launches over 4 steps), and rows 7 and 8 on a sequence
+    # half (S1: s0 = L/2, l_loc = L/2)
+    sp_dev, sp_e = spm["s2b_device_launches"], spm["s2c_device_launches"]
+    for entry in kernels:
+        name = entry["name"]
+        if name.endswith("kblocked"):
+            entry["launches_sp2_step"] = sp_e.get(
+                "flash_fwd_kernel" if "fwd" in name else "dkdv_kernel")
+        elif name == "fused_ffn":
+            entry["launches_sp2_step"] = (
+                spm["s2a_ulysses_launches"]["fused_ffn"] / 4)
+        else:
+            entry["launches_sp2_step"] = sp_dev.get({
+                "flash_fwd": "flash_fwd_kernel",
+                "flash_bwd_stats": "dkdv_kernel",
+                "fused_mlp": "mlp_fwd_kernel",
+                "fused_ffn_quant": "ffn_kernel",
+                "quant_matmul": "qmm_kernel"}.get(name, ""))
+        fmts = {"fused_ffn": ("none",),
+                "fused_ffn_quant": ("int8", "fp8")}.get(name, ())
+        for fmt in fmts:
+            t = spm["s1"][fmt]
+            pre = "sp_half_e4m3_" if fmt == "fp8" else "sp_half_"
+            entry.update({
+                pre + "ms": t["kernel"]["ms"],
+                pre + "call_ms": t["kernel"]["call_ms"],
+                pre + "plain_ms": t["plain"]["ms"],
+                pre + "bound_ms": t["bound_ms"],
+                pre + "bound_by": t["bound_by"],
+                pre + "library_ms": t["library"]["ms"] if t["library"]
+                else None,
+                pre + "max_abs_err": spm["s1_err"][fmt]["abs"]})
+        if fmts:
+            entry["sp_half_shape"] = ("4096 rows: the second sequence half "
+                                      "of 16 x 512, s0 256, l_loc 256, "
+                                      "l_glob 512")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4788,6 +5189,13 @@ if __name__ == "__main__":
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(2)
         sys.exit(dispatch_main())
+    if sys.argv[1:2] == ["--sp"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(sp_main())
     if sys.argv[1:2] == ["--tp"]:
         import torch
 

@@ -15,7 +15,9 @@ fully-sharded training over ``torch.distributed`` (slice 10:
 one process a rank, launched by torchrun: ``run_distributed.sh``), and
 tensor parallelism for the Transformer classifier (slice 11: ``--mesh
 dp=D,tp=T``, every hand kernel on the rank's shard, ZeRO over tp unless
-``--no_zero_opt``).
+``--no_zero_opt``), and sequence parallelism for Transformer training
+(slice 12: ``--mesh sp=S`` / ``dp=D,sp=S``, ring or Ulysses attention,
+the rank's positions of every row through the other kernels).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
 ``resolve_attention``, ``build_model``, ``load_dataset`` (the agnews,
@@ -29,8 +31,9 @@ Attention routing does not copy the JAX package's measured TPU surface
 (its dense/flash crossover, sequence-parallel threshold and dense
 memory budget were all measured on a TPU): on CUDA every shape the
 flash kernel takes routes to it; on the CPU the default is dense, as in
-the JAX package.  An explicit ``--attention`` always wins (``flash`` on
-the CPU runs the kernel's plain version).
+the JAX package; on a dedicated sp axis JAX's rule, Ulysses where sp
+divides the heads, else the ring.  An explicit ``--attention`` always
+wins (``flash`` on the CPU runs the kernel's plain version).
 """
 
 from __future__ import annotations
@@ -76,11 +79,32 @@ def resolve_device(name) -> torch.device:
     return dev
 
 
+def route_model_axis(cfg: TrainConfig, ax_size: int) -> Optional[str]:
+    """The sequence-parallel attention a model axis of ``ax_size`` serves
+    for this shape (JAX ``cli._route_model_axis``): None when the axis
+    does not divide ``seq_len`` (both strategies shard the sequence over
+    it), Ulysses when it also divides the heads, else the ring."""
+    if cfg.seq_len % ax_size:
+        return None
+    return "ulysses" if cfg.n_heads % ax_size == 0 else "ring"
+
+
 def resolve_attention(cfg: TrainConfig, device: torch.device) -> str:
-    """Explicit ``--attention`` wins; else flash on CUDA wherever the
+    """Explicit ``--attention`` wins; on a dedicated sp axis above 1 JAX's
+    sequence-parallel route (``route_model_axis``; JAX's tp-axis tier from
+    seq 2048 is a TPU measurement and is not copied: under tp the port
+    runs flash on the rank's heads); else flash on CUDA wherever the
     kernel takes the head dim, dense otherwise (and on the CPU)."""
+    from faster_distributed_training_tpu_torch.parallel.mesh import (
+        seq_parallel_axis)
+
     if cfg.attention:
         return cfg.attention
+    ax, n = seq_parallel_axis((cfg.mesh_axes, cfg.mesh_shape))
+    if ax == "sp":
+        impl = route_model_axis(cfg, n)
+        if impl:
+            return impl
     if (torch.device(device).type == "cuda"
             and cfg.d_model % cfg.n_heads == 0
             and cfg.d_model // cfg.n_heads in HEAD_DIMS):
@@ -89,7 +113,7 @@ def resolve_attention(cfg: TrainConfig, device: torch.device) -> str:
 
 
 def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
-                serving: bool = False, device=None, tp=None):
+                serving: bool = False, device=None, tp=None, sp=None):
     """The port's Transformer for ``cfg``.  ``serving=True`` builds the
     inference twin: GEMM weights stored in the compute dtype (the JAX
     model casts its fp32 weights at every call; serving rounds them once
@@ -102,7 +126,8 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
     table unless ``--untie_lm_head``.  Features the port has not reached
     raise, among them ``--task lm`` with ``--quant`` or ``--ffn_impl
     pallas``.  ``tp`` (a ``TensorGroup``): the rank's tp shard of the
-    model (a vocabulary tp does not divide pads the last shards)."""
+    model (a vocabulary tp does not divide pads the last shards); ``sp``
+    (a ``SequenceGroup``): the model runs the rank's positions."""
     from faster_distributed_training_tpu_torch.models import get_model
     from faster_distributed_training_tpu_torch.ops.quant import (
         warn_if_killed)
@@ -161,7 +186,7 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
                      lm_head=cfg.task == "lm",
                      tie_lm_head=cfg.task == "lm" and cfg.tie_lm_head,
                      remat=bool(cfg.remat) and not serving,
-                     remat_policy=cfg.remat_policy, tp=tp, **rates)
+                     remat_policy=cfg.remat_policy, tp=tp, sp=sp, **rates)
 
 
 def _build_resnet(cfg: TrainConfig):
@@ -223,9 +248,52 @@ def tp_unported(cfg: TrainConfig) -> list:
     return [k for k, v in checks.items() if v]
 
 
+def sp_unported(cfg: TrainConfig) -> list:
+    """What sequence parallelism (``--mesh sp=S``, S > 1) does not reach,
+    by flag or shape: sp with tp, with fsdp / zero1 / the host tiers,
+    under a dispatch or the resident split, ``--remat``, a ResNet or
+    ``--ngd``, ``--attention dense|flash`` on an sp mesh (JAX gathers
+    q / k / v there), a ``seq_len`` sp does not divide (JAX falls back to
+    replicated attention), Ulysses on heads sp does not divide; and ring
+    or Ulysses without an sp axis (over a tp-only axis or none).
+    Serving under a mesh raises in ``build_model``."""
+    from faster_distributed_training_tpu_torch.parallel.mesh import (
+        canonical_axes)
+
+    sizes = dict(zip(canonical_axes(cfg.mesh_axes), cfg.mesh_shape))
+    sp, tp = int(sizes.get("sp", 1)), int(sizes.get("tp", 1))
+    attn = cfg.attention or ""
+    if sp <= 1:
+        return ([f"--attention {attn} without --mesh sp=N (ring and Ulysses "
+                 f"shard the sequence over an sp axis)"]
+                if attn in ("ring", "ulysses") else [])
+    on = f"under --mesh sp={sp}"
+    k = max(int(cfg.steps_per_dispatch or 1), 1)
+    checks = {
+        f"--mesh tp={tp} {on}": tp > 1,
+        **{f"{flag} {on}": bool(v) for flag, v in (
+            ("--fsdp", cfg.fsdp), ("--zero1", cfg.zero1),
+            ("--host_offload", cfg.host_offload),
+            ("--offload_opt_state", cfg.offload_opt_state))},
+        f"--steps_per_dispatch {k} {on}": k > 1,
+        f"--data_path {cfg.data_path} {on}": cfg.data_path != "host",
+        f"--remat {on}": bool(cfg.remat),
+        f"--model {cfg.model} {on}": cfg.model != "transformer",
+        f"--ngd {on}": bool(cfg.use_ngd or cfg.optimizer == "ngd"),
+        f"--attention {attn} {on} (JAX gathers q/k/v there)":
+            attn in ("dense", "flash"),
+        f"--seq_len {cfg.seq_len} not divisible by --mesh sp={sp}":
+            cfg.seq_len % sp != 0,
+        f"--attention ulysses with --n_heads {cfg.n_heads} not divisible "
+        f"by --mesh sp={sp}": attn == "ulysses" and cfg.n_heads % sp != 0,
+    }
+    return [k for k, v in checks.items() if v]
+
+
 def unported_training_flags(cfg: TrainConfig) -> list:
     """The flags of features the training slice does not reach.  Of the
-    mesh: sp and pp above 1 and what tp does not reach (``tp_unported``);
+    mesh: pp above 1 and what tp and sp do not reach (``tp_unported``,
+    ``sp_unported``);
     --ngd with --fsdp or --zero1 (NGD preconditions whole gradient
     leaves); --fsdp, --zero1 and the host tiers under a dispatch (K > 1
     or the resident split: their gathers and copies are not captured);
@@ -253,6 +321,7 @@ def unported_training_flags(cfg: TrainConfig) -> list:
         **{bad: True for bad in unported_axes(cfg.mesh_axes,
                                                cfg.mesh_shape)},
         **{bad: True for bad in tp_unported(cfg)},
+        **{bad: True for bad in sp_unported(cfg)},
         f"--ngd with {' / '.join(t for t in tiers if t in ('--fsdp', '--zero1'))}"
         " (NGD preconditions whole gradient leaves)": ngd and (
             cfg.fsdp or cfg.zero1),
@@ -477,8 +546,9 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     train_ds = apply_subset(train_ds, cfg.subset_stride)
     eval_ds = apply_subset(load_dataset(cfg, train=False), cfg.subset_stride)
     gen = torch.Generator().manual_seed(cfg.seed)
+    sp = group.seq
     model = build_model(cfg, vocab_size=None if resnet
-                        else train_ds.vocab_size(), device=dev, tp=tp)
+                        else train_ds.vocab_size(), device=dev, tp=tp, sp=sp)
     if params is not None:
         load_jax_tree(model, params)
     else:
@@ -521,6 +591,10 @@ def run_training(cfg: TrainConfig, params=None, device=None,
                f"split; optimizer state "
                + ("ZeRO-sharded over tp)" if cfg.zero_opt
                   else "replicated over tp)") if tp is not None else "")
+            + (f", sp={sp.size} ({cfg.seq_len // sp.size} of {cfg.seq_len} "
+               f"positions a rank; attention "
+               f"{model.layers[0].attn.attention_impl}; state replicated "
+               f"over sp)" if sp is not None else "")
             + (", params + optimizer state on the host between steps"
                if cfg.host_offload else
                ", big optimizer leaves on the host between steps"

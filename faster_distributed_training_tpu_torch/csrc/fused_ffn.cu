@@ -655,18 +655,20 @@ __device__ __forceinline__ uint8_t q_byte(float v, float s) {
   }
 }
 
-// the ring's position: the k-th chunk of d_ff this block walks (chunk
-// (k + rot) % nch: blocks start at different chunks, so the 128 blocks do
-// not all read the same weight tile at once), GEMM1 (g2 = 0) or GEMM2
-// tile kt of it
+// the ring's position: the k-th chunk of d_ff this block walks, GEMM1
+// (g2 = 0) or GEMM2 tile kt of it.  Every block walks the chunks in the
+// same order, so GEMM2 sums a row's chunks in one order wherever the row
+// is launched: a row's output depends on the row (and its global index),
+// never on its block, and a shard of the rows (a batch origin b0, a
+// sequence half at s0) is bitwise the full launch's rows
 struct Cursor {
   int k, g2, kt;
-  __device__ __forceinline__ int cb(int rot, int nch) const { return (k + rot) % nch * CH; }
-  __device__ __forceinline__ void advance(int n1, int d_ff, int esz, int w2, int rot, int nch) {
+  __device__ __forceinline__ int cb() const { return k * CH; }
+  __device__ __forceinline__ void advance(int n1, int d_ff, int esz, int w2) {
     if (!g2) {
       if (++kt == n1) g2 = 1, kt = 0;
     } else {
-      const int nc = min(CH, d_ff - cb(rot, nch));
+      const int nc = min(CH, d_ff - cb());
       if (++kt == (nc * esz + w2 - 1) / w2) g2 = 0, kt = 0, ++k;
     }
   }
@@ -704,13 +706,13 @@ __global__ void __launch_bounds__(NT, 1) ffn_kernel_sm90(const Args a) {
   const unsigned char* w1 = static_cast<const unsigned char*>(a.w1);
   const unsigned char* w2 = static_cast<const unsigned char*>(a.w2);
   const int n1 = (d * ESZ + W1 - 1) / W1;
-  const int nch = (d_ff + CH - 1) / CH, rot = blockIdx.x % nch;
+  const int nch = (d_ff + CH - 1) / CH;
 
   // the weight tile at cursor c into ring stage s (one commit group a call)
   auto issue = [&](const Cursor& c, int s) {
     if (c.k < nch) {
       const uint32_t st = ring + s * SLOT;
-      const int cb = c.cb(rot, nch);
+      const int cb = c.cb();
       if (!c.g2) {
         // w1 rows cb .. cb + CH - 1, bytes kt W1 ..
         for (int v = tid; v < CH * (W1 / 16); v += NT) {
@@ -740,14 +742,14 @@ __global__ void __launch_bounds__(NT, 1) ffn_kernel_sm90(const Args a) {
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     issue(pc, s);
-    pc.advance(n1, d_ff, ESZ, W2, rot, nch);
+    pc.advance(n1, d_ff, ESZ, W2);
   }
 
   // b1 of the first chunk and b2 (the next chunks' b1 load during the
   // GEMM2 tiles before them; a barrier always lies between)
   auto load_b1 = [&](int k, int buf) {
     if (tid < CH) {
-      const int col = Cursor{k, 0, 0}.cb(rot, nch) + tid;
+      const int col = Cursor{k, 0, 0}.cb() + tid;
       bias1[buf * CH + tid] = col < d_ff ? to_f(b1[col]) : 0.f;
     }
   };
@@ -862,10 +864,10 @@ __global__ void __launch_bounds__(NT, 1) ffn_kernel_sm90(const Args a) {
     // the tensor cores run while the threads queue the copies
     auto refill = [&]() {
       issue(pc, (t + STAGES - 1) % STAGES);
-      pc.advance(n1, d_ff, ESZ, W2, rot, nch);
+      pc.advance(n1, d_ff, ESZ, W2);
     };
     const uint32_t st = ring + (t % STAGES) * SLOT;
-    const int cb = cc.cb(rot, nch), nc = min(CH, d_ff - cb);
+    const int cb = cc.cb(), nc = min(CH, d_ff - cb);
     if (!cc.g2) {
       // GEMM1: this warpgroup's 64 columns of the chunk, K slice kt
       const int ns = min(W1 / 32, (d * ESZ - cc.kt * W1 + 31) / 32);
@@ -943,7 +945,7 @@ __global__ void __launch_bounds__(NT, 1) ffn_kernel_sm90(const Args a) {
       wgmma_wait<0>();
       fence_regs(acc2);
     }
-    cc.advance(n1, d_ff, ESZ, W2, rot, nch);
+    cc.advance(n1, d_ff, ESZ, W2);
   }
   cp_async_wait<0>();
 

@@ -40,6 +40,19 @@ region draws its dropout seeds from a stream that restarts at the
 region's first seed each time the region runs, so the replay reuses the
 forward's seeds.
 
+Under sequence parallelism (``sp``, a ``parallel.collectives.SequenceGroup``
+of size above 1: ``--mesh sp=S``) each rank runs its L/S positions of
+every row (positions ``[s0, s0 + L/S)``, ``s0`` = its sp index · L/S)
+with the whole weights (JAX's sequence-sharded residual stream,
+``models/transformer.py:585-606``): the position tables at ``s0``, the
+LayerNorms, the FFN (the fused kernel at the sequence offsets ``s0``,
+``l_loc``, ``l_glob``) and every dropout site at the global rows;
+attention alone crosses the shards, through ``ops.ring_attention`` or
+``ops.ulysses_attention`` (``attention_impl`` ``ring`` / ``ulysses``).
+The CLS row lives on sp index 0: it is broadcast to every rank
+(``SequenceGroup.broadcast0``, backward a SUM onto index 0), and the
+pooler, the mixup and the classifier run replicated on each.
+
 Under tensor parallelism (``tp``, a ``parallel.collectives.TensorGroup``
 of size above 1: ``--mesh tp=N``) each rank holds its shards of the
 weights (``parallel.sharding.tp_cut``) and runs the Megatron layout
@@ -90,6 +103,10 @@ from faster_distributed_training_tpu_torch.ops.layernorm import (
 from faster_distributed_training_tpu_torch.ops.quant import (
     QuantDense, quant_enabled, scale_from_history, tensor_amax,
     update_amax_history)
+from faster_distributed_training_tpu_torch.ops.ring_attention import (
+    ring_self_attention)
+from faster_distributed_training_tpu_torch.ops.ulysses_attention import (
+    ulysses_attention)
 from faster_distributed_training_tpu_torch.parallel import (collectives,
                                                             kernel_shard)
 from faster_distributed_training_tpu_torch.parallel.collectives import (
@@ -101,6 +118,11 @@ from faster_distributed_training_tpu_torch.parallel.sharding import (
 def _tp(tp):
     """The TensorGroup a module shards over, or None (one shard)."""
     return tp if tp is not None and tp.size > 1 else None
+
+
+def _sp(sp):
+    """The SequenceGroup a module's positions are split over, or None."""
+    return sp if sp is not None and sp.size > 1 else None
 
 
 def _dense(d_in: int, d_out: int, quant, dtype, param_dtype, tp=None,
@@ -137,10 +159,14 @@ class SeedStream:
     """A training forward's dropout seeds (``draws.seeds``: Python ints
     or a 1-D device tensor), drawn in site order by ``next``, and ``b0``,
     the global index of the batch's first row (``draws.b0``: a
-    data-parallel rank's origin), which every site's stream adds."""
+    data-parallel rank's origin), which every site's stream adds; under
+    sp, ``s0`` and ``l_glob``: the rank's first position and the whole
+    sequence length (0: the rows hold every position)."""
 
-    def __init__(self, seeds, pos: int = 0, b0: int = 0):
+    def __init__(self, seeds, pos: int = 0, b0: int = 0, s0: int = 0,
+                 l_glob: int = 0):
         self.seeds, self.pos, self.b0 = seeds, pos, int(b0)
+        self.s0, self.l_glob = int(s0), int(l_glob)
 
     def __iter__(self):
         return self
@@ -156,7 +182,7 @@ def _remat_seeded(fn: Callable, module: nn.Module, x: torch.Tensor,
     forward, then the replay) draws from the same first seed, and
     ``seeds`` moves past the ones the forward drew."""
     start = seeds.pos
-    own = SeedStream(seeds.seeds, start, seeds.b0)
+    own = SeedStream(seeds.seeds, start, seeds.b0, seeds.s0, seeds.l_glob)
 
     def region(y):
         own.pos = start
@@ -172,15 +198,23 @@ def _origin(seeds) -> int:
     return getattr(seeds, "b0", 0)
 
 
+def _seq(seeds) -> tuple:
+    """(s0, l_glob) of a seed stream's rows ((0, 0): every position)."""
+    return getattr(seeds, "s0", 0), getattr(seeds, "l_glob", 0)
+
+
 def _dropout(x: torch.Tensor, rate: float, train: bool,
              seeds: Optional[SeedStream]) -> torch.Tensor:
     """One FastDropout site: draws its seed only when it is active.  Its
     stream addresses the global batch: element 0 of batch row 0 is
-    global element ``b0 * (elements a row)``."""
+    global element ``b0 * (elements a row)``; an sp rank's [B, L/S, d]
+    shard draws the words of its global positions."""
     if not train or rate <= 0.0:
         return x
-    row = int(np.prod(x.shape[1:]))
-    return hash_dropout(x, next(seeds), rate, offset=_origin(seeds) * row)
+    s0, l_glob = _seq(seeds) if x.dim() == 3 else (0, 0)
+    row = (l_glob * x.shape[-1] if l_glob else int(np.prod(x.shape[1:])))
+    return hash_dropout(x, next(seeds), rate, offset=_origin(seeds) * row,
+                        s0=s0, l_glob=l_glob)
 
 
 class TorchLayerNorm(nn.Module):
@@ -290,11 +324,13 @@ class Embeddings(nn.Module):
                              torch.where(mine, local, 0)).float()
         return self.tp.reduce_out(part * mine[..., None])
 
-    def forward(self, x: torch.Tensor, token_types: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, token_types: torch.Tensor,
+                s0: int = 0) -> torch.Tensor:
+        """x: token ids [B, L]; under sp the rank's positions ``[s0, s0 +
+        L)`` (the position table's rows there)."""
         L = x.shape[1]
         tokens = self._tokens(x)
-        positions = self.pos_embedding[None, :L, :].float()
+        positions = self.pos_embedding[None, s0:s0 + L, :].float()
         segments = _Lookup.apply(self.segment_embedding,
                                  token_types[:, :L]).float()
         return (tokens + positions + segments) * math.sqrt(self.d_model)
@@ -316,15 +352,19 @@ class MultiheadAttention(nn.Module):
     attention-probability hash dropout in training, output projection.
     Under tp: the rank's H/tp heads (qkv column-parallel, its rows
     ``{i*H*d_k + (h0 + j)*d_k + k}``), the context of those heads, the
-    out projection row-parallel on the matching d_model/tp inputs."""
+    out projection row-parallel on the matching d_model/tp inputs.
+    ``ring`` / ``ulysses``: the rank's positions of a sequence split over
+    ``sp`` (a ``SequenceGroup``; None: one shard), its queries attending
+    over every rank's keys."""
 
     def __init__(self, h: int, d_model: int, dropout: float = 0.1,
                  dtype=torch.float32, param_dtype=torch.float32,
-                 attention_impl: str = "dense", quant=None, tp=None):
+                 attention_impl: str = "dense", quant=None, tp=None,
+                 sp=None):
         super().__init__()
-        if attention_impl not in ("dense", "flash"):
+        if attention_impl not in ("dense", "flash", "ring", "ulysses"):
             raise ValueError(f"attention_impl {attention_impl!r}: the port "
-                             f"has 'dense' and 'flash'")
+                             f"has 'dense', 'flash', 'ring' and 'ulysses'")
         # the flash backward's route (None: FDT_FLASH_SAVE_STATS decides)
         # and whether an attn_out region stashes the context
         self.save_stats: Optional[bool] = None
@@ -335,6 +375,7 @@ class MultiheadAttention(nn.Module):
         self.dtype = dtype
         self.attention_impl = attention_impl
         self.tp = _tp(tp)
+        self.sp = _sp(sp)
         # the rank's heads [h0, h0 + h_loc) of h
         self.h_loc = h if self.tp is None else self.tp.part(h)
         self.h0 = 0 if self.tp is None else self.tp.rank * self.h_loc
@@ -359,7 +400,16 @@ class MultiheadAttention(nn.Module):
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         rate = self.dropout if train else 0.0
         seed = next(seeds) if rate > 0.0 else None
-        if self.attention_impl == "flash":
+        if self.attention_impl == "ring":
+            ctx = ring_self_attention(q, k, v, mask, self.sp,
+                                      b0=_origin(seeds), dropout_rate=rate,
+                                      dropout_seed=seed)
+        elif self.attention_impl == "ulysses":
+            ctx = ulysses_attention(
+                qkv, self.sp, None if mask is None else mask.reshape(B, L),
+                dropout_rate=rate, dropout_seed=seed, b0=_origin(seeds),
+                save_stats=self.save_stats)
+        elif self.attention_impl == "flash":
             # the dropout stream addresses the global (b, h): the batch
             # origin b0, the head origin h0 of h (h0 = 0 without tp)
             org = dict(b0=_origin(seeds), h0=self.h0, h_glob=self.h)
@@ -435,7 +485,7 @@ class EncoderLayer(nn.Module):
                  dropout_attention: float = 0.1, dropout_ffn: float = 0.1,
                  dtype=torch.float32, param_dtype=torch.float32,
                  attention_impl: str = "dense", ffn_impl: str = "flax",
-                 quant=None, remat_ffn: bool = False, tp=None):
+                 quant=None, remat_ffn: bool = False, tp=None, sp=None):
         super().__init__()
         if ffn_impl not in ("flax", "pallas"):
             raise ValueError(f"ffn_impl {ffn_impl!r}: the port has 'flax' "
@@ -450,7 +500,7 @@ class EncoderLayer(nn.Module):
         self.ln_attn = TorchLayerNorm(d_model, dtype=dtype)
         self.attn = MultiheadAttention(h, d_model, dropout_attention, dtype,
                                        param_dtype, attention_impl, quant,
-                                       tp)
+                                       tp, sp)
         self.ln_ffn = TorchLayerNorm(d_model, dtype=dtype)
         self.ffn = PositionalWiseFFN(d_model, d_ff, dropout_ffn, dtype,
                                      param_dtype, quant, tp)
@@ -486,6 +536,11 @@ class EncoderLayer(nn.Module):
         FFN-connection seeds."""
         r_h, r_c = self.ffn.dropout, self.drop_ffn_conn
         b0 = _origin(seeds)
+        # the rows' sequence offsets (an sp rank's positions s0.. of
+        # l_glob; (0, L) otherwise)
+        seq = int(h.shape[-2])
+        s0, l_glob = _seq(seeds)
+        l_glob = l_glob or seq
         if train and (r_h > 0.0 or r_c > 0.0):
             hid_seed, out_seed = next(seeds), next(seeds)
         else:
@@ -513,19 +568,20 @@ class EncoderLayer(nn.Module):
         elif fmt is None:
             # FDT_QUANT=0 keeps the state allocated but runs the plain
             # kernel (the QuantDense contract)
-            return fused_ffn_sublayer(*args, r_h, r_c, ln.eps, b0=b0)
+            return fused_ffn_sublayer(*args, r_h, r_c, ln.eps, b0=b0, s0=s0,
+                                      l_glob=l_glob)
         else:
-            seq = int(h.shape[-2])
             res = ffn_core_generalized(
-                *args, b0, 0, 0, r_h, r_c, ln.eps, seq, seq,
+                *args, b0, s0, 0, r_h, r_c, ln.eps, seq, l_glob,
                 dff_glob=w1.shape[0], **quant)
         if fmt is None:
             return res
         out, amax2 = res
         if train and not self.quant.frozen_scales and not replaying():
             # roll as QuantDense would: x-side amaxes from the kernel (LN
-            # output, post-dropout activation; over the global batch and,
-            # under tp, the rank's columns MAXed with the others'), w-side
+            # output, post-dropout activation; over the global batch (and
+            # under sp every position) and, under tp, the rank's columns
+            # MAXed with the others'), w-side
             # from the cast weights (their shards' MAX over tp; never in a
             # --remat replay: once a step)
             g = tp if tp is not None else TensorGroup()
@@ -560,9 +616,10 @@ class Transformer(nn.Module):
                  quant=None, lm_head: bool = False,
                  tie_lm_head: bool = False, mlp_impl: str = "fused",
                  remat: bool = False, remat_policy: str = "attn_out",
-                 tp=None):
+                 tp=None, sp=None):
         super().__init__()
         self.tp = _tp(tp)
+        self.sp = _sp(sp)
         if remat and remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {remat_policy!r} not in "
                              f"{REMAT_POLICIES}")
@@ -588,7 +645,7 @@ class Transformer(nn.Module):
                          dropout_ffn, dtype, param_dtype, attention_impl,
                          ffn_impl, quant,
                          remat_ffn=remat and remat_policy == "ffn",
-                         tp=self.tp)
+                         tp=self.tp, sp=self.sp)
             for _ in range(n_layers))
         if self.remat_layer is not None:
             # attention inside a checkpointed layer keeps input-only
@@ -674,7 +731,9 @@ class Transformer(nn.Module):
         if not hists or any(bool(h.any()) for h in hists):
             return False
         dev = self.embeddings.token_embedding.device
-        tokens = torch.zeros((batch_size, seq_len), dtype=torch.long,
+        # under sp the rank's positions of the batch
+        n = 1 if self.sp is None else self.sp.size
+        tokens = torch.zeros((batch_size, seq_len // n), dtype=torch.long,
                              device=dev)
         self(tokens, train=True, draws=draws)
         return True
@@ -703,12 +762,16 @@ class Transformer(nn.Module):
             raise ValueError("the training forward takes its randomness "
                              "explicitly: pass draws (train.steps."
                              "StepDraws)")
-        seeds = SeedStream(draws.seeds, b0=draws.b0) if train else None
+        # under sp x holds this rank's positions [s0, s0 + L) of l_glob
         L = x.shape[1]
+        s0, l_glob = ((self.sp.rank * L, self.sp.size * L)
+                      if self.sp is not None else (0, 0))
+        seeds = (SeedStream(draws.seeds, b0=draws.b0, s0=s0, l_glob=l_glob)
+                 if train else None)
         if token_types is None:
             token_types = torch.zeros_like(x)
-        embeddings = self.embeddings(x, token_types)
-        encodings = _dropout(embeddings + self.pe[None, :L, :],
+        embeddings = self.embeddings(x, token_types, s0)
+        encodings = _dropout(embeddings + self.pe[None, s0:s0 + L, :],
                              self.drop_enc, train, seeds)
         h = (embeddings + encodings).to(self.dtype)
         if mask is not None and mask.dim() == 2:
@@ -723,7 +786,11 @@ class Transformer(nn.Module):
         h = self.ln_final(h)
         if self.lm:
             return self._lm_logits(h)
-        pooled = torch.tanh(_linear(h[:, 0, :], self.pooler, self.dtype))
+        cls = h[:, 0, :]
+        if self.sp is not None:
+            # the CLS row is sp index 0's: every rank runs the head on it
+            cls = self.sp.broadcast0(cls)
+        pooled = torch.tanh(_linear(cls, self.pooler, self.dtype))
         pooled = _dropout(pooled, self.drop_pool, train, seeds)
         dt = self.dtype
 

@@ -149,16 +149,56 @@ def dense_attention_reference(q, k, v, mask=None, dropout_rate: float = 0.0,
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
+def online_block_update(q, k_blk, v_blk, bias_blk, m, l, acc,
+                        scale: float, keep_blk=None):
+    """One online-softmax accumulation step (JAX ``online_block_update``).
+
+    q [..., Lq, D], k_blk / v_blk [..., Bk, D], bias_blk broadcastable to
+    [..., Lq, Bk] (or None); m / l [..., Lq] the fp32 running max and
+    normalizer, acc [..., Lq, D] the fp32 running numerator.  keep_blk:
+    the pre-scaled dropout factor (``dropout_keep``), applied to the value
+    product only, never to the normalizer (softmax, then dropout).
+    Returns the updated (m, l, acc)."""
+    s = torch.matmul(q.float(), k_blk.float().transpose(-1, -2)) * scale
+    if bias_blk is not None:
+        s = s + bias_blk.float()
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    # exp(NEG_INF - m_new) underflows to 0: fully masked columns drop out
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    pv = p if keep_blk is None else p * keep_blk
+    acc_new = acc * corr[..., None] + torch.matmul(
+        pv.to(v_blk.dtype).float(), v_blk.float())
+    return m_new, l_new, acc_new
+
+
+def finalize(m, l, acc, dtype) -> torch.Tensor:
+    """acc / l, a fully masked row (l 0) protected, in ``dtype``."""
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
+
+
+def init_carry(q):
+    """The fp32 (m, l, acc) an online softmax over q's rows starts from:
+    -inf, 0 and 0."""
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    return (torch.full(q.shape[:-1], -math.inf, device=q.device),
+            torch.zeros(q.shape[:-1], device=q.device), acc)
+
+
 def blockwise_attention(q, k, v, mask=None, block_k: int = 128,
                         causal: bool = False, dropout_rate: float = 0.0,
                         dropout_seed=None, dropout_bh=None):
     """Streaming attention over key blocks with running (max, sum,
-    accumulator) statistics; numerically equal to the dense softmax.
+    accumulator) statistics (``online_block_update``); numerically equal
+    to the dense softmax.
 
     q [B,H,Lq,D], k/v [B,H,Lk,D], mask broadcastable to [B,H,Lq,Lk].
     causal=True applies the lower-triangular constraint per key block
     (query i sees keys <= i; Lq == Lk self-attention).  Dropout applies
-    to the value product only; the normalizer sums every probability."""
+    to the value product only; the normalizer sums every probability.
+    ``dropout_bh``: the [B, H, 1, 1] global (b, h) stream index (default
+    the local ``bh_index``)."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     scale = 1.0 / math.sqrt(D)
@@ -168,28 +208,19 @@ def blockwise_attention(q, k, v, mask=None, block_k: int = 128,
     bh = bh_index(B, H, q.device) if dropout_bh is None else dropout_bh
     seed = 0 if dropout_seed is None else dropout_seed
     q_pos = torch.arange(Lq, device=q.device)
-    m = torch.full((B, H, Lq), -math.inf, device=q.device)
-    l = torch.zeros((B, H, Lq), device=q.device)
-    acc = torch.zeros((B, H, Lq, D), device=q.device)
-    qf = q.float()
+    m, l, acc = init_carry(q)
     for k0 in range(0, Lk, block_k):
         k1 = min(k0 + block_k, Lk)
-        s = torch.matmul(qf, k[:, :, k0:k1].float().transpose(-1, -2)) * scale
-        if bias is not None:
-            s = s + bias[..., k0:k1]
         k_pos = torch.arange(k0, k1, device=q.device)
+        blk = None if bias is None else bias[..., k0:k1]
         if causal:
-            s = s + torch.where(k_pos[None, :] <= q_pos[:, None],
-                                0.0, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
+            cb = torch.where(k_pos[None, :] <= q_pos[:, None], 0.0, NEG_INF)
+            blk = cb if blk is None else blk + cb
+        keep = None
         if dropout_rate > 0.0:
-            p = p * dropout_keep(seed, bh, q_pos[None, None, :, None],
-                                 k_pos[None, None, None, :],
-                                 dropout_rate).to(p.device)
-        acc = acc * corr[..., None] + torch.matmul(
-            p.to(v.dtype).float(), v[:, :, k0:k1].float())
-        m = m_new
-    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+            keep = dropout_keep(seed, bh, q_pos[None, None, :, None],
+                                k_pos[None, None, None, :],
+                                dropout_rate).to(q.device)
+        m, l, acc = online_block_update(q, k[:, :, k0:k1], v[:, :, k0:k1],
+                                        blk, m, l, acc, scale, keep)
+    return finalize(m, l, acc, q.dtype)

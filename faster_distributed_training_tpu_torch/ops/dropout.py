@@ -74,17 +74,25 @@ def keep_factor_rows(seed, global_rows, cols: int, rate: float, col0=0,
 
 
 def _keep_factor(seed, shape, rate: float, offset: int = 0, col0: int = 0,
-                 cols_glob: int = 0, device=None) -> torch.Tensor:
+                 cols_glob: int = 0, s0: int = 0, l_glob: int = 0,
+                 device=None) -> torch.Tensor:
     """0 or 1/realized_keep per element, shaped like the input, always
     fp32.  Element (r, c) of the rows (the leading dims flattened) draws
     the stream word of global element ``offset + r * width + col0 + c``,
     width = ``cols_glob`` or the last dim: without a column shard,
-    element i draws the word of ``offset + i``."""
+    element i draws the word of ``offset + i``.  With ``l_glob`` the rows
+    are a sequence shard (``shape`` [..., L_loc, cols]): local row ``b *
+    L_loc + i`` is global row ``b * l_glob + s0 + i``."""
     cols = int(shape[-1]) if len(shape) else 1
     rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
     width = int(cols_glob) or cols
-    guard_index_ceiling(int(offset) + (rows - 1) * width + int(col0) + cols)
     r = torch.arange(rows, dtype=torch.int64, device=device)
+    last = rows - 1
+    if l_glob:
+        l_loc = int(shape[-2])
+        r = (r // l_loc) * int(l_glob) + int(s0) + r % l_loc
+        last = (last // l_loc) * int(l_glob) + int(s0) + last % l_loc
+    guard_index_ceiling(int(offset) + last * width + int(col0) + cols)
     return keep_factor_rows(seed, r, cols, rate, int(offset) + int(col0),
                             width).reshape(shape)
 
@@ -111,7 +119,8 @@ class _HashDropout(torch.autograd.Function):
 
 def hash_dropout(x: torch.Tensor, seed, rate: float,
                  deterministic: bool = False, offset: int = 0,
-                 col0: int = 0, cols_glob: int = 0) -> torch.Tensor:
+                 col0: int = 0, cols_glob: int = 0, s0: int = 0,
+                 l_glob: int = 0) -> torch.Tensor:
     """Stateless hash dropout.  seed: a uint32 (one fresh value per site
     per step), a Python int or a one-element integer tensor (a device
     tensor is never read back to the host); rate: python float in [0, 1];
@@ -120,7 +129,10 @@ def hash_dropout(x: torch.Tensor, seed, rate: float,
     draws the word of global element ``offset + r * width + col0 + c``,
     width = ``cols_glob`` or x's last dim: by default element i draws
     ``offset + i``; a tp rank's column shard (its columns ``col0 ..`` of
-    a last dim ``cols_glob`` wide) draws the global array's words."""
+    a last dim ``cols_glob`` wide) draws the global array's words.  An sp
+    rank's sequence shard (x [B, L_loc, cols], its positions ``s0 ..`` of
+    ``l_glob``) does too: local row ``b * L_loc + i`` is global row ``b *
+    l_glob + s0 + i``."""
     if deterministic or rate <= 0.0:
         return x
     t = _thresh_u16(rate)
@@ -129,4 +141,5 @@ def hash_dropout(x: torch.Tensor, seed, rate: float,
     if t <= 0:         # rate above 1 - half a grid step: drop everything
         return torch.zeros_like(x)
     return _HashDropout.apply(x, seed_u32(seed), float(rate),
-                              (int(offset), int(col0), int(cols_glob)))
+                              (int(offset), int(col0), int(cols_glob),
+                               int(s0), int(l_glob)))

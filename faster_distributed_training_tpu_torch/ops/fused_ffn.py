@@ -37,6 +37,14 @@ global columns (``c0``, ``dff_glob``), and the kernel stops before b2,
 the connection dropout and the residual, writing GEMM2's fp32 product
 for the SUM over tp.  Under quant its GEMMs' E5M2 gradient amaxes reduce
 over the tp group too (``grad_tp``).
+
+Under sequence parallelism an sp rank launches the kernel on its
+positions of every row (JAX ``fused_ffn_sublayer_sharded``'s per-shard
+call): the sequence offsets ``s0`` (its first position), ``l_loc`` (its
+positions a row) and ``l_glob`` (the row's) are operands, so its rows
+draw the global rows' dropout words (``_global_rows``) and each half is
+bitwise the full launch's rows; its amaxes and its E5M2 gradient amaxes
+MAX over the sp group with the data group's (``collectives.all_max_``).
 """
 
 from __future__ import annotations
@@ -434,17 +442,21 @@ def _guard(h, w1, rate_hidden, rate_conn, site):
 def fused_ffn_sublayer(h, ln_scale, ln_bias, w1, b1, w2, b2, hid_seed,
                        out_seed, rate_hidden: float = 0.0,
                        rate_conn: float = 0.0, eps: float = 1e-6,
-                       b0: int = 0):
+                       b0: int = 0, s0: int = 0, l_glob: int = 0):
     """out = h + drop(Dense2(drop(gelu(Dense1(LN(h)))))) in one kernel;
     h [..., d] ([B, L, d]: rows are (batch, position)); w1 [d_ff, d], w2
     [d, d_ff]; seeds python ints or one-element integer tensors (ignored
     at rate 0); ``b0`` the global index of batch row 0 (a data-parallel
-    rank's first row: global row (b0 + b) * L + l).  Differentiable in
+    rank's first row: global row (b0 + b) * L + l).  Under sequence
+    parallelism h is the rank's positions ``[s0, s0 + L)`` of ``l_glob``
+    (0: L): global row (b0 + b) * l_glob + s0 + l (JAX
+    ``fused_ffn_sublayer_sharded``'s per-shard call).  Differentiable in
     h, the LN parameters, weights and biases."""
     _guard(h, w1, rate_hidden, rate_conn, "fused FFN dropout")
     seq = int(h.shape[-2]) if h.dim() >= 3 else 1
-    args = (seed_u32(hid_seed), seed_u32(out_seed), int(b0), 0,
-            float(rate_hidden), float(rate_conn), float(eps), seq, seq)
+    args = (seed_u32(hid_seed), seed_u32(out_seed), int(b0), int(s0),
+            float(rate_hidden), float(rate_conn), float(eps), seq,
+            int(l_glob) or seq)
     inputs = (h, ln_scale, ln_bias, w1, b1, w2, b2)
     # eval and serving keep no residuals: the Function only under autograd
     if _needs_grad(inputs):

@@ -44,7 +44,8 @@ Scales stay on the device: the kernel reads them through pointers and
 nothing here waits on the card.  Under a data mesh the activation and
 gradient amaxes are MAX all-reduced over the ranks before they are used
 (``parallel.collectives.all_max_``): every rank's histories are the
-global batch's, as in the JAX step.
+global batch's, as in the JAX step; under sp over the sp group too
+(JAX's ``grad_axes``), so they are every position's.
 """
 
 from __future__ import annotations

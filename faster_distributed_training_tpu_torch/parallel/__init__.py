@@ -1,10 +1,11 @@
 """Distributed execution of the port over ``torch.distributed`` (the JAX
 package's ``parallel/``): the data mesh and process group (``mesh``),
-the step's collectives (``collectives``: the data group, and the tp
-group's Megatron pairs), the sharding rules (``sharding``: the data axes
-and tp), the fused FFN's tp tile (``kernel_shard``) and the
-state's placement (``placement``).  One process a rank, NCCL on the
-card and gloo on the CPU; the sp and pp axes are not ported yet."""
+the step's collectives (``collectives``: the data group, the tp group's
+Megatron pairs and the sp group's ring, all-to-all and broadcast), the
+sharding rules (``sharding``: the data axes and tp), the fused FFN's tp
+tile (``kernel_shard``) and the state's placement (``placement``).  One
+process a rank, NCCL on the card and gloo on the CPU; the pp axis is not
+ported yet."""
 
 from faster_distributed_training_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_ALIASES,
@@ -19,6 +20,7 @@ from faster_distributed_training_tpu_torch.parallel.mesh import (  # noqa: F401
     mesh_groups,
     parse_mesh,
     pp_size,
+    seq_parallel_axis,
     sp_size,
     tp_size,
 )
@@ -43,6 +45,7 @@ from faster_distributed_training_tpu_torch.parallel.placement import (  # noqa: 
 )
 from faster_distributed_training_tpu_torch.parallel.collectives import (  # noqa: F401
     DataGroup,
+    SequenceGroup,
     TensorGroup,
     all_gather_across_processes,
     all_reduce_metrics,

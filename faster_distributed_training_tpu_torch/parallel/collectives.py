@@ -25,6 +25,19 @@ after a row-parallel GEMM) and the MAX of the quantizers' amaxes over
 the shards; ``all_gather`` over its group rebuilds a leaf from its
 shards (``Placement``).  The model holds its
 TensorGroup (no thread-local: the shapes of its shards depend on it).
+
+Under sequence parallelism (``--mesh sp=S``) the data group again holds
+one rank of each sp group, and ``SequenceGroup`` is the rank's sp group
+(``DataGroup.seq``): the rank holds the positions ``[r * L/S, (r + 1) *
+L/S)`` of its data shard's rows.  Its collectives are autograd pairs:
+the ring rotation (a send / receive pair, backward the reverse
+rotation), the tiled all-to-all that swaps a sequence shard for a head
+shard (backward the inverse swap), the broadcast of sp rank 0's rows
+(the CLS row; backward a SUM to rank 0), and the all-gather of the key
+mask, SUM and MAX.  The model holds its SequenceGroup, as it holds its
+TensorGroup; the activation and gradient amaxes MAX over it too
+(``all_max_``).  gloo moves card tensors through the host (the card's
+two-rank checks run gloo: NCCL refuses two ranks on one card).
 """
 
 from __future__ import annotations
@@ -50,11 +63,14 @@ class DataGroup:
     default group; no group initialized: one process), its ``rank`` and
     ``world``."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, seq: Optional["SequenceGroup"] = None):
         self.live = dist.is_initialized()
         self.group = group
         self.rank = dist.get_rank(group) if self.live else 0
         self.world = dist.get_world_size(group) if self.live else 1
+        # the rank's sp group (None without sp): the amaxes, the gradient
+        # SUM and the metrics reduce over it too
+        self.seq = seq if seq is not None and seq.live else None
 
     @contextlib.contextmanager
     def active(self):
@@ -193,6 +209,154 @@ class _ReduceOut(torch.autograd.Function):
         return g, None
 
 
+class SequenceGroup:
+    """A rank's sequence-parallel group: ``group`` (a process group; None
+    with ``size`` 1: one shard, every collective the identity), this
+    rank's index ``rank`` in it (its positions start at ``rank * L/S``)
+    and its ``size``.  The four primitives (``_rotate``, ``_all_to_all``,
+    ``_all_gather``, ``_all_reduce``) are the only places that talk to
+    the group; the differentiable collectives are built on them."""
+
+    def __init__(self, group=None, rank: int = 0, size: int = 1):
+        self.group, self.rank, self.size = group, int(rank), int(size)
+        self.live = self.size > 1
+
+    def part(self, n: int) -> int:
+        """This rank's share of ``n`` (``n`` must divide)."""
+        if n % self.size:
+            raise ValueError(f"{n} does not divide over sp={self.size}")
+        return n // self.size
+
+    # -- primitives ----------------------------------------------------------
+    def _host(self, t: torch.Tensor) -> bool:
+        """Whether ``t`` travels through the host (gloo and a card)."""
+        return t.is_cuda and dist.get_backend(self.group) == "gloo"
+
+    def _peer(self, i: int) -> int:
+        """The global rank of sp index ``i``."""
+        return dist.get_global_rank(self.group, i % self.size)
+
+    def _rotate(self, t: torch.Tensor, shift: int) -> torch.Tensor:
+        """``t`` sent to sp index ``rank + shift``; returns what sp index
+        ``rank - shift`` sent."""
+        src = t.contiguous()
+        host = self._host(src)
+        if host:
+            src = src.cpu()
+        got = torch.empty_like(src)
+        ops = [dist.P2POp(dist.isend, src, self._peer(self.rank + shift),
+                          self.group),
+               dist.P2POp(dist.irecv, got, self._peer(self.rank - shift),
+                          self.group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return got.to(t.device) if host else got
+
+    def _all_to_all(self, chunks: list) -> list:
+        """Chunk ``j`` (all of one shape) sent to sp index ``j``; returns
+        the chunks every index sent here, in index order.  One
+        ``all_to_all_single`` on the stacked chunks: gloo has no list
+        all-to-all in every torch release, the single-tensor one it has."""
+        dev = chunks[0].device
+        send = torch.stack(chunks)
+        host = self._host(send)
+        if host:
+            send = send.cpu()
+        got = torch.empty_like(send)
+        dist.all_to_all_single(got, send, group=self.group)
+        return list((got.to(dev) if host else got).unbind(0))
+
+    def _all_gather(self, t: torch.Tensor) -> list:
+        return all_gather(t, self.size, self.group)
+
+    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        dist.all_reduce(t, op=op, group=self.group)
+        return t
+
+    # -- collectives -----------------------------------------------------------
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM all-reduce in place."""
+        return self._all_reduce(t, dist.ReduceOp.SUM) if self.live else t
+
+    def max_(self, t: torch.Tensor) -> torch.Tensor:
+        """MAX all-reduce in place (the amaxes of a sequence shard)."""
+        return self._all_reduce(t, dist.ReduceOp.MAX) if self.live else t
+
+    def rotate(self, t: torch.Tensor) -> torch.Tensor:
+        """The ring step: ``t`` moves to the next sp index and this rank
+        gets the previous one's (backward: the cotangents rotate back)."""
+        return _Rotate.apply(t, self, 1) if self.live else t
+
+    def swap(self, x: torch.Tensor, split: int, concat: int
+             ) -> torch.Tensor:
+        """The tiled all-to-all: ``x`` cut in ``size`` chunks along dim
+        ``split``, chunk ``j`` to sp index ``j``, the chunks received
+        concatenated along ``concat`` in index order (JAX's
+        ``all_to_all(split_axis, concat_axis, tiled=True)``).  Backward:
+        the inverse swap."""
+        return _Swap.apply(x, self, split, concat) if self.live else x
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every index's ``t`` concatenated along ``dim`` in index order
+        (no gradient: the key mask)."""
+        if not self.live:
+            return t
+        return torch.cat(self._all_gather(t.detach()), dim=dim)
+
+    def broadcast0(self, x: torch.Tensor) -> torch.Tensor:
+        """sp index 0's ``x`` on every rank (the others' ``x`` is not
+        read); backward: the cotangents SUMmed onto index 0."""
+        return _Broadcast0.apply(x, self) if self.live else x
+
+
+class _Rotate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group: SequenceGroup, shift: int):
+        ctx.group, ctx.shift = group, shift
+        return group._rotate(t.detach(), shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group._rotate(g, -ctx.shift), None, None
+
+
+def _swap(group: SequenceGroup, x: torch.Tensor, split: int,
+          concat: int) -> torch.Tensor:
+    n = x.shape[split]
+    if n % group.size:
+        raise ValueError(f"dim {split} of {tuple(x.shape)} does not divide "
+                         f"over sp={group.size}")
+    chunks = list(torch.split(x, n // group.size, dim=split))
+    return torch.cat(group._all_to_all(chunks), dim=concat)
+
+
+class _Swap(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: SequenceGroup, split: int, concat: int):
+        ctx.group, ctx.dims = group, (split, concat)
+        return _swap(group, x.detach(), split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        split, concat = ctx.dims
+        return _swap(ctx.group, g, concat, split), None, None, None
+
+
+class _Broadcast0(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: SequenceGroup):
+        ctx.group = group
+        out = (x.detach().clone(memory_format=torch.contiguous_format)
+               if group.rank == 0 else torch.zeros_like(
+                   x, memory_format=torch.contiguous_format))
+        return group.sum_(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.group.sum_(g.clone(memory_format=torch.contiguous_format))
+        return (g if ctx.group.rank == 0 else torch.zeros_like(g)), None
+
+
 def all_gather(t: torch.Tensor, world: int, group=None) -> list:
     """Every rank's ``t`` (equal shapes), in rank order.  gloo gathers
     host tensors only: a card's tensor is staged through the host."""
@@ -206,10 +370,14 @@ def all_gather(t: torch.Tensor, world: int, group=None) -> list:
 
 
 def all_max_(t: torch.Tensor) -> torch.Tensor:
-    """MAX all-reduce in place over the active step's group (the identity
-    outside a step or in one process): the quantizers' amaxes."""
+    """MAX all-reduce in place over the active step's group and its sp
+    group (the identity outside a step or in one process): the
+    quantizers' amaxes."""
     g = current()
-    return t if g is None else g.max_(t)
+    if g is None:
+        return t
+    g.max_(t)
+    return t if g.seq is None else g.seq.max_(t)
 
 
 def _comm_device(group=None) -> torch.device:

@@ -6,21 +6,25 @@ process per card, joined by ``torch.distributed`` (NCCL on the card,
 gloo under ``--device cpu``), and the mesh is a ``DeviceMesh`` over the
 ranks.  The port reaches the data axes, ``dp`` (batch split, state
 replicated) and ``fsdp`` (batch split, parameters and optimizer state
-sharded), and ``tp`` (Megatron tensor parallelism: heads, the FFN's
-hidden columns and the vocabulary split over the ranks of a tp group);
-a mesh with ``sp`` or ``pp`` above 1 raises by name.
+sharded), ``tp`` (Megatron tensor parallelism: heads, the FFN's hidden
+columns and the vocabulary split over the ranks of a tp group) and
+``sp`` (sequence parallelism: the positions of every row split over the
+ranks of an sp group, the state replicated); a mesh with ``pp`` above 1
+raises by name.
 
 ``AXIS_ALIASES`` is the one alias table: ``--mesh data=2`` and ``--mesh
-dp=2`` are the same mesh.  tp is the innermost axis whatever place
-``--mesh`` names it in (the JAX package's ICI policy, ``_AXIS_SPEED``:
-tp on the fastest links; the other axes keep their order), so the
-ranks of a tp group are adjacent (``r = data_rank * tp + tp_rank``: on
-one host, the cards that share the fastest links carry the per-layer
-collectives).  With the batch split over every data axis, data rank d
-holds the global rows ``[d * Bl, (d + 1) * Bl)`` (JAX's ``batch_spec``
-order) on every rank of its tp group.  ``mesh_groups`` gives a rank its
-data group (the gradient reduce, the BatchNorm and amax collectives,
-the mixup partners, the metrics) and its tp group.
+dp=2`` are the same mesh.  The model axes are laid out innermost
+whatever place ``--mesh`` names them in, tp inside sp (the JAX
+package's ICI policy, ``_AXIS_SPEED``: tp on the fastest links, then sp;
+the data axes keep their order), so the ranks of a tp or sp group are
+adjacent (``r = data_rank * n + model_rank``: on one host, the cards
+that share the fastest links carry the per-layer collectives).  With
+the batch split over every data axis, data rank d holds the global rows
+``[d * Bl, (d + 1) * Bl)`` (JAX's ``batch_spec`` order) on every rank of
+its tp or sp group.  ``mesh_groups`` gives a rank its data group (the
+gradient reduce, the BatchNorm and amax collectives, the mixup
+partners, the metrics), its tp group and, as the data group's ``seq``,
+its sp group.
 """
 
 from __future__ import annotations
@@ -44,10 +48,11 @@ AXIS_ALIASES = {
 }
 DATA_AXES = ("dp", "fsdp")
 # the axes the port does not reach, and what each would shard
-UNPORTED_AXES = {"sp": "sequence parallelism", "pp": "pipeline parallelism"}
-# the axis laid out innermost (adjacent ranks): the fastest of the JAX
-# package's _AXIS_SPEED, whose per-layer collectives want the fastest links
-INNER_AXIS = "tp"
+UNPORTED_AXES = {"pp": "pipeline parallelism"}
+# the model axes, laid out innermost (adjacent ranks) in this order from
+# the inside: the fastest of the JAX package's _AXIS_SPEED, whose
+# per-layer collectives want the fastest links
+INNER_AXES = ("tp", "sp")
 # the process group's timeout: a rank that never arrives fails the run
 # instead of hanging it
 PG_TIMEOUT = timedelta(minutes=10)
@@ -93,7 +98,7 @@ class MeshSpec:
 
 
 def unported_axes(axes: Sequence[str], shape: Sequence[int]) -> list:
-    """``--mesh <axis>=<n>`` for every sp or pp axis above 1."""
+    """``--mesh <axis>=<n>`` for every pp axis above 1."""
     return [f"--mesh {a}={n} ({UNPORTED_AXES[a]})"
             for a, n in zip(canonical_axes(axes), shape)
             if a in UNPORTED_AXES and int(n) > 1]
@@ -154,9 +159,10 @@ def local_device(device_type: str) -> torch.device:
 
 def ordered_axes(axes: Sequence[str], shape: Sequence[int]
                  ) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
-    """``(axes, shape)`` with tp moved innermost (last), the other axes in
-    their order."""
-    order = sorted(range(len(axes)), key=lambda i: (axes[i] == INNER_AXIS,
+    """``(axes, shape)`` with tp moved innermost (last) and sp next to it,
+    the other axes in their order."""
+    rank = {a: len(INNER_AXES) - i for i, a in enumerate(INNER_AXES)}
+    order = sorted(range(len(axes)), key=lambda i: (rank.get(axes[i], 0),
                                                      i))
     return (tuple(axes[i] for i in order),
             tuple(int(shape[i]) for i in order))
@@ -165,10 +171,10 @@ def ordered_axes(axes: Sequence[str], shape: Sequence[int]
 def make_mesh(axes: Sequence[str] = ("dp",), shape: Sequence[int] = (),
               device_type: str = "cuda"):
     """The ``DeviceMesh`` of the run's process group, its axes ordered by
-    ``ordered_axes`` (tp innermost), or None without a group (one
-    process: no collective anywhere).  Empty ``shape`` puts every rank
-    on the first axis.  The mesh's size must equal the world size; sp
-    and pp above 1 raise."""
+    ``ordered_axes`` (tp, then sp, innermost), or None without a group
+    (one process: no collective anywhere).  Empty ``shape`` puts every
+    rank on the first axis.  The mesh's size must equal the world size;
+    pp above 1 raises."""
     axes = canonical_axes(axes)
     shape = tuple(int(s) for s in shape)
     bad = unported_axes(axes, shape)
@@ -209,26 +215,47 @@ def tp_size(mesh) -> int:
 def mesh_groups(mesh):
     """``(DataGroup, TensorGroup or None)`` of this rank (collective: every
     rank calls it once a mesh, as it builds every rank's subgroups).
-    Without tp the data group is the world, as a data mesh had it; with
-    tp above 1 the data group holds the ranks of this rank's tp index
-    (``r % tp``: one a data rank) and the tp group the ``tp`` adjacent
-    ranks of its data rank."""
+    Without a model axis the data group is the world, as a data mesh had
+    it; with tp or sp above 1 (the model axis, ``n``) the data group
+    holds the ranks of this rank's model index (``r % n``: one a data
+    rank), and the ``n`` adjacent ranks of its data rank form its tp
+    group or, as the data group's ``seq``, its sp group."""
     from faster_distributed_training_tpu_torch.parallel.collectives import (
-        DataGroup, TensorGroup)
+        DataGroup, SequenceGroup, TensorGroup)
 
-    tp = tp_size(mesh)
-    if tp <= 1:
+    tp, sp = tp_size(mesh), sp_size(mesh)
+    if tp > 1 and sp > 1:
+        raise NotImplementedError(f"not ported yet: --mesh sp={sp} with "
+                                  f"tp={tp}")
+    n = max(tp, sp)
+    if n <= 1:
         return DataGroup(), None
     world, rank = dist.get_world_size(), dist.get_rank()
     data_pg, _ = dist.new_subgroups_by_enumeration(
-        [list(range(t, world, tp)) for t in range(tp)])
-    tp_pg, _ = dist.new_subgroups_by_enumeration(
-        [list(range(d * tp, (d + 1) * tp)) for d in range(world // tp)])
-    return DataGroup(data_pg), TensorGroup(tp_pg, rank % tp, tp)
+        [list(range(t, world, n)) for t in range(n)])
+    model_pg, _ = dist.new_subgroups_by_enumeration(
+        [list(range(d * n, (d + 1) * n)) for d in range(world // n)])
+    if tp > 1:
+        return DataGroup(data_pg), TensorGroup(model_pg, rank % tp, tp)
+    return DataGroup(data_pg, SequenceGroup(model_pg, rank % sp, sp)), None
 
 
 def sp_size(mesh) -> int:
     return axis_size(mesh, "sp")
+
+
+def seq_parallel_axis(mesh: Tuple[Sequence[str], Sequence[int]]
+                      ) -> Tuple[Optional[str], int]:
+    """(axis name, size) sequence parallelism runs over (JAX
+    ``seq_parallel_axis``): a dedicated sp axis above 1, else the tp axis
+    above 1 (JAX's Megatron-style sequence parallelism rides the
+    tensor-parallel group), else (None, 1).  ``mesh``: ``(axes, shape)``
+    as ``--mesh`` gives them."""
+    sizes = dict(zip(canonical_axes(mesh[0]), (int(s) for s in mesh[1])))
+    for name in ("sp", "tp"):
+        if sizes.get(name, 1) > 1:
+            return name, int(sizes[name])
+    return None, 1
 
 
 def pp_size(mesh) -> int:

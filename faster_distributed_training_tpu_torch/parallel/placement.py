@@ -21,6 +21,12 @@ and this module onto one process a rank:
     its slice and the slices are all-gathered after, zero1's machinery
     over tp.  ``whole()`` gathers the tp shards too, so a checkpoint
     holds whole leaves at any mesh;
+  * sp (``--mesh sp=S``): each rank of an sp group runs its positions of
+    its data shard's rows with the whole state, replicated over sp as in
+    JAX (whose ZeRO overlay rolls over tp or pp, never sp); the gradients
+    are SUMmed over sp (each rank's is its positions' part) and MEANed
+    over dp in one all-reduce over the run, and the metrics summed over
+    both;
   * ``--host_offload``: the parameters (their shards) and the optimizer
     state rest in pinned host memory between steps; ``--offload_opt_state``
     the optimizer leaves ``offload_opt_leaf`` picks.  They are copied to
@@ -404,12 +410,14 @@ class Placement:
                      ) -> Dict[str, torch.Tensor]:
         """The mean over the data ranks of every gradient: one SUM
         all-reduce a flat bucket (``--overlap_grad_reduce``: asynchronous
-        buckets of ``--overlap_bucket_mb``), then / world."""
+        buckets of ``--overlap_bucket_mb``), then / world.  Under sp the
+        all-reduce spans the run (dp x sp; sp has no tp beside it), so
+        each gradient is SUMmed over sp before the mean over dp."""
         g = self.group
         if not g.live:
             return grads
-        return bucketed_grad_reduce(grads, g.group, self.bucket_bytes,
-                                    g.world)
+        return bucketed_grad_reduce(grads, None if g.seq else g.group,
+                                    self.bucket_bytes, g.world)
 
     def local(self, grads: Dict[str, torch.Tensor]
               ) -> Dict[str, torch.Tensor]:
@@ -462,7 +470,8 @@ class Placement:
                        ) -> Dict[str, torch.Tensor]:
         """The step's metrics over the global batch: the sums of every
         rank's ``loss``, ``loss_total``, ``correct`` and ``total`` in one
-        all-reduce, the loss divided by the world."""
+        all-reduce (under sp, over the sp group too), the loss divided by
+        the data world."""
         g = self.group
         keys = [k for k in _SUMMED if k in metrics]
         if not g.live or not keys:
@@ -470,6 +479,8 @@ class Placement:
         dev = metrics[keys[0]].device
         vec = g.sum_(torch.stack([metrics[k].detach().to(dev).float()
                                   .reshape(()) for k in keys]))
+        if g.seq is not None:
+            g.seq.sum_(vec)
         out = dict(metrics)
         for i, k in enumerate(keys):
             out[k] = vec[i] / g.world if k == "loss" else vec[i]

@@ -97,6 +97,16 @@ def offload_opt_leaf(shape) -> bool:
     return bool(shape) and int(np.prod(shape)) >= OFFLOAD_MIN_ELEMENTS
 
 
+def memory_order(t: torch.Tensor) -> Tuple[int, ...]:
+    """The permutation of ``t``'s dims by falling stride: ``t.permute`` of
+    it is contiguous when ``t`` is dense (a channels_last tensor, say),
+    so its flattening keeps ``t``'s memory order.  The identity for a
+    contiguous tensor (and for one that is not dense)."""
+    order = tuple(sorted(range(t.dim()), key=lambda d: (-t.stride(d), d)))
+    return order if t.permute(order).is_contiguous() else tuple(
+        range(t.dim()))
+
+
 def bucketed_grad_reduce(grads: Dict[str, torch.Tensor], group=None,
                          bucket_bytes: int = 4 << 20, divide: int = 1
                          ) -> Dict[str, torch.Tensor]:
@@ -105,8 +115,12 @@ def bucketed_grad_reduce(grads: Dict[str, torch.Tensor], group=None,
     are packed, in order, into flat vectors of about ``bucket_bytes``
     (0: one bucket a dtype); each bucket's all-reduce is launched
     asynchronously when it is full, and all are waited for at the end.
-    Returns views of the buckets.  Elementwise the sums of one all-reduce
-    a leaf (a ring may add a bucket's elements in another order)."""
+    Returns views of the buckets with each gradient's memory layout (a
+    channels_last conv gradient stays channels_last: a reduction over a
+    leaf, the clip's global norm among them, adds its elements in memory
+    order, so a layout changed here would change its rounding from the
+    run without a group).  Elementwise the sums of one all-reduce a leaf
+    (a ring may add a bucket's elements in another order)."""
     if not dist.is_initialized():
         return dict(grads)
     out = dict(grads)
@@ -114,11 +128,13 @@ def bucketed_grad_reduce(grads: Dict[str, torch.Tensor], group=None,
     for k, g in grads.items():
         by_dtype.setdefault(g.dtype, []).append(k)
     pending = []
+    order = {k: memory_order(g) for k, g in grads.items()}
 
     def flush(names):
         if not names:
             return
-        vec = torch.cat([grads[k].reshape(-1) for k in names])
+        vec = torch.cat([grads[k].permute(order[k]).reshape(-1)
+                         for k in names])
         pending.append((names, vec, dist.all_reduce(
             vec, op=dist.ReduceOp.SUM, group=group, async_op=True)))
 
@@ -138,8 +154,10 @@ def bucketed_grad_reduce(grads: Dict[str, torch.Tensor], group=None,
             vec.div_(divide)
         off = 0
         for k in names:
-            n = grads[k].numel()
-            out[k] = vec[off:off + n].view(grads[k].shape)
+            g, o = grads[k], order[k]
+            n = g.numel()
+            out[k] = vec[off:off + n].view([g.shape[d] for d in o]).permute(
+                tuple(int(d) for d in np.argsort(o)))
             off += n
     return out
 

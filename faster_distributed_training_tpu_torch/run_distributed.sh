@@ -12,9 +12,10 @@
 # --zero1; NGD on the transformer is not ported, so its line has none).
 # On the CPU: NPROC=2 ... --device cpu (gloo).
 #
-# Tensor parallelism trains the transformer only: TP=1 runs just its
-# line, the ranks laid out dp-outer and tp-inner, e.g. two data ranks of
-# two tp ranks each (--mesh's product must equal NPROC):
+# Tensor and sequence parallelism train the transformer only: TP=1 or
+# SP=1 runs just its line, the ranks laid out dp-outer and the model axis
+# inner, e.g. two data ranks of two tp ranks each (--mesh's product must
+# equal NPROC):
 #   TP=1 NPROC=4 bash faster_distributed_training_tpu_torch/run_distributed.sh \
 #     --mesh dp=2,tp=2
 # and on the CPU at a tiny width:
@@ -22,12 +23,22 @@
 #     --mesh tp=2 --device cpu --dataset synthetic --epoch 1 --n_layers 2 \
 #     --d_model 64 --n_heads 4 --d_ff 128 --seq_len 64 --subset_stride 32 \
 #     --bs 16
+# Sequence parallelism splits each row's positions over an sp group (ring
+# or Ulysses attention; --attention picks, else Ulysses where sp divides
+# the heads), e.g. the next-token LM at seq 8192 on two cards:
+#   SP=1 NPROC=2 bash faster_distributed_training_tpu_torch/run_distributed.sh \
+#     --mesh sp=2 --task lm --dataset stream --stream_dir D --bs 4
+# and on the CPU, two data ranks of two sp ranks at a tiny width:
+#   SP=1 NPROC=4 bash faster_distributed_training_tpu_torch/run_distributed.sh \
+#     --mesh dp=2,sp=2 --device cpu --dataset synthetic --epoch 1 \
+#     --n_layers 2 --d_model 64 --n_heads 4 --d_ff 128 --seq_len 64 \
+#     --subset_stride 32 --bs 16
 set -euo pipefail
 
 NPROC="${NPROC:-$(python -c 'import torch; print(max(torch.cuda.device_count(), 1))')}"
 RUN=(torchrun --standalone --nproc_per_node="${NPROC}" -m)
 
-if [[ -z "${TP:-}" ]]; then
+if [[ -z "${TP:-}${SP:-}" ]]; then
   "${RUN[@]}" faster_distributed_training_tpu_torch.resnet50_test \
     --distributed --bs 256 --lr 0.01 --meta_learning --ngd "$@"
 fi

@@ -61,6 +61,18 @@ group, the tp-sharded leaves' gradients stay the rank's, the data
 all-reduce runs over the data group alone, and the clip's global norm
 sums each sharded leaf's squares over tp and counts each replicated
 leaf once (``optim.builder.global_norm``).
+
+Under sequence parallelism (``--mesh sp=S``) every rank of an sp group
+holds its data shard's full rows and cuts its positions from them
+(``seq_shard``); the model runs those, and the loss is split so that its
+sum over the sp group is the JAX step's: the classifier's head runs
+replicated on the broadcast CLS row and each rank takes 1/S of its loss;
+the LM's rank scores its positions, the target of its last one read
+from the full rows, over the count of valid targets summed over dp and
+sp.  The gradients are then SUMmed over sp and MEANed over dp
+(``Placement.reduce_grads``: one all-reduce over the run, divided by
+dp), and the metrics summed over both, the classifier's counted on sp
+index 0 only.
 """
 
 from __future__ import annotations
@@ -174,21 +186,44 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def seq_shard(batch: Dict[str, torch.Tensor], sp
+              ) -> Dict[str, torch.Tensor]:
+    """This sp rank's positions of a batch of full rows: the token ids,
+    token types and mask cut along the sequence (``[s0, s0 + L/S)``, s0
+    the rank's index · L/S); labels and ``valid`` stay.  ``sp`` None:
+    the batch itself."""
+    if sp is None:
+        return batch
+    out = dict(batch)
+    for k in ("tokens", "token_types", "mask"):
+        if k in batch:
+            n = sp.part(batch[k].shape[1])
+            out[k] = batch[k][:, sp.rank * n:(sp.rank + 1) * n]
+    return out
+
+
 def lm_shift_metrics(logits: torch.Tensor, tokens: torch.Tensor,
                      tok_mask: Optional[torch.Tensor] = None,
-                     sample_valid: Optional[torch.Tensor] = None
+                     sample_valid: Optional[torch.Tensor] = None,
+                     s0: int = 0
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The shifted next-token objective (the JAX package's
     ``train/steps.py::lm_shift_metrics``): position t of ``logits [B, L,
     V]`` predicts token t+1 of ``tokens [B, L]``.  A target counts when
     its context position and the target itself are real (``tok_mask``),
-    crossed with the per-sample ``valid`` of a padded eval batch.  Returns
-    fp32 ``(loss_total, correct, total)``: the summed per-token
-    cross-entropy, the hits and the count of targets."""
-    lg = logits[:, :-1].float()
-    tgt = tokens[:, 1:].long()
+    crossed with the per-sample ``valid`` of a padded eval batch.  Under
+    sp ``logits`` are an sp rank's positions ``[s0, s0 + L_loc)`` of the
+    full rows ``tokens`` / ``tok_mask``: the target of its last position
+    is the next rank's first token, read from the rows (the last rank's
+    last position has none).  Returns fp32 ``(loss_total, correct,
+    total)``: the summed per-token cross-entropy, the hits and the count
+    of targets."""
+    n = min(logits.shape[1], tokens.shape[1] - 1 - int(s0))
+    lg = logits[:, :n].float()
+    tgt = tokens[:, s0 + 1:s0 + 1 + n].long()
     if tok_mask is not None:
-        valid = (tok_mask[:, :-1] * tok_mask[:, 1:]).float()
+        valid = (tok_mask[:, s0:s0 + n] * tok_mask[:, s0 + 1:s0 + 1 + n]
+                 ).float()
     else:
         valid = torch.ones(tgt.shape, dtype=torch.float32, device=lg.device)
     if sample_valid is not None:
@@ -220,14 +255,22 @@ def lm_loss_and_grads(model, batch: Dict[str, torch.Tensor],
     ``lm_shift_metrics``' token mask), the per-token mean loss and the
     gradients.  Under a data ``group`` the mean is over the global batch's
     targets: this rank's loss is ``world * loss_total / global total``,
-    so the mean of the ranks' gradients is the global loss's.  Returns
-    (loss, grads by name, loss_total, correct, total)."""
-    logits = model(batch["tokens"], token_types=batch.get("token_types"),
+    so the mean of the ranks' gradients is the global loss's.  Under sp
+    (``group.seq``) the model runs the rank's positions of the full rows
+    ``batch``, and the global total sums over sp too (its SUM of the
+    ranks' gradients, then the mean over dp, is the global loss's).
+    Returns (loss, grads by name, loss_total, correct, total)."""
+    sp = None if group is None else group.seq
+    part = seq_shard(batch, sp)
+    logits = model(part["tokens"], token_types=part.get("token_types"),
                    mask=None, train=True, draws=draws)
-    loss_total, correct, total = lm_shift_metrics(logits, batch["tokens"],
-                                                  batch.get("mask"))
+    loss_total, correct, total = lm_shift_metrics(
+        logits, batch["tokens"], batch.get("mask"),
+        s0=0 if sp is None else sp.rank * part["tokens"].shape[1])
     if group is not None and group.live:
         every = group.sum_(total.detach().clone())
+        if sp is not None:
+            sp.sum_(every)
         loss = loss_total * float(group.world) / torch.clamp(every, min=1.0)
     else:
         loss = loss_total / torch.clamp(total, min=1.0)
@@ -238,18 +281,25 @@ def lm_loss_and_grads(model, batch: Dict[str, torch.Tensor],
 def loss_and_grads(model, batch: Dict[str, torch.Tensor], draws: StepDraws,
                    loss_scale=None):
     """The training forward with ``draws``, the mixup criterion and the
-    gradients of every parameter (of the scaled loss under fp16).
-    Returns (loss, grads by name, logits, y_b, lam)."""
+    gradients of every parameter (of the scaled loss under fp16).  Under
+    sp (the active group's ``seq``) the model runs the rank's positions of
+    the full rows ``batch`` and its head runs replicated on every rank of
+    the sp group, so each takes 1/S of the loss: the SUM of their
+    gradients is the loss's.  Returns (loss, grads by name, logits, y_b,
+    lam)."""
     y = batch["label"]
-    logits, index, lam = model(batch["tokens"],
-                               token_types=batch.get("token_types"),
-                               mask=batch.get("mask"), train=True,
+    group = collectives.current()
+    sp = None if group is None else group.seq
+    part = seq_shard(batch, sp)
+    logits, index, lam = model(part["tokens"],
+                               token_types=part.get("token_types"),
+                               mask=part.get("mask"), train=True,
                                draws=draws)
     lam = lam.to(logits.device)
-    group = collectives.current()
     y_b = (y if group is None else group.gather(y))[index]
     loss = mixup_criterion(cross_entropy, logits, y, y_b, lam)
-    grads = _grads(loss, dict(model.named_parameters()), loss_scale)
+    share = loss if sp is None else loss * (1.0 / sp.size)
+    grads = _grads(share, dict(model.named_parameters()), loss_scale)
     return loss, grads, logits, y_b, lam
 
 
@@ -373,6 +423,17 @@ def _data_group(state: TrainState):
     return pl.group if pl is not None and pl.group.live else None
 
 
+def _head_once(state: TrainState, metrics: Metrics) -> Metrics:
+    """The classifier's metrics as sp index 0 counts them (zeros on the
+    other ranks of its sp group, whose replicated head computed the
+    same), so their sum over the run counts each row once."""
+    group = _data_group(state)
+    if group is None or group.seq is None or group.seq.rank == 0:
+        return metrics
+    return {k: torch.zeros_like(torch.as_tensor(v))
+            for k, v in metrics.items()}
+
+
 def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
                                                              Metrics]]:
     """``step(state, batch, draws=None, scalars=None) -> (state,
@@ -450,8 +511,9 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
                     + (1.0 - lam) * (pred == y_b).sum())
             total = (torch.tensor(float(B)) if scalars is None else
                      torch.full((), float(B), device=logits.device))
-            metrics = {"loss": loss.detach().float(),
-                       "correct": correct.float(), "total": total}
+            metrics = _head_once(state, {"loss": loss.detach().float(),
+                                         "correct": correct.float(),
+                                         "total": total})
         if pl is not None:
             metrics = pl.reduce_metrics(metrics)
             pl.park(state)
@@ -484,6 +546,9 @@ def make_eval_step(cfg: TrainConfig) -> Callable[[TrainState, Dict],
     @torch.no_grad()
     def local_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Metrics:
+        group = _data_group(state)
+        sp = None if group is None else group.seq
+        full, batch = batch, seq_shard(batch, sp)
         if image:
             from faster_distributed_training_tpu_torch.data.augment import (
                 normalize)
@@ -496,8 +561,8 @@ def make_eval_step(cfg: TrainConfig) -> Callable[[TrainState, Dict],
                                  token_types=batch.get("token_types"),
                                  mask=None, train=False)
             loss_total, correct, total = lm_shift_metrics(
-                logits, batch["tokens"], batch.get("mask"),
-                batch.get("valid"))
+                logits, full["tokens"], full.get("mask"), full.get("valid"),
+                s0=0 if sp is None else sp.rank * batch["tokens"].shape[1])
             return {"loss": loss_total / torch.clamp(total, min=1.0),
                     "loss_total": loss_total, "correct": correct,
                     "total": total}
@@ -517,9 +582,9 @@ def make_eval_step(cfg: TrainConfig) -> Callable[[TrainState, Dict],
             loss_total = (losses * valid).sum()
             correct = (hit * valid).sum()
             total = valid.sum()
-        return {"loss": loss_total / torch.clamp(total.to(loss_total.device),
-                                                 min=1.0),
-                "loss_total": loss_total, "correct": correct,
-                "total": total}
+        return _head_once(state, {
+            "loss": loss_total / torch.clamp(total.to(loss_total.device),
+                                             min=1.0),
+            "loss_total": loss_total, "correct": correct, "total": total})
 
     return step

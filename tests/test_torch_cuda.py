@@ -1304,3 +1304,137 @@ def test_quant_matmul_column_shard_is_bitwise(card, fmt):
             got = quant_matmul(xq, w_r, sx, sw, fmt, torch.bfloat16)
             want = tp_shard(full.T, cut, r, 2, 8).T
             assert torch.equal(got, want), (cut, r)
+
+
+@pytest.mark.parametrize("rows,d,d_ff", [(r, d, 208 if d == 64 else 1024)
+                                         for r in (64, 100, 512)
+                                         for d in (64, 512)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fmt", [None, "int8", "fp8"])
+def test_fused_ffn_at_sequence_offsets_is_bitwise_the_full_rows(
+        card, rows, d, d_ff, dtype, fmt):
+    """Rows 7 and 8 on an sp rank's sequence half: ``rows`` = 2 rows of
+    length L, launched whole (s0 0, l_loc = l_glob = L) and as the two
+    halves of each row (s0 = 0 and L/2, l_loc = L/2, l_glob = L, b0 = 1),
+    dropout 0.1 at both sites: each half bitwise the full launch's rows,
+    the halves' amax MAX bitwise the full launch's (row 7 through its
+    own wrapper)."""
+    from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+        ffn_fwd, ffn_fwd_generalized)
+
+    B, L = 2, rows // 2
+    half = L // 2
+    h, *rest = _ffn_inputs(card, rows, d, d_ff, dtype)
+    scales = torch.tensor([30.0, 300.0, 60.0, 250.0], device="cuda")
+
+    def run(x, s0, l_loc):
+        if fmt is None:
+            return ffn_fwd(x, *rest, 0x1234567, 0x89ABCDE, 0.1, 0.1, 1e-6, 1,
+                           s0, l_loc, L), None
+        return ffn_fwd_generalized(x, *rest, (0x1234567, 0x89ABCDE, 1, s0, 0),
+                                   scales, 0.1, 0.1, 1e-6, l_loc, L, d_ff,
+                                   fmt)
+
+    full, amax = run(h, 0, L)
+    full = full.view(B, L, d)
+    amaxes = []
+    for s0, n in ((0, half), (half, L - half)):
+        part = h.view(B, L, d)[:, s0:s0 + n].reshape(B * n, d).contiguous()
+        got, a = run(part, s0, n)
+        assert torch.equal(got.view(B, n, d), full[:, s0:s0 + n]), s0
+        amaxes.append(a)
+    if fmt is not None:
+        assert torch.equal(torch.maximum(*amaxes), amax)
+
+
+class _Hub:
+    """The shared slots of two sp ranks that are threads of this
+    process."""
+
+    def __init__(self, n):
+        import threading
+
+        self.n, self.slots = n, [None] * n
+        self.bar = threading.Barrier(n)
+
+    def exchange(self, rank, obj):
+        self.slots[rank] = obj
+        self.bar.wait()
+        out = list(self.slots)
+        self.bar.wait()
+        return out
+
+
+def _thread_seq(hub, rank):
+    """A ``SequenceGroup`` whose primitives exchange through ``hub``."""
+    from faster_distributed_training_tpu_torch.parallel.collectives import (
+        SequenceGroup)
+
+    class ThreadSeq(SequenceGroup):
+        def _rotate(self, t, shift):
+            got = hub.exchange(self.rank, t.clone())
+            return got[(self.rank - shift) % self.size].clone()
+
+        def _all_to_all(self, chunks):
+            got = hub.exchange(self.rank, [c.clone() for c in chunks])
+            return [got[j][self.rank].clone() for j in range(self.size)]
+
+        def _all_gather(self, t):
+            return [x.clone() for x in hub.exchange(self.rank, t.clone())]
+
+        def _all_reduce(self, t, op):
+            got = hub.exchange(self.rank, t.clone())
+            return t.copy_(sum(got[1:], got[0].clone()))
+
+    return ThreadSeq(None, rank, hub.n)
+
+
+def test_flash_inside_ulysses_is_bitwise_the_one_shard_launch(card):
+    """The Ulysses body at sp=2 (two sp ranks as threads of this process,
+    their all-to-alls through shared slots) on the card: rows 1 and 4 run
+    on each rank's 4 of 8 heads of the whole sequence at h0 = 0 and 4,
+    dropout 0.1, a key mask gathered; the ranks' contexts and the
+    gradients of their projections, assembled, bitwise the one-shard
+    flash launch's."""
+    import threading
+
+    from faster_distributed_training_tpu_torch.ops.ulysses_attention import (
+        ulysses_attention)
+
+    B, H, L, D, seed, rate = 2, 8, 256, 64, 0x2545F491, 0.1
+    qkv = torch.randn(B, L, 3, H, D, generator=card, device="cuda").to(
+        torch.bfloat16)
+    mask = _mask(card, B, L).reshape(B, L)
+    dout = torch.randn(B, H, L, D, generator=card, device="cuda").to(
+        torch.bfloat16)
+    ref_in = qkv.clone().requires_grad_()
+    ref = flash_attention_qkv(ref_in, mask[:, None, None, :], rate, seed,
+                              b0=3)
+    (ref_g,) = torch.autograd.grad(ref, ref_in, dout)
+    hub, n = _Hub(2), L // 2
+    got, errs = [None, None], []
+
+    def rank(j):
+        try:
+            with torch.autograd.set_multithreading_enabled(False):
+                sp = _thread_seq(hub, j)
+                x = qkv[:, j * n:(j + 1) * n].clone().requires_grad_()
+                out = ulysses_attention(x, sp, mask[:, j * n:(j + 1) * n],
+                                        dropout_rate=rate, dropout_seed=seed,
+                                        b0=3)
+                (g,) = torch.autograd.grad(
+                    out, x, dout[:, :, j * n:(j + 1) * n].contiguous())
+                torch.cuda.synchronize()
+                got[j] = (out, g)
+        except BaseException as e:     # noqa: BLE001 (re-raised below)
+            errs.append(e)
+            hub.bar.abort()
+
+    threads = [threading.Thread(target=rank, args=(j,)) for j in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not errs, errs
+    assert torch.equal(torch.cat([o for o, _ in got], dim=2), ref)
+    assert torch.equal(torch.cat([g for _, g in got], dim=1), ref_g)

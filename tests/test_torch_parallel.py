@@ -68,17 +68,21 @@ def test_axis_aliases_and_mesh_parse_match_jax():
         parse_mesh("dp=2,data=2")
     assert MeshSpec(("dp", "tp"), (4, 2)).size == jmesh.MeshSpec(
         ("dp", "tp"), (4, 2)).size == 8
-    for spec, name in (("seq=2", "--mesh sp=2"), ("pipe=4", "--mesh pp=4")):
+    for spec, name in (("pipe=4", "--mesh pp=4"),):
         axes, shape = parse_mesh(spec)
         with pytest.raises(NotImplementedError, match=name):
             make_mesh(axes, shape, "cpu")
-    # tp is ported: a tp=2 mesh needs its two processes (and one process
-    # has none), and tp is laid out innermost whatever order --mesh names
-    axes, shape = parse_mesh("dp=1,tp=2")
-    with pytest.raises(ValueError, match="needs 2 processes"):
-        make_mesh(axes, shape, "cpu")
+    # tp and sp are ported: a tp=2 or sp=2 mesh needs its two processes
+    # (and one process has none), and tp, then sp, is laid out innermost
+    # whatever order --mesh names them in
+    for spec in ("dp=1,tp=2", "seq=2"):
+        axes, shape = parse_mesh(spec)
+        with pytest.raises(ValueError, match="needs 2 processes"):
+            make_mesh(axes, shape, "cpu")
     assert ordered_axes(*parse_mesh("model=2,dp=4")) == (("dp", "tp"),
                                                          (4, 2))
+    assert ordered_axes(*parse_mesh("seq=2,dp=4")) == (("dp", "sp"),
+                                                       (4, 2))
 
 
 def _meta_model(model: str, **kw):
@@ -299,3 +303,41 @@ def test_global_norm_over_shards_is_the_whole_norm():
         full = clip_by_global_norm(grads, 1.0)
         torch.testing.assert_close(
             clipped["w"], full["w"].chunk(2, dim=0)[r], rtol=1e-6, atol=0)
+
+
+def test_bucketed_grad_reduce_keeps_each_gradient_layout(tmp_path):
+    """The gradient buckets (one process, a gloo group of one) return each
+    leaf with the layout it came in, a channels_last conv gradient
+    channels_last: the clip's global norm, which adds a leaf's squares in
+    memory order, is then bitwise the norm without a group (the ResNet's
+    conv gradients on the card are channels_last; a contiguous copy
+    changed the norm's rounding, and with the clip engaged every update:
+    phase P1's ResNet check)."""
+    import torch.distributed as dist
+
+    from faster_distributed_training_tpu_torch.optim.builder import (
+        global_norm)
+    from faster_distributed_training_tpu_torch.parallel.sharding import (
+        bucketed_grad_reduce)
+
+    g = torch.Generator().manual_seed(5)
+    grads = {"conv": torch.randn(64, 32, 3, 3, generator=g).to(
+                 memory_format=torch.channels_last),
+             "bias": torch.randn(64, generator=g),
+             "fc": torch.randn(10, 512, generator=g).t(),
+             "bn": torch.randn(1, 64, 1, 1, generator=g).to(
+                 memory_format=torch.channels_last)}
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        def strides(t):     # a size-1 dim's stride is never read
+            return [s for s, n in zip(t.stride(), t.shape) if n > 1]
+
+        for bucket in (0, 4096):
+            out = bucketed_grad_reduce(grads, None, bucket, 1)
+            for k, v in grads.items():
+                assert torch.equal(out[k], v), k
+                assert strides(out[k]) == strides(v), k
+            assert torch.equal(global_norm(out), global_norm(grads))
+    finally:
+        dist.destroy_process_group()

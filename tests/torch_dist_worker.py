@@ -1,7 +1,8 @@
-"""The rank side of ``tests/test_torch_distributed.py`` and
-``tests/test_torch_tp_distributed*.py``: the port's training steps under
-a data mesh or a (dp, tp) mesh, run in spawned processes joined by
-gloo.
+"""The rank side of ``tests/test_torch_distributed.py``,
+``tests/test_torch_tp_distributed*.py`` and
+``tests/test_torch_sp_distributed.py``: the port's training steps under
+a data mesh, a (dp, tp) or a (dp, sp) mesh, run in spawned processes
+joined by gloo.
 
 Imports the port and torch only (never JAX, never the test module), so a
 spawned rank starts quickly.  ``launch`` starts ``world`` processes that
@@ -151,7 +152,8 @@ def build_state(cfg_kw: dict, init: dict, extra=None, vocab: int = 100,
     """The port's train state of ``cfg_kw`` from the whole model state
     dict ``init`` (numpy), placed on the running group's mesh: ``cfg_kw``
     may name its ``mesh_shape`` (a (dp, tp) mesh: the model holds this
-    rank's tp shards of ``init``)."""
+    rank's tp shards of ``init``; a (dp, sp) mesh: it runs this rank's
+    positions)."""
     from faster_distributed_training_tpu_torch import cli
     from faster_distributed_training_tpu_torch.config import TrainConfig
     from faster_distributed_training_tpu_torch.interop import tp_state_dict
@@ -168,7 +170,8 @@ def build_state(cfg_kw: dict, init: dict, extra=None, vocab: int = 100,
         mesh = make_mesh(cfg.mesh_axes, cfg.mesh_shape, "cpu")
         group, tp = mesh_groups(mesh)
     model = cli.build_model(cfg, vocab_size=None if cli.is_resnet(cfg)
-                            else vocab, device="cpu", tp=tp)
+                            else vocab, device="cpu", tp=tp,
+                            sp=None if group is None else group.seq)
     sd = {k: torch.from_numpy(np.array(v)) for k, v in init.items()}
     if tp is not None:
         sd = tp_state_dict(sd, tp.rank, tp.size, cfg.n_heads)
@@ -325,6 +328,27 @@ def cli_tp_run(ckpt_root: str) -> dict:
             "train_loss": float(res["history"]["train_loss"][0])}
 
 
+def cli_sp_run(ckpt_root: str, argv=()) -> dict:
+    """``cli.main`` of the transformer entry at ``--mesh sp=2`` (Ulysses
+    unless ``argv`` says otherwise), one epoch at a tiny width: (steps,
+    steps an epoch, train loss, test loss)."""
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.transformer_test import (
+        DEFAULTS as TRANSFORMER)
+
+    base = ["--dataset", "synthetic", "--epoch", "1", "--device", "cpu",
+            "--n_layers", "2", "--d_model", "32", "--n_heads", "4",
+            "--d_ff", "64", "--seq_len", "16", "--subset_stride", "128",
+            "--bs", "8", "--precision", "fp32", "--log_every", "0",
+            "--no_telemetry", "--no_plot", "--distributed", "--debug",
+            "--mesh", "sp=2", "--checkpoint_dir", ckpt_root, *argv]
+    res = cli.main(base, defaults=TRANSFORMER)
+    return {"step": int(res["state"].step),
+            "steps_per_epoch": int(res["steps_per_epoch"]),
+            "train_loss": float(res["history"]["train_loss"][0]),
+            "test_loss": float(res["history"]["test_loss"][0])}
+
+
 def _first_scalar(tx) -> float:
     """The optimizer's first step's learning-rate scalar."""
     return float(next(iter(tx.host_scalars(0).values())))
@@ -374,5 +398,5 @@ def many(cases: dict) -> dict:
 
 
 CASES = {"run_steps": run_steps, "restore": restore, "cli_runs": cli_runs,
-         "cli_tp_run": cli_tp_run, "collectives": collectives,
-         "clock_skew": clock_skew, "many": many}
+         "cli_tp_run": cli_tp_run, "cli_sp_run": cli_sp_run,
+         "collectives": collectives, "clock_skew": clock_skew, "many": many}
