@@ -11,6 +11,7 @@ width.
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --tp
     python3 chip_smoke.py --sp
+    python3 chip_smoke.py --pp
 
 The second form prints only the device split of one record-width
 training step of the slice-2 path and paths B and C, and whether two
@@ -20,7 +21,7 @@ checkout): run it on a parent and a change in one call to compare them.
 The third runs phase R (the ResNet slice, no kernel build) alone; the
 fourth builds the kernels and runs phases K (without path E) and M; the
 fifth builds them and runs phase P alone, the sixth phase T alone, the
-seventh phase S alone.
+seventh phase S alone, the eighth phase PP alone.
 Needs one CUDA card and the repo checkout beside this file; without
 either it exits non-zero and prints no result.  Phases, in order (any
 failure raises and exits non-zero):
@@ -266,6 +267,25 @@ failure raises and exits non-zero):
                (printed, not a claim); (c) path E with Ulysses (rows 2
                and 3 at h0 = 0 and 4), 2 steps: host wall, device ms and
                peak a rank beside world 1's;
+  PP. pp     — pipeline parallelism (slice 13) on the one card (no
+               multi-card pp mesh either).  PP1, one process: rows 1 and
+               4 (B 16, H 8, L 512, D 64, key padding) and rows 7 and 8
+               (none, int8, E4M3; 16 x 512 rows) at dropout 0.1 on the 4
+               microbatches of a pipeline step (b0 = 0, 4, 8, 12): each
+               bitwise the full launch's rows and within its plain
+               version's tolerance, the microbatches' amax MAX bitwise
+               the full's; the last microbatch's timing.  PP2, two ranks
+               on the card over gloo at ``--mesh pp=2`` (one process a
+               stage, M = 4) in one group: (a) fp32, 4 layers, the fused
+               FFN, 1f1b and interleaved against world 1 (loss 1e-5,
+               params 1e-4, the ranks' gathered states bitwise); (b) the
+               record at 6 layers, 4 steps: each stage's device launches
+               in one step (rows 1 and 4: 12, row 6 once on the last
+               stage), host wall, device ms, the wait at the stage
+               boundary and bytes at rest a rank with and without
+               residency beside world 1's (printed, not a claim); (c)
+               path B: launches, amax histories against world 1 (1e-3
+               relative); (d) path E: peak a rank beside world 1's;
   7. output  — p50/p99/qps, the phase-R summary, the kernels JSON line
                (launches from the
                training run, the recompute route's from phase M's
@@ -276,7 +296,9 @@ failure raises and exits non-zero):
                launches in one T2(b) step at tp=2; row 8''s partial tile
                with its T2(b) launches and T1's times; each kernel's
                launches in one S2 step at sp=2 and rows 7 and 8's S1
-               half-launch times),
+               half-launch times; each kernel's device launches in one
+               PP2 step at pp=2, a list over the stages, and rows 1, 4,
+               7 and 8's PP1 microbatch times),
                the card line, and last the ok line.
 """
 
@@ -3892,8 +3914,12 @@ def t2_steps(flags, n_layers: int, n_steps: int, batch: int, seq: int,
              attention: str = "flash", vocab: int = 30522):
     """The record at ``n_layers`` with ``flags`` stepped on ``n_steps``
     fixed global batches with the global draws, as rank r of the running
-    group at ``--mesh <axis>=<world>`` (``tp`` or ``sp``, with
-    ``attention`` under sp; no group: one card, flash attention).  The
+    group at ``--mesh <axis>=<world>`` (``tp``, ``sp`` or ``pp``, with
+    ``attention`` under sp; no group: one card, flash attention).  Under
+    pp the digests are empty (a rank holds its stage's leaves), and the
+    result also holds the bytes at rest a rank (all leaves: without
+    residency; after the drop: with it) and each step's wait at the stage
+    boundary.  The
     classifier's rows are ragged; under ``--task lm`` packed token rows
     of ``vocab``.  The wrappers' launch counts set to 0 just before and
     read just after; with ``profile_last`` the last step runs under
@@ -3945,13 +3971,21 @@ def t2_steps(flags, n_layers: int, n_steps: int, batch: int, seq: int,
         model.seed_amax_histories(batch, seq, draws0)
     tx, _ = build_optimizer(cfg, 64)
     state = create_train_state(model, tx, cfg.seed)
+
+    def at_rest():
+        return sum(t.numel() * t.element_size() for t in (
+            list(state.model.state_dict().values())
+            + [v for k, v in state_leaves(state).items()
+               if k.startswith("opt/") and v.dim()]))
+    bytes_whole = at_rest()
     if world > 1:
         state.placement = Placement(cfg, mesh, "cuda", group, tp)
         state.placement.shard_state(state)
+    pp = axis == "pp" and world > 1
     put = make_put_batch(group, "cuda")
     step = make_train_step(cfg)
     rng = np.random.default_rng(7)
-    losses, digests, times, prof = [], [], [], None
+    losses, digests, times, prof, waits = [], [], [], None, []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -3978,12 +4012,17 @@ def t2_steps(flags, n_layers: int, n_steps: int, batch: int, seq: int,
                     "device_ms": sum(us for us, _ in kern.values()) / 1e3,
                     "launches": {k: read_counts()[k] - counts[k]
                                  for k in counts}}
+            if pp:
+                prof["wait_ms"] = sum(state.placement.pp_wait) * 1e3
             losses.append(float(got["m"]["loss"]))
         else:
             t0 = time.perf_counter()
             state, m = step(state, local, draws)
             losses.append(float(m["loss"]))
             times.append((time.perf_counter() - t0) * 1e3)
+        if pp:
+            waits.append(sum(state.placement.pp_wait) * 1e3)
+            continue
         leaves = {k: v for k, v in state_leaves(state).items()
                   if k.startswith("model/") and tp_cut(k[6:]) is None}
         h = hashlib.sha256()
@@ -3996,11 +4035,16 @@ def t2_steps(flags, n_layers: int, n_steps: int, batch: int, seq: int,
     with (pl.whole(state) if pl is not None else contextlib.nullcontext()):
         whole = {k: v.detach().cpu() for k, v in state_leaves(state).items()}
     return {"losses": losses, "digests": digests, "whole": whole,
-            "ms": statistics.median(times[1:] or times),
+            "ms": statistics.median(times[1:] or times) if times else None,
             "launches": launches, "profile": prof,
             "h_loc": model.layers[0].attn.h_loc,
             "peak_bytes": torch.cuda.max_memory_allocated(),
-            "sp_rank": group.seq.rank if group.seq is not None else None}
+            "sp_rank": group.seq.rank if group.seq is not None else None,
+            "pp_stage": group.pipe.stage if group.pipe is not None else None,
+            "bytes_whole": bytes_whole,
+            "bytes_rest": (state.placement.resident_bytes(state) if pp
+                           else bytes_whole),
+            "wait_ms": waits}
 
 
 def t2_rank(rank: int, world: int, port: int, out_dir: str, tag: str,
@@ -4470,6 +4514,456 @@ def sp_main() -> int:
     return 0
 
 
+# -- slice 13: pipeline parallelism (phase PP) ---------------------------------
+
+PP_MICRO = 4        # the record's 16 rows as 4 microbatches
+
+
+def pp_kernels(gen) -> dict:
+    """PP1: rows 1 and 4 (the flash forward with lse, its saved-stats
+    backward; B 16, H 8, L 512, D 64, key padding) and rows 7 and 8 (the
+    fused FFN: none, int8, E4M3; 16 x 512 rows, 512 -> 1024 -> 512), all
+    at dropout 0.1, launched on the 4 microbatches of a pipeline step at
+    b0 = 0, 4, 8, 12: each bitwise the full launch's rows, the
+    microbatches' amax MAX bitwise the full launch's; each microbatch
+    against its plain version on the card (flash 2e-2 abs, lse 1e-3; the
+    FFN 2e-2 of max |plain|, amaxes 1e-2); the last microbatch's timing
+    (kernel, plain, library, bound)."""
+    import torch
+    import torch.nn.functional as F
+
+    from faster_distributed_training_tpu_torch.ops import flash_attention as fa
+    from faster_distributed_training_tpu_torch.ops.fused_ffn import (
+        _ffn_body_reference, ffn_fwd, ffn_fwd_generalized)
+    from faster_distributed_training_tpu_torch.ops.quant import quantize
+
+    seed, rate, bf16 = 0x2545F491, 0.1, torch.bfloat16
+    B, H, L, D = 16, 8, 512, 64
+    mb = B // PP_MICRO
+    origins = list(range(0, B, mb))
+    q, k, v = qkv_views(B, H, L, D, bf16, gen)
+    dout = torch.randn(B, H, L, D, generator=gen, device="cuda").to(bf16)
+    mask = ragged_mask(B, L, gen)
+    full = fa.flash_attention_stats(q, k, v, mask, rate, seed)
+    grads = fa.flash_attention_bwd(q, k, v, *full[:2], dout, mask, rate,
+                                   seed, full[2])
+    errs = {"flash_fwd": 0.0, "flash_bwd_stats": 0.0}
+    for b0 in origins:
+        s = slice(b0, b0 + mb)
+        got = fa.flash_attention_stats(q[s], k[s], v[s], mask[s], rate, seed,
+                                       b0=b0)
+        for name, a, b in zip(("out", "lse", "lse_lo"), got, full):
+            check(torch.equal(a, b[s]), f"PP1 row 1 b0={b0} {name}: the "
+                  f"microbatch != the full launch's rows")
+        g = fa.flash_attention_bwd(q[s], k[s], v[s], *got[:2], dout[s],
+                                   mask[s], rate, seed, got[2], b0=b0)
+        for name, a, b in zip(("dq", "dk", "dv"), g, grads):
+            check(torch.equal(a, b[s]), f"PP1 row 4 b0={b0} {name}: the "
+                  f"microbatch != the full launch's rows")
+        ref = fa.flash_attention_stats_reference(q[s], k[s], v[s], mask[s],
+                                                 rate, seed, b0=b0)
+        e = float((got[0].float() - ref[0].float()).abs().max())
+        e_lse = float((got[1] - ref[1]).abs().max())
+        check(e <= 2e-2 and e_lse <= 1e-3, f"PP1 row 1 b0={b0}: {e} / lse "
+              f"{e_lse} vs its plain version")
+        errs["flash_fwd"] = max(errs["flash_fwd"], e)
+        gref = fa.flash_attention_bwd_reference(
+            q[s], k[s], v[s], *ref[:2], dout[s], mask[s], rate, seed, ref[2],
+            b0=b0)
+        for a, b in zip(g, gref):
+            e = float((a.float() - b.float()).abs().max())
+            scale = float(b.float().abs().max())
+            check(e <= 2e-2 * scale, f"PP1 row 4 b0={b0}: {e} over 2e-2 x "
+                  f"{scale} of its plain version")
+            errs["flash_bwd_stats"] = max(errs["flash_bwd_stats"], e)
+    print(f"[pp PP1] flash rows 1 and 4 at B {B} H {H} L {L} D {D}, dropout "
+          f"{rate}: the {PP_MICRO} microbatches at b0 = {origins} bitwise the "
+          f"full launch's rows (out, lse, dq, dk, dv); vs the plain versions "
+          f"{errs['flash_fwd']:.5f} / {errs['flash_bwd_stats']:.5f} abs",
+          flush=True)
+    rows, d, d_ff = FFN_SHAPE
+    args = ffn_inputs(gen, rows, d, d_ff, bf16)
+    h, rest = args[0], args[1:]
+    scales = torch.tensor(FFN_SCALES, device="cuda")
+    seeds = FFN_SEEDS[:2]
+
+    def launch(x, b0, fmt):
+        if fmt is None:     # row 7's wrapper
+            return ffn_fwd(x, *rest, *seeds, rate, rate, 1e-6, b0, 0, L,
+                           L), None
+        return ffn_fwd_generalized(x, *rest, (*seeds, b0, 0, 0), scales,
+                                   rate, rate, 1e-6, L, L, d_ff, fmt)
+
+    def plain(x, b0, fmt):
+        quant = None if fmt is None else (fmt, *scales.unbind(), None)
+        return _ffn_body_reference(x, *rest, *seeds, rate, rate, 1e-6, b0,
+                                   0, L, L, quant=quant, return_amax=True,
+                                   plain_gemm=True)
+
+    for fmt in (None, "int8", "fp8"):
+        tag = fmt or "none"
+        whole, wamax = launch(h, 0, fmt)
+        amaxes, worst, worst_abs = [], 0.0, 0.0
+        for b0 in origins:
+            r = slice(b0 * L, (b0 + mb) * L)
+            got, a = launch(h[r], b0, fmt)
+            check(torch.equal(got, whole[r]), f"PP1 {tag} b0={b0}: the "
+                  f"microbatch != the full launch's rows")
+            want, want_amax = plain(h[r], b0, fmt)
+            e = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            worst, worst_abs = max(worst, e / scale), max(worst_abs, e)
+            check(e <= 2e-2 * scale, f"PP1 {tag} b0={b0}: err {e} over 2e-2 "
+                  f"x {scale} of its plain version")
+            if fmt is not None:
+                check(torch.allclose(a, want_amax, rtol=1e-2, atol=0),
+                      f"PP1 {tag} b0={b0}: amax {a} vs plain {want_amax}")
+                amaxes.append(a)
+        if fmt is not None:
+            check(torch.equal(torch.stack(amaxes).amax(0), wamax),
+                  f"PP1 {tag}: the microbatches' amax MAX != the full "
+                  f"launch's")
+        errs[tag] = {"rel": worst, "abs": worst_abs}
+        print(f"[pp PP1] row {7 if fmt is None else 8} {tag} at {rows} rows "
+              f"x {d} -> {d_ff}: the {PP_MICRO} microbatches ({mb * L} rows "
+              f"at b0 = {origins}) bitwise the full launch's rows"
+              + (", their amax MAX bitwise the full's" if fmt else "")
+              + f"; vs the plain version {worst:.5f} of max |plain| (tol "
+              f"2e-2)", flush=True)
+    # timing at the last microbatch (b0 = 12): kernel, plain, library, bound
+    s = slice(B - mb, B)
+    qs, ks, vs, ms_, ds = q[s], k[s], v[s], mask[s], dout[s]
+    sdpa_mask = (ms_[:, None, None, :] != 0)
+    n, nld = mb * H, mb * H * L * D
+    out = {}
+    t = {"kernel": measure(lambda: fa.flash_attention_stats(
+             qs, ks, vs, ms_, rate, seed, b0=B - mb), group="flash_fwd"),
+         "plain": measure(lambda: fa.flash_attention_stats_reference(
+             qs, ks, vs, ms_, rate, seed, b0=B - mb)),
+         "library": library(lambda: F.scaled_dot_product_attention(
+             qs, ks, vs, attn_mask=sdpa_mask))}
+    t["bound_ms"], t["bound_by"] = bound(4 * nld * 2 + 2 * n * L * 4
+                                         + mb * L * 4, 4 * n * L * L * D,
+                                         "bf16")
+    out["flash_fwd"] = t
+    o, lse, lo = fa.flash_attention_stats(qs, ks, vs, ms_, rate, seed,
+                                          b0=B - mb)
+    leaves = [x.detach().requires_grad_(True) for x in (qs, ks, vs)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask)
+    t = {"kernel": measure(lambda: fa.flash_attention_bwd(
+             qs, ks, vs, o, lse, ds, ms_, rate, seed, lo, b0=B - mb)),
+         "plain": measure(lambda: fa.flash_attention_bwd_reference(
+             qs, ks, vs, o, lse, ds, ms_, rate, seed, lo, b0=B - mb)),
+         "library": library(lambda: torch.autograd.grad(
+             sdpa_out, leaves, ds, retain_graph=True))}
+    t["bound_ms"], t["bound_by"] = bound(8 * nld * 2 + 2 * n * L * 4
+                                         + mb * L * 4, 10 * n * L * L * D,
+                                         "bf16")
+    out["flash_bwd_stats"] = t
+    del leaves, sdpa_out
+    x = h[(B - mb) * L:]
+    nr = x.shape[0]
+    f = torch.randn(nr, d, generator=gen, device="cuda").to(bf16)
+    a = torch.randn(nr, d_ff, generator=gen, device="cuda").to(bf16)
+    inv = [(1.0 / v_).reshape(()) for v_ in scales.unbind()]
+    for fmt in (None, "int8", "fp8"):
+        t = {"kernel": measure(lambda: launch(x, B - mb, fmt)),
+             "plain": measure(lambda: plain(x, B - mb, fmt))}
+        if fmt is None:
+            t["library"] = library(lambda: (torch.matmul(f, rest[2].t()),
+                                            torch.matmul(a, rest[4].t())))
+        else:
+            fq, aq = quantize(f, scales[0], fmt), quantize(a, scales[2], fmt)
+            w1q = quantize(rest[2], scales[1], fmt)
+            w2q = quantize(rest[4], scales[3], fmt)
+            if fmt == "int8":
+                t["library"] = library(lambda: (torch._int_mm(fq, w1q.t()),
+                                                torch._int_mm(aq, w2q.t())))
+            else:
+                t["library"] = library(lambda: (
+                    torch._scaled_mm(fq, w1q.t(), scale_a=inv[0],
+                                     scale_b=inv[1], out_dtype=bf16),
+                    torch._scaled_mm(aq, w2q.t(), scale_a=inv[2],
+                                     scale_b=inv[3], out_dtype=bf16)))
+        w_bytes = 2 if fmt is None else 1
+        t["bound_ms"], t["bound_by"] = bound(
+            2 * nr * d * 2 + 2 * d * d_ff * w_bytes + 2 * (d_ff + d) + 8 * d
+            + 8, 4 * nr * d * d_ff, "bf16" if fmt is None else fmt)
+        out["ffn_" + (fmt or "none")] = t
+    for name, t in out.items():
+        lib = t["library"]
+        print(f"[pp PP1] {name} at the last microbatch (b0 {B - mb}, {mb} "
+              f"rows) timing: device ms per call ({t['kernel']['timer']}): "
+              f"kernel {t['kernel']['ms']:.5f}, plain {t['plain']['ms']:.5f}, "
+              f"library " + (f"{lib['ms']:.5f}" if lib else "n/a")
+              + f"; per call incl. launch (events): kernel "
+              f"{t['kernel']['call_ms']:.5f}; bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']})", flush=True)
+    return {"pp1": out, "pp1_err": errs}
+
+
+def pp2_rank(rank: int, world: int, port: int, out_dir: str,
+             cases: dict) -> None:
+    """One PP2 rank: gloo on the one card, ``t2_steps(*args)`` of every
+    case in one process group, their results in one file."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        out = {tag: t2_steps(*args) for tag, args in cases.items()}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"pp2_{rank}.pt"))
+
+
+def pp_phase(build_dir: str) -> dict:
+    """Phase PP: pipeline parallelism on the one card (NCCL refuses two
+    ranks on one device: the two stages run over gloo).  PP1 rows 1, 4,
+    7, 8 on the 4 microbatches of the record's 16 rows (``pp_kernels``).
+    PP2 two gloo ranks at ``--mesh pp=2`` in one group, M = 4: (a) fp32,
+    the record's widths, 4 layers, the fused FFN, 1f1b and interleaved, 4
+    fixed batches each, against world 1 (loss 1e-5, params 1e-4); (b) the
+    record at full width (6 layers, bf16, flash), 4 steps: each rank's
+    device launches of one step (rows 1 and 4: 3 layers x 4 microbatches
+    = 12, row 6 once on the last stage), host wall, device ms, the wait
+    at the stage boundary, bytes at rest a rank with and without
+    residency, beside world 1's; (c) path B (``--ffn_impl pallas --quant
+    int8``) at 6 layers, one step: launches, the amax histories against
+    world 1's after the same step (1e-5 relative: every microbatch's
+    amaxes are the full rows', and one roll a step MAXes them); and the
+    same in fp32 over 4 steps, the histories against world 1's after the
+    fourth (1e-5 relative): the cadence from the second step on, where
+    bf16 runs part (the microbatches' summed weight gradients round
+    otherwise than the full batch's; bf16 activations and int8 rounding
+    amplify that, fp32 does not at this depth); (d)
+    path E (the LM at seq 8192, B 4), 2 steps: peak a rank beside world
+    1's."""
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+
+    out = {}
+    t0 = time.monotonic()
+    out.update(pp_kernels(torch.Generator(device="cuda").manual_seed(17)))
+    print(f"[pp] PP1 in {time.monotonic() - t0:.1f}s", flush=True)
+    t0 = time.monotonic()
+    a_flags = ["--precision", "fp32", "--ffn_impl", "pallas"]
+    b_flags = []
+    c_flags = ["--ffn_impl", "pallas", "--quant", "int8"]
+    e_flags = ["--task", "lm", "--precision", "bf16"]
+    n = T_RECORD_LAYERS
+    cases = {
+        "a_1f1b": (a_flags, 4, 4, 16, 512, False, "pp"),
+        "a_interleaved": (a_flags + ["--pp_schedule", "interleaved"], 4, 4,
+                          16, 512, False, "pp"),
+        "b": (b_flags, n, 4, 16, 512, True, "pp"),
+        "c": (c_flags, n, 1, 16, 512, True, "pp"),
+        "c_fp32": (c_flags + ["--precision", "fp32"], n, 4, 16, 512, False,
+                   "pp"),
+        "d": (e_flags, n, 2, LONG["B"], LONG["L"], True, "pp", "flash",
+              605)}
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=pp2_rank, args=(r, 2, port, build_dir,
+                                                cases))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    # the world-1 references while the ranks start
+    ref = {tag: t2_steps(*args) for tag, args in (
+        ("a", cases["a_1f1b"]), ("b", cases["b"]), ("c", cases["c"]),
+        ("c_fp32", cases["c_fp32"]), ("d", cases["d"]))}
+    for p in procs:
+        p.join(900)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    check(all(p.exitcode == 0 for p in procs),
+          f"PP2: ranks exited {[p.exitcode for p in procs]}")
+    ranks = [torch.load(os.path.join(build_dir, f"pp2_{r}.pt"))
+             for r in range(2)]
+    for tag in ("a_1f1b", "a_interleaved"):
+        rs = [r[tag] for r in ranks]
+        check(rs[0]["losses"] == rs[1]["losses"],
+              f"PP2({tag}): the ranks report different losses")
+        check(sorted(rs[0]["whole"]) == sorted(ref["a"]["whole"]),
+              f"PP2({tag}): the state's leaves differ from world 1's")
+        for k, v in rs[0]["whole"].items():
+            check(torch.equal(v, rs[1]["whole"][k]),
+                  f"PP2({tag}): the ranks' gathered {k} differ")
+        loss_err = max(abs(x - y) for x, y in zip(rs[0]["losses"],
+                                                   ref["a"]["losses"]))
+        param_err = max(float((rs[0]["whole"][k] - v).abs().max())
+                        for k, v in ref["a"]["whole"].items()
+                        if k.startswith("model/") and v.is_floating_point())
+        out.update({f"pp2{tag}_loss_err": loss_err,
+                    f"pp2{tag}_param_err": param_err,
+                    f"pp2{tag}_launches": [r["launches"] for r in rs]})
+        print(f"[pp PP2a] {tag[2:]} at pp=2 over gloo on one card, 4 layers "
+              f"fp32, fused FFN (row 7 at each microbatch's b0), M "
+              f"{PP_MICRO}, 4 steps: the ranks' gathered states bitwise "
+              f"equal; vs world 1: loss err {loss_err:.3g} (tol 1e-5), param "
+              f"err {param_err:.3g} (tol 1e-4); wrapper launches "
+              f"{[r['launches'] for r in rs]} (stages 0, 1)", flush=True)
+        check(loss_err <= 1e-5 and param_err <= 1e-4,
+              f"PP2({tag}): pp=2 vs world 1")
+    rb = [r["b"] for r in ranks]
+    check(all(np.isfinite(r["losses"]).all() for r in rb),
+          f"PP2(b): non-finite losses {[r['losses'] for r in rb]}")
+    per = n // 2 * PP_MICRO
+    for r in rb:
+        last = r["pp_stage"] == 1
+        want = {"flash_fwd_kernel": per, "dkdv_kernel": per,
+                "dq_kernel": per, **({"mlp_fwd_kernel": 1} if last else {})}
+        check(r["profile"]["hand"] == want,
+              f"PP2(b): stage {r['pp_stage']}'s device launches a step "
+              f"{r['profile']['hand']}, want {want}")
+    out.update(
+        pp2b_device_launches=[r["profile"]["hand"] for r in rb],
+        pp2b_launches=[r["launches"] for r in rb],
+        pp2b_ms=[r["ms"] for r in rb], pp2b_ms_world1=ref["b"]["ms"],
+        pp2b_wall_ms=[r["profile"]["wall_ms"] for r in rb],
+        pp2b_device_ms=[r["profile"]["device_ms"] for r in rb],
+        pp2b_wait_ms=[r["profile"]["wait_ms"] for r in rb],
+        pp2b_wait_ms_steps=[r["wait_ms"] for r in rb],
+        pp2b_wait_ms_median=[statistics.median(r["wait_ms"][1:-1])
+                             for r in rb],
+        pp2b_wall_ms_world1=ref["b"]["profile"]["wall_ms"],
+        pp2b_device_ms_world1=ref["b"]["profile"]["device_ms"],
+        pp2b_bytes_rest=[r["bytes_rest"] for r in rb],
+        pp2b_bytes_whole=[r["bytes_whole"] for r in rb],
+        pp2b_bytes_world1=ref["b"]["bytes_whole"],
+        pp2b_losses=rb[0]["losses"], pp2b_losses_world1=ref["b"]["losses"])
+    mib = [round(x / 2**20, 1) for x in out["pp2b_bytes_rest"]]
+    share = [x / out["pp2b_bytes_world1"] for x in out["pp2b_bytes_rest"]]
+    print(f"[pp PP2b] the record (6 layers, bf16, flash) at pp=2 over gloo on "
+          f"one card, M {PP_MICRO}, 4 steps: losses "
+          f"{[round(x, 4) for x in rb[0]['losses']]} (world 1 "
+          f"{[round(x, 4) for x in ref['b']['losses']]}); device launches of "
+          f"one step {out['pp2b_device_launches']} (stages 0, 1); step host "
+          f"wall ms median {[round(x, 2) for x in out['pp2b_ms']]} against "
+          f"{ref['b']['ms']:.2f} at world 1, of which the wait at the stage "
+          f"boundary {[round(x, 2) for x in out['pp2b_wait_ms_median']]} ms "
+          f"(median of steps 2-3); the profiled step's device ms "
+          f"{[round(x, 2) for x in out['pp2b_device_ms']]} (world 1 "
+          f"{ref['b']['profile']['device_ms']:.2f}), its host wall under "
+          f"the profiler {[round(x, 2) for x in out['pp2b_wall_ms']]} ms "
+          f"(world 1 {ref['b']['profile']['wall_ms']:.2f}), its wait "
+          f"{[round(x, 2) for x in out['pp2b_wait_ms']]} ms; bytes "
+          f"at rest a rank {mib} MiB with residency "
+          f"({[round(x, 3) for x in share]} of world 1's "
+          f"{out['pp2b_bytes_world1'] / 2**20:.1f} MiB, which every rank "
+          f"holds without it)", flush=True)
+    rc = [r["c"] for r in ranks]
+    check(all(np.isfinite(r["losses"]).all() for r in rc),
+          f"PP2(c): non-finite losses {[r['losses'] for r in rc]}")
+    for r in rc:
+        last = r["pp_stage"] == 1
+        want = {"flash_fwd_kernel": per, "dkdv_kernel": per,
+                "dq_kernel": per, "ffn_kernel": per, "qmm_kernel": 4 * per,
+                **({"mlp_fwd_kernel": 1} if last else {})}
+        check(r["profile"]["hand"] == want,
+              f"PP2(c): stage {r['pp_stage']}'s device launches a step "
+              f"{r['profile']['hand']}, want {want}")
+    def hist_rel_err(tag, got):
+        err = 0.0
+        for k, v in ref[tag]["whole"].items():
+            if "amax_history" in k:
+                check(bool(v.any()), f"PP2({tag}): {k} is all zero")
+                err = max(err, float(((got[k] - v).abs() / v.abs().clamp(
+                    min=1e-30)).max()))
+        return err
+    hist_err = hist_rel_err("c", rc[0]["whole"])
+    check(hist_err <= 1e-5, f"PP2(c): amax histories {hist_err} relative "
+          f"from world 1's")
+    rf = [r["c_fp32"] for r in ranks]
+    check(rf[0]["losses"] == rf[1]["losses"],
+          "PP2(c_fp32): the ranks report different losses")
+    f32_hist_err = hist_rel_err("c_fp32", rf[0]["whole"])
+    f32_loss_err = max(abs(x - y) for x, y in zip(rf[0]["losses"],
+                                                   ref["c_fp32"]["losses"]))
+    f32_param_err = max(float((rf[0]["whole"][k] - v).abs().max())
+                        for k, v in ref["c_fp32"]["whole"].items()
+                        if k.startswith("model/") and v.is_floating_point())
+    out.update(pp2c_device_launches=[r["profile"]["hand"] for r in rc],
+               pp2c_hist_rel_err=hist_err,
+               pp2c_losses=rc[0]["losses"],
+               pp2c_losses_world1=ref["c"]["losses"],
+               pp2c_fp32_hist_rel_err=f32_hist_err,
+               pp2c_fp32_loss_err=f32_loss_err,
+               pp2c_fp32_param_err=f32_param_err)
+    print(f"[pp PP2c] path B (--ffn_impl pallas --quant int8) at pp=2, one "
+          f"step: device launches {out['pp2c_device_launches']} (stages 0, "
+          f"1); the amax histories {hist_err:.3g} relative from world 1's "
+          f"after the same step (tol 1e-5); in fp32 over 4 steps: the "
+          f"histories {f32_hist_err:.3g} relative from world 1's after the "
+          f"fourth (tol 1e-5), loss err {f32_loss_err:.3g}, param err "
+          f"{f32_param_err:.3g}", flush=True)
+    check(f32_hist_err <= 1e-5, f"PP2(c_fp32): amax histories "
+          f"{f32_hist_err} relative from world 1's after 4 steps")
+    rd = [r["d"] for r in ranks]
+    check(all(np.isfinite(r["losses"]).all() for r in rd),
+          f"PP2(d): non-finite losses {[r['losses'] for r in rd]}")
+    for r in rd:
+        got = r["profile"]["hand"]
+        check(got.get("flash_fwd_kernel") == per and got.get("dkdv_kernel")
+              == per and got.get("dq_kernel") == per,
+              f"PP2(d): rows 2 and 3 launches a step {got}")
+    out.update(pp2d_peak_bytes=[r["peak_bytes"] for r in rd],
+               pp2d_peak_bytes_world1=ref["d"]["peak_bytes"],
+               pp2d_wall_ms=[r["profile"]["wall_ms"] for r in rd],
+               pp2d_device_ms=[r["profile"]["device_ms"] for r in rd],
+               pp2d_wait_ms=[r["profile"]["wait_ms"] for r in rd],
+               pp2d_wall_ms_world1=ref["d"]["profile"]["wall_ms"],
+               pp2d_device_ms_world1=ref["d"]["profile"]["device_ms"],
+               pp2d_device_launches=[r["profile"]["hand"] for r in rd],
+               pp2d_losses=rd[0]["losses"])
+    print(f"[pp PP2d] path E (--task lm, B {LONG['B']} L {LONG['L']}) at "
+          f"pp=2, M {PP_MICRO}, 2 steps: losses "
+          f"{[round(x, 4) for x in rd[0]['losses']]}; rows 2 and 3 {per} "
+          f"each a step a rank; peak "
+          f"{[round(b / 2**30, 2) for b in out['pp2d_peak_bytes']]} GiB a "
+          f"rank against {ref['d']['peak_bytes'] / 2**30:.2f} GiB at world "
+          f"1; the profiled step's host wall "
+          f"{[round(x, 2) for x in out['pp2d_wall_ms']]} ms, device "
+          f"{[round(x, 2) for x in out['pp2d_device_ms']]} ms (world 1 "
+          f"{ref['d']['profile']['wall_ms']:.2f} / "
+          f"{ref['d']['profile']['device_ms']:.2f}), wait "
+          f"{[round(x, 2) for x in out['pp2d_wait_ms']]} ms", flush=True)
+    print(f"[pp] PP2 in {time.monotonic() - t0:.1f}s", flush=True)
+    return out
+
+
+def pp_main() -> int:
+    """``--pp``: the kernels' build, then phase PP alone."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from faster_distributed_training_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}",
+          flush=True)
+    build_s, _ = _build.build()
+    print(f"[build] {build_s:.1f}s", flush=True)
+    pp = pp_phase(str(_build.BUILD_DIR))
+    print(json.dumps({k: v for k, v in pp.items() if k != "pp1"},
+                     default=str))
+    return 0
+
+
 def mesh_main() -> int:
     """``--mesh``: the kernels' build, then phase P alone."""
     import torch
@@ -4864,6 +5358,9 @@ def main() -> int:
     # -- phase S: sequence parallelism (slice 12) ----------------------------
     spm = sp_phase(str(_build.BUILD_DIR))
 
+    # -- phase PP: pipeline parallelism (slice 13) ---------------------------
+    ppm = pp_phase(str(_build.BUILD_DIR))
+
     # -- 7. output -----------------------------------------------------------
     print(f"[mesh] P1 step ms (dp=1 over NCCL / no group): record "
           f"{pm['p1_record_ms']:.2f} / {pm['p1_record_plain_ms']:.2f}, path B "
@@ -5140,6 +5637,57 @@ def main() -> int:
             entry["sp_half_shape"] = ("4096 rows: the second sequence half "
                                       "of 16 x 512, s0 256, l_loc 256, "
                                       "l_glob 512")
+    # slice 13: each kernel's device launches in one PP2 step at pp=2, a
+    # list over the two stages (rows 1, 4, 6: PP2(b)'s record step; rows
+    # 8-9: PP2(c)'s path B; rows 2-3: PP2(d)'s path E; row 7: PP2(a)'s
+    # wrapper launches over 4 steps), and rows 1, 4, 7, 8 at the last of
+    # the 4 microbatches (PP1: b0 12 of 16 rows)
+    pp_b, pp_c, pp_d = (ppm["pp2b_device_launches"],
+                        ppm["pp2c_device_launches"],
+                        ppm["pp2d_device_launches"])
+    for entry in kernels:
+        name = entry["name"]
+        if name.endswith("kblocked"):
+            src_l, key = pp_d, ("flash_fwd_kernel" if "fwd" in name
+                                else "dkdv_kernel")
+        elif name in ("fused_ffn_quant", "quant_matmul"):
+            src_l, key = pp_c, {"fused_ffn_quant": "ffn_kernel",
+                                "quant_matmul": "qmm_kernel"}[name]
+        else:
+            src_l, key = pp_b, {"flash_fwd": "flash_fwd_kernel",
+                                "flash_bwd_stats": "dkdv_kernel",
+                                "fused_mlp": "mlp_fwd_kernel"}.get(name, "")
+        entry["launches_pp2_step"] = [d.get(key, 0) for d in src_l]
+        if name == "fused_ffn":
+            entry["launches_pp2_step"] = [
+                r["fused_ffn"] / 4 for r in ppm["pp2a_1f1b_launches"]]
+        pp1 = {"flash_fwd": "flash_fwd", "flash_bwd_stats": "flash_bwd_stats",
+               "fused_ffn": "ffn_none", "fused_ffn_quant": "ffn_int8"}
+        if name in pp1:
+            t = ppm["pp1"][pp1[name]]
+            err = ppm["pp1_err"][{"ffn_none": "none", "ffn_int8": "int8"}.get(
+                pp1[name], pp1[name])]
+            entry.update({
+                "pp_mb_ms": t["kernel"]["ms"],
+                "pp_mb_call_ms": t["kernel"]["call_ms"],
+                "pp_mb_plain_ms": t["plain"]["ms"],
+                "pp_mb_bound_ms": t["bound_ms"],
+                "pp_mb_bound_by": t["bound_by"],
+                "pp_mb_library_ms": t["library"]["ms"] if t["library"]
+                else None,
+                "pp_mb_max_abs_err": err["abs"] if isinstance(err, dict)
+                else err,
+                "pp_mb_shape": ("the last of 4 microbatches: b0 12, 4 of 16 "
+                                "rows (flash B4 H8 L512 D64; FFN 2048 rows)")})
+            if name == "fused_ffn_quant":
+                t = ppm["pp1"]["ffn_fp8"]
+                entry.update({
+                    "pp_mb_e4m3_ms": t["kernel"]["ms"],
+                    "pp_mb_e4m3_plain_ms": t["plain"]["ms"],
+                    "pp_mb_e4m3_bound_ms": t["bound_ms"],
+                    "pp_mb_e4m3_library_ms": t["library"]["ms"]
+                    if t["library"] else None,
+                    "pp_mb_e4m3_max_abs_err": ppm["pp1_err"]["fp8"]["abs"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -5196,6 +5744,13 @@ if __name__ == "__main__":
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(2)
         sys.exit(sp_main())
+    if sys.argv[1:2] == ["--pp"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(pp_main())
     if sys.argv[1:2] == ["--tp"]:
         import torch
 

@@ -17,7 +17,10 @@ tensor parallelism for the Transformer classifier (slice 11: ``--mesh
 dp=D,tp=T``, every hand kernel on the rank's shard, ZeRO over tp unless
 ``--no_zero_opt``), and sequence parallelism for Transformer training
 (slice 12: ``--mesh sp=S`` / ``dp=D,sp=S``, ring or Ulysses attention,
-the rank's positions of every row through the other kernels).
+the rank's positions of every row through the other kernels), and
+pipeline parallelism for Transformer training (slice 13: ``--mesh
+pp=P`` / ``dp=D,pp=P``, one process a stage, ``--pp_schedule``,
+``--pp_microbatches``, ``--no_pp_residency``).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
 ``resolve_attention``, ``build_model``, ``load_dataset`` (the agnews,
@@ -39,6 +42,7 @@ wins (``flash`` on the CPU runs the kernel's plain version).
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Callable, Optional
 
 import numpy as np
@@ -290,17 +294,43 @@ def sp_unported(cfg: TrainConfig) -> list:
     return [k for k, v in checks.items() if v]
 
 
+def pp_unported(cfg: TrainConfig) -> list:
+    """What pipeline parallelism (``--mesh pp=P``, P > 1) does not reach,
+    by flag: pp with tp or sp, with fsdp / zero1 / the host tiers, under
+    a dispatch or the resident split, and ``--remat``.  Serving under a
+    mesh raises in ``build_model``; a ResNet raises JAX's ValueError in
+    ``parallel.pipeline.build_pipeline_spec``."""
+    from faster_distributed_training_tpu_torch.parallel.mesh import (
+        canonical_axes)
+
+    sizes = dict(zip(canonical_axes(cfg.mesh_axes), cfg.mesh_shape))
+    pp = int(sizes.get("pp", 1))
+    if pp <= 1:
+        return []
+    on = f"under --mesh pp={pp}"
+    k = max(int(cfg.steps_per_dispatch or 1), 1)
+    checks = {
+        **{f"--mesh {ax}={int(sizes.get(ax, 1))} {on}":
+           int(sizes.get(ax, 1)) > 1 for ax in ("tp", "sp")},
+        **{f"{flag} {on}": bool(v) for flag, v in (
+            ("--fsdp", cfg.fsdp), ("--zero1", cfg.zero1),
+            ("--host_offload", cfg.host_offload),
+            ("--offload_opt_state", cfg.offload_opt_state))},
+        f"--steps_per_dispatch {k} {on}": k > 1,
+        f"--data_path {cfg.data_path} {on}": cfg.data_path != "host",
+        f"--remat {on}": bool(cfg.remat),
+    }
+    return [k for k, v in checks.items() if v]
+
+
 def unported_training_flags(cfg: TrainConfig) -> list:
     """The flags of features the training slice does not reach.  Of the
-    mesh: pp above 1 and what tp and sp do not reach (``tp_unported``,
-    ``sp_unported``);
+    mesh: what tp, sp and pp do not reach (``tp_unported``,
+    ``sp_unported``, ``pp_unported``);
     --ngd with --fsdp or --zero1 (NGD preconditions whole gradient
     leaves); --fsdp, --zero1 and the host tiers under a dispatch (K > 1
     or the resident split: their gathers and copies are not captured);
     --resident_layout sharded."""
-    from faster_distributed_training_tpu_torch.parallel.mesh import (
-        unported_axes)
-
     datasets = IMAGE_DATASETS if is_resnet(cfg) else TEXT_DATASETS
     k = max(int(cfg.steps_per_dispatch or 1), 1)
     tiers = [f for f, on in (("--fsdp", cfg.fsdp), ("--zero1", cfg.zero1),
@@ -318,10 +348,9 @@ def unported_training_flags(cfg: TrainConfig) -> list:
         f"--dataset {cfg.dataset} for {cfg.model}": (
             cfg.dataset not in datasets),
         "--lm_causal": bool(cfg.lm_causal),
-        **{bad: True for bad in unported_axes(cfg.mesh_axes,
-                                               cfg.mesh_shape)},
         **{bad: True for bad in tp_unported(cfg)},
         **{bad: True for bad in sp_unported(cfg)},
+        **{bad: True for bad in pp_unported(cfg)},
         f"--ngd with {' / '.join(t for t in tiers if t in ('--fsdp', '--zero1'))}"
         " (NGD preconditions whole gradient leaves)": ngd and (
             cfg.fsdp or cfg.zero1),
@@ -524,9 +553,15 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     from faster_distributed_training_tpu_torch.train.steps import (
         make_eval_step, make_train_step, mixup_alpha, step_draws)
 
+    from faster_distributed_training_tpu_torch.parallel.pipeline import (
+        build_pipeline_spec, pipeline_rules)
+
     missing = unported_training_flags(cfg)
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    # pp: JAX's refusals (a model with no staged form) before anything
+    # is built
+    pipeline = build_pipeline_spec(cfg, (cfg.mesh_axes, cfg.mesh_shape))
     dev = resolve_device(device if device is not None else cfg.device)
     if cfg.distributed:
         initialize_distributed(dev.type)
@@ -595,12 +630,29 @@ def run_training(cfg: TrainConfig, params=None, device=None,
                f"positions a rank; attention "
                f"{model.layers[0].attn.attention_impl}; state replicated "
                f"over sp)" if sp is not None else "")
+            + (f", pp={group.pipe.size} (stage {group.pipe.stage}; "
+               + ("each stage's layers and their optimizer state on their "
+                  "stage" if cfg.pp_residency else
+                  "every leaf on every stage: --no_pp_residency")
+               + f"; {state.placement.resident_bytes(state) / 2**20:.1f} "
+               f"MiB at rest on rank 0)" if group.pipe is not None else "")
             + (", params + optimizer state on the host between steps"
                if cfg.host_offload else
                ", big optimizer leaves on the host between steps"
                if cfg.offload_opt_state else "")
             + (f", gradients reduced in {cfg.overlap_bucket_mb} MB buckets"
                if cfg.overlap_grad_reduce else ""))
+    if pipeline is not None:
+        log(f"[pipeline] pp={pipeline.n_stages} stages x "
+            f"{pipeline.n_microbatches} microbatches "
+            f"({pipeline.schedule}): layers "
+            f"{[list(s) for s in pipeline.stage_layers]}, "
+            f"bubble {pipeline.bubble_pct:.1f}% "
+            f"({pipeline.n_ticks} ticks/step; stage boundary = a "
+            f"send / receive between the ranks of neighbouring chunks)")
+        if cfg.debug:
+            log("[pipeline] rules "
+                + json.dumps(pipeline_rules(pipeline, cfg), sort_keys=True))
     trainer = Trainer(cfg, make_train_step(cfg), make_eval_step(cfg), dev,
                       log=log, dispatch=dispatch)
     if cfg.telemetry:
@@ -850,6 +902,4 @@ def main_serve(argv=None, defaults: Optional[TrainConfig] = None,
 
 
 if __name__ == "__main__":
-    import json
-
     print(json.dumps(main_serve()))

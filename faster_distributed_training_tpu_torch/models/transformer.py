@@ -111,6 +111,8 @@ from faster_distributed_training_tpu_torch.parallel import (collectives,
                                                             kernel_shard)
 from faster_distributed_training_tpu_torch.parallel.collectives import (
     TensorGroup, all_max_)
+from faster_distributed_training_tpu_torch.parallel.pipeline import (
+    current_tick)
 from faster_distributed_training_tpu_torch.parallel.sharding import (
     tp_cut, tp_shard)
 
@@ -517,6 +519,15 @@ class EncoderLayer(nn.Module):
         f = self.ffn(self.ln_ffn(h), train, seeds)
         return h + _dropout(f, self.drop_ffn_conn, train, seeds)
 
+    def n_seeds(self) -> int:
+        """Seeds one training forward of the layer draws: one a site whose
+        rate is above 0 (the fused FFN's pair: two when either is)."""
+        n = int(self.attn.dropout > 0.0) + int(self.drop_attn_conn > 0.0)
+        if self.ffn_impl == "pallas":
+            return n + (2 if (self.ffn.dropout > 0.0
+                              or self.drop_ffn_conn > 0.0) else 0)
+        return n + int(self.ffn.dropout > 0.0) + int(self.drop_ffn_conn > 0.0)
+
     def _remat_ffn(self, h: torch.Tensor, seeds: SeedStream
                    ) -> torch.Tensor:
         """``--remat_policy ffn``: the FFN module (flax branch) or the
@@ -555,12 +566,18 @@ class EncoderLayer(nn.Module):
         ln = self.ln_ffn
         args = (h, ln.scale, ln.bias, w1, b1, w2, b2, hid_seed, out_seed)
         quant = {}
+        # a staged forward's cadence: the pre-step scales for every
+        # microbatch, one roll a step
+        cad = (current_tick() if train and fmt is not None
+               and not self.quant.frozen_scales else None)
         if fmt is not None:
             hists = (d0.amax_history_x, d0.amax_history_w,
                      d1.amax_history_x, d1.amax_history_w)
+            pre = hists if cad is None else tuple(
+                cad.amax_pre((id(self), i), t) for i, t in enumerate(hists))
             quant = dict(quant_fmt=fmt, quant_scales=tuple(
                 scale_from_history(t, fmt, self.quant.margin)
-                for t in hists), grad_fmt=self.quant.grad_fmt)
+                for t in pre), grad_fmt=self.quant.grad_fmt)
         if tp is not None:
             # row 8's partial tile on the rank's d_ff shard, one SUM
             res = kernel_shard.fused_ffn_sublayer_tp(
@@ -587,10 +604,13 @@ class EncoderLayer(nn.Module):
             g = tp if tp is not None else TensorGroup()
             with torch.no_grad():
                 amax2 = g.max_(all_max_(amax2.clone()))
-                for hist, amax in zip(hists, (
+                for i, (hist, amax) in enumerate(zip(hists, (
                         amax2[0], g.max_(tensor_amax(w1)), amax2[1],
-                        g.max_(tensor_amax(w2)))):
-                    hist.copy_(update_amax_history(hist, amax))
+                        g.max_(tensor_amax(w2))))):
+                    if cad is not None:
+                        cad.amax_push((id(self), i), hist, amax)
+                    else:
+                        hist.copy_(update_amax_history(hist, amax))
         return out
 
 
@@ -672,6 +692,16 @@ class Transformer(nn.Module):
                                                dtype=param_dtype))
         self.cls_b2 = nn.Parameter(torch.zeros(1, n_class,
                                                dtype=param_dtype))
+
+    def seed_positions(self) -> dict:
+        """Where each piece's seeds start in a training forward's draws
+        (the sites draw only when active): ``layers[i]`` layer i's first,
+        ``head`` the pooler's (after the encodings and every layer)."""
+        pos, starts = int(self.drop_enc > 0.0), []
+        for layer in self.layers:
+            starts.append(pos)
+            pos += layer.n_seeds()
+        return {"layers": starts, "head": pos}
 
     def n_dropout_sites(self) -> int:
         """Seeds one training forward draws (every site active): the
@@ -757,32 +787,71 @@ class Transformer(nn.Module):
         """Eval: fp32 logits.  ``train=True``: ``(logits, index, lam)``
         with the randomness of ``draws`` (``seeds``, ``lam``, ``perm``).
         With the LM head, fp32 logits [B, L, vocab] either way (no
-        mixup; ``draws.lam`` and ``draws.perm`` go unused)."""
+        mixup; ``draws.lam`` and ``draws.perm`` go unused).  The pieces a
+        pipeline stage runs alone: ``embed`` (stage 0), ``run_layers`` (a
+        chunk of layers on a microbatch) and ``head`` (the last stage)."""
         if train and draws is None:
             raise ValueError("the training forward takes its randomness "
                              "explicitly: pass draws (train.steps."
                              "StepDraws)")
-        # under sp x holds this rank's positions [s0, s0 + L) of l_glob
-        L = x.shape[1]
+        seeds = self.seed_stream(draws, x.shape[1]) if train else None
+        h = self.embed(x, token_types, train, seeds)
+        h = self.run_layers(h, self.attention_mask(mask), train, seeds)
+        return self.head(h, train, draws, seeds)
+
+    def seed_stream(self, draws, L: int, pos: int = 0, b0: int = 0
+                    ) -> SeedStream:
+        """A training forward's seeds from ``pos`` on, at the batch origin
+        ``draws.b0 + b0``; under sp at this rank's positions (``L`` of
+        them)."""
         s0, l_glob = ((self.sp.rank * L, self.sp.size * L)
                       if self.sp is not None else (0, 0))
-        seeds = (SeedStream(draws.seeds, b0=draws.b0, s0=s0, l_glob=l_glob)
-                 if train else None)
+        return SeedStream(draws.seeds, pos=pos, b0=draws.b0 + b0, s0=s0,
+                          l_glob=l_glob)
+
+    @staticmethod
+    def attention_mask(mask: Optional[torch.Tensor]
+                       ) -> Optional[torch.Tensor]:
+        """A [B, L] key mask as [B, 1, 1, L]; anything else unchanged."""
+        if mask is not None and mask.dim() == 2:
+            return mask[:, None, None, :]
+        return mask
+
+    def embed(self, x: torch.Tensor, token_types: Optional[torch.Tensor],
+              train: bool, seeds: Optional[SeedStream]) -> torch.Tensor:
+        """The encoder input: the embeddings plus their encodings dropout
+        (``emb + dropout(emb + pe)``), in the compute dtype.  Under sp x
+        holds this rank's positions [s0, s0 + L) of l_glob."""
+        L = x.shape[1]
+        s0 = self.sp.rank * L if self.sp is not None else 0
         if token_types is None:
             token_types = torch.zeros_like(x)
         embeddings = self.embeddings(x, token_types, s0)
         encodings = _dropout(embeddings + self.pe[None, s0:s0 + L, :],
                              self.drop_enc, train, seeds)
-        h = (embeddings + encodings).to(self.dtype)
-        if mask is not None and mask.dim() == 2:
-            mask = mask[:, None, None, :]
-        for layer in self.layers:
+        return (embeddings + encodings).to(self.dtype)
+
+    def run_layers(self, h: torch.Tensor, mask: Optional[torch.Tensor],
+                   train: bool, seeds: Optional[SeedStream],
+                   layers: Optional[tuple] = None) -> torch.Tensor:
+        """Encoder layers ``layers`` (indices; every layer when None) on
+        ``h`` with the [B, 1, 1, L] key ``mask``, drawing from ``seeds``
+        in order."""
+        for i in (range(len(self.layers)) if layers is None else layers):
+            layer = self.layers[i]
             if train and self.remat_layer is not None:
                 h = _remat_seeded(
                     lambda x, s, lyr=layer: lyr(x, mask, True, s), layer, h,
                     seeds, dots=self.remat_layer == "dots")
             else:
                 h = layer(h, mask, train, seeds)
+        return h
+
+    def head(self, h: torch.Tensor, train: bool, draws,
+             seeds: Optional[SeedStream]):
+        """ln_final, then the LM logits, or the pooler, the mixup (in
+        training) and the classifier, on the encoder output ``h``;
+        ``seeds`` at the pooler's seed."""
         h = self.ln_final(h)
         if self.lm:
             return self._lm_logits(h)

@@ -327,10 +327,12 @@ def _replaying() -> bool:
 
 class QuantDense(nn.Module):
     """``nn.Linear`` with an int8/fp8 forward GEMM at delayed per-tensor
-    scales (the JAX ``QuantDense`` without its pipeline cadence).
-    ``forward(x, train)`` quantizes at the scales of the pre-step
-    histories and rolls them only in a training forward with
-    ``frozen_scales=False`` (serving freezes them).  Under tp (``tp`` a
+    scales (the JAX ``QuantDense``).  ``forward(x, train)`` quantizes at
+    the scales of the pre-step histories and rolls them only in a
+    training forward with ``frozen_scales=False`` (serving freezes
+    them); in a staged forward (``parallel.pipeline.current_tick``) each
+    microbatch quantizes at the pre-step scales and the histories roll
+    once a step (the JAX pipeline cadence).  Under tp (``tp`` a
     ``TensorGroup``; ``tp_dim`` the dim of the JAX kernel its rule
     shards, 0 row-parallel, above 0 column-parallel) the features are
     the rank's shard's: column [out/tp, in], row [out, in/tp] with the
@@ -380,7 +382,18 @@ class QuantDense(nn.Module):
             if self.row:
                 out = self.tp.reduce_out(out)
         else:
-            sx, sw = self.scales()
+            from faster_distributed_training_tpu_torch.parallel.pipeline import (
+                current_tick)
+
+            cad = current_tick() if train and not self.frozen_scales else None
+            if cad is None:
+                sx, sw = self.scales()
+            else:
+                # every microbatch at the pre-step scales
+                sx, sw = (scale_from_history(
+                    cad.amax_pre((id(self), s), h), self.fmt, self.margin)
+                    for s, h in (("x", self.amax_history_x),
+                                 ("w", self.amax_history_w)))
             tp = self.tp
             if train and not self.frozen_scales and not _replaying():
                 # never in a --remat replay: the histories roll once a step
@@ -395,10 +408,16 @@ class QuantDense(nn.Module):
                         aw = tp.max_(aw)
                         if self.row:
                             ax = tp.max_(ax)
-                    self.amax_history_x.copy_(update_amax_history(
-                        self.amax_history_x, ax))
-                    self.amax_history_w.copy_(update_amax_history(
-                        self.amax_history_w, aw))
+                    if cad is not None:
+                        cad.amax_push((id(self), "x"), self.amax_history_x,
+                                      ax)
+                        cad.amax_push((id(self), "w"), self.amax_history_w,
+                                      aw)
+                    else:
+                        self.amax_history_x.copy_(update_amax_history(
+                            self.amax_history_x, ax))
+                        self.amax_history_w.copy_(update_amax_history(
+                            self.amax_history_w, aw))
             # row 9 on the rank's shard: a column site's cotangent is
             # sharded over tp (its E5M2 amax MAXes over tp too), a row
             # site SUMs its partial products, in x's dtype (JAX's psum)

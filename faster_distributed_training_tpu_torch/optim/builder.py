@@ -21,16 +21,21 @@ Tensors = Dict[str, torch.Tensor]
 
 def global_norm(grads: Tensors, shards=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf (optax.global_norm).
-    ``shards``: (names, sum_over_shards) when the leaves of ``names`` are
-    this rank's slices of sharded gradients (fsdp, zero1, ZeRO over tp,
-    and under tp the rank's tp shards): their sums of squares are
-    all-reduced over the shard group before the whole leaves' join, so a
-    replicated leaf counts once."""
+    ``shards``: (names, sum_over_shards[, elsewhere]) when the leaves of
+    ``names`` are this rank's slices of sharded gradients (fsdp, zero1,
+    ZeRO over tp, and under tp the rank's tp shards) or, under pp, this
+    stage's own leaves: their sums of squares are all-reduced over the
+    shard group (pp) before the whole leaves' join, so a replicated leaf
+    counts once; the leaves of ``elsewhere`` (under pp without residency,
+    the other stages' leaves this rank also holds) count on their own
+    stage, not here."""
     if not shards or not shards[0]:
         return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                               for g in grads.values()))
-    names, sum_over_shards = shards
-    sq = {n: torch.sum(torch.square(g.float())) for n, g in grads.items()}
+    names, sum_over_shards = shards[:2]
+    skip = shards[2] if len(shards) > 2 else ()
+    sq = {n: torch.sum(torch.square(g.float())) for n, g in grads.items()
+          if n not in skip}
     part = sum_over_shards(torch.stack([sq[n] for n in sq if n in names]
                                        ).sum())
     return torch.sqrt(part + sum(v for n, v in sq.items() if n not in names))

@@ -1,11 +1,12 @@
 """Distributed execution of the port over ``torch.distributed`` (the JAX
 package's ``parallel/``): the data mesh and process group (``mesh``),
 the step's collectives (``collectives``: the data group, the tp group's
-Megatron pairs and the sp group's ring, all-to-all and broadcast), the
-sharding rules (``sharding``: the data axes and tp), the fused FFN's tp
-tile (``kernel_shard``) and the state's placement (``placement``).  One
-process a rank, NCCL on the card and gloo on the CPU; the pp axis is not
-ported yet."""
+Megatron pairs, the sp group's ring, all-to-all and broadcast, the
+pipeline group's sends and receives), the
+sharding rules (``sharding``: the data axes, tp and pp residency), the
+fused FFN's tp tile (``kernel_shard``), the pipeline's rule table and
+executor (``pipeline``) and the state's placement (``placement``).  One
+process a rank, NCCL on the card and gloo on the CPU."""
 
 from faster_distributed_training_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_ALIASES,
@@ -45,6 +46,7 @@ from faster_distributed_training_tpu_torch.parallel.placement import (  # noqa: 
 )
 from faster_distributed_training_tpu_torch.parallel.collectives import (  # noqa: F401
     DataGroup,
+    PipeGroup,
     SequenceGroup,
     TensorGroup,
     all_gather_across_processes,

@@ -26,6 +26,10 @@ the shards; ``all_gather`` over its group rebuilds a leaf from its
 shards (``Placement``).  The model holds its
 TensorGroup (no thread-local: the shapes of its shards depend on it).
 
+Under pipeline parallelism (``--mesh pp=P``) the data group holds the
+ranks of one stage (those of every data index), and ``PipeGroup`` is the
+rank's pipeline group: the ranks of its data index, one a stage.
+
 Under sequence parallelism (``--mesh sp=S``) the data group again holds
 one rank of each sp group, and ``SequenceGroup`` is the rank's sp group
 (``DataGroup.seq``): the rank holds the positions ``[r * L/S, (r + 1) *
@@ -63,7 +67,8 @@ class DataGroup:
     default group; no group initialized: one process), its ``rank`` and
     ``world``."""
 
-    def __init__(self, group=None, seq: Optional["SequenceGroup"] = None):
+    def __init__(self, group=None, seq: Optional["SequenceGroup"] = None,
+                 pipe: Optional["PipeGroup"] = None):
         self.live = dist.is_initialized()
         self.group = group
         self.rank = dist.get_rank(group) if self.live else 0
@@ -71,6 +76,9 @@ class DataGroup:
         # the rank's sp group (None without sp): the amaxes, the gradient
         # SUM and the metrics reduce over it too
         self.seq = seq if seq is not None and seq.live else None
+        # the rank's pipeline group (None without pp): the group holds
+        # the ranks of this rank's stage
+        self.pipe = pipe if pipe is not None and pipe.live else None
 
     @contextlib.contextmanager
     def active(self):
@@ -355,6 +363,71 @@ class _Broadcast0(torch.autograd.Function):
     def backward(ctx, g):
         g = ctx.group.sum_(g.clone(memory_format=torch.contiguous_format))
         return (g if ctx.group.rank == 0 else torch.zeros_like(g)), None
+
+
+class PipeGroup:
+    """A rank's pipeline group: the ranks of its data index, one a pp
+    stage (``ranks[s]``: the global rank of stage s), ``group`` their
+    process group, this rank's ``stage`` and the ``size`` S.  It moves a
+    microbatch's activation or cotangent between the ranks of
+    neighbouring chunks (``exchange``), SUMs over pp (a shared leaf's
+    gradient, the clip's norm parts) and broadcasts a stage's values (the
+    last stage's metrics, a stage-owned leaf for a checkpoint).  Under
+    gloo a card's tensors travel through the host, as ``SequenceGroup``'s
+    do."""
+
+    def __init__(self, group=None, stage: int = 0, size: int = 1,
+                 ranks=None):
+        self.group, self.stage, self.size = group, int(stage), int(size)
+        self.ranks = list(ranks) if ranks is not None else [0]
+        self.live = group is not None and self.size > 1
+
+    def _host(self, t: torch.Tensor) -> bool:
+        return t.is_cuda and dist.get_backend(self.group) == "gloo"
+
+    def exchange(self, sends, recvs, shape, dtype, device) -> list:
+        """One tick's hops, posted together: ``sends`` (stage, tensor,
+        tag), ``recvs`` (stage, tag) of a ``shape`` / ``dtype`` tensor;
+        returns the received tensors on ``device`` in ``recvs``' order.
+        Both ends of a pair post in the same order with the same tags."""
+        ops, bufs, outs = [], [], []
+        for stage, t, tag in sends:
+            src = t.contiguous()
+            if self._host(src):
+                src = src.cpu()
+            bufs.append(src)
+            ops.append(dist.P2POp(dist.isend, src, self.ranks[stage],
+                                  self.group, tag))
+        host = (torch.device(device).type == "cuda"
+                and dist.get_backend(self.group) == "gloo")
+        for stage, tag in recvs:
+            buf = torch.empty(shape, dtype=dtype,
+                              device="cpu" if host else device)
+            outs.append(buf)
+            ops.append(dist.P2POp(dist.irecv, buf, self.ranks[stage],
+                                  self.group, tag))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return [o.to(device) for o in outs] if host else outs
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM all-reduce over pp in place."""
+        if self.live:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
+    def broadcast_(self, t: torch.Tensor, stage: int) -> torch.Tensor:
+        """Stage ``stage``'s ``t`` on every rank of the group, in place."""
+        if not self.live:
+            return t
+        if self._host(t):
+            buf = t.detach().cpu()
+            dist.broadcast(buf, self.ranks[stage], group=self.group)
+            with torch.no_grad():
+                t.copy_(buf)
+            return t
+        dist.broadcast(t, self.ranks[stage], group=self.group)
+        return t
 
 
 def all_gather(t: torch.Tensor, world: int, group=None) -> list:

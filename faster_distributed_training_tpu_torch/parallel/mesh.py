@@ -1,4 +1,4 @@
-"""The process group and the data mesh (the JAX package's
+"""The process group and the mesh (the JAX package's
 ``parallel/mesh.py``).
 
 JAX runs one SPMD program over a ``Mesh`` of devices; the port runs one
@@ -7,24 +7,27 @@ gloo under ``--device cpu``), and the mesh is a ``DeviceMesh`` over the
 ranks.  The port reaches the data axes, ``dp`` (batch split, state
 replicated) and ``fsdp`` (batch split, parameters and optimizer state
 sharded), ``tp`` (Megatron tensor parallelism: heads, the FFN's hidden
-columns and the vocabulary split over the ranks of a tp group) and
-``sp`` (sequence parallelism: the positions of every row split over the
-ranks of an sp group, the state replicated); a mesh with ``pp`` above 1
-raises by name.
+columns and the vocabulary split over the ranks of a tp group), ``sp``
+(sequence parallelism: the positions of every row split over the ranks
+of an sp group, the state replicated) and ``pp`` (pipeline parallelism:
+the encoder's layers staged over the ranks of a pipeline group, one
+process a stage; ``parallel.pipeline``).
 
 ``AXIS_ALIASES`` is the one alias table: ``--mesh data=2`` and ``--mesh
 dp=2`` are the same mesh.  The model axes are laid out innermost
-whatever place ``--mesh`` names them in, tp inside sp (the JAX
-package's ICI policy, ``_AXIS_SPEED``: tp on the fastest links, then sp;
-the data axes keep their order), so the ranks of a tp or sp group are
-adjacent (``r = data_rank * n + model_rank``: on one host, the cards
-that share the fastest links carry the per-layer collectives).  With
-the batch split over every data axis, data rank d holds the global rows
-``[d * Bl, (d + 1) * Bl)`` (JAX's ``batch_spec`` order) on every rank of
-its tp or sp group.  ``mesh_groups`` gives a rank its data group (the
-gradient reduce, the BatchNorm and amax collectives, the mixup
-partners, the metrics), its tp group and, as the data group's ``seq``,
-its sp group.
+whatever place ``--mesh`` names them in, tp inside sp, and pp outermost
+(the JAX package's policy, ``_AXIS_SPEED``: tp on the fastest links,
+then sp; pp, whose stage boundary moves one activation a tick, on the
+slowest; the data axes keep their order), so the ranks of a tp or sp
+group are adjacent (``r = data_rank * n + model_rank``) and a pipeline
+group's are ``data * model`` apart (``r = pp_rank * (data * model) +
+...``).  With the batch split over every data axis, data rank d holds
+the global rows ``[d * Bl, (d + 1) * Bl)`` (JAX's ``batch_spec`` order)
+on every rank of its tp or sp group and on every stage.
+``mesh_groups`` gives a rank its data group (the gradient reduce, the
+BatchNorm and amax collectives, the mixup partners, the metrics), its tp
+group and, as the data group's ``seq``, its sp group, or as its
+``pipe``, its pipeline group.
 """
 
 from __future__ import annotations
@@ -47,12 +50,12 @@ AXIS_ALIASES = {
     "pp": "pp", "pipe": "pp", "pipeline": "pp", "stage": "pp",
 }
 DATA_AXES = ("dp", "fsdp")
-# the axes the port does not reach, and what each would shard
-UNPORTED_AXES = {"pp": "pipeline parallelism"}
 # the model axes, laid out innermost (adjacent ranks) in this order from
 # the inside: the fastest of the JAX package's _AXIS_SPEED, whose
 # per-layer collectives want the fastest links
 INNER_AXES = ("tp", "sp")
+# laid out outermost: the slowest (JAX's _AXIS_SPEED pp: -1)
+OUTER_AXES = ("pp",)
 # the process group's timeout: a rank that never arrives fails the run
 # instead of hanging it
 PG_TIMEOUT = timedelta(minutes=10)
@@ -95,13 +98,6 @@ class MeshSpec:
     @property
     def size(self) -> int:
         return int(np.prod(self.shape)) if self.shape else 1
-
-
-def unported_axes(axes: Sequence[str], shape: Sequence[int]) -> list:
-    """``--mesh <axis>=<n>`` for every pp axis above 1."""
-    return [f"--mesh {a}={n} ({UNPORTED_AXES[a]})"
-            for a, n in zip(canonical_axes(axes), shape)
-            if a in UNPORTED_AXES and int(n) > 1]
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -160,8 +156,9 @@ def local_device(device_type: str) -> torch.device:
 def ordered_axes(axes: Sequence[str], shape: Sequence[int]
                  ) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
     """``(axes, shape)`` with tp moved innermost (last) and sp next to it,
-    the other axes in their order."""
+    pp outermost (first), the other axes in their order."""
     rank = {a: len(INNER_AXES) - i for i, a in enumerate(INNER_AXES)}
+    rank.update({a: -1 for a in OUTER_AXES})
     order = sorted(range(len(axes)), key=lambda i: (rank.get(axes[i], 0),
                                                      i))
     return (tuple(axes[i] for i in order),
@@ -171,15 +168,12 @@ def ordered_axes(axes: Sequence[str], shape: Sequence[int]
 def make_mesh(axes: Sequence[str] = ("dp",), shape: Sequence[int] = (),
               device_type: str = "cuda"):
     """The ``DeviceMesh`` of the run's process group, its axes ordered by
-    ``ordered_axes`` (tp, then sp, innermost), or None without a group
-    (one process: no collective anywhere).  Empty ``shape`` puts every
-    rank on the first axis.  The mesh's size must equal the world size;
-    pp above 1 raises."""
+    ``ordered_axes`` (tp, then sp, innermost; pp outermost), or None
+    without a group (one process: no collective anywhere).  Empty
+    ``shape`` puts every rank on the first axis.  The mesh's size must
+    equal the world size."""
     axes = canonical_axes(axes)
     shape = tuple(int(s) for s in shape)
-    bad = unported_axes(axes, shape)
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
     world = dist.get_world_size() if dist.is_initialized() else 1
     if not shape:
         shape = (world,) + (1,) * (len(axes) - 1)
@@ -219,18 +213,39 @@ def mesh_groups(mesh):
     it; with tp or sp above 1 (the model axis, ``n``) the data group
     holds the ranks of this rank's model index (``r % n``: one a data
     rank), and the ``n`` adjacent ranks of its data rank form its tp
-    group or, as the data group's ``seq``, its sp group."""
+    group or, as the data group's ``seq``, its sp group.  With pp above 1
+    (P stages of ``w = world / P`` ranks) the data group holds the ranks
+    of this rank's stage (``r // w``), and the ranks of its data index
+    (``r % w``, one a stage) form its pipeline group, the data group's
+    ``pipe``."""
     from faster_distributed_training_tpu_torch.parallel.collectives import (
-        DataGroup, SequenceGroup, TensorGroup)
+        DataGroup, PipeGroup, SequenceGroup, TensorGroup)
 
-    tp, sp = tp_size(mesh), sp_size(mesh)
+    tp, sp, pp = tp_size(mesh), sp_size(mesh), pp_size(mesh)
     if tp > 1 and sp > 1:
         raise NotImplementedError(f"not ported yet: --mesh sp={sp} with "
                                   f"tp={tp}")
     n = max(tp, sp)
+    if pp > 1 and n > 1:
+        raise NotImplementedError(
+            f"not ported yet: --mesh pp={pp} with "
+            + (f"tp={tp}" if tp > 1 else f"sp={sp}"))
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if pp > 1:
+        w = world // pp
+        data_pg, _ = dist.new_subgroups_by_enumeration(
+            [list(range(s * w, (s + 1) * w)) for s in range(pp)])
+        ranks = [list(range(d, world, w)) for d in range(w)]
+        pipe_pg, _ = dist.new_subgroups_by_enumeration(ranks)
+        pipe = PipeGroup(pipe_pg, rank // w, pp, ranks[rank % w])
+        if dist.get_backend(pipe_pg) == "nccl":
+            # a first collective over the group, so that the first
+            # batched send / receive is not (NCCL wants every rank of
+            # the group in that call)
+            dist.all_reduce(torch.zeros(1, device="cuda"), group=pipe_pg)
+        return DataGroup(data_pg, pipe=pipe), None
     if n <= 1:
         return DataGroup(), None
-    world, rank = dist.get_world_size(), dist.get_rank()
     data_pg, _ = dist.new_subgroups_by_enumeration(
         [list(range(t, world, n)) for t in range(n)])
     model_pg, _ = dist.new_subgroups_by_enumeration(

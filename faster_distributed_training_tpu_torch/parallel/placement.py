@@ -27,6 +27,21 @@ and this module onto one process a rank:
     are SUMmed over sp (each rank's is its positions' part) and MEANed
     over dp in one all-reduce over the run, and the metrics summed over
     both;
+  * pp (``--mesh pp=P``): each rank runs its stage's layers
+    (``parallel.pipeline``); the data group holds the ranks of its stage
+    and ``pipe`` its pipeline group.  Under residency (the default) a
+    stage-owned leaf, its optimizer mirrors and its amax histories live
+    on their stage only (``sharding.pp_stage_homes``; the other ranks
+    hold empty tensors in their place) and the shared leaves (the
+    embeddings, the head) on every stage; ``--no_pp_residency`` keeps
+    every leaf on every rank.  A stage-owned leaf's gradient is MEANed
+    over the stage's data group; a shared leaf's is SUMmed over pp (stage
+    0's lookup part and, under a tied head, the last stage's) and then
+    MEANed over dp; without residency every gradient is SUMmed over pp
+    (zero off its stage), so every rank updates every leaf alike.  The
+    clip's norm sums each stage's own leaves' squares over pp and counts
+    the shared ones once.  ``whole()`` gathers every stage-owned leaf from
+    its stage;
   * ``--host_offload``: the parameters (their shards) and the optimizer
     state rest in pinned host memory between steps; ``--offload_opt_state``
     the optimizer leaves ``offload_opt_leaf`` picks.  They are copied to
@@ -58,7 +73,7 @@ from faster_distributed_training_tpu_torch.parallel.mesh import (DATA_AXES,
                                                                  axis_size)
 from faster_distributed_training_tpu_torch.parallel.sharding import (
     apply_tp_rules, bucketed_grad_reduce, fsdp_partition_params,
-    offload_opt_leaf, tp_shard, tp_unshard, zero_opt_dims)
+    offload_opt_leaf, pp_stage_homes, tp_shard, tp_unshard, zero_opt_dims)
 
 # the metrics summed over ranks (the loss is then divided by the world)
 _SUMMED = ("loss", "loss_total", "correct", "total")
@@ -161,6 +176,19 @@ class Placement:
         self.sharded = False
         self.side = (torch.cuda.Stream(self.device) if self.cuda and (
             self.offload_params or self.offload_opt) else None)
+        # pp: the pipeline group, the spec, residency and each leaf's stage
+        # (None: shared), with the whole shapes of the stage-owned leaves
+        self.pipe = self.group.pipe
+        self.spec = None
+        if self.pipe is not None:
+            from faster_distributed_training_tpu_torch.parallel.pipeline import (
+                build_pipeline_spec)
+            self.spec = build_pipeline_spec(cfg, mesh)
+        self.residency = self.pipe is not None and bool(cfg.pp_residency)
+        self.homes: Dict[str, Optional[int]] = {}
+        self.pp_shapes: Dict[str, tuple] = {}
+        # the last step's waits at the stage boundary, in seconds
+        self.pp_wait: list = []
 
     # -- the layout ---------------------------------------------------------
     @property
@@ -237,6 +265,18 @@ class Placement:
         if self.sharding or self.tp is not None:
             # the global norm sums the shards' squares over the group
             state.tx.shards = (self.sharded_names(), self.sum_over_shards)
+        if self.pipe is not None:
+            self._pp_plan(state)
+            stage = self.pipe.stage
+            mine = {k for k, h in self.homes.items() if h == stage}
+            others = {k for k, h in self.homes.items()
+                      if h is not None and h != stage}
+            # this stage's leaves' squares SUMmed over pp; the shared
+            # leaves once; the other stages' (held without residency)
+            # counted on their own stage
+            state.tx.shards = (mine, self.pipe.sum_, others)
+            if self.residency:
+                self._pp_drop(state)
         self.sharded = True
         self.park(state)
 
@@ -257,6 +297,8 @@ class Placement:
                     parent[k] = self._gather_dim(t, d, full)
         if self.tp is not None and self.sharded and not self.tp_whole:
             self._tp_gather(state)
+        if self.pipe is not None and self.sharded:
+            self._pp_gather(state)
         self.sharded = False
 
     def _tp_leaves(self, state):
@@ -293,6 +335,70 @@ class Placement:
                     put(tp_shard(t, self.cuts[k], self.tp.rank, self.tp.size,
                                  self.heads))
         self.tp_whole = False
+
+    # -- pipeline residency -------------------------------------------------
+    def _pp_leaves(self, state):
+        """(setter, name, tensor) of every stage-owned leaf: parameters,
+        persistent buffers (the amax histories) and optimizer mirrors."""
+        params = dict(state.model.named_parameters())
+        for k, t in state.model.state_dict(keep_vars=True).items():
+            if self.homes.get(k) is None:
+                continue
+            if k in params:
+                yield (lambda v, p=params[k]: setattr(p, "data", v)), k, t
+            else:
+                mod, _, attr = k.rpartition(".")
+                owner = state.model.get_submodule(mod)
+                yield (lambda v, o=owner, a=attr: setattr(o, a, v)), k, t
+        for _, parent, k, t in list(_opt_items(state.opt_state)):
+            if self.homes.get(k) is not None and tuple(t.shape) in (
+                    self.pp_shapes[k], (0,)):
+                yield (lambda v, parent=parent, k=k:
+                       parent.__setitem__(k, v)), k, t
+
+    def _pp_plan(self, state) -> None:
+        """Each leaf's stage and the stage-owned leaves' whole shapes
+        (from the whole state)."""
+        sd = state.model.state_dict()
+        self.homes = pp_stage_homes(list(sd), self.spec)
+        self.pp_shapes = {k: tuple(v.shape) for k, v in sd.items()
+                          if self.homes[k] is not None}
+
+    def own(self, name: str) -> bool:
+        """Whether this rank holds leaf ``name``."""
+        home = self.homes.get(name)
+        return (not self.residency or home is None
+                or home == self.pipe.stage)
+
+    def _pp_drop(self, state) -> None:
+        """Residency: every other stage's leaves replaced by empty
+        tensors."""
+        with torch.no_grad():
+            for put, k, t in list(self._pp_leaves(state)):
+                if not self.own(k):
+                    put(torch.empty(0, dtype=t.dtype, device=t.device))
+
+    def _pp_gather(self, state) -> None:
+        """Every stage-owned leaf broadcast whole from its stage (without
+        residency too: the other stages' amax histories are stale)."""
+        with torch.no_grad():
+            for put, k, t in sorted(self._pp_leaves(state),
+                                    key=lambda x: x[1]):
+                whole = t.detach() if tuple(t.shape) == self.pp_shapes[
+                    k] else torch.empty(self.pp_shapes[k], dtype=t.dtype,
+                                        device=t.device)
+                self.pipe.broadcast_(whole, self.homes[k])
+                if whole is not t:
+                    put(whole)
+
+    def resident_bytes(self, state) -> int:
+        """The bytes this rank holds between steps: parameters, persistent
+        buffers and optimizer tensors."""
+        n = sum(t.numel() * t.element_size()
+                for t in state.model.state_dict().values())
+        n += sum(t.numel() * t.element_size()
+                 for _, _, _, t in _opt_items(state.opt_state))
+        return int(n)
 
     @contextlib.contextmanager
     def whole(self, state):
@@ -416,6 +522,16 @@ class Placement:
         g = self.group
         if not g.live:
             return grads
+        if self.pipe is not None:
+            # pp: the shared leaves (every leaf without residency) SUMmed
+            # over pp first, then everything MEANed over the stage's data
+            # group
+            over = {k: v for k, v in grads.items()
+                    if not self.residency or self.homes.get(k) is None}
+            grads = {**grads, **bucketed_grad_reduce(
+                over, self.pipe.group, self.bucket_bytes)}
+            return bucketed_grad_reduce(grads, g.group, self.bucket_bytes,
+                                        g.world)
         return bucketed_grad_reduce(grads, None if g.seq else g.group,
                                     self.bucket_bytes, g.world)
 
@@ -423,6 +539,8 @@ class Placement:
               ) -> Dict[str, torch.Tensor]:
         """The reduced gradients cut to this rank's shard of each sharded
         parameter (the update's half of the reduce-scatter)."""
+        if self.residency:
+            return {k: v for k, v in grads.items() if self.own(k)}
         if not self.sharding:
             return grads
         return {k: (v if self.dims.get(k) is None else
@@ -430,8 +548,11 @@ class Placement:
 
     def update_views(self, state) -> Dict[str, torch.Tensor]:
         """The parameters the optimizer updates in place: this rank's
-        slice (a view) of each sharded one, the others whole."""
+        slice (a view) of each sharded one, the others whole; under pp
+        residency the leaves this rank holds."""
         params = state.params()
+        if self.residency:
+            return {k: p for k, p in params.items() if self.own(k)}
         if not self.sharding:
             return params
         return {k: (p if self.dims.get(k) is None else
@@ -471,7 +592,8 @@ class Placement:
         """The step's metrics over the global batch: the sums of every
         rank's ``loss``, ``loss_total``, ``correct`` and ``total`` in one
         all-reduce (under sp, over the sp group too), the loss divided by
-        the data world."""
+        the data world; under pp the last stage's, broadcast to every
+        stage."""
         g = self.group
         keys = [k for k in _SUMMED if k in metrics]
         if not g.live or not keys:
@@ -481,6 +603,8 @@ class Placement:
                                   .reshape(()) for k in keys]))
         if g.seq is not None:
             g.seq.sum_(vec)
+        if self.pipe is not None:
+            self.pipe.broadcast_(vec, self.pipe.size - 1)
         out = dict(metrics)
         for i, k in enumerate(keys):
             out[k] = vec[i] / g.world if k == "loss" else vec[i]

@@ -35,7 +35,22 @@ opt-state classification, ``classify_opt_state_leaf``):
     dim tp divides, counted in the JAX layout's axis order (1024
     elements and up); scalars stay whole.
 
-The pp residency rules belong to a later slice.
+And the pp residency rules (``PP_RESIDENCY_RULES`` and
+``REPLICATED_PP_PARAMS`` by JAX's leaf roles; ``pp_stage_homes`` for the
+port's leaves):
+
+  * a stage-owned leaf (under ``layer_{i}``, ``pipeline.param_stage_home``)
+    lives on its stage only, and so do its optimizer mirrors and its
+    amax histories; ``shared_embed`` and ``shared_head`` leaves are
+    replicated over pp; a leaf no rule knows raises;
+  * JAX shards each stage-owned leaf over pp on its largest free axis
+    (its ``classify_pp_param_leaf``: one SPMD program holds a 1/P slice
+    of every layer on each stage's chips, and keeps the leaves too small
+    or indivisible for that replicated).  The port runs one process a
+    stage and holds the whole layers of its stage, small leaves
+    included: the same bytes a rank for an even split (S stages of L/S
+    layers each), with no gather at use;
+  * ``--no_pp_residency``: every rank holds every leaf.
 """
 
 from __future__ import annotations
@@ -319,4 +334,45 @@ def zero_opt_dims(params: Mapping[str, torch.Tensor], cuts: Mapping[str,
         rule, how = classify_opt_state_leaf(k, tuple(p.shape), cuts.get(k),
                                             n)
         out[k] = how if isinstance(how, int) else None
+    return out
+
+
+# -- pipeline residency ---------------------------------------------------------
+
+# the port's residency by JAX's leaf roles (pipeline.param_stage_home),
+# each with its reason; the rule table (pipeline.pipeline_rules) shows them
+PP_RESIDENCY_RULES: Dict[str, str] = {
+    "stage_owned":
+        "param or amax history under layer_{i} (pipeline.param_stage_home "
+        "maps i to its stage): the whole leaf lives on its stage's ranks "
+        "only, and so do its optimizer mirrors; a checkpoint gathers it "
+        "from its stage",
+}
+REPLICATED_PP_PARAMS: Dict[str, str] = {
+    "shared_embed":
+        "embedding tables (token/pos/segment): read by stage 0's input "
+        "and (tied LM head) by the last stage's logits, so every rank "
+        "holds them; their gradient is SUMmed over pp",
+    "shared_head":
+        "ln_final / pooler / classifier / lm_head: applied by the last "
+        "stage on the reassembled local batch; every rank holds them and "
+        "their gradient is SUMmed over pp (zero off the last stage)",
+}
+
+
+def pp_stage_homes(names, spec) -> Dict[str, Optional[int]]:
+    """name -> the stage a port leaf (a parameter or a buffer) lives on
+    under residency (None: replicated over pp, a shared role), by
+    ``pipeline.param_stage_home`` of its JAX path; a leaf no rule knows
+    raises."""
+    from faster_distributed_training_tpu_torch.parallel.pipeline import (
+        param_stage_home)
+
+    out = {}
+    for k in names:
+        role, stage = param_stage_home(spec, jax_param_path(k))
+        if role == "unknown":
+            raise ValueError(f"pp residency: no rule places leaf {k!r} "
+                             f"({jax_param_path(k)})")
+        out[k] = stage if role == "stage_owned" else None
     return out

@@ -12,8 +12,8 @@
 # --zero1; NGD on the transformer is not ported, so its line has none).
 # On the CPU: NPROC=2 ... --device cpu (gloo).
 #
-# Tensor and sequence parallelism train the transformer only: TP=1 or
-# SP=1 runs just its line, the ranks laid out dp-outer and the model axis
+# Tensor, sequence and pipeline parallelism train the transformer only:
+# TP=1, SP=1 or PP=1 runs just its line, the ranks laid out dp-outer and the model axis
 # inner, e.g. two data ranks of two tp ranks each (--mesh's product must
 # equal NPROC):
 #   TP=1 NPROC=4 bash faster_distributed_training_tpu_torch/run_distributed.sh \
@@ -33,12 +33,22 @@
 #     --mesh dp=2,sp=2 --device cpu --dataset synthetic --epoch 1 \
 #     --n_layers 2 --d_model 64 --n_heads 4 --d_ff 128 --seq_len 64 \
 #     --subset_stride 32 --bs 16
+# Pipeline parallelism stages the transformer's layers over the ranks of
+# a pp group, one process a stage (PP=1 runs just its line; pp is laid
+# out outermost), e.g. two stages of two data ranks, interleaved:
+#   PP=1 NPROC=4 bash faster_distributed_training_tpu_torch/run_distributed.sh \
+#     --mesh dp=2,pp=2 --pp_schedule interleaved --pp_microbatches 8
+# and on the CPU at a tiny width:
+#   PP=1 NPROC=2 bash faster_distributed_training_tpu_torch/run_distributed.sh \
+#     --mesh pp=2 --device cpu --dataset synthetic --epoch 1 --n_layers 2 \
+#     --d_model 64 --n_heads 4 --d_ff 128 --seq_len 64 --subset_stride 32 \
+#     --bs 16
 set -euo pipefail
 
 NPROC="${NPROC:-$(python -c 'import torch; print(max(torch.cuda.device_count(), 1))')}"
 RUN=(torchrun --standalone --nproc_per_node="${NPROC}" -m)
 
-if [[ -z "${TP:-}${SP:-}" ]]; then
+if [[ -z "${TP:-}${SP:-}${PP:-}" ]]; then
   "${RUN[@]}" faster_distributed_training_tpu_torch.resnet50_test \
     --distributed --bs 256 --lr 0.01 --meta_learning --ngd "$@"
 fi

@@ -73,6 +73,17 @@ sp.  The gradients are then SUMmed over sp and MEANed over dp
 (``Placement.reduce_grads``: one all-reduce over the run, divided by
 dp), and the metrics summed over both, the classifier's counted on sp
 index 0 only.
+
+Under pipeline parallelism (``--mesh pp=P``, ``state.placement.pipe``)
+the Transformer's step runs the tick loop (``pipeline_forward_backward``
+over ``parallel.pipeline.run_pipeline``): stage 0 embeds the rank's rows,
+each stage runs its chunks on the M microbatches (each at its global
+origin ``b0 + m · B_l/M``, its chunk's seeds read from their place in the
+call order), the last stage reassembles the rows and runs the head, the
+mixup and the loss, and the backward replays the ticks in reverse; the
+draws are the data world's (every stage of a data index the same).  The
+eval runs the staged forward on the whole local batch, and the last
+stage's metrics go to every rank.
 """
 
 from __future__ import annotations
@@ -88,6 +99,8 @@ import torch
 from faster_distributed_training_tpu_torch.config import TrainConfig
 from faster_distributed_training_tpu_torch.parallel import collectives
 from faster_distributed_training_tpu_torch.train import mixup as mx
+from faster_distributed_training_tpu_torch.parallel.pipeline import (
+    PipelineTickCtx, run_pipeline, virtual_chunks)
 from faster_distributed_training_tpu_torch.train.amp import (
     scale_loss, unscale_and_check, update_loss_scale)
 from faster_distributed_training_tpu_torch.train.losses import (
@@ -303,6 +316,105 @@ def loss_and_grads(model, batch: Dict[str, torch.Tensor], draws: StepDraws,
     return loss, grads, logits, y_b, lam
 
 
+def _stage_pieces(model, spec, batch, train: bool, draws=None,
+                  rows: int = 0):
+    """(embed, chunk) of a staged forward of ``batch`` (this rank's rows)
+    in microbatches of ``rows``: the encoder input, and chunk j's layers
+    on microbatch m at its global origin with the chunk's seeds."""
+    chunks = virtual_chunks(spec)
+    x = batch["tokens"]
+    mask = model.attention_mask(None if model.lm else batch.get("mask"))
+    pos = model.seed_positions()["layers"]
+
+    def embed():
+        return model.embed(x, batch.get("token_types"), train,
+                           model.seed_stream(draws, x.shape[1])
+                           if train else None)
+
+    def chunk(j, h, m):
+        layers = chunks[j]
+        seeds = (model.seed_stream(draws, x.shape[1], pos[layers[0]],
+                                   m * rows) if train else None)
+        part = None if mask is None else mask[m * rows:(m + 1) * rows]
+        return model.run_layers(h, part, train, seeds, layers)
+
+    return embed, chunk
+
+
+def pipeline_forward_backward(state: TrainState,
+                              batch: Dict[str, torch.Tensor],
+                              draws: StepDraws, lm: bool, loss_scale=None):
+    """The staged training step of this rank's stage (see the module
+    docstring).  Returns (loss, grads by name, head outputs): the last
+    stage's ``(loss_total, correct, total)`` (LM) or ``(logits, y_b,
+    lam)``, None on the other stages; ``grads`` every leaf this rank
+    holds (zeros where its stage did not reach it).  The seconds this
+    step spent at the stage boundary are left in ``placement.pp_wait``."""
+    pl = state.placement
+    spec, pipe, group = pl.spec, pl.pipe, pl.group
+    model = state.model
+    x = batch["tokens"]
+    B, L = x.shape[0], x.shape[1]
+    M = spec.n_microbatches
+    if B % M:
+        raise ValueError(f"{B} rows a data rank do not cut into "
+                         f"--pp_microbatches {M}")
+    rows = B // M
+    embed, chunk = _stage_pieces(model, spec, batch, True, draws, rows)
+
+    def head(h):
+        seeds = model.seed_stream(draws, L, model.seed_positions()["head"])
+        if lm:
+            logits = model.head(h, True, draws, seeds)
+            loss_total, correct, total = lm_shift_metrics(
+                logits, x, batch.get("mask"))
+            every = group.sum_(total.detach().clone())
+            loss = loss_total * float(group.world) / torch.clamp(every,
+                                                                 min=1.0)
+            out = (loss, (loss_total, correct, total))
+        else:
+            logits, index, lam = model.head(h, True, draws, seeds)
+            lam = lam.to(logits.device)
+            y = batch["label"]
+            y_b = group.gather(y)[index]
+            loss = mixup_criterion(cross_entropy, logits, y, y_b, lam)
+            out = (loss, (logits, y_b, lam))
+        return scale_loss(loss, loss_scale, loss_scale is not None), out
+
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    pl.pp_wait = []
+    with torch.autograd.set_multithreading_enabled(False):
+        res = run_pipeline(
+            spec, pipe, M, (rows, L, model.embeddings.d_model), model.dtype,
+            x.device, embed if pipe.stage == 0 else None, chunk, head, True,
+            PipelineTickCtx(), pl.pp_wait)
+    grads = {}
+    for k, p in params.items():
+        if pl.own(k):
+            grads[k] = p.grad if p.grad is not None else torch.zeros_like(p)
+        p.grad = None
+    if res is None:
+        return None, grads, None
+    loss, out = res
+    return loss, grads, out
+
+
+def pipeline_logits(state: TrainState, batch: Dict[str, torch.Tensor]):
+    """The staged eval forward of this rank's rows (one microbatch): the
+    last stage's logits, None on the other stages."""
+    pl = state.placement
+    model, x = state.model, batch["tokens"]
+    embed, chunk = _stage_pieces(model, pl.spec, batch, False,
+                                 rows=x.shape[0])
+    return run_pipeline(
+        pl.spec, pl.pipe, 1, (x.shape[0], x.shape[1],
+                              model.embeddings.d_model), model.dtype,
+        x.device, embed if pl.pipe.stage == 0 else None, chunk,
+        lambda h: (None, model.head(h, False, None, None)), False)
+
+
 def image_loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
                          draws: StepDraws, mode: str, loss_scale=None):
     """The image step's forward: augment (uint8 batches), mixup by
@@ -382,8 +494,13 @@ def apply_update(state: TrainState, grads: Dict[str, torch.Tensor],
     With ``scalars`` (a dispatch) the optimizer takes them, the skip is
     a device select and the loss scale moves in place: nothing reads the
     device.  ``grads`` are the reduced (global) gradients.  Returns the
-    device bool ``finite``."""
+    device bool ``finite``.  Under pp every stage takes one decision:
+    each checked only the leaves it holds, so a non-finite grad on any
+    stage skips the step and backs the scale off on all of them."""
     grads, finite = unscale_and_check(grads, state.loss_scale, fp16)
+    pipe = state.placement.pipe if state.placement is not None else None
+    if fp16 and pipe is not None and pipe.live:
+        finite = pipe.sum_((~finite).float()) == 0
     new_scale = update_loss_scale(state.loss_scale, finite, fp16)
     if scalars is not None:
         live = old = ()
@@ -466,6 +583,12 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
                 batch["tokens"].device)
         if group is not None:
             draws = dataclasses.replace(draws, b0=group.origin(B))
+        if state.placement is not None and state.placement.pipe is not None:
+            loss, grads, out = pipeline_forward_backward(state, batch, draws,
+                                                         lm, ls)
+            if out is not None and not lm:
+                out = (out[0], batch["label"], out[1], out[2])
+            return B, loss, grads, out
         if image:
             loss, grads, logits, y_a, y_b, lam = image_loss_and_grads(
                 state, batch, draws, mode, ls)
@@ -493,7 +616,14 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
         if pl is not None:
             grads = pl.reduce_grads(grads)
         finite = apply_update(state, grads, fp16, buffers, scalars)
-        if lm:
+        if out is None:
+            # a pipeline stage before the last: the last stage's metrics
+            # come to it in reduce_metrics
+            dev = next(iter(grads.values())).device
+            metrics = {k: torch.zeros((), device=dev) for k in (
+                ("loss", "loss_total", "correct", "total") if lm
+                else ("loss", "correct", "total"))}
+        elif lm:
             loss_total, correct, total = out
             # loss is the per-token mean; loss_total / total the exact
             # token-weighted epoch loss; accuracy is next-token accuracy
@@ -549,7 +679,22 @@ def make_eval_step(cfg: TrainConfig) -> Callable[[TrainState, Dict],
         group = _data_group(state)
         sp = None if group is None else group.seq
         full, batch = batch, seq_shard(batch, sp)
-        if image:
+        pl = state.placement
+        if pl is not None and pl.pipe is not None:
+            logits = pipeline_logits(state, batch)
+            if logits is None:
+                # the last stage's metrics come in reduce_metrics
+                dev = batch["tokens"].device
+                return {k: torch.zeros((), device=dev) for k in (
+                    "loss", "loss_total", "correct", "total")}
+            if lm:
+                loss_total, correct, total = lm_shift_metrics(
+                    logits, full["tokens"], full.get("mask"),
+                    full.get("valid"))
+                return {"loss": loss_total / torch.clamp(total, min=1.0),
+                        "loss_total": loss_total, "correct": correct,
+                        "total": total}
+        elif image:
             from faster_distributed_training_tpu_torch.data.augment import (
                 normalize)
             x = batch["image"]

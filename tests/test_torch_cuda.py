@@ -1438,3 +1438,168 @@ def test_flash_inside_ulysses_is_bitwise_the_one_shard_launch(card):
     assert not errs, errs
     assert torch.equal(torch.cat([o for o, _ in got], dim=2), ref)
     assert torch.equal(torch.cat([g for _, g in got], dim=1), ref_g)
+
+
+def test_kernels_at_quarter_batch_origins_are_bitwise_the_full_rows(card):
+    """Rows 1 and 4 (the flash forward with lse, its backward) and rows 7
+    and 8 (the fused FFN: none, int8, E4M3) at D 64, dropout 0.1, on the
+    M = 4 microbatches of a pipeline step (b0 = m·B/4): bitwise the full
+    launch's rows, and the microbatches' amax MAX the full launch's."""
+    from faster_distributed_training_tpu_torch.ops import fused_ffn as ffn
+
+    B, H, L, D, seed, rate = 8, 4, 128, 64, 0x2545F491, 0.1
+    q, k, v = _qkv(card, B, H, L, D, torch.bfloat16)
+    dout = torch.randn(B, H, L, D, generator=card, device="cuda").to(
+        torch.bfloat16)
+    mask = _mask(card, B, L)
+    full = flash_attention_stats(q, k, v, mask, rate, seed)
+    grads = flash_attention_bwd(q, k, v, *full[:2], dout, mask, rate, seed,
+                                full[2])
+    mb = B // 4
+    for b0 in range(0, B, mb):
+        s = slice(b0, b0 + mb)
+        got = flash_attention_stats(q[s], k[s], v[s], mask[s], rate, seed,
+                                    b0=b0)
+        for a, b in zip(got, full):
+            assert torch.equal(a, b[s]), b0
+        g = flash_attention_bwd(q[s], k[s], v[s], *got[:2], dout[s],
+                                mask[s], rate, seed, got[2], b0=b0)
+        for a, b in zip(g, grads):
+            assert torch.equal(a, b[s]), b0
+    d, d_ff = 64, 128
+    h = torch.randn(B * L, d, generator=card, device="cuda").to(
+        torch.bfloat16)
+    ws = [(torch.randn(*shape, generator=card, device="cuda") * 0.1).to(dt)
+          for shape, dt in (((d,), torch.float32), ((d,), torch.float32),
+                            ((d_ff, d), torch.bfloat16),
+                            ((d_ff,), torch.bfloat16),
+                            ((d, d_ff), torch.bfloat16),
+                            ((d,), torch.bfloat16))]
+    scales = torch.tensor([30.0, 300.0, 60.0, 250.0], device="cuda")
+    for fmt in (None, "int8", "fp8"):
+        def run(x, b0):
+            return ffn.ffn_fwd_generalized(x, *ws, (11, 12, b0, 0, 0), scales,
+                                           rate, rate, 1e-6, L, L, d_ff, fmt)
+        out, amax = run(h, 0)
+        parts = [run(h[b0 * L:(b0 + mb) * L], b0) for b0 in range(0, B, mb)]
+        assert torch.equal(torch.cat([o for o, _ in parts]), out), fmt
+        assert torch.equal(torch.stack([a for _, a in parts]).amax(0),
+                           amax), fmt
+
+
+class _Mailbox:
+    """Point-to-point queues between pipeline stages that are threads of
+    this process, keyed (source stage, destination stage, tag)."""
+
+    def __init__(self):
+        import collections
+        import queue
+        import threading
+
+        self.lock = threading.Lock()
+        self.q = collections.defaultdict(queue.Queue)
+
+    def box(self, key):
+        with self.lock:
+            return self.q[key]
+
+
+def _thread_pipe(box, stage, size):
+    """A ``PipeGroup`` whose exchange goes through ``box``."""
+    from faster_distributed_training_tpu_torch.parallel.collectives import (
+        PipeGroup)
+
+    class ThreadPipe(PipeGroup):
+        def exchange(self, sends, recvs, shape, dtype, device):
+            for st, t, tag in sends:
+                box.box((self.stage, st, tag)).put(t.detach().clone())
+            return [box.box((st, self.stage, tag)).get(timeout=120)
+                    for st, tag in recvs]
+
+    pipe = ThreadPipe(None, stage, size, list(range(size)))
+    pipe.live = True
+    return pipe
+
+
+def staged_step_on_threads(device, flags=(), n_stages=2):
+    """One staged training step (``pipeline_forward_backward``) of a
+    2-layer fp32 classifier (flash, the fused FFN, dropout 0.1, mixup),
+    its stages as threads of this process on ``device``, beside the same
+    step unstaged: (staged loss, unstaged loss, {name: (staged grad from
+    its stage, unstaged grad)})."""
+    import copy
+    import threading
+    import types
+
+    from faster_distributed_training_tpu_torch.parallel.collectives import (
+        DataGroup)
+    from faster_distributed_training_tpu_torch.parallel.pipeline import (
+        build_pipeline_spec)
+    from faster_distributed_training_tpu_torch.parallel.sharding import (
+        pp_stage_homes)
+    from faster_distributed_training_tpu_torch.train import steps
+
+    B, L, vocab = 8, 128, 100
+    cfg = cli.config_from_args(cli.build_parser(
+        defaults=cli.TRANSFORMER_DEFAULTS).parse_args(
+        ["--n_layers", "2", "--d_model", "64", "--n_heads", "4", "--d_ff",
+         "128", "--bs", str(B), "--seq_len", str(L), "--precision", "fp32",
+         "--attention", "flash", "--ffn_impl", "pallas", "--pp_microbatches",
+         "4", *flags]), defaults=cli.TRANSFORMER_DEFAULTS)
+    gen = torch.Generator().manual_seed(3)
+    model = cli.build_model(cfg, vocab_size=vocab, device=device)
+    model.init_weights(gen).to(device)
+    rng = np.random.default_rng(4)
+    lengths = rng.integers(L // 4, L + 1, B)
+    mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int32)
+    tokens = rng.integers(1, vocab, (B, L)).astype(np.int32) * mask
+    batch = steps.to_device({"tokens": tokens, "token_types": 0 * tokens,
+                             "mask": mask,
+                             "label": rng.integers(0, 4, B).astype(np.int32)},
+                            device)
+    draws = steps.step_draws(0, 0, B, model.n_dropout_sites(), 0.99)
+    spec = build_pipeline_spec(cfg, n_stages)
+    homes = pp_stage_homes(list(model.state_dict()), spec)
+    box, out, errs = _Mailbox(), [None] * n_stages, []
+
+    def stage(s, m):
+        try:
+            pl = types.SimpleNamespace(
+                spec=spec, pipe=_thread_pipe(box, s, n_stages),
+                group=DataGroup(), own=lambda k: True, pp_wait=[])
+            state = types.SimpleNamespace(model=m, placement=pl)
+            out[s] = steps.pipeline_forward_backward(state, batch, draws,
+                                                     False)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        except BaseException as e:     # noqa: BLE001 (re-raised below)
+            errs.append(e)
+
+    copies = [copy.deepcopy(model) for _ in range(n_stages)]
+    threads = [threading.Thread(target=stage, args=(s, copies[s]))
+               for s in range(n_stages)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not errs, errs
+    loss, grads, *_ = steps.loss_and_grads(model, batch, draws)
+    pairs = {}
+    for k, g in grads.items():
+        home = homes.get(k)
+        staged = (sum(out[s][1][k] for s in range(n_stages)) if home is None
+                  else out[home][1][k])
+        pairs[k] = (staged, g)
+    return float(out[-1][0].detach()), float(loss.detach()), pairs
+
+
+def test_staged_step_on_two_threads_matches_world_1(card):
+    """A 2-layer fp32 step at pp=2, M = 4 (flash and the fused FFN at each
+    microbatch's origin, dropout 0.1, mixup), its two stages as threads
+    on the card: the loss 1e-6 and every gradient (a shared leaf's summed
+    over the stages) 1e-5 of its max against the unstaged step's."""
+    staged, plain, pairs = staged_step_on_threads(torch.device("cuda"))
+    assert abs(staged - plain) <= 1e-6
+    for k, (a, b) in pairs.items():
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-5 * max(scale, 1e-12), k

@@ -609,7 +609,7 @@ def test_host_value_collectives_keep_int64_and_fp64(runs):
 @pytest.mark.parametrize("flags,name", [
     (["--mesh", "dp=1,tp=2", "--task", "lm"], "--mesh tp=2"),
     (["--mesh", "seq=2", "--remat"], "--mesh sp=2"),
-    (["--mesh", "pp=2"], "--mesh pp=2"),
+    (["--mesh", "pp=2", "--remat"], "--mesh pp=2"),
     (["--fsdp", "--optimizer", "ngd"], "--ngd with --fsdp"),
     (["--zero1", "--ngd", "--model", "resnet18", "--dataset", "synthetic"],
      "--ngd with --zero1"),

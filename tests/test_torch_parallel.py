@@ -1,8 +1,8 @@
 """The port's data-mesh layer in one process, against the JAX package.
 
   * The axis alias table and the ``--mesh`` parse against JAX's
-    ``canonical_axis`` / ``parse_mesh`` / ``MeshSpec``; sp and pp above
-    1 raise by name, tp is laid out innermost.
+    ``canonical_axis`` / ``parse_mesh`` / ``MeshSpec``; a tp, sp or pp
+    mesh needs its processes, tp is laid out innermost.
   * The fsdp shard dim of every parameter of the record (6 layers,
     d_model 512, vocab 30522) and of resnet50 against JAX
     ``fsdp_partition_params`` on the same shapes, at 2, 4 and 8 shards;
@@ -68,13 +68,12 @@ def test_axis_aliases_and_mesh_parse_match_jax():
         parse_mesh("dp=2,data=2")
     assert MeshSpec(("dp", "tp"), (4, 2)).size == jmesh.MeshSpec(
         ("dp", "tp"), (4, 2)).size == 8
-    for spec, name in (("pipe=4", "--mesh pp=4"),):
-        axes, shape = parse_mesh(spec)
-        with pytest.raises(NotImplementedError, match=name):
-            make_mesh(axes, shape, "cpu")
-    # tp and sp are ported: a tp=2 or sp=2 mesh needs its two processes
-    # (and one process has none), and tp, then sp, is laid out innermost
-    # whatever order --mesh names them in
+    # tp, sp and pp are ported: a tp=2, sp=2 or pp=4 mesh needs its
+    # processes (and one process has none), and tp, then sp, is laid out
+    # innermost whatever order --mesh names them in
+    axes, shape = parse_mesh("pipe=4")
+    with pytest.raises(ValueError, match="needs 4 processes"):
+        make_mesh(axes, shape, "cpu")
     for spec in ("dp=1,tp=2", "seq=2"):
         axes, shape = parse_mesh(spec)
         with pytest.raises(ValueError, match="needs 2 processes"):

@@ -1,8 +1,9 @@
 """The rank side of ``tests/test_torch_distributed.py``,
-``tests/test_torch_tp_distributed*.py`` and
-``tests/test_torch_sp_distributed.py``: the port's training steps under
-a data mesh, a (dp, tp) or a (dp, sp) mesh, run in spawned processes
-joined by gloo.
+``tests/test_torch_tp_distributed*.py``,
+``tests/test_torch_sp_distributed.py`` and
+``tests/test_torch_pp_distributed.py``: the port's training steps under
+a data mesh, a (dp, tp), a (dp, sp) or a (dp, pp) mesh, run in spawned
+processes joined by gloo.
 
 Imports the port and torch only (never JAX, never the test module), so a
 spawned rank starts quickly.  ``launch`` starts ``world`` processes that
@@ -153,7 +154,8 @@ def build_state(cfg_kw: dict, init: dict, extra=None, vocab: int = 100,
     dict ``init`` (numpy), placed on the running group's mesh: ``cfg_kw``
     may name its ``mesh_shape`` (a (dp, tp) mesh: the model holds this
     rank's tp shards of ``init``; a (dp, sp) mesh: it runs this rank's
-    positions)."""
+    positions; a (dp, pp) mesh: the whole model built, then the other
+    stages' leaves dropped)."""
     from faster_distributed_training_tpu_torch import cli
     from faster_distributed_training_tpu_torch.config import TrainConfig
     from faster_distributed_training_tpu_torch.interop import tp_state_dict
@@ -259,6 +261,25 @@ def restore(cfg_kw: dict, init: dict, ckpt_dir: str, name: str,
     return {"leaves": whole_leaves(state)}
 
 
+def eval_metrics(cfg_kw: dict, init: dict, batches: list, vocab: int = 100,
+                 mesh_axes=("dp",), over=None) -> list:
+    """The eval step's metrics (summed over the group) on this rank's rows
+    of each of ``batches``, from a fresh state of this group's mesh."""
+    from faster_distributed_training_tpu_torch.parallel import (
+        DataGroup, make_put_batch)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_eval_step)
+
+    cfg, state = build_state({**cfg_kw, **(over or {})}, init, None, vocab,
+                             mesh_axes=mesh_axes)
+    group = (state.placement.group if state.placement is not None
+             else DataGroup())
+    put = make_put_batch(group, "cpu")
+    step = make_eval_step(cfg)
+    return [{k: float(v) for k, v in step(state, put(b)).items()}
+            for b in batches]
+
+
 def cli_runs(ckpt_root: str) -> dict:
     """``cli.main`` and the two entry twins under the mesh flags, one
     epoch each at a tiny size: name -> (steps, steps an epoch, train
@@ -349,6 +370,76 @@ def cli_sp_run(ckpt_root: str, argv=()) -> dict:
             "test_loss": float(res["history"]["test_loss"][0])}
 
 
+def fp16_planted_inf(cfg_kw: dict, init: dict, batches: list, draws: list,
+                     stage: int, at_step: int, mesh_axes=("pp",)) -> dict:
+    """``--precision fp16`` steps on a pp mesh with one layer gradient of
+    stage ``stage`` made inf at step ``at_step`` (after the reduce, so
+    only that stage sees it): per step this rank's loss scale and the
+    digest of the whole state but the loss scale, the initial state's
+    digest first."""
+    from faster_distributed_training_tpu_torch.parallel import make_put_batch
+    from faster_distributed_training_tpu_torch.train.steps import (
+        StepDraws, make_train_step)
+
+    cfg, state = build_state({**cfg_kw, "precision": "fp16"}, init,
+                             mesh_axes=mesh_axes)
+    pl = state.placement
+    reduce, seen = pl.reduce_grads, [0]
+
+    def plant(grads):
+        out = reduce(grads)
+        if seen[0] == at_step and pl.pipe.stage == stage:
+            name = sorted(k for k in out if pl.homes.get(k) == stage)[0]
+            out[name] = torch.full_like(out[name], float("inf"))
+        seen[0] += 1
+        return out
+    pl.reduce_grads = plant
+    put = make_put_batch(pl.group, "cpu")
+    step = make_train_step(cfg)
+
+    def trained():
+        return digest({k: v for k, v in whole_leaves(state).items()
+                       if not k.startswith("loss_scale/")})
+    scales, digests = [], [trained()]
+    for batch, d in zip(batches, draws):
+        state, m = step(state, put(batch), StepDraws(**d))
+        scales.append(float(m["loss_scale"]))
+        digests.append(trained())
+    return {"scales": scales, "digests": digests}
+
+
+def cli_pp_run(ckpt_root: str, argv=()) -> dict:
+    """``cli.main`` of the transformer entry at ``--mesh pp=2`` (4
+    microbatches), one epoch at a tiny width: (steps, steps an epoch,
+    train loss, test loss, the rule table ``--debug`` logs)."""
+    import contextlib
+    import io
+    import json
+
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.transformer_test import (
+        DEFAULTS as TRANSFORMER)
+
+    base = ["--dataset", "synthetic", "--epoch", "1", "--device", "cpu",
+            "--n_layers", "2", "--d_model", "32", "--n_heads", "4",
+            "--d_ff", "64", "--seq_len", "16", "--subset_stride", "128",
+            "--bs", "8", "--precision", "fp32", "--log_every", "0",
+            "--no_telemetry", "--no_plot", "--distributed", "--debug",
+            "--mesh", "pp=2", "--pp_microbatches", "4", "--checkpoint_dir",
+            ckpt_root, *argv]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = cli.main(base, defaults=TRANSFORMER)
+    rules = [json.loads(line.split("[pipeline] rules ", 1)[1])
+             for line in out.getvalue().splitlines()
+             if line.startswith("[pipeline] rules ")]
+    return {"step": int(res["state"].step),
+            "steps_per_epoch": int(res["steps_per_epoch"]),
+            "train_loss": float(res["history"]["train_loss"][0]),
+            "test_loss": float(res["history"]["test_loss"][0]),
+            "rules": rules}
+
+
 def _first_scalar(tx) -> float:
     """The optimizer's first step's learning-rate scalar."""
     return float(next(iter(tx.host_scalars(0).values())))
@@ -399,4 +490,6 @@ def many(cases: dict) -> dict:
 
 CASES = {"run_steps": run_steps, "restore": restore, "cli_runs": cli_runs,
          "cli_tp_run": cli_tp_run, "cli_sp_run": cli_sp_run,
+         "cli_pp_run": cli_pp_run, "eval_metrics": eval_metrics,
+         "fp16_planted_inf": fp16_planted_inf,
          "collectives": collectives, "clock_skew": clock_skew, "many": many}
