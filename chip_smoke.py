@@ -12,6 +12,7 @@ width.
     python3 chip_smoke.py --tp
     python3 chip_smoke.py --sp
     python3 chip_smoke.py --pp
+    python3 chip_smoke.py --decode
 
 The second form prints only the device split of one record-width
 training step of the slice-2 path and paths B and C, and whether two
@@ -21,7 +22,8 @@ checkout): run it on a parent and a change in one call to compare them.
 The third runs phase R (the ResNet slice, no kernel build) alone; the
 fourth builds the kernels and runs phases K (without path E) and M; the
 fifth builds them and runs phase P alone, the sixth phase T alone, the
-seventh phase S alone, the eighth phase PP alone.
+seventh phase S alone, the eighth phase PP alone, the ninth phase D
+alone (no build: the decode path has no hand kernel).
 Needs one CUDA card and the repo checkout beside this file; without
 either it exits non-zero and prints no result.  Phases, in order (any
 failure raises and exits non-zero):
@@ -286,6 +288,34 @@ failure raises and exits non-zero):
                residency beside world 1's (printed, not a claim); (c)
                path B: launches, amax histories against world 1 (1e-3
                relative); (d) path E: peak a rank beside world 1's;
+  D. decode  — decode serving of the LM (slice 14), which launches no
+               hand kernel (the counts, set to 0 before each serving run,
+               must stay 0), at the record's widths (6 layers, d_model
+               512, 8 heads, d_ff 1024, vocab 30522, tied head, seq 512,
+               buckets 64-512, page 16: 32 page counts, 4 slots), seeded
+               weights exported as the JAX tree's ``.npz`` and read by
+               ``load_serving_state``: (a) fp32, the card's engine
+               against the CPU's: prefill logits 1e-4 of max |CPU|, the
+               greedy tokens of 4 prompts x 16 equal; (b) bf16, every
+               page count's graph replay against the eager
+               ``decode_step`` from the same cache and operands, next
+               tokens and cache bitwise, one capture a page count, all in
+               warmup; (c) with one window (page 512) a mid-stream
+               admission leaves a running stream's tokens bitwise
+               unchanged, and topk gives each request the same tokens
+               over two admission orders (the default page's mid-stream
+               comparison printed); (d) ``run_decode_serving`` at the
+               defaults (16 requests x 32 tokens) and at 32 slots (64
+               requests): TTFT and latency p50 / p99, tokens/s, the KV
+               cache's bytes, peak memory, the page counts used, and a
+               step at 1, 8 and 32 pages as a replay and eager (host
+               wall, device ms, device launches, host launch calls), a
+               prefill at buckets 64 and 512 (host wall, device ms);
+               (e) the front door, two worker processes on the card
+               (fp32), one SIGKILLed with 8 generations in flight: every
+               stream finishes at 16 tokens equal to the in-process
+               run's, the killed worker respawns, is re-admitted and
+               serves again;
   7. output  — p50/p99/qps, the phase-R summary, the kernels JSON line
                (launches from the
                training run, the recompute route's from phase M's
@@ -4981,6 +5011,466 @@ def mesh_main() -> int:
     return 0
 
 
+# -- phase D: decode serving (slice 14) ---------------------------------------
+
+# prompt lengths of D(a): buckets 64, 64, 128, 256
+DECODE_PROMPTS = (7, 40, 100, 250)
+
+
+def decode_cfg(cli, ckpt: str, *flags):
+    """The record-width LM served from ``ckpt`` on the card: 6 layers,
+    d_model 512, 8 heads, d_ff 1024, tied head, seq 512, buckets 64-512,
+    page 16, 4 slots, bf16, greedy (the defaults), and ``flags``."""
+    d = cli.TRANSFORMER_DEFAULTS
+    return cli.config_from_args(cli.build_parser(defaults=d).parse_args(
+        ["--task", "lm", "--device", "cuda", "--checkpoint_dir", ckpt,
+         "--no_telemetry", "--no_plot", *flags]), defaults=d)
+
+
+def decode_drive(eng, prompts, n_new: int, at=None, ids=None) -> list:
+    """The scheduler's slot protocol under a fixed plan: prompt i is
+    admitted at step ``at[i]`` (0) with request id ``ids[i]`` (i) and
+    generates ``n_new`` tokens (fewer where the position table ends).
+    Returns the token lists in prompt order."""
+    from faster_distributed_training_tpu_torch.data.loader import (
+        select_bucket)
+
+    at = at or [0] * len(prompts)
+    ids = ids or list(range(len(prompts)))
+    outs = [None] * len(prompts)
+    slot_of, pending, steps = {}, sorted(range(len(prompts)),
+                                         key=lambda i: at[i]), 0
+    while pending or slot_of:
+        while (pending and at[pending[0]] <= steps
+               and eng.cache.free_slot() is not None):
+            i = pending.pop(0)
+            slot, first = eng.admit(prompts[i], select_bucket(
+                len(prompts[i]), eng.buckets), ids[i])
+            outs[i] = [first]
+            if n_new > 1 and eng.cache.headroom(slot) > 0:
+                slot_of[slot] = i
+            else:
+                eng.cache.evict(slot)
+        steps += 1
+        if not slot_of:
+            continue
+        tokens, _pages = eng.step()
+        for slot, i in list(slot_of.items()):
+            outs[i].append(int(tokens[slot]))
+            if len(outs[i]) >= n_new or eng.cache.headroom(slot) <= 0:
+                eng.cache.evict(slot)
+                del slot_of[slot]
+    return outs
+
+
+def decode_step_times(eng, pages: int, n: int = 50) -> dict:
+    """One decode step of ``eng`` with every slot active and the window at
+    ``pages`` pages: the graph replay (``eng.step``) and the eager
+    ``decode_step`` on the same operands, each as host wall ms a step
+    (median of ``n``, synchronized), device ms and device launches a step
+    (torch.profiler over ``n``) and host launch calls a step (the CUDA
+    runtime's kernel and graph launches)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from faster_distributed_training_tpu_torch.models.decode import (
+        decode_step)
+
+    cache = eng.cache
+    B = eng.batch_size
+    length = pages * eng.page - 1
+    cache.active[:] = True
+    cache.tokens[:] = np.arange(1, B + 1)
+    cache.req_ids[:] = np.arange(B)
+
+    def replay():
+        cache.lengths[:] = length
+        eng.step()
+
+    ops = torch.tensor(np.stack([cache.tokens, np.full(B, length),
+                                 cache.req_ids]), dtype=torch.int64,
+                       device="cuda")
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+
+    def eager():
+        with torch.no_grad():
+            decode_step(eng.model, eng.spec, eng.sampling, pages * eng.page,
+                        cache.k, cache.v, ops[0], ops[1], active, ops[2])
+        torch.cuda.synchronize()
+
+    got = {}
+    for tag, fn in (("replay", replay), ("eager", eager)):
+        for _ in range(3):
+            fn()
+        walls = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        kern = device_kernels(fn, n)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got[tag] = {
+            "wall_ms": statistics.median(walls),
+            "device_ms": sum(us for us, _ in kern.values()) / n / 1e3,
+            "launches": launches_per_call(kern, n),
+            "launch_calls": sum(e.count for e in prof.key_averages()
+                                if e.key in LAUNCH_API)}
+    cache.active[:] = False
+    cache.lengths[:] = 0
+    return got
+
+
+def decode_prefill_times(eng, bucket: int, n: int = 20) -> dict:
+    """One admission's prefill at ``bucket`` (batch 1, eager): host wall
+    ms (median of ``n``, synchronized), device ms and device launches
+    (torch.profiler over ``n``)."""
+    import numpy as np
+    import torch
+
+    tokens = np.arange(1, bucket + 1, dtype=np.int64)[None] % 30000 + 1
+
+    def run():
+        with torch.no_grad():
+            eng._prefill(tokens, bucket, 0)
+        torch.cuda.synchronize()
+
+    for _ in range(3):
+        run()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    kern = device_kernels(run, n)
+    return {"wall_ms": statistics.median(walls),
+            "device_ms": sum(us for us, _ in kern.values()) / n / 1e3,
+            "launches": launches_per_call(kern, n)}
+
+
+def decode_phase(cli, build_dir: str) -> dict:
+    """Phase D: (a) card vs CPU in fp32, (b) each page count's graph
+    against the eager step, (c) admission invariance, (d) the serving
+    runs and the step's times, (e) the front door across a killed
+    worker."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from faster_distributed_training_tpu_torch.interop import (
+        flatten, params_to_jax)
+    from faster_distributed_training_tpu_torch.models.decode import (
+        SamplingCfg, decode_step)
+    from faster_distributed_training_tpu_torch.serve import (
+        load_serving_state)
+    from faster_distributed_training_tpu_torch.serve.decode import (
+        DecodeEngine, FrontDoor)
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="smoke_decode_", dir=build_dir)
+    out = {}
+    silent = lambda s: None                                 # noqa: E731
+    try:
+        cfg = decode_cfg(cli, tmp)
+        m = cli.build_model(cfg, vocab_size=30522, device="cpu")
+        m.init_weights(torch.Generator().manual_seed(cfg.seed))
+        # the real load path: the JAX parameter tree as an .npz
+        np.savez(os.path.join(tmp, "transformer_params.npz"),
+                 **flatten(params_to_jax(m.state_dict(), cfg.n_heads)))
+        del m
+        rng = np.random.default_rng(cfg.seed)
+        prompts = [rng.integers(1, 30522, size=n).astype(np.int32)
+                   for n in DECODE_PROMPTS]
+
+        # -- (a) card vs CPU, fp32 ------------------------------------------
+        cfg32 = cfg.replace(precision="fp32")
+        tok, probe = {}, {}
+        for dev in ("cpu", "cuda"):
+            model, _, _ = load_serving_state(cfg32, torch.device(dev),
+                                             log=silent)
+            eng = DecodeEngine(model, cfg.seq_buckets, batch_size=4,
+                               page=16)
+            eng.warmup()
+            probe[dev] = eng.prefill_logits(prompts[3], 256)
+            tok[dev] = decode_drive(eng, prompts, 16)
+            del eng, model
+        err_a = float(np.abs(probe["cuda"] - probe["cpu"]).max())
+        lim_a = 1e-4 * float(np.abs(probe["cpu"]).max())
+        print(f"[decode D(a)] fp32 card vs CPU: prefill logits (256-token "
+              f"prompt) max err {err_a:.3g} (tol {lim_a:.3g} = 1e-4 of max "
+              f"|CPU|); greedy tokens of {len(prompts)} prompts x 16 equal: "
+              f"{tok['cuda'] == tok['cpu']}", flush=True)
+        check(err_a <= lim_a, f"D(a) prefill logits err {err_a}")
+        check(tok["cuda"] == tok["cpu"],
+              f"D(a) greedy tokens differ: {tok['cuda']} vs {tok['cpu']}")
+        out["a_err"], out["a_tol"] = err_a, lim_a
+
+        # -- (b) every page count's graph vs the eager step, bf16 -----------
+        model, _, _ = load_serving_state(cfg, torch.device("cuda"),
+                                         log=silent)
+        eng = DecodeEngine(model, cfg.seq_buckets, batch_size=4, page=16)
+        t0 = time.monotonic()
+        eng.warmup()
+        out["warmup_s"] = time.monotonic() - t0
+        check(eng.captures == eng.max_pages == len(eng.graphs),
+              f"D(b) {eng.captures} captures for {eng.max_pages} pages")
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        B = eng.batch_size
+        for pages in range(1, eng.max_pages + 1):
+            cap = pages * eng.page
+            k0 = torch.randn(eng.cache.k.shape, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+            v0 = torch.randn(eng.cache.k.shape, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+            pos = torch.randint(max(cap - eng.page, 0), min(cap, 511),
+                                (B,), generator=gen, device="cuda")
+            ops = torch.stack([
+                torch.randint(1, 30522, (B,), generator=gen, device="cuda"),
+                pos, torch.tensor([1, 1, 0, 1], device="cuda"),
+                torch.randint(0, 1000, (B,), generator=gen, device="cuda")])
+            eng.cache.k.copy_(k0)
+            eng.cache.v.copy_(v0)
+            with torch.no_grad():
+                want = decode_step(model, eng.spec, eng.sampling, cap,
+                                   eng.cache.k, eng.cache.v, ops[0], ops[1],
+                                   ops[2].bool(), ops[3])
+            ke, ve = eng.cache.k.clone(), eng.cache.v.clone()
+            eng.cache.k.copy_(k0)
+            eng.cache.v.copy_(v0)
+            eng._ops.copy_(ops)
+            eng.graphs[pages].replay()
+            torch.cuda.synchronize()
+            check(torch.equal(eng._next, want),
+                  f"D(b) {pages} pages: replay tokens differ from eager")
+            check(torch.equal(eng.cache.k, ke) and torch.equal(eng.cache.v,
+                                                               ve),
+                  f"D(b) {pages} pages: replay cache differs from eager")
+            check(not torch.equal(ke, k0), f"D(b) {pages}: nothing written")
+        del k0, v0, ke, ve
+        out["b_pages"] = eng.max_pages
+        print(f"[decode D(b)] {eng.max_pages} graphs captured in warmup "
+              f"({out['warmup_s']:.2f}s with 4 prefill buckets); each "
+              f"replay bitwise the eager decode_step (next tokens and the "
+              f"cache) at every page count 1..{eng.max_pages}", flush=True)
+
+        # -- (c) admission invariance ----------------------------------------
+        # one page covering the position table: every step one window
+        fixed = DecodeEngine(model, cfg.seq_buckets, batch_size=4,
+                             page=512, max_pages=1)
+        fixed.warmup()
+        a, b = prompts[1], prompts[2]
+        solo_a = decode_drive(fixed, [a], 24)[0]
+        solo_b = decode_drive(fixed, [b], 24, ids=[1])[0]
+        mixed = decode_drive(fixed, [a, b], 24, at=[0, 3])
+        check(mixed == [solo_a, solo_b],
+              "D(c) a mid-stream admission changed a running stream")
+        samp = SamplingCfg(method="topk", temperature=1.0, top_k=40,
+                           seed=cfg.seed)
+        topk = DecodeEngine(model, cfg.seq_buckets, batch_size=4, page=512,
+                            max_pages=1, sampling=samp)
+        topk.warmup()
+        three = [prompts[0], prompts[1], prompts[2]]
+        one = decode_drive(topk, three, 16, ids=[10, 11, 12])
+        two = decode_drive(topk, three[::-1], 16, at=[0, 2, 5],
+                           ids=[12, 11, 10])[::-1]
+        check(one == two, "D(c) topk tokens depend on the admission order")
+        greedy = decode_drive(fixed, three, 16)
+        off = sum(x != y for p, q in zip(one, greedy) for x, y in zip(p, q))
+        # the default engine (the window follows the longest slot): the
+        # same comparison, printed
+        dflt = (decode_drive(eng, [a, b], 24, at=[0, 3])
+                == [decode_drive(eng, [a], 24)[0],
+                    decode_drive(eng, [b], 24, ids=[1])[0]])
+        print(f"[decode D(c)] one window (page 512): a mid-stream admission "
+              f"leaves the running stream's tokens bitwise unchanged; topk "
+              f"(T 1, k 40) equal per request over two admission orders, "
+              f"{off} of 48 tokens off greedy; with the default page (16) the "
+              f"mid-stream run's tokens equal the solo runs': {dflt}",
+              flush=True)
+        out["c_default_equal"] = dflt
+        del fixed, topk
+
+        # -- (d) the serving runs and the step's times ---------------------
+        from faster_distributed_training_tpu_torch.models.decode import (
+            decode_spec)
+
+        runs = {}
+        for tag, flags in (("default", []),
+                           ("32 slots", ["--decode_batch_size", "32",
+                                         "--decode_requests", "64"])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.monotonic()
+            res = cli.run_decode_serving(decode_cfg(cli, tmp, *flags),
+                                         log=silent)
+            wall = time.monotonic() - t0
+            counts = read_counts()
+            check(all(v == 0 for v in counts.values()),
+                  f"D(d) decode launched a hand kernel: {counts}")
+            e = res["engines"][0]
+            n_req = 64 if flags else 16
+            # 32 tokens, fewer where the prompt meets the position table
+            due = [min(32, 1 + 512 - min(len(p), 512))
+                   for p in cli.synth_requests(n_req, 30522, cfg.seq_buckets,
+                                               seed=cfg.seed)]
+            check(res["requests"] == n_req
+                  and [len(r) for r in res["results"]] == due,
+                  f"D(d) {tag}: {res['requests']} requests, lengths "
+                  f"{[len(r) for r in res['results']]}, due {due}")
+            check(all(bool(((r >= 0) & (r < 30522)).all())
+                      for r in res["results"]), "D(d) token out of range")
+            check(e.captures == e.max_pages,
+                  f"D(d) {tag}: {e.captures} captures after the run")
+            runs[tag] = dict(
+                {k: res[k] for k in ("requests", "tokens", "steps",
+                                     "prefills", "ttft_p50_ms",
+                                     "ttft_p99_ms", "latency_p50_ms",
+                                     "latency_p99_ms", "tokens_per_sec")},
+                wall_s=wall, kv_bytes=e.cache.nbytes,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                pages=dict(sorted(e.page_counts.items())))
+            print(f"[decode D(d)] {tag}: {res['requests']} requests, "
+                  f"{res['tokens']} tokens, {e.batch_size} slots, "
+                  f"{res['steps']} steps: "
+                  f"TTFT p50 {res['ttft_p50_ms']} ms / p99 "
+                  f"{res['ttft_p99_ms']} ms, latency p50 "
+                  f"{res['latency_p50_ms']} ms / p99 "
+                  f"{res['latency_p99_ms']} ms, {res['tokens_per_sec']} "
+                  f"tokens/s; KV cache {e.cache.nbytes} B, peak "
+                  f"{runs[tag]['peak_bytes'] / 2**20:.1f} MiB; page counts "
+                  f"used {runs[tag]['pages']}; hand-kernel launches "
+                  f"{counts} (none on this path)", flush=True)
+            if not flags:
+                steps = {}
+                for pages in (1, 8, e.max_pages):
+                    t = decode_step_times(e, pages)
+                    steps[pages] = t
+                    r, g = t["replay"], t["eager"]
+                    print(f"[decode D(d)] step at {pages} page(s), 4 "
+                          f"slots: replay host wall {r['wall_ms']:.3f} ms, "
+                          f"device {r['device_ms']:.3f} ms, "
+                          f"{r['launches']:.0f} device launches, "
+                          f"{r['launch_calls']} host launch calls; eager "
+                          f"host wall {g['wall_ms']:.3f} ms, device "
+                          f"{g['device_ms']:.3f} ms, {g['launches']:.0f} "
+                          f"device launches, {g['launch_calls']} host "
+                          f"launch calls", flush=True)
+                runs[tag]["steps"] = steps
+                pre = {b: decode_prefill_times(e, b) for b in (64, 512)}
+                runs[tag]["prefill"] = pre
+                print("[decode D(d)] prefill (batch 1, eager): " + "; ".join(
+                    f"bucket {b}: host wall {t['wall_ms']:.3f} ms, device "
+                    f"{t['device_ms']:.3f} ms, {t['launches']:.0f} device "
+                    f"launches" for b, t in pre.items()), flush=True)
+            del res, e
+        out["d"] = runs
+        spec = decode_spec(model)
+        # a step's bound at 4 slots and the whole window: the layer
+        # weights (bf16) and the tied head's fp32 table read once, the
+        # cache's window read, the next tokens written
+        layer_w = spec.n_layers * 2 * (spec.d_model * 3 * spec.d_model
+                                       + spec.d_model ** 2
+                                       + 2 * spec.d_model * spec.d_ff)
+        kv = 2 * spec.n_layers * 4 * spec.d_model * 512 * 2
+        out["bound_ms"], out["bound_by"] = bound(
+            layer_w + 4 * spec.vocab * spec.d_model + kv, 0, "bf16")
+        print(f"[decode D(d)] a step's bound at 4 slots, 32 pages: "
+              f"{out['bound_ms']:.5f} ms ({out['bound_by']}: layer weights "
+              f"{layer_w} B, fp32 token table {4 * spec.vocab * spec.d_model}"
+              f" B, KV window {kv} B)", flush=True)
+        del eng, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (e) the front door, one worker killed -------------------------
+        cfg_e = decode_cfg(cli, tmp, "--precision", "fp32",
+                           "--decode_max_new_tokens", "16")
+        fd_prompts = [rng.integers(1, 30522, size=n).astype(np.int32)
+                      for n in (5, 30, 64, 90, 12, 200, 48, 9)]
+        want = [r.tolist() for r in cli.run_decode_serving(
+            cfg_e, prompts=fd_prompts, log=silent)["results"]]
+        fd = FrontDoor(cfg_e, n_workers=2, run_dir=os.path.join(tmp, "fd"),
+                       heartbeat_timeout_s=60.0, marker_timeout_s=5.0,
+                       readmit_after_s=0.5, log=silent)
+        try:
+            t0 = time.monotonic()
+            fd.start()
+            up_s = time.monotonic() - t0
+            handles = [fd.submit(t, max_new=16) for t in fd_prompts]
+            victim = fd.replicas[0]
+            victim.kill()
+            got = [h.wait(timeout=180.0).tolist() for h in handles]
+            check(all(len(g) == 16 for g in got),
+                  f"D(e) truncated streams: {[len(g) for g in got]}")
+            check(got == want, "D(e) front door tokens differ from the "
+                  "in-process run's")
+            t1 = time.monotonic()
+            while victim.respawns < 1 or not victim.alive:
+                check(time.monotonic() - t1 < 120.0,
+                      "D(e) the killed worker was not re-admitted")
+                time.sleep(0.1)
+            back_s = time.monotonic() - t1
+            served = victim.served_requests
+            while victim.served_requests == served:
+                check(time.monotonic() - t1 < 180.0,
+                      "D(e) the respawned worker never served")
+                fd.submit(fd_prompts[0], max_new=4).wait(timeout=60.0)
+            stats = fd.sched.summary()
+        finally:
+            fd.close()
+        check(all(r.proc.poll() is not None for r in fd.replicas),
+              "D(e) a worker outlived the front door")
+        out["e"] = {"up_s": up_s, "respawn_s": back_s,
+                    "retries": stats["decode_request_retries"],
+                    "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"]}
+        print(f"[decode D(e)] front door, 2 worker processes on the card "
+              f"(fp32): up in {up_s:.1f}s; {victim.name} SIGKILLed with "
+              f"{len(handles)} generations in flight, every stream finished "
+              f"at 16 tokens equal to the in-process run's "
+              f"({stats['decode_request_retries']} re-dispatched); respawned "
+              f"and re-admitted in {back_s:.1f}s and served again; latency "
+              f"p50 {stats['p50_ms']} ms / p99 {stats['p99_ms']} ms",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    print(f"[decode] phase D {out['phase_s']:.1f}s", flush=True)
+    return out
+
+
+def decode_main() -> int:
+    """``--decode``: phase D alone (the decode path launches no hand
+    kernel: nothing is built)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from faster_distributed_training_tpu_torch import cli
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)} (torch "
+          f"{torch.__version__}, cuda {torch.version.cuda}); nvidia-smi: "
+          f"{card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "faster_distributed_training_tpu_torch",
+                             "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    dd = decode_phase(cli, build_dir)
+    print(json.dumps(dd, default=str))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -5361,6 +5851,9 @@ def main() -> int:
     # -- phase PP: pipeline parallelism (slice 13) ---------------------------
     ppm = pp_phase(str(_build.BUILD_DIR))
 
+    # -- phase D: decode serving (slice 14) ----------------------------------
+    dd = decode_phase(cli, str(_build.BUILD_DIR))
+
     # -- 7. output -----------------------------------------------------------
     print(f"[mesh] P1 step ms (dp=1 over NCCL / no group): record "
           f"{pm['p1_record_ms']:.2f} / {pm['p1_record_plain_ms']:.2f}, path B "
@@ -5385,6 +5878,15 @@ def main() -> int:
           f"path E sp=2 peak {spm['s2c_peak_bytes']} bytes a rank")
     print(f"[serve] p50 {res['p50_ms']} ms, p99 {res['p99_ms']} ms, "
           f"{res['qps']} qps (64 requests, batch 8, 1 replica)")
+    d_def, d_32 = dd["d"]["default"], dd["d"]["32 slots"]
+    d_st = d_def["steps"][1]
+    print(f"[decode] default run (16 requests, 4 slots): TTFT p50 "
+          f"{d_def['ttft_p50_ms']} ms / p99 {d_def['ttft_p99_ms']} ms, "
+          f"{d_def['tokens_per_sec']} tokens/s; 32 slots (64 requests): TTFT "
+          f"p50 {d_32['ttft_p50_ms']} ms / p99 {d_32['ttft_p99_ms']} ms, "
+          f"{d_32['tokens_per_sec']} tokens/s; a step at 1 page: replay "
+          f"{d_st['replay']['wall_ms']:.3f} ms host wall, eager "
+          f"{d_st['eager']['wall_ms']:.3f} ms; phase D {dd['phase_s']:.1f}s")
     print(f"[train] step time median {tr['step_ms']:.2f} ms; fixed-batch "
           f"loss {tr['loss_first']:.4f} -> {tr['loss_last']:.4f}; eval "
           f"accuracy {tr['test_acc']:.4f}; path B step time median "
@@ -5744,6 +6246,13 @@ if __name__ == "__main__":
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(2)
         sys.exit(sp_main())
+    if sys.argv[1:2] == ["--decode"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(decode_main())
     if sys.argv[1:2] == ["--pp"]:
         import torch
 

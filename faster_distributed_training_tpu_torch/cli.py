@@ -20,13 +20,16 @@ dp=D,tp=T``, every hand kernel on the rank's shard, ZeRO over tp unless
 the rank's positions of every row through the other kernels), and
 pipeline parallelism for Transformer training (slice 13: ``--mesh
 pp=P`` / ``dp=D,pp=P``, one process a stage, ``--pp_schedule``,
-``--pp_microbatches``, ``--no_pp_residency``).
+``--pp_microbatches``, ``--no_pp_residency``), and decode serving for
+the LM with causal LM training (slice 14: ``run_decode_serving`` /
+``main_decode``, the paged KV cache and a CUDA graph a page count;
+``--task lm --lm_causal``).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
 ``resolve_attention``, ``build_model``, ``load_dataset`` (the agnews,
 cifar10, synthetic and stream branches), ``apply_subset``, ``make_loaders``,
-``run_training``, ``main``, ``synth_requests``, ``run_serving`` and
-``main_serve``.  Everything runs
+``run_training``, ``main``, ``synth_requests``, ``run_serving``,
+``main_serve``, ``run_decode_serving`` and ``main_decode``.  Everything runs
 on CUDA unless the caller passes ``--device cpu`` / ``device="cpu"``;
 ``cuda`` without a GPU raises, nothing falls back on its own.
 
@@ -94,7 +97,9 @@ def route_model_axis(cfg: TrainConfig, ax_size: int) -> Optional[str]:
 
 
 def resolve_attention(cfg: TrainConfig, device: torch.device) -> str:
-    """Explicit ``--attention`` wins; on a dedicated sp axis above 1 JAX's
+    """Explicit ``--attention`` wins; ``--task lm --lm_causal`` is dense
+    (the one attention that takes the causal mask); on a dedicated sp
+    axis above 1 JAX's
     sequence-parallel route (``route_model_axis``; JAX's tp-axis tier from
     seq 2048 is a TPU measurement and is not copied: under tp the port
     runs flash on the rank's heads); else flash on CUDA wherever the
@@ -104,6 +109,10 @@ def resolve_attention(cfg: TrainConfig, device: torch.device) -> str:
 
     if cfg.attention:
         return cfg.attention
+    if cfg.task == "lm" and cfg.lm_causal:
+        # the causal LM's [1, 1, L, L] mask: dense is the attention that
+        # takes a whole query-by-key mask (JAX cli.py:418-429)
+        return "dense"
     ax, n = seq_parallel_axis((cfg.mesh_axes, cfg.mesh_shape))
     if ax == "sp":
         impl = route_model_axis(cfg, n)
@@ -127,7 +136,9 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
     JAX package's VMEM go/no-go checks are TPU figures and are not
     copied; a shape the kernel cannot take raises in its wrapper).
     ``--task lm`` builds the next-token LM: the head tied to the token
-    table unless ``--untie_lm_head``.  Features the port has not reached
+    table unless ``--untie_lm_head``, causal under ``--lm_causal`` (with
+    an explicit ``--attention`` other than dense: a ValueError naming
+    both flags).  Features the port has not reached
     raise, among them ``--task lm`` with ``--quant`` or ``--ffn_impl
     pallas``.  ``tp`` (a ``TensorGroup``): the rank's tp shard of the
     model (a vocabulary tp does not divide pads the last shards); ``sp``
@@ -142,9 +153,7 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
         return _build_resnet(cfg)
     if cfg.model != "transformer":
         raise ValueError(f"unknown model {cfg.model!r}")
-    unported = {"--lm_causal": bool(cfg.lm_causal),
-                "serving --task lm (decode)": serving and cfg.task == "lm",
-                "--task lm with --quant": (cfg.task == "lm" and (
+    unported = {"--task lm with --quant": (cfg.task == "lm" and (
                     cfg.quant or "none") != "none"),
                 "--task lm with --ffn_impl pallas": (
                     cfg.task == "lm" and cfg.ffn_impl == "pallas"),
@@ -157,6 +166,17 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
     dtype = compute_dtype(cfg.precision)
     device = torch.device(device if device is not None else cfg.device)
+    attention = resolve_attention(cfg, device)
+    # JAX's causal needs task lm (cli.py:475-476): on cls the flag is inert
+    causal = cfg.task == "lm" and bool(cfg.lm_causal)
+    if causal and attention != "dense":
+        # JAX reroutes this to dense with a warning; a run that asks for a
+        # kernel does not silently run without it
+        raise ValueError(
+            f"--lm_causal needs the whole [1, 1, L, L] causal mask, which "
+            f"only --attention dense takes; --attention {attention} takes "
+            f"key-padding masks (flash) or shards the sequence (ring, "
+            f"ulysses): drop --attention {attention} or --lm_causal")
     quant = resolve_quant_policy(cfg)
     if quant is not None:
         warn_if_killed(quant.fmt)
@@ -184,13 +204,14 @@ def build_model(cfg: TrainConfig, vocab_size: Optional[int] = None,
                      n_layers=cfg.n_layers, d_model=cfg.d_model,
                      d_ff=cfg.d_ff, h=cfg.n_heads, dtype=dtype,
                      param_dtype=dtype if serving else torch.float32,
-                     attention_impl=resolve_attention(cfg, device),
+                     attention_impl=attention,
                      ffn_impl=cfg.ffn_impl, quant=quant,
                      mlp_impl=mlp_impl,
                      lm_head=cfg.task == "lm",
                      tie_lm_head=cfg.task == "lm" and cfg.tie_lm_head,
                      remat=bool(cfg.remat) and not serving,
-                     remat_policy=cfg.remat_policy, tp=tp, sp=sp, **rates)
+                     remat_policy=cfg.remat_policy, causal=causal, tp=tp,
+                     sp=sp, **rates)
 
 
 def _build_resnet(cfg: TrainConfig):
@@ -217,11 +238,11 @@ def _build_resnet(cfg: TrainConfig):
 
 def tp_unported(cfg: TrainConfig) -> list:
     """What ``--mesh tp=N`` (N > 1) does not reach, by flag or shape:
-    --task lm (a vocab-parallel tied head and loss), a ResNet, a dispatch
-    or the resident split (the tp collectives in a captured graph),
-    --ngd, --remat, fsdp / zero1 / the host tiers beside tp, and heads,
-    d_ff or d_model tp does not divide (JAX routes those to warned
-    fallbacks; the port has none)."""
+    --task lm (a vocab-parallel tied head and loss) and --lm_causal, a
+    ResNet, a dispatch or the resident split (the tp collectives in a
+    captured graph), --ngd, --remat, fsdp / zero1 / the host tiers
+    beside tp, and heads, d_ff or d_model tp does not divide (JAX
+    routes those to warned fallbacks; the port has none)."""
     from faster_distributed_training_tpu_torch.parallel.mesh import (
         canonical_axes)
 
@@ -234,6 +255,7 @@ def tp_unported(cfg: TrainConfig) -> list:
     checks = {
         f"--task lm {on} (vocab-parallel tied head and loss)":
             cfg.task == "lm",
+        f"--lm_causal {on}": cfg.task == "lm" and bool(cfg.lm_causal),
         f"--model {cfg.model} {on}": cfg.model != "transformer",
         f"--steps_per_dispatch {k} {on}": k > 1,
         f"--data_path {cfg.data_path} {on}": cfg.data_path != "host",
@@ -254,8 +276,9 @@ def tp_unported(cfg: TrainConfig) -> list:
 
 def sp_unported(cfg: TrainConfig) -> list:
     """What sequence parallelism (``--mesh sp=S``, S > 1) does not reach,
-    by flag or shape: sp with tp, with fsdp / zero1 / the host tiers,
-    under a dispatch or the resident split, ``--remat``, a ResNet or
+    by flag or shape: sp with tp, --lm_causal, with fsdp / zero1 / the
+    host tiers, under a dispatch or the resident split, ``--remat``, a
+    ResNet or
     ``--ngd``, ``--attention dense|flash`` on an sp mesh (JAX gathers
     q / k / v there), a ``seq_len`` sp does not divide (JAX falls back to
     replicated attention), Ulysses on heads sp does not divide; and ring
@@ -275,6 +298,7 @@ def sp_unported(cfg: TrainConfig) -> list:
     k = max(int(cfg.steps_per_dispatch or 1), 1)
     checks = {
         f"--mesh tp={tp} {on}": tp > 1,
+        f"--lm_causal {on}": cfg.task == "lm" and bool(cfg.lm_causal),
         **{f"{flag} {on}": bool(v) for flag, v in (
             ("--fsdp", cfg.fsdp), ("--zero1", cfg.zero1),
             ("--host_offload", cfg.host_offload),
@@ -297,9 +321,9 @@ def sp_unported(cfg: TrainConfig) -> list:
 def pp_unported(cfg: TrainConfig) -> list:
     """What pipeline parallelism (``--mesh pp=P``, P > 1) does not reach,
     by flag: pp with tp or sp, with fsdp / zero1 / the host tiers, under
-    a dispatch or the resident split, and ``--remat``.  Serving under a
-    mesh raises in ``build_model``; a ResNet raises JAX's ValueError in
-    ``parallel.pipeline.build_pipeline_spec``."""
+    a dispatch or the resident split, ``--remat`` and ``--lm_causal``.
+    Serving under a mesh raises in ``build_model``; a ResNet raises JAX's
+    ValueError in ``parallel.pipeline.build_pipeline_spec``."""
     from faster_distributed_training_tpu_torch.parallel.mesh import (
         canonical_axes)
 
@@ -319,6 +343,7 @@ def pp_unported(cfg: TrainConfig) -> list:
         f"--steps_per_dispatch {k} {on}": k > 1,
         f"--data_path {cfg.data_path} {on}": cfg.data_path != "host",
         f"--remat {on}": bool(cfg.remat),
+        f"--lm_causal {on}": cfg.task == "lm" and bool(cfg.lm_causal),
     }
     return [k for k, v in checks.items() if v]
 
@@ -347,7 +372,6 @@ def unported_training_flags(cfg: TrainConfig) -> list:
                                                               "resident"),
         f"--dataset {cfg.dataset} for {cfg.model}": (
             cfg.dataset not in datasets),
-        "--lm_causal": bool(cfg.lm_causal),
         **{bad: True for bad in tp_unported(cfg)},
         **{bad: True for bad in sp_unported(cfg)},
         **{bad: True for bad in pp_unported(cfg)},
@@ -667,8 +691,9 @@ def run_training(cfg: TrainConfig, params=None, device=None,
                 f"{opt}, mixup {resolve_mixup_mode(cfg)}")
     else:
         what = (f"{cfg.model}"
-                + (" next-token LM (tied head)" if model.tie_lm_head else
-                   " next-token LM (untied head)" if model.lm else "")
+                + (" next-token LM (tied head" if model.tie_lm_head else
+                   " next-token LM (untied head" if model.lm else "")
+            + ((", causal)" if model.causal else ")") if model.lm else "")
                 + f" on {dev.type}: {cfg.n_layers} layers, d_model "
                 f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.precision}, "
                 f"attention {model.layers[0].attn.attention_impl}, ffn "
@@ -896,6 +921,148 @@ def main_serve(argv=None, defaults: Optional[TrainConfig] = None,
     parser = build_parser(prog=prog, defaults=defaults)
     cfg = config_from_args(parser.parse_args(argv), defaults=defaults)
     out = run_serving(cfg)
+    for heavy in ("results", "state", "cfg", "engines"):
+        out.pop(heavy, None)
+    return out
+
+
+def run_decode_serving(cfg: TrainConfig, prompts=None, params=None,
+                       device=None, log: Callable[[str], None] = print
+                       ) -> dict:
+    """Generation from a ``--task lm`` checkpoint (JAX ``cli.py:1488``):
+    load the weights (``params``, a JAX-layout tree, or the ``.npz``
+    under ``cfg.checkpoint_dir``), stand up the decode stack (paged KV
+    cache, prefill, the decode step as a CUDA graph a page count on the
+    card, slot-granular continuous batching), push ``prompts`` (ragged
+    int32 token arrays; ``cfg.decode_requests`` synthetic ones when None)
+    through it with a ``cfg.decode_max_new_tokens`` budget each, and
+    return the generated tokens and the TTFT / latency / throughput
+    summary under the JAX package's keys.  One replica a card (``--
+    decode_replicas`` 0: ``torch.cuda.device_count()``), one on the CPU,
+    all draining one queue.  The multi-process front door
+    (``serve.decode.FrontDoor``) runs this wiring in each worker."""
+    import copy
+
+    from faster_distributed_training_tpu_torch.models.decode import (
+        QUANTIZED, UNFUSED, SamplingCfg)
+    from faster_distributed_training_tpu_torch.parallel.mesh import (
+        canonical_axes)
+    from faster_distributed_training_tpu_torch.serve import (
+        RequestQueue, load_serving_state)
+    from faster_distributed_training_tpu_torch.serve.decode import (
+        DecodeEngine, DecodeScheduler)
+    from faster_distributed_training_tpu_torch.train.metrics import (
+        percentiles)
+
+    sizes = dict(zip(canonical_axes(cfg.mesh_axes), cfg.mesh_shape))
+    model_axes = [f"{ax}={int(sizes[ax])}" for ax in ("tp", "sp", "pp")
+                  if int(sizes.get(ax, 1)) > 1]
+    if model_axes:
+        raise NotImplementedError(
+            f"not ported yet: decode serving under a model axis (--mesh "
+            f"{','.join(model_axes)}: JAX's one model-sharded replica)")
+    if (cfg.quant or "none") != "none":
+        raise ValueError(QUANTIZED)
+    if cfg.tricks == "off":
+        raise ValueError(UNFUSED)
+    dev = resolve_device(device if device is not None else cfg.device)
+    devs = ([torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+            if dev.type == "cuda" else [dev])
+    if dev.index is not None:
+        devs = [dev]
+    model, sstate, meta = load_serving_state(cfg, devs[0], params=params,
+                                             log=log)
+    q = RequestQueue(cfg.seq_buckets, max_len=cfg.seq_len)
+    buckets = q.buckets
+    sampling = SamplingCfg(method=cfg.decode_sample,
+                           temperature=cfg.decode_temperature,
+                           top_k=cfg.decode_top_k, seed=cfg.seed)
+    n_rep = int(cfg.decode_replicas) or len(devs)
+    models = {devs[0]: model}
+    engines = []
+    for i in range(n_rep):
+        d = devs[i % len(devs)]
+        if d not in models:
+            models[d] = copy.deepcopy(model).to(d)
+        engines.append(DecodeEngine(models[d], buckets,
+                                    batch_size=cfg.decode_batch_size,
+                                    page=cfg.decode_page,
+                                    max_pages=cfg.decode_max_pages,
+                                    sampling=sampling, name=f"decode{i}"))
+    chips_serving = min(n_rep, len(devs)) if dev.type == "cuda" else 0
+    warm_s = sum(e.warmup() for e in engines)
+    log(f"[decode] {len(engines)} replica(s) x ({len(buckets)} prefill "
+        f"bucket(s) + {engines[0].max_pages} decode page counts"
+        + (", a CUDA graph each" if dev.type == "cuda" else ", eager")
+        + f") warmed in {warm_s:.1f}s on {dev.type} (buckets "
+        f"{list(buckets)}, page {cfg.decode_page}, "
+        f"{cfg.decode_batch_size} slots, {cfg.decode_sample})")
+    scheds = [DecodeScheduler(q, e, max_delay_ms=cfg.serve_max_delay_ms,
+                              max_new_tokens=cfg.decode_max_new_tokens,
+                              name=e.name) for e in engines]
+    for s in scheds:
+        s.start()
+    try:
+        if prompts is None:
+            prompts = synth_requests(cfg.decode_requests, meta["vocab"],
+                                     buckets, seed=cfg.seed)
+        handles = [q.submit(t, max_new_tokens=cfg.decode_max_new_tokens)
+                   for t in prompts]
+        results = [h.wait(timeout=300.0) for h in handles]
+    finally:
+        q.close()
+        for s in scheds:
+            s.close()
+    # one summary over the union of the schedulers' samples (percentiles
+    # of the whole population, not a mean of per-replica percentiles)
+    ttft, total = [], []
+    n_req = toks = steps = prefills = 0
+    t_first, t_last = None, None
+    for s in scheds:
+        ttft += [t for t in s.ttft_ms if t is not None]
+        total += [t for t in s.total_ms if t is not None]
+        n_req += s.completed_requests
+        toks += s.generated_tokens
+        steps += s.engine.steps
+        prefills += s.engine.prefills
+        if s._t_first is not None:
+            t_first = s._t_first if t_first is None \
+                else min(t_first, s._t_first)
+        if s._t_last is not None:
+            t_last = s._t_last if t_last is None else max(t_last, s._t_last)
+    wall = ((t_last - t_first) if (t_first is not None
+                                    and t_last is not None
+                                    and t_last > t_first) else 0.0)
+    pt = percentiles(ttft, qs=(50, 99))
+    pl = percentiles(total, qs=(50, 99))
+    tps = round(toks / wall, 2) if wall else 0.0
+    out = {"results": results, "meta": meta, "cfg": cfg, "state": sstate,
+           "engines": engines, "requests": n_req, "tokens": toks,
+           "steps": steps, "prefills": prefills,
+           "ttft_p50_ms": pt.get(50, 0.0), "ttft_p99_ms": pt.get(99, 0.0),
+           "latency_p50_ms": pl.get(50, 0.0),
+           "latency_p99_ms": pl.get(99, 0.0), "tokens_per_sec": tps,
+           "chips_serving": chips_serving,
+           "tokens_per_sec_per_chip": round(tps / max(chips_serving, 1), 2),
+           "warmup_s": round(warm_s, 3), "device": dev.type}
+    log(f"[decode] generated {toks} tokens for {n_req} requests in {steps} "
+        f"steps ({prefills} prefills): TTFT p50 {out['ttft_p50_ms']} ms / "
+        f"p99 {out['ttft_p99_ms']} ms, {tps} tok/s "
+        f"({out['tokens_per_sec_per_chip']}/chip)")
+    return out
+
+
+def main_decode(argv=None, defaults: Optional[TrainConfig] = None,
+                prog: str = "fdt-decode") -> dict:
+    """The decode CLI (JAX ``cli.py:1700``): the JAX package's flag
+    surface; reads a ``--task lm`` checkpoint's parameters under
+    ``--checkpoint_dir`` and generates for a synthetic ragged prompt mix.
+    Returns the numbers, not the tensors."""
+    defaults = defaults or TRANSFORMER_DEFAULTS
+    parser = build_parser(prog=prog, defaults=defaults)
+    cfg = config_from_args(parser.parse_args(argv), defaults=defaults)
+    out = run_decode_serving(cfg)
     for heavy in ("results", "state", "cfg", "engines"):
         out.pop(heavy, None)
     return out

@@ -9,7 +9,8 @@ encoder layers (fused-qkv attention, exact-GELU FFN), a final LayerNorm,
 the tanh CLS pooler and the fused-MLP classifier.  With ``lm_head``
 (``--task lm``) the final LayerNorm feeds a next-token head instead of the
 pooler and classifier: tied to the token table by default, or a Dense of
-its own (``--untie_lm_head``), as in the JAX model.
+its own (``--untie_lm_head``), as in the JAX model; ``causal``
+(``--lm_causal``) adds the next-token mask to attention.
 
 Attention routes to ``ops.flash_attention`` (the Hopper kernels on CUDA,
 their plain versions on CPU; training goes through the autograd Function
@@ -636,8 +637,11 @@ class Transformer(nn.Module):
                  quant=None, lm_head: bool = False,
                  tie_lm_head: bool = False, mlp_impl: str = "fused",
                  remat: bool = False, remat_policy: str = "attn_out",
-                 tp=None, sp=None):
+                 causal: bool = False, tp=None, sp=None):
         super().__init__()
+        # --lm_causal: every query attends to the keys at or before its
+        # position (attention_mask)
+        self.causal = causal
         self.tp = _tp(tp)
         self.sp = _sp(sp)
         if remat and remat_policy not in REMAT_POLICIES:
@@ -796,7 +800,7 @@ class Transformer(nn.Module):
                              "StepDraws)")
         seeds = self.seed_stream(draws, x.shape[1]) if train else None
         h = self.embed(x, token_types, train, seeds)
-        h = self.run_layers(h, self.attention_mask(mask), train, seeds)
+        h = self.run_layers(h, self.attention_mask(mask, x), train, seeds)
         return self.head(h, train, draws, seeds)
 
     def seed_stream(self, draws, L: int, pos: int = 0, b0: int = 0
@@ -809,12 +813,22 @@ class Transformer(nn.Module):
         return SeedStream(draws.seeds, pos=pos, b0=draws.b0 + b0, s0=s0,
                           l_glob=l_glob)
 
-    @staticmethod
-    def attention_mask(mask: Optional[torch.Tensor]
+    def attention_mask(self, mask: Optional[torch.Tensor],
+                       x: Optional[torch.Tensor] = None
                        ) -> Optional[torch.Tensor]:
-        """A [B, L] key mask as [B, 1, 1, L]; anything else unchanged."""
+        """A [B, L] key mask as [B, 1, 1, L]; anything else unchanged.
+        With ``causal`` (the JAX model's ``models/transformer.py:851-857``)
+        the [1, 1, L, L] lower triangle, L the length of the tokens ``x``
+        [B, L] (of the key mask without them), alone or times the key
+        mask: the [B, 1, L, L] joint mask."""
         if mask is not None and mask.dim() == 2:
-            return mask[:, None, None, :]
+            mask = mask[:, None, None, :]
+        if self.causal:
+            ref = mask if x is None else x
+            L = ref.shape[-1]
+            cm = torch.tril(torch.ones((L, L), dtype=torch.int32,
+                                       device=ref.device))[None, None]
+            mask = cm if mask is None else mask * cm
         return mask
 
     def embed(self, x: torch.Tensor, token_types: Optional[torch.Tensor],

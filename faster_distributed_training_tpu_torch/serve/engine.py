@@ -128,7 +128,10 @@ def load_serving_state(cfg, device: torch.device, params=None,
     the histories under ``batch_stats/...``).  The model comes from
     ``cli.build_model(serving=True)``: GEMM weights stored in the compute
     dtype, rounded once here as the JAX model rounds them at every call,
-    and under ``--quant`` the scales frozen at the histories' values."""
+    and under ``--quant`` the scales frozen at the histories' values.  A
+    ``--task lm`` tree (the decode tier's) holds a tied head (no
+    ``lm_head`` leaf) or an untied ``lm_head``, as ``--untie_lm_head``
+    says."""
     from faster_distributed_training_tpu_torch.cli import build_model
     from faster_distributed_training_tpu_torch.interop import (
         load_jax_tree, model_tree, unflatten)
@@ -147,8 +150,15 @@ def load_serving_state(cfg, device: torch.device, params=None,
         with np.load(path) as z:
             params = unflatten({k: z[k] for k in z.files})
         log(f"[serve] loaded parameters from {path}")
-    vocab = int(np.shape(
-        model_tree(params)["Embeddings_0"]["token_embedding"])[0])
+    tree = model_tree(params)
+    vocab = int(np.shape(tree["Embeddings_0"]["token_embedding"])[0])
+    untied = "lm_head" in tree
+    if cfg.task == "lm" and untied == bool(cfg.tie_lm_head):
+        raise ValueError(
+            f"the LM parameters hold {'an untied' if untied else 'a tied'} "
+            f"head but the config asks for "
+            f"{'a tied' if cfg.tie_lm_head else 'an untied'} one: "
+            f"{'pass' if untied else 'drop'} --untie_lm_head")
     model = build_model(cfg, vocab_size=vocab, serving=True,
                         device=torch.device(device))
     load_jax_tree(model, params)

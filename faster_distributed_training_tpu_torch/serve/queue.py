@@ -1,17 +1,20 @@
 """Serving request queue: ragged requests binned into training buckets.
 
-Port of ``faster_distributed_training_tpu/serve/queue.py`` (the
-classifier half; generation requests come with the decode slice).  A
-request arrives as a ragged 1-D int32 token array; ``submit`` bins it by
+Port of ``faster_distributed_training_tpu/serve/queue.py``.  A request
+arrives as a ragged 1-D int32 token array; ``submit`` bins it by
 :func:`data.loader.select_bucket`, so every request runs at one of the
 configured padded lengths: a 65-token request on (64, 128) buckets
 spills to 128, and one longer than the largest bucket runs truncated.
+``submit(tokens, max_new_tokens=N)`` makes a generation request
+(:class:`GenRequest`, the decode tier's) instead of a logits request;
+both kinds share the one queue and the one bucket rule.
 
 One FIFO per bucket.  :meth:`take_cell` is the continuous-batching drain
 the scheduler loop calls: a bucket whose oldest request has crossed the
 latency deadline dispatches first (partial if under-full — deadline
 beats fullness, so no bucket starves), then any bucket holding a full
-batch.  Submitters never block on a dispatch.
+batch.  :meth:`take_one` is the same policy at batch 1, the decode
+scheduler's slot-granular drain.  Submitters never block on a dispatch.
 """
 
 from __future__ import annotations
@@ -69,10 +72,38 @@ class ServeRequest:
             raise self.error
         return self.result
 
+    @property
+    def done(self) -> bool:
+        return self._event.is_set()
+
     def latency_ms(self) -> Optional[float]:
         if self.t_done is None:
             return None
         return (self.t_done - self.t_submit) * 1e3
+
+
+class GenRequest(ServeRequest):
+    """A generation request: prompt token ids in, at most ``max_new``
+    generated token ids out (``result``, int32; the first is the token
+    sampled off the prefill logits).  ``out`` collects tokens as decode
+    steps complete and ``t_first`` stamps the first one (TTFT)."""
+
+    def __init__(self, tokens: np.ndarray, bucket: int, raw_len: int,
+                 t_submit: float, max_new: int):
+        super().__init__(tokens, bucket, raw_len, t_submit)
+        self.max_new = int(max_new)
+        self.out: List[int] = []
+        self.t_first: Optional[float] = None
+
+    def push_token(self, token: int, now: float) -> None:
+        if self.t_first is None:
+            self.t_first = now
+        self.out.append(int(token))
+
+    def ttft_ms(self) -> Optional[float]:
+        if self.t_first is None:
+            return None
+        return (self.t_first - self.t_submit) * 1e3
 
 
 class RequestQueue:
@@ -88,19 +119,34 @@ class RequestQueue:
         self._fifos: Dict[int, List[ServeRequest]] = {
             b: [] for b in self.buckets}
         self._closed = False
+        self.submitted = 0
 
-    def submit(self, tokens) -> ServeRequest:
+    def submit(self, tokens, max_new_tokens: Optional[int] = None,
+               req_id: Optional[int] = None) -> ServeRequest:
         """Bin a ragged token array into its bucket FIFO; returns the
         handle the submitter waits on.  Over-long requests run truncated
-        at the largest bucket (raw_len records it), never rejected."""
+        at the largest bucket (raw_len records it), never rejected.
+        ``max_new_tokens`` makes it a :class:`GenRequest`; ``req_id``
+        overrides the auto id (the decode front door passes the parent's
+        id over the wire, so a generation retried on another worker
+        samples the same stream)."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         raw_len = len(tokens)
         bucket = select_bucket(max(raw_len, 1), self.buckets)
-        req = ServeRequest(tokens[:bucket], bucket, raw_len, self._clock())
+        if max_new_tokens is not None:
+            req: ServeRequest = GenRequest(tokens[:bucket], bucket, raw_len,
+                                           self._clock(),
+                                           max_new=max_new_tokens)
+        else:
+            req = ServeRequest(tokens[:bucket], bucket, raw_len,
+                               self._clock())
+        if req_id is not None:
+            req.id = int(req_id)
         with self._cond:
             if self._closed:
                 raise RuntimeError("RequestQueue is closed")
             self._fifos[bucket].append(req)
+            self.submitted += 1
             self._cond.notify_all()
         return req
 
@@ -139,6 +185,17 @@ class RequestQueue:
                 if wait <= 0:
                     return None
                 self._cond.wait(wait)
+
+    def take_one(self, max_delay_s: float, timeout_s: float = 0.05
+                 ) -> Optional[Tuple[int, ServeRequest]]:
+        """One (bucket, request), or None: take_cell's policy at batch 1,
+        so a deadline-expired bucket's head still beats the smallest
+        non-empty bucket (rule 1 before rule 2)."""
+        cell = self.take_cell(1, max_delay_s, timeout_s=timeout_s)
+        if cell is None:
+            return None
+        bucket, reqs = cell
+        return bucket, reqs[0]
 
     def _oldest_locked(self) -> Optional[float]:
         ts = [f[0].t_submit for f in self._fifos.values() if f]

@@ -276,6 +276,12 @@ class ReplicaSet:
             if r.alive:
                 return
             r.start()
+            if not r.alive:
+                # a process-backed replica whose respawn was not ready
+                # (serve/decode/frontend.ProcReplica): start() re-armed
+                # its detach timer instead of raising; the monitor tries
+                # again, and this is no re-admission
+                return
             self.replica_readmissions += 1
         self._log(f"[serve] replica {r.name} RE-ADMITTED "
                   f"({len(self.live())} live)")

@@ -323,7 +323,7 @@ def _stage_pieces(model, spec, batch, train: bool, draws=None,
     on microbatch m at its global origin with the chunk's seeds."""
     chunks = virtual_chunks(spec)
     x = batch["tokens"]
-    mask = model.attention_mask(None if model.lm else batch.get("mask"))
+    mask = model.attention_mask(None if model.lm else batch.get("mask"), x)
     pos = model.seed_positions()["layers"]
 
     def embed():
@@ -335,7 +335,10 @@ def _stage_pieces(model, spec, batch, train: bool, draws=None,
         layers = chunks[j]
         seeds = (model.seed_stream(draws, x.shape[1], pos[layers[0]],
                                    m * rows) if train else None)
-        part = None if mask is None else mask[m * rows:(m + 1) * rows]
+        # a batch-free mask (--lm_causal's [1, 1, L, L]) fits every
+        # microbatch as it is
+        part = (mask[m * rows:(m + 1) * rows]
+                if mask is not None and mask.shape[0] == x.shape[0] else mask)
         return model.run_layers(h, part, train, seeds, layers)
 
     return embed, chunk

@@ -1603,3 +1603,111 @@ def test_staged_step_on_two_threads_matches_world_1(card):
     for k, (a, b) in pairs.items():
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 1e-5 * max(scale, 1e-12), k
+
+
+def _decode_lm(device, precision, tied=True, vocab=100, seq=64):
+    """A small LM served on ``device`` (seeded random weights through the
+    JAX-layout tree, the real load path) and its config."""
+    from faster_distributed_training_tpu_torch.config import TrainConfig
+    from faster_distributed_training_tpu_torch.serve import (
+        load_serving_state)
+
+    cfg = TrainConfig(model="transformer", task="lm", n_layers=2,
+                      d_model=64, n_heads=4, d_ff=128, seq_len=seq,
+                      seq_buckets=(16, 32, 64), precision=precision,
+                      tie_lm_head=tied, decode_page=16, device=device)
+    m = cli.build_model(cfg, vocab_size=vocab, device="cpu")
+    m.init_weights(torch.Generator().manual_seed(0))
+    tree = {"params": {"model": params_to_jax(m.state_dict(), 4)}}
+    model, _, _ = load_serving_state(cfg, torch.device(device), params=tree,
+                                     log=lambda s: None)
+    return model, cfg
+
+
+def test_decode_graph_replay_is_bitwise_the_eager_step(card):
+    """At three page counts, from the same cache and operands (bf16): the
+    replay of the warmup's graph and the eager ``decode_step`` give the
+    same next tokens and the same cache columns, bitwise; nothing is
+    captured after warmup."""
+    from faster_distributed_training_tpu_torch.models.decode import (
+        decode_step)
+    from faster_distributed_training_tpu_torch.serve.decode import (
+        DecodeEngine)
+
+    model, _ = _decode_lm("cuda", "bf16")
+    eng = DecodeEngine(model, (16, 32, 64), batch_size=4, page=16)
+    eng.warmup()
+    assert eng.captures == eng.max_pages == len(eng.graphs) == 4
+    rng = np.random.default_rng(0)
+    for pages in (1, 2, 4):
+        cap = pages * 16
+        k0 = torch.randn(eng.cache.k.shape, generator=card, device="cuda"
+                         ).to(torch.bfloat16)
+        v0 = torch.randn_like(k0.float()).to(torch.bfloat16)
+        pos = rng.integers(max(cap - 16, 0), cap, size=4)
+        ops = torch.tensor(np.stack([rng.integers(1, 100, 4), pos,
+                                     [1, 1, 0, 1], rng.integers(0, 50, 4)]),
+                           dtype=torch.int64, device="cuda")
+        eng.cache.k.copy_(k0)
+        eng.cache.v.copy_(v0)
+        with torch.no_grad():
+            eager = decode_step(model, eng.spec, eng.sampling, cap,
+                                eng.cache.k, eng.cache.v, ops[0], ops[1],
+                                ops[2].bool(), ops[3])
+        ke, ve = eng.cache.k.clone(), eng.cache.v.clone()
+        eng.cache.k.copy_(k0)
+        eng.cache.v.copy_(v0)
+        eng._ops.copy_(ops)
+        eng.graphs[pages].replay()
+        torch.cuda.synchronize()
+        assert torch.equal(eng._next, eager)
+        assert torch.equal(eng.cache.k, ke) and torch.equal(eng.cache.v, ve)
+        assert not torch.equal(ke, k0)
+    assert eng.captures == 4
+
+
+def test_cached_attention_on_the_card_matches_the_cpu(card):
+    from faster_distributed_training_tpu_torch.ops.cached_attention import (
+        cached_attention)
+
+    B, H, C, D = 4, 8, 96, 64
+    q, k, v = (torch.randn(B, H, n, D, generator=card, device="cuda")
+               for n in (1, C, C))
+    lengths = torch.tensor([1, 17, 64, 96], device="cuda")
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        args = [t.to(dtype) for t in (q, k, v)]
+        got = cached_attention(*args, lengths).float().cpu()
+        want = cached_attention(*(t.cpu() for t in args), lengths.cpu())
+        assert (got - want.float()).abs().max().item() <= tol
+
+
+def test_decode_engine_greedy_tokens_on_the_card_match_the_cpu(card):
+    """fp32: the card's engine (CUDA graphs) and the CPU's (eager) give
+    the same greedy tokens for a ragged mix; a bucket's prefill logits
+    agree to 1e-4 of max |CPU|."""
+    from faster_distributed_training_tpu_torch.serve import RequestQueue
+    from faster_distributed_training_tpu_torch.serve.decode import (
+        DecodeEngine, DecodeScheduler)
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 100, size=n).astype(np.int32)
+               for n in (5, 20, 33, 64, 9, 12)]
+    outs, probes = {}, {}
+    for dev in ("cpu", "cuda"):
+        model, _ = _decode_lm(dev, "fp32")
+        eng = DecodeEngine(model, (16, 32, 64), batch_size=4, page=16)
+        eng.warmup()
+        probes[dev] = eng.prefill_logits(prompts[2], 64)
+        q = RequestQueue((16, 32, 64), max_len=64)
+        sched = DecodeScheduler(q, eng, max_new_tokens=12)
+        sched.start()
+        try:
+            hs = [q.submit(p, max_new_tokens=12) for p in prompts]
+            outs[dev] = [h.wait(timeout=120.0).tolist() for h in hs]
+        finally:
+            q.close()
+            sched.close()
+        assert eng.captures == (eng.max_pages if dev == "cuda" else 0)
+    assert outs["cuda"] == outs["cpu"]
+    err = np.abs(probes["cuda"] - probes["cpu"]).max()
+    assert err <= 1e-4 * np.abs(probes["cpu"]).max()

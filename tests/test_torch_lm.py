@@ -8,9 +8,9 @@
     ``valid`` mask (fp32, 1e-6 relative); ``train/metrics.py::perplexity``
     with its cap (equal).
   * 3 LM train steps of the port against JAX's ``make_train_step`` (dense
-    attention, tied and untied) with injected draws: loss to 1e-5 each
-    step, parameters to 1e-4 after 3 steps.  The LM eval step on a padded
-    batch against JAX's ``make_eval_step``.
+    attention, tied, untied and ``--lm_causal``) with injected draws: loss
+    to 1e-5 each step, parameters to 1e-4 after 3 steps.  The LM eval
+    step on a padded batch against JAX's ``make_eval_step``.
   * Interop: the untied ``lm_head`` through the JAX tree and back; the
     tied model has no extra leaf.
   * Within the port: ``--task lm`` killed after 3 steps and resumed is
@@ -197,16 +197,22 @@ def _jax_state(jcfg, tied):
                                 init_kwargs={"train": True})
 
 
-@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
-def test_three_lm_steps_match_jax_make_train_step(tied, monkeypatch):
-    jcfg = JConfig(device="cpu", tie_lm_head=tied, **SMALL)
+@pytest.mark.parametrize("tied,causal", [(True, False), (False, False),
+                                         (True, True)],
+                         ids=["tied", "untied", "causal"])
+def test_three_lm_steps_match_jax_make_train_step(tied, causal, monkeypatch):
+    """``causal``: ``--lm_causal``, the [1, 1, L, L] mask in every
+    attention of the training and eval forwards (JAX
+    ``models/transformer.py:851-857``)."""
+    jcfg = JConfig(device="cpu", tie_lm_head=tied, lm_causal=causal, **SMALL)
     jstate = _jax_state(jcfg, tied)
     p0 = jax.tree_util.tree_map(np.asarray, jstate.params["model"])
     jstep = j_make_train_step(jcfg)
 
-    cfg = TrainConfig(device="cpu", tie_lm_head=tied, **SMALL)
+    cfg = TrainConfig(device="cpu", tie_lm_head=tied, lm_causal=causal,
+                      **SMALL)
     model = cli.build_model(cfg, vocab_size=VOCAB, device="cpu")
-    assert model.tie_lm_head == tied
+    assert model.tie_lm_head == tied and model.causal == causal
     model.load_state_dict(params_from_jax(p0))
     tx, _ = build_optimizer(cfg, steps_per_epoch=4)
     state = create_train_state(model, tx, seed=0)
@@ -377,10 +383,27 @@ def test_cli_trains_the_lm_on_cpu_and_rejects_what_is_not_ported(
     for flags, name in ((["--quant", "int8"], "--task lm with --quant"),
                         (["--ffn_impl", "pallas"],
                          "--task lm with --ffn_impl pallas"),
-                        (["--lm_causal"], "--lm_causal"),
+                        (["--lm_causal", "--mesh", "pp=2"],
+                         "--lm_causal under --mesh pp=2"),
                         (["--data_path", "stream"], "--data_path stream")):
         with pytest.raises(NotImplementedError, match=name):
             cli.main(cpu + flags, defaults=cli.TRANSFORMER_DEFAULTS)
+    # --lm_causal trains (dense attention, the causal mask in the model);
+    # an explicit kernel that cannot take the mask raises, naming both
+    # flags, and so do the sequence and tensor meshes
+    out = cli.main(cpu + ["--lm_causal"], defaults=cli.TRANSFORMER_DEFAULTS)
+    model = out["state"].model
+    assert model.causal and model.layers[0].attn.attention_impl == "dense"
+    assert out["state"].step == 4
+    assert np.isfinite(out["history"]["train_loss"]).all()
+    with pytest.raises(ValueError, match="--lm_causal.*--attention flash"):
+        cli.main(cpu + ["--lm_causal", "--attention", "flash"],
+                 defaults=cli.TRANSFORMER_DEFAULTS)
+    for mesh in ("sp=2", "tp=2"):
+        with pytest.raises(NotImplementedError,
+                           match=f"--lm_causal under --mesh {mesh}"):
+            cli.main(cpu + ["--lm_causal", "--mesh", mesh],
+                     defaults=cli.TRANSFORMER_DEFAULTS)
     # packed LM rows carry no labels: a classifier run on them raises
     with pytest.raises(ValueError, match="--task lm"):
         cli.main([a for a in cpu if a not in ("--task", "lm")],
