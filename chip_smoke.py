@@ -13,6 +13,7 @@ width.
     python3 chip_smoke.py --sp
     python3 chip_smoke.py --pp
     python3 chip_smoke.py --decode
+    python3 chip_smoke.py --resilience
 
 The second form prints only the device split of one record-width
 training step of the slice-2 path and paths B and C, and whether two
@@ -23,7 +24,11 @@ The third runs phase R (the ResNet slice, no kernel build) alone; the
 fourth builds the kernels and runs phases K (without path E) and M; the
 fifth builds them and runs phase P alone, the sixth phase T alone, the
 seventh phase S alone, the eighth phase PP alone, the ninth phase D
-alone (no build: the decode path has no hand kernel).
+alone (no build: the decode path has no hand kernel), the tenth the
+build and phase F alone (``resilience_phase``: path B under the
+checkpoint manager, a supervised die, SIGTERM and its relaunch, the
+sentinel's NaN guard and spike rollback, a two-process fs-simulated pod;
+in the whole smoke it runs after phase M, before any process group).
 Needs one CUDA card and the repo checkout beside this file; without
 either it exits non-zero and prints no result.  Phases, in order (any
 failure raises and exits non-zero):
@@ -5471,6 +5476,600 @@ def decode_main() -> int:
     return 0
 
 
+# -- slice 15: resilience for training (phase F) ----------------------------
+
+F_STRIDE = 16            # the record on 256 rows: 16 steps of 16
+F_POD_LAYERS = 2         # F(e)'s depth: two processes share the card
+
+F_HOST = r"""
+import hashlib, json, sys, time
+t_start = time.monotonic()
+sys.path.insert(0, sys.argv[1])
+import torch
+from faster_distributed_training_tpu_torch import cli
+from faster_distributed_training_tpu_torch.train.state import state_leaves
+first = []
+
+def log(line):
+    if line.startswith("[epoch") and not first:
+        first.append(time.monotonic() - t_start)
+    print(line, flush=True)
+
+defaults = cli.TRANSFORMER_DEFAULTS
+cfg = cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
+    sys.argv[2:]), defaults=defaults)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+out = cli.run_training(cfg, log=log)
+h = hashlib.sha256()
+for k, v in sorted(state_leaves(out["state"]).items()):
+    h.update(k.encode()); h.update(v.detach().cpu().contiguous().numpy().tobytes())
+res = out["resilience"]
+print("RESULT " + json.dumps({
+    "step": int(out["state"].step), "digest": h.hexdigest(),
+    "preempted": out["preempted"],
+    "emergency_save_ms": None if out["trainer"].emergency_save_s is None
+    else out["trainer"].emergency_save_s * 1e3,
+    "first_step_s": first[0] if first else None,
+    "generation": None if res.coordinator is None
+    else res.coordinator.generation,
+    "restarts": out["goodput_restarts"], "restores": out["goodput_restores"]}),
+    flush=True)
+"""
+
+
+def f_state(state) -> dict:
+    """Every leaf of a state as a checkpoint names it
+    (``checkpoint._flat``), copied to the host."""
+    from faster_distributed_training_tpu_torch.train import checkpoint as ck
+
+    tensors, scalars = ck._flat(ck.state_payload(state))
+    out = {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+    out.update({k: torch_scalar(v) for k, v in scalars.items()})
+    return out
+
+
+def torch_scalar(v):
+    import torch
+
+    return torch.tensor(v)
+
+
+def f_digest(leaves: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(leaves.items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def f_run(cli, flags, tag: str, build_dir: str, k: int, every: int):
+    """``counted_run`` of ``flags`` with each state leaf copied to the
+    host at each multiple of ``every`` steps (after the step, or at the
+    dispatch boundary: under K > 1 the step runs inside a captured
+    graph).  Returns (out, {step: leaves}, counts)."""
+    from faster_distributed_training_tpu_torch.train import dispatch as dmod
+    from faster_distributed_training_tpu_torch.train import steps as tsteps
+
+    at = {}
+    cfg = record_cfg(cli, flags, tag, build_dir)
+    real_step, real_run = tsteps.make_train_step, dmod.FusedDispatch.run
+
+    def after(state):
+        step = int(state.step)
+        if step % every == 0 and step not in at:
+            at[step] = f_state(state)
+
+    def make(c):
+        fn = real_step(c)
+
+        def run(state, batch, *a, **kw):
+            out = fn(state, batch, *a, **kw)
+            after(state)
+            return out
+        return run
+
+    def run(self, state, kk, *a, **kw):
+        out = real_run(self, state, kk, *a, **kw)
+        after(state)
+        return out
+
+    if k == 1:
+        tsteps.make_train_step = make
+    else:
+        dmod.FusedDispatch.run = run
+    try:
+        out, _, counts = counted_run(cli, cfg, tag)
+    finally:
+        tsteps.make_train_step, dmod.FusedDispatch.run = real_step, real_run
+    return out, at, counts
+
+
+def f_committed(ckdir: str) -> dict:
+    """{step: leaves} of every committed step checkpoint under ``ckdir``,
+    read from its ``state.pt``."""
+    import torch
+
+    from faster_distributed_training_tpu_torch.train import checkpoint as ck
+
+    got = {}
+    for step, name in ck.series_members(ckdir, "transformer_step"):
+        payload = torch.load(os.path.join(ckdir, name, "state.pt"),
+                             map_location="cpu", weights_only=True)
+        tensors, scalars = ck._flat(payload)
+        got[step] = {**tensors, **{k: torch_scalar(v)
+                                   for k, v in scalars.items()}}
+    return got
+
+
+def f_host(build_dir: str, argv: list, env: dict, tag: str):
+    """One training process on the card (``F_HOST``), started now."""
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **env)
+    out = tempfile.NamedTemporaryFile("w+", prefix=f"f_{tag}_",
+                                      suffix=".log", dir=build_dir,
+                                      delete=False)
+    t0 = time.monotonic()
+    proc = subprocess.Popen([sys.executable, "-c", F_HOST, repo] + argv,
+                            env=env, stdout=out, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, out, t0
+
+
+def f_result(handle, timeout: float, tag: str) -> dict:
+    proc, out, t0 = handle
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    out.seek(0)
+    text = out.read()
+    out.close()
+    os.unlink(out.name)
+    lines = [x for x in text.splitlines() if x.startswith("RESULT ")]
+    check(proc.returncode == 0 and bool(lines),
+          f"F {tag}: exit {proc.returncode}; log tail:\n{text[-3000:]}")
+    got = json.loads(lines[-1][len("RESULT "):])
+    got["wall_s"] = time.monotonic() - t0
+    got["log"] = text
+    return got
+
+
+F_PAIRS = 3              # F(d): alternated blocks of none and guard
+F_BLOCK = 8              # steps a timed block
+
+
+def f_guard_cost(cli, path_b: list, build_dir: str) -> dict:
+    """F(d)'s cost of ``--sentinel guard`` against ``none`` on path B,
+    and the blocking snapshot's share of a step.  One state and 16 host
+    batches; each mode's K=1 step and K=4 dispatch warmed (and captured)
+    once, then ``F_PAIRS`` pairs of ``F_BLOCK``-step blocks of each mode,
+    their order swapped every pair, at K=1 and at K=4.  A block's host
+    wall runs from a synchronized card to a synchronized card, the
+    optimizer's count settled before it (outside the clock: the guard's
+    one read every 64 steps, ``train.steps.SETTLE_EVERY``, falls outside
+    a block).  Medians and spread of each; the wrapper launches of a K=1
+    block and the hand kernels' device launches of one profiled step or
+    dispatch are held equal between the modes.  The snapshot: the
+    manager's own ``save`` on this state (the card synchronized first:
+    the copy alone, no step in flight), its reused-buffer median over 3
+    saves after the first (which pins its buffers), over each K's median
+    step without the guard."""
+    import shutil
+
+    import torch
+
+    from faster_distributed_training_tpu_torch.data.loader import BatchLoader
+    from faster_distributed_training_tpu_torch.resilience.manager import (
+        AsyncCheckpointManager)
+    from faster_distributed_training_tpu_torch.train.dispatch import (
+        FusedDispatch)
+    from faster_distributed_training_tpu_torch.train.state import settle
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_train_step, to_device)
+
+    t_start = time.monotonic()
+    modes = ("none", "guard")
+    cfg = {m: record_cfg(cli, path_b + ["--sentinel", m], f"f_g{m}",
+                         build_dir) for m in modes}
+    c0 = cfg["none"]
+    data = cli.load_dataset(c0.replace(dataset="synthetic"), True)
+    host = list(itertools.islice(iter(BatchLoader(
+        data, c0.batch_size, epoch=0, seed=c0.seed, max_len=c0.seq_len)),
+        16))
+    it = itertools.cycle(host)
+    state = record_state(cli, c0)
+    run = {}
+    for m in modes:
+        step = make_train_step(cfg[m])
+        disp = FusedDispatch(cfg[m], 4, "cuda")
+        run[(1, m)] = (lambda s=step: s(state, to_device(next(it), "cuda")))
+        run[(4, m)] = (lambda d=disp: d.run(
+            state, 4, batches=[next(it) for _ in range(4)]))
+    for fn in run.values():
+        fn()
+        fn()
+    settle(state)
+    torch.cuda.synchronize()
+
+    def block(k, m):
+        settle(state)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(F_BLOCK // k):
+            run[(k, m)]()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / F_BLOCK, read_counts()
+
+    times = {key: [] for key in run}
+    counts = {}
+    for pair in range(F_PAIRS):
+        for k in (1, 4):
+            for m in (modes if pair % 2 == 0 else modes[::-1]):
+                ms, c = block(k, m)
+                times[(k, m)].append(ms)
+                counts.setdefault((k, m), c)
+    hand = {}
+    for key in sorted(run):
+        settle(state)
+        hand[key] = hand_launches(device_kernels(run[key], 1))
+        # the profiler can lose records of a graph's replays and never
+        # adds any: up to two more profiles while a dispatch's count
+        # falls short of 4 x K=1's, each kernel's largest kept
+        want = {n: 4 * c for n, c in hand.get((1, key[1]), {}).items()}
+        for _ in range(2 if key[0] == 4 else 0):
+            if hand[key] == want:
+                break
+            more = hand_launches(device_kernels(run[key], 1))
+            hand[key] = {n: max(hand[key].get(n, 0), more.get(n, 0))
+                         for n in hand[key].keys() | more.keys()}
+    out = {}
+    for k in (1, 4):
+        med = {m: statistics.median(times[(k, m)]) for m in modes}
+        out[f"k{k}"] = {
+            **{f"{m}_ms": med[m] for m in modes},
+            **{f"{m}_ms_each": times[(k, m)] for m in modes},
+            "guard_over_none": med["guard"] / med["none"],
+            "hand_launches": {m: hand[(k, m)] for m in modes}}
+        check(hand[(k, "none")] == hand[(k, "guard")]
+              and all(hand[(k, "none")].get(n) for n in HAND_KERNELS),
+              f"F(d) K={k}: hand kernels' device launches with the guard "
+              f"{hand[(k, 'guard')]} != without {hand[(k, 'none')]}")
+        print(f"[resilience F(d)] K={k}: --sentinel guard vs none, host wall "
+              f"a step over {F_PAIRS} alternated pairs of {F_BLOCK}-step "
+              f"blocks: guard median {med['guard']:.3f} ms "
+              f"({min(times[(k, 'guard')]):.3f}-"
+              f"{max(times[(k, 'guard')]):.3f}), none median "
+              f"{med['none']:.3f} ms ({min(times[(k, 'none')]):.3f}-"
+              f"{max(times[(k, 'none')]):.3f}), ratio "
+              f"{med['guard'] / med['none']:.4f}; hand kernels' device "
+              f"launches a {'step' if k == 1 else 'dispatch'}: "
+              f"{hand[(k, 'guard')]} both", flush=True)
+    check(counts[(1, "none")] == counts[(1, "guard")],
+          f"F(d) K=1: wrapper launches of a block with the guard "
+          f"{counts[(1, 'guard')]} != without {counts[(1, 'none')]}")
+    out["k1"]["wrapper_launches"] = counts[(1, "none")]
+    snapdir = os.path.join(build_dir, "f_snap")
+    shutil.rmtree(snapdir, ignore_errors=True)
+    mgr = AsyncCheckpointManager(snapdir, prefix="transformer", keep=1,
+                                 log=lambda *_: None)
+    for i in range(4):
+        settle(state)
+        torch.cuda.synchronize()
+        mgr.save(state, 1000 + i)
+        mgr.wait()
+    mgr.close()
+    shutil.rmtree(snapdir, ignore_errors=True)
+    snaps = [t * 1e3 for _s, t in mgr.snapshots]
+    steady = statistics.median(snaps[1:])
+    out["snapshot_ms"] = snaps
+    out["state_bytes"] = mgr.last_snapshot_bytes
+    for k in (1, 4):
+        share = steady / out[f"k{k}"]["none_ms"]
+        out[f"k{k}"]["snapshot_share_of_step"] = share
+        print(f"[resilience F(a)] K={k}: a blocking snapshot into reused "
+              f"host buffers (median {steady:.3f} ms of 3, "
+              f"{min(snaps[1:]):.3f}-{max(snaps[1:]):.3f}; the first "
+              f"{snaps[0]:.1f} ms pins them; {mgr.last_snapshot_bytes} "
+              f"bytes) is {100 * share:.2f}% of a {out[f'k{k}']['none_ms']:.3f}"
+              f" ms step without the guard", flush=True)
+    del state, run
+    print(f"[resilience F(d)] the guard's cost and the snapshot took "
+          f"{time.monotonic() - t_start:.1f} s", flush=True)
+    return out
+
+
+def resilience_phase(cli, build_dir: str) -> dict:
+    """Phase F: path B (``--ffn_impl pallas --quant int8``, the record's
+    width, 16 steps) under the resilience layer.  (a) K=1 and K=4 with
+    ``--checkpoint_every 4``: every committed checkpoint bitwise the
+    uninterrupted run's state at its step, the hand kernels' device
+    launches over the K=1 run, the blocking snapshot's time and share of
+    a step, the state's bytes and the background commit's time; (b)
+    ``FDT_FAULT_DIE_AT_STEP=6`` under ``--supervise`` in process at K=4,
+    bitwise the uninterrupted run, with MTTR split into detect, restore,
+    graph capture and backoff, and goodput; a resnet18 in-process restart
+    bitwise its uninterrupted run; (c) ``FDT_FAULT_SIGTERM_AT_STEP=5`` in a
+    subprocess: exit 0 preempted, the emergency save's time, and the same
+    command relaunched ending bitwise the uninterrupted run, with its time
+    to the first step; (d) ``--sentinel guard`` with
+    ``FDT_FAULT_NAN_AT_STEP=2`` at K=1 and K=4, bitwise each other, one
+    step skipped; the guard's step time against ``--sentinel none`` in
+    alternated blocks, with equal launches, and the blocking snapshot's
+    share of a step (``f_guard_cost``); ``--sentinel full --supervise``
+    with a loss spike
+    at step 10: one rollback, one quarantined batch, 15 steps; (e) two
+    fs-simulated pod processes on the card (``FDT_POD_INDEX`` /
+    ``FDT_POD_COUNT``, 2 layers), a die on host 1: both restart into
+    generation 1 and end with equal states."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from faster_distributed_training_tpu_torch.resilience import faults
+
+    path_b = ["--ffn_impl", "pallas", "--quant", "int8", "--subset_stride",
+              str(F_STRIDE)]
+    res = {}
+    n_steps = 4096 // F_STRIDE // 16
+
+    # -- (a) committed checkpoints against the uninterrupted run ----------
+    ref1, at1, _ = f_run(cli, path_b, "f_ref1", build_dir, 1, 4)
+    ref4, at4, _ = f_run(cli, path_b + ["--steps_per_dispatch", "4"],
+                            "f_ref4", build_dir, 4, 4)
+    check(sorted(at1) == sorted(at4) == list(range(4, n_steps + 1, 4)),
+          f"F(a) reference snapshots at {sorted(at1)} / {sorted(at4)}")
+    bitwise("F(a) K=4 reference vs K=1 reference, final state",
+            at1[n_steps], at4[n_steps])
+    for k, at in ((1, at1), (4, at4)):
+        flags = path_b + ["--checkpoint_every", "4"] + (
+            ["--steps_per_dispatch", "4"] if k > 1 else [])
+        cfg = record_cfg(cli, flags, f"f_a{k}", build_dir)
+        if k == 1:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out, _, counts = counted_run(cli, cfg, f"F(a) K={k}")
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            hand = hand_launches({e.key: (_device_us(e), e.count)
+                                  for e in events})
+            # the manager's spans (telemetry/spans.py), as the trace shows
+            spans = {e.key: (e.count, e.cpu_time_total / 1e3 / e.count)
+                     for e in events if e.key.startswith("fdt/")}
+            res["a_device_launches"] = hand
+            res["a_wrapper_launches"] = counts
+            res["a_spans"] = spans
+            print(f"[resilience F(a)] spans in the K=1 run's trace (count, "
+                  f"host ms each): {spans}", flush=True)
+            check(spans.get("fdt/ckpt_snapshot", (0,))[0] > 0,
+                  f"F(a): no fdt/ckpt_snapshot span in the trace: {spans}")
+            print(f"[resilience F(a)] hand kernels' device launches over the "
+                  f"K=1 run ({n_steps} steps + eval): {hand}; wrapper counts "
+                  f"{counts}", flush=True)
+            for kern in ("flash_fwd_kernel", "dkdv_kernel", "dq_kernel",
+                         "mlp_fwd_kernel", "ffn_kernel", "qmm_kernel"):
+                check(hand.get(kern, 0) > 0,
+                      f"F(a): {kern} launched no time on path B")
+        else:
+            out, _, counts = counted_run(cli, cfg, f"F(a) K={k}")
+        mgr = out["resilience"].manager
+        got = f_committed(cfg.checkpoint_dir)
+        check(bool(got), f"F(a) K={k}: no checkpoint committed")
+        for step, leaves in sorted(got.items()):
+            bitwise(f"F(a) K={k} checkpoint at step {step}", at[step],
+                    leaves)
+        snaps = [round(t * 1e3, 3) for _s, t in mgr.snapshots]
+        res[f"a{k}"] = {
+            "committed": sorted(got), "saves": out["goodput_saves"],
+            "skipped_saves": out["goodput_skipped_saves"],
+            "snapshot_ms": snaps, "state_bytes": mgr.last_snapshot_bytes,
+            "commit_s": mgr.last_commit_s,
+            "blocking_s": out["goodput_checkpoint_blocking_s"]}
+        print(f"[resilience F(a)] K={k}: committed {sorted(got)} (each "
+              f"bitwise the uninterrupted run at its step; "
+              f"{out['goodput_skipped_saves']} tick(s) skipped while a write "
+              f"ran); blocking snapshots {snaps} ms (the first pins its "
+              f"host buffers); state {mgr.last_snapshot_bytes} bytes; "
+              f"background commit {mgr.last_commit_s:.2f} s", flush=True)
+        shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
+
+    # -- (b) a die under --supervise, in process --------------------------
+    os.environ[faults.ENV_DIE] = "6"
+    try:
+        cfg = record_cfg(cli, path_b + ["--steps_per_dispatch", "4",
+                                         "--checkpoint_every", "4",
+                                         "--supervise"], "f_b", build_dir)
+        out, leaves, _ = counted_run(cli, cfg, "F(b) die at 6, K=4")
+    finally:
+        os.environ.pop(faults.ENV_DIE, None)
+    bitwise("F(b) supervised die run vs the uninterrupted run",
+            at4[n_steps], f_state(out["state"]))
+    disp = out["trainer"].dispatch
+    g = {k[len("goodput_"):] if k != "goodput_pct" else k: v
+         for k, v in out.items() if k.startswith("goodput")}
+    res["b"] = {"restarts": g["restarts"], "restores": g["restores"],
+                "mttr_s": g.get("restart_mttr_s"),
+                "mttr_restore_s": g.get("restart_mttr_restore_s"),
+                "detect_s": g["detect_s"], "backoff_s": g["restart_backoff_s"],
+                "capture_s": disp.capture_s, "captures": len(disp.graphs),
+                "goodput_pct": g["goodput_pct"],
+                "rollback_lost_s": g["rollback_lost_s"]}
+    check(g["restarts"] == 1 and g["restores"] == 1,
+          f"F(b): restarts {g['restarts']}, restores {g['restores']}")
+    print(f"[resilience F(b)] die at step 6 (K=4, fires at the step-8 "
+          f"boundary), restored in process: bitwise the uninterrupted run; "
+          f"MTTR {res['b']['mttr_s']} s = detect {g['detect_s']} s + "
+          f"restore {g.get('restart_mttr_restore_s')} s + graph capture 0 s "
+          f"(the {len(disp.graphs)} graph(s) captured once, "
+          f"{disp.capture_s:.3f} s, kept: the restore copies into the "
+          f"tensors they read) + backoff {g['restart_backoff_s']} s; "
+          f"rollback re-ran {g['rollback_lost_s']} s of steps; goodput "
+          f"{g['goodput_pct']}% (smoke-only: over 16 steps the first "
+          f"snapshot's pinning, the captures and the epoch checkpoint "
+          f"weigh as they would not over a long run)", flush=True)
+    shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
+    rflags = ["--model", "resnet18", "--bs", "128", "--subset_stride", "8",
+              "--epoch", "2"]
+    ck = os.path.join(build_dir, "f_resnet")
+    shutil.rmtree(ck, ignore_errors=True)
+    rref, rleaves, _ = counted_run(cli, resnet_cfg(
+        cli, rflags + ["--checkpoint_dir", ck + "_ref"]), "F(b) resnet18")
+    os.environ[faults.ENV_DIE] = "5"
+    try:
+        rdie, rgot, _ = counted_run(cli, resnet_cfg(
+            cli, rflags + ["--checkpoint_every", "2", "--supervise",
+                           "--checkpoint_dir", ck]), "F(b) resnet18 die at 5")
+    finally:
+        os.environ.pop(faults.ENV_DIE, None)
+    bitwise("F(b) resnet18 supervised restart vs uninterrupted", rleaves,
+            rgot)
+    res["b_resnet_restarts"] = rdie["goodput_restarts"]
+    check(rdie["goodput_restarts"] == 1, "F(b) resnet18 did not restart")
+    shutil.rmtree(ck, ignore_errors=True)
+    shutil.rmtree(ck + "_ref", ignore_errors=True)
+
+    # -- (c) SIGTERM in a subprocess, then the same command ----------------
+    ckc = os.path.join(build_dir, "f_c")
+    shutil.rmtree(ckc, ignore_errors=True)
+    argv = ["--device", "cuda", "--dataset", "synthetic", "--epoch", "1",
+            "--checkpoint_dir", ckc, "--log_every", "1", "--no_plot",
+            "--checkpoint_every", "1000", *path_b]
+    first = f_result(f_host(build_dir, argv, {faults.ENV_SIGTERM: "5"},
+                            "c1"), 300, "(c) SIGTERM")
+    check(first["preempted"] and first["step"] == 5,
+          f"F(c): preempted {first['preempted']} at step {first['step']}")
+    again = f_result(f_host(build_dir, argv, {}, "c2"), 300, "(c) relaunch")
+    check(not again["preempted"] and again["step"] == n_steps
+          and again["restores"] == 1, f"F(c) relaunch: {again}")
+    check(again["digest"] == f_digest(_leaves_of(ref1)),
+          "F(c): the relaunched run is not bitwise the uninterrupted run")
+    res["c"] = {"emergency_save_ms": first["emergency_save_ms"],
+                "relaunch_first_step_s": again["first_step_s"],
+                "relaunch_wall_s": again["wall_s"],
+                "first_wall_s": first["wall_s"]}
+    print(f"[resilience F(c)] SIGTERM at step 5: exit 0, preempted, "
+          f"emergency save {first['emergency_save_ms']:.1f} ms; the same "
+          f"command relaunched restored step 5 and ended bitwise the "
+          f"uninterrupted run; its first step {again['first_step_s']:.2f} s "
+          f"after its interpreter started ({again['wall_s']:.1f} s wall)",
+          flush=True)
+    shutil.rmtree(ckc, ignore_errors=True)
+
+    # -- (d) the NaN guard and the spike ---------------------------------
+    os.environ[faults.ENV_NAN] = "2"
+    try:
+        guards = {}
+        for k in (1, 4):
+            out, _, _ = counted_run(cli, record_cfg(
+                cli, path_b + ["--sentinel", "guard"] + (
+                    ["--steps_per_dispatch", "4"] if k > 1 else []),
+                f"f_d{k}", build_dir), f"F(d) guard K={k}")
+            check(out["goodput_skipped_steps"] == 1
+                  and out["state"].opt_state["step"] == n_steps - 1,
+                  f"F(d) K={k}: skipped {out['goodput_skipped_steps']}")
+            guards[k] = f_state(out["state"])
+    finally:
+        os.environ.pop(faults.ENV_NAN, None)
+    bitwise("F(d) guard K=4 vs K=1 (step 2 skipped)", guards[1], guards[4])
+    print("[resilience F(d)] --sentinel guard, NaN at step 2: skipped at "
+          "K=1 and K=4, K=4 bitwise K=1", flush=True)
+    res["d"] = f_guard_cost(cli, path_b, build_dir)
+    os.environ[faults.ENV_SPIKE] = "10"
+    try:
+        # a threshold past the record's own loss noise: the injected
+        # x 1e4 is the one spike
+        cfg = record_cfg(cli, path_b + ["--sentinel", "full", "--supervise",
+                                        "--checkpoint_every", "4",
+                                        "--sync_checkpoint",
+                                        "--spike_threshold", "30"],
+                         "f_spike", build_dir)
+        out, _, _ = counted_run(cli, cfg, "F(d) spike at 10")
+    finally:
+        os.environ.pop(faults.ENV_SPIKE, None)
+    ledger = json.load(open(os.path.join(cfg.checkpoint_dir, "quarantine",
+                                         "ledger.json")))
+    check(out["goodput_rollbacks"] == 1
+          and out["goodput_quarantined_batches"] == 1
+          and int(out["state"].step) == n_steps - 1
+          and ledger["batches"] == {"0": [9]},
+          f"F(d) spike: rollbacks {out['goodput_rollbacks']}, quarantined "
+          f"{out['goodput_quarantined_batches']}, step "
+          f"{int(out['state'].step)}, ledger {ledger}")
+    res["d_spike"] = {"rollbacks": 1, "ledger": ledger,
+                      "restore_s": out["goodput_restore_s"]}
+    print(f"[resilience F(d)] --sentinel full: the spike at step 10 rolled "
+          f"back to step 8, quarantined epoch 0 position 9 ({ledger}), "
+          f"replayed to step {int(out['state'].step)}", flush=True)
+    shutil.rmtree(cfg.checkpoint_dir, ignore_errors=True)
+
+    # -- (e) two fs-simulated pod processes on the card --------------------
+    cke = os.path.join(build_dir, "f_e")
+    shutil.rmtree(cke, ignore_errors=True)
+    argv = ["--device", "cuda", "--dataset", "synthetic", "--epoch", "1",
+            "--checkpoint_dir", cke, "--log_every", "0", "--no_plot",
+            "--n_layers", str(F_POD_LAYERS), "--supervise",
+            "--checkpoint_every", "2", "--preempt_sync_every", "1",
+            "--peer_timeout_s", "30", "--commit_timeout_s", "10", *path_b]
+    env = {"FDT_POD_COUNT": "2", faults.ENV_HOST: "1", faults.ENV_DIE: "3"}
+    hosts = [f_host(build_dir, argv, dict(env, FDT_POD_INDEX=str(pi)),
+                    f"e{pi}") for pi in (0, 1)]
+    r0, r1 = [f_result(h, 400, f"(e) host {i}") for i, h in enumerate(hosts)]
+    check(r0["generation"] == r1["generation"] == 1
+          and r0["digest"] == r1["digest"] and r0["step"] == r1["step"]
+          == n_steps, f"F(e): host 0 {r0['generation']}/{r0['step']}, host "
+          f"1 {r1['generation']}/{r1['step']}")
+    res["e"] = {"wall_s": [r0["wall_s"], r1["wall_s"]],
+                "restarts": [r0["restarts"], r1["restarts"]]}
+    print(f"[resilience F(e)] two pod processes on the card, die on host 1 "
+          f"at step 3: both restarted into generation 1 and ended at step "
+          f"{r0['step']} with equal states ({r0['wall_s']:.1f} / "
+          f"{r1['wall_s']:.1f} s wall)", flush=True)
+    shutil.rmtree(cke, ignore_errors=True)
+    return res
+
+
+def _leaves_of(out) -> dict:
+    """The final state of a run as ``F_HOST`` digests it."""
+    from faster_distributed_training_tpu_torch.train.state import (
+        state_leaves)
+
+    return dict(state_leaves(out["state"]))
+
+
+def resilience_main() -> int:
+    """``--resilience``: the kernels' build, then phase F alone."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)} (torch "
+          f"{torch.__version__}, cuda {torch.version.cuda}); nvidia-smi: "
+          f"{card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_s, _ = _build.build()
+    print(f"[build] {build_s:.1f}s", flush=True)
+    t0 = time.monotonic()
+    ff = resilience_phase(cli, str(_build.BUILD_DIR))
+    print(f"[resilience] phase F took {time.monotonic() - t0:.1f} s")
+    print(json.dumps(ff, default=str))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -5839,6 +6438,13 @@ def main() -> int:
     mr = remat_phase(cli, str(_build.BUILD_DIR))
     dispatch_summary(kd, mr)
 
+    # -- phase F: resilience (slice 15), before any process group: its
+    # relaunch is held against a run of this process ---------------------
+    t_f = time.monotonic()
+    ff = resilience_phase(cli, str(_build.BUILD_DIR))
+    print(f"[resilience] phase F took {time.monotonic() - t_f:.1f} s",
+          flush=True)
+
     # -- phase P: the data mesh (slice 10) ---------------------------------
     pm = mesh_phase(cli, str(_build.BUILD_DIR))
 
@@ -6190,6 +6796,16 @@ def main() -> int:
                     "pp_mb_e4m3_library_ms": t["library"]["ms"]
                     if t["library"] else None,
                     "pp_mb_e4m3_max_abs_err": ppm["pp1_err"]["fp8"]["abs"]})
+    # slice 15: each kernel's device launches over phase F(a)'s K=1 run of
+    # path B (16 steps and the eval)
+    f_keys = {"flash_fwd": "flash_fwd_kernel",
+              "flash_bwd_stats": "dkdv_kernel",
+              "fused_mlp": "mlp_fwd_kernel",
+              "fused_ffn_quant": "ffn_kernel", "quant_matmul": "qmm_kernel"}
+    for entry in kernels:
+        if entry["name"] in f_keys:
+            entry["launches_phase_f"] = ff["a_device_launches"].get(
+                f_keys[entry["name"]], 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -6274,6 +6890,13 @@ if __name__ == "__main__":
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(2)
         sys.exit(mesh_main())
+    if sys.argv[1:2] == ["--resilience"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(resilience_main())
     if sys.argv[1:2] == ["--steps"]:
         import torch
 

@@ -23,7 +23,10 @@ pp=P`` / ``dp=D,pp=P``, one process a stage, ``--pp_schedule``,
 ``--pp_microbatches``, ``--no_pp_residency``), and decode serving for
 the LM with causal LM training (slice 14: ``run_decode_serving`` /
 ``main_decode``, the paged KV cache and a CUDA graph a page count;
-``--task lm --lm_causal``).
+``--task lm --lm_causal``), and resilience for training (slice 15: the
+asynchronous checkpoint manager on ``--storage_backend``, preemption,
+``--supervise``, the ``FDT_FAULT_*`` drills, goodput, ``--sentinel``,
+``--auto_recover`` and the pod coordinator; ``resilience/``).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
 ``resolve_attention``, ``build_model``, ``load_dataset`` (the agnews,
@@ -355,7 +358,8 @@ def unported_training_flags(cfg: TrainConfig) -> list:
     --ngd with --fsdp or --zero1 (NGD preconditions whole gradient
     leaves); --fsdp, --zero1 and the host tiers under a dispatch (K > 1
     or the resident split: their gathers and copies are not captured);
-    --resident_layout sharded."""
+    --resident_layout sharded; --warm_spares (warm spares are not
+    ported)."""
     datasets = IMAGE_DATASETS if is_resnet(cfg) else TEXT_DATASETS
     k = max(int(cfg.steps_per_dispatch or 1), 1)
     tiers = [f for f, on in (("--fsdp", cfg.fsdp), ("--zero1", cfg.zero1),
@@ -384,13 +388,10 @@ def unported_training_flags(cfg: TrainConfig) -> list:
             cfg.data_path == "resident"),
         "--resident_layout sharded": (cfg.data_path == "resident" and (
             cfg.resident_layout or "auto") == "sharded"),
-        f"--sentinel {cfg.sentinel}": (cfg.sentinel or "none") != "none",
-        "--supervise": bool(cfg.supervise),
-        "--auto_recover": bool(cfg.auto_recover),
         "--profile_steps": bool(cfg.profile_steps),
         "--profile": bool(cfg.profile),
-        f"--storage_backend {cfg.storage_backend}": (
-            (cfg.storage_backend or "posix") != "posix"),
+        f"--warm_spares {cfg.warm_spares} (warm spares)": (
+            int(cfg.warm_spares or 0) > 0),
     }
     return [k for k, v in checks.items() if v]
 
@@ -562,7 +563,17 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     (joined here or by the caller) the run is one rank of the data mesh
     ``--mesh`` describes: this process trains on its rows of every global
     batch, on ``cuda:LOCAL_RANK``, and logs, plots and writes checkpoints
-    on rank 0 only."""
+    on rank 0 only.
+
+    Resilience (``resilience.build_resilience``): with a checkpoint
+    cadence the run restores the newest valid step checkpoint when one
+    exists, --resume or not (a relaunch after a preemption picks up the
+    emergency checkpoint unaided: point --checkpoint_dir at a fresh
+    directory for a fresh run); ``--supervise`` runs each attempt under
+    ``Supervisor.run`` (a restore point is saved first, so a crash before
+    the first cadence save is recoverable: the live state, updated in
+    place, cannot serve as one).  The result then also holds
+    ``preempted`` and the ``goodput_*`` keys."""
     from faster_distributed_training_tpu_torch.interop import load_jax_tree
     from faster_distributed_training_tpu_torch.optim import (build_optimizer,
                                                              layouts_of)
@@ -571,6 +582,8 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     from faster_distributed_training_tpu_torch.parallel import (
         DataGroup, Placement, dp_size, initialize_distributed, local_device,
         make_mesh, mesh_groups, shard_train_state)
+    from faster_distributed_training_tpu_torch.train.checkpoint import (
+        restore_newest)
     from faster_distributed_training_tpu_torch.train.loop import Trainer
     from faster_distributed_training_tpu_torch.train.state import (
         create_train_state)
@@ -579,6 +592,14 @@ def run_training(cfg: TrainConfig, params=None, device=None,
 
     from faster_distributed_training_tpu_torch.parallel.pipeline import (
         build_pipeline_spec, pipeline_rules)
+
+    from faster_distributed_training_tpu_torch.resilience import (
+        Preempted, Supervisor, build_resilience)
+    from faster_distributed_training_tpu_torch.resilience.faults import (
+        apply_corrupt_shard_fault)
+    from faster_distributed_training_tpu_torch.train import loop as loop_mod
+    from faster_distributed_training_tpu_torch.train.metrics import (
+        attach_goodput)
 
     missing = unported_training_flags(cfg)
     if missing:
@@ -599,7 +620,11 @@ def run_training(cfg: TrainConfig, params=None, device=None,
         log = _silent
     world = dp_size(mesh)
     resnet = is_resnet(cfg)
+    if cfg.dataset == "stream" and cfg.stream_dir:
+        # the damage is on disk before the reader first touches the shard
+        apply_corrupt_shard_fault(cfg.stream_dir, log=log)
     train_ds = load_dataset(cfg, train=True)
+    reader = train_ds if hasattr(train_ds, "on_quarantine") else None
     if cfg.dataset == "stream":
         cfg = check_stream_corpus(cfg, train_ds, log)
     train_ds = apply_subset(train_ds, cfg.subset_stride)
@@ -631,7 +656,28 @@ def run_training(cfg: TrainConfig, params=None, device=None,
                 draws, b0=group.origin(local_bs)))
     train_loader, eval_loader, steps_per_epoch = make_loaders(
         cfg, train_ds, eval_ds, dp=world, rank=group.rank, group=group)
+    if cfg.supervise and not (cfg.checkpoint_every
+                              or cfg.checkpoint_every_secs):
+        # a supervisor without restore points could only replay from the
+        # start: one step-cadence save an epoch
+        cfg = cfg.replace(checkpoint_every=steps_per_epoch)
+        log(f"[resilience] --supervise without a checkpoint cadence: "
+            f"defaulting --checkpoint_every to {steps_per_epoch} "
+            f"(one save per epoch)")
     cfg, dispatch = build_dispatch(cfg, train_ds, dev, log, group)
+    res = build_resilience(cfg, log=log,
+                           clock=lambda: loop_mod.cadence_clock())
+    if res is not None and reader is not None:
+        # a shard that fails its checksum: the sentinel's ledger and
+        # counter, or the counter alone
+        reader.on_quarantine = (
+            res.sentinel.quarantine_shard if res.sentinel is not None
+            else lambda s, p: res.goodput.count("quarantined_shards"))
+    if (dispatch is not None and dispatch.resident is not None
+            and dispatch.resident.upload_checksums
+            and (cfg.sentinel or "none") == "full"):
+        log("[sentinel] device-resident upload verified: post-upload "
+            "readback matches the host-side encode checksums")
     # the learning rate scales with the data-parallel world (JAX's
     # lr_scale=dp_size(mesh))
     tx, _ = build_optimizer(cfg, steps_per_epoch, lr_scale=float(world),
@@ -678,7 +724,7 @@ def run_training(cfg: TrainConfig, params=None, device=None,
             log("[pipeline] rules "
                 + json.dumps(pipeline_rules(pipeline, cfg), sort_keys=True))
     trainer = Trainer(cfg, make_train_step(cfg), make_eval_step(cfg), dev,
-                      log=log, dispatch=dispatch)
+                      log=log, dispatch=dispatch, resilience=res)
     if cfg.telemetry:
         log("[telemetry] not ported yet: this run records no telemetry "
             "(per-step JSONL, manifest, spans come with the telemetry "
@@ -703,26 +749,92 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     log(f"[train] {what}, {steps_per_epoch} steps/epoch x {cfg.epochs} "
         f"epochs, batch {cfg.batch_size}")
     ckpt_name = "resnet" if resnet else "transformer"
-    state, start_epoch, start_step = trainer.maybe_resume(state, ckpt_name)
+    manager = res.manager if res is not None else None
+    state, start_epoch = trainer.maybe_resume(state, ckpt_name)
+    # the epoch checkpoint --resume restored: a step checkpoint replaces
+    # it on the first attempt only when newer
+    resumed_step = int(state.step) if start_epoch else -1
+
+    def attempt(restart_index: int):
+        """One training attempt (JAX ``cli.py``'s): from the newest valid
+        step checkpoint when there is one (the manager's walk, --resume or
+        not; without a manager, with --resume, the same walk,
+        ``checkpoint.restore_newest``), restored into the live state
+        (every leaf: a crash may have left an update half done), else
+        from where ``maybe_resume`` left it."""
+        st, ep, sie = state, start_epoch, 0
+        newer_than = resumed_step if restart_index == 0 else -1
+        prev_step = trainer.global_step
+        got = None
+        if manager is not None:
+            got = manager.restore_latest(st, newer_than)
+        elif cfg.resume:
+            got = restore_newest(cfg.checkpoint_dir, f"{ckpt_name}_step", st,
+                                 newer_than=newer_than, log=log)
+            got = None if got is None else got[:2]
+        if got is not None:
+            st, meta = got
+            ep = int(meta.get("epoch", 0))
+            sie = int(meta.get("step_in_epoch", 0))
+            trainer.best_acc = float(meta.get("best_acc", trainer.best_acc))
+            step = int(meta.get("step", 0))
+            log(f"[resume] restored step-cadence checkpoint: step {step} "
+                f"(epoch {ep}, batch {sie})")
+            if restart_index > 0 and prev_step > step:
+                # the steps the rollback re-runs, at the run's productive
+                # step time
+                s = res.goodput.summary()
+                if s["steps"]:
+                    res.goodput.add("rollback_lost_s",
+                                    (prev_step - step)
+                                    * s["productive_s"] / s["steps"])
+        elif manager is not None and cfg.supervise and restart_index == 0:
+            # the restore point a crash before the first cadence save
+            # returns to
+            manager.save(st, int(st.step), epoch=ep, step_in_epoch=sie,
+                         best_acc=trainer.best_acc)
+        return trainer.fit(st, train_loader, eval_loader,
+                           ckpt_name=ckpt_name, start_epoch=ep,
+                           start_step_in_epoch=sie)
+
     cudnn = torch.backends.cudnn
     flags = (cudnn.deterministic, cudnn.benchmark)
     if resnet and dev.type == "cuda":
         # conv algorithms without atomics, autotuned: two identical steps
         # are bitwise equal; the process's own flags come back after
         cudnn.deterministic, cudnn.benchmark = True, True
+    preempted = False
     try:
-        state = trainer.fit(state, train_loader, eval_loader,
-                            ckpt_name=ckpt_name, start_epoch=start_epoch,
-                            start_step_in_epoch=start_step)
+        if res is not None and cfg.supervise:
+            sup = Supervisor(max_restarts=cfg.max_restarts,
+                             goodput=res.goodput, log=log,
+                             coordinator=res.coordinator)
+            state = sup.run(attempt, progress=lambda: trainer.global_step)
+        else:
+            state = attempt(0)
+    except Preempted as p:
+        preempted = True
+        if p.state is not None:
+            state = p.state
+        log(f"[preempt] training stopped cleanly at step {p.step}; "
+            f"re-launch with the same --checkpoint_dir to resume")
     finally:
         cudnn.deterministic, cudnn.benchmark = flags
+        if res is not None:
+            # the write in flight drains, the signal handlers go back
+            res.close()
     if state.placement is not None:
         state.placement.unshard(state)     # the caller gets the whole state
     if cfg.plot and trainer.history["test_acc"] and rank0:
         plot_history(trainer.history, ckpt_name, log)
-    return {"state": state, "history": trainer.history,
-            "best_acc": trainer.best_acc, "cfg": cfg, "trainer": trainer,
-            "steps_per_epoch": steps_per_epoch}
+    out = {"state": state, "history": trainer.history,
+           "best_acc": trainer.best_acc, "cfg": cfg, "trainer": trainer,
+           "steps_per_epoch": steps_per_epoch}
+    if res is not None:
+        out["preempted"] = preempted
+        out["resilience"] = res
+        attach_goodput(out, res.goodput)
+    return out
 
 
 def round_checkpoint_every(cfg: TrainConfig, log) -> TrainConfig:

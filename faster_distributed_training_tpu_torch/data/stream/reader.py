@@ -15,7 +15,7 @@ from __future__ import annotations
 import json
 import os
 import warnings
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -54,6 +54,9 @@ class ShardedStreamDataset:
         self._crc: Dict[int, List[tuple]] = {}
         self._crc_checked = [False] * len(shards)
         self._bad_shards: set = set()
+        # called as on_quarantine(shard index, path) when a shard fails
+        # its checksum (the resilience sentinel's ledger and counters)
+        self.on_quarantine: Optional[Callable[[int, str], None]] = None
         for si, s in enumerate(shards):
             for leaf, info in s["files"].items():
                 if "crc32c" in info:
@@ -111,6 +114,8 @@ class ShardedStreamDataset:
                    f"{got:#010x} != manifest {want:#010x}); shard "
                    f"quarantined, rows remapped to a healthy shard")
             warnings.warn(msg, stacklevel=3)
+            if self.on_quarantine is not None:
+                self.on_quarantine(s, path)
             break
 
     def _screen(self, idx: np.ndarray, shard_of: np.ndarray):

@@ -158,6 +158,14 @@ class Placement:
             self.shard_pg = mesh.get_group(axis)
             self.n = axis_size(mesh, axis)
             self.r = mesh.get_local_rank(axis)
+        # the one writer of the blocks this rank holds in a sharded
+        # checkpoint: coordinate 0 on every mesh axis but the shard axis
+        # (its blocks differ by rank) and pp (its stages hold different
+        # leaves)
+        self.replica0 = mesh is None or all(
+            mesh.get_local_rank(ax) == 0
+            for ax in (mesh.mesh_dim_names or ())
+            if ax != "pp" and not (ax == axis and self.sharding_axis(axis)))
         self.cuts: Dict[str, Optional[str]] = {}   # name -> tp cut
         self._whole: Dict[str, tuple] = {}        # name -> whole shape
         self.heads = 0
@@ -191,6 +199,11 @@ class Placement:
         self.pp_wait: list = []
 
     # -- the layout ---------------------------------------------------------
+    def sharding_axis(self, axis) -> bool:
+        """Whether ``axis`` is the mesh axis this rank's optimizer (and
+        fsdp parameter) shards are cut along."""
+        return axis is not None and self.n > 1 and not self.zero_tp
+
     @property
     def sharding(self) -> bool:
         return (self.fsdp or self.zero1 or self.zero_tp) and self.n > 1

@@ -17,9 +17,15 @@ by slot ``cursor``, which the graph advances itself:
     permutation, the image crop and flip, computed on the host by the
     K=1 functions of (run seed, global step) and uploaded once a
     dispatch;
-  * the optimizer's scalars (lr, or MADGRAD's lr sqrt(k + 1)), a ``[K]``
-    table of the host schedule indexed by the optimizer steps this
-    dispatch has applied (under fp16 a skipped step applies none).
+  * the optimizer's scalars (lr, or MADGRAD's lr sqrt(k + 1)), a table
+    of the host schedule indexed by the optimizer steps applied since
+    the host last read their count (``train.state.AppliedCount``: a step
+    skipped under fp16 or by the sentinel's guard applies none, and the
+    host reads the count once every ``SETTLE_DISPATCHES`` dispatches, or
+    when something reads the optimizer's count, rather than once a
+    dispatch);
+  * the global step (``FDT_FAULT_NAN_AT_STEP`` armed: the NaN fault
+    compares it on the device).
 
 The step writes its metrics into ``[K]`` slots; after the replays they
 are reduced on the device as ``_reduce_scanned_metrics`` does (loss
@@ -50,6 +56,7 @@ and the host tiers run K=1 only (the cli raises).
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -57,11 +64,15 @@ import torch
 
 from faster_distributed_training_tpu_torch.config import TrainConfig
 from faster_distributed_training_tpu_torch.train import steps as train_steps
-from faster_distributed_training_tpu_torch.train.state import TrainState
+from faster_distributed_training_tpu_torch.train.state import (
+    AppliedCount, TrainState)
 from faster_distributed_training_tpu_torch.train.steps import (
     StepDraws, image_draws, mixup_alpha, step_draws)
 
 Metrics = Dict[str, torch.Tensor]
+
+# dispatches between two reads of the applied count (fp16, the guard)
+SETTLE_DISPATCHES = 16
 
 
 def stack_host_batches(group: List[Dict[str, np.ndarray]]
@@ -92,6 +103,9 @@ def reduce_metrics(ms: Dict[str, torch.Tensor]) -> Metrics:
            "correct": ms["correct"].sum(), "total": ms["total"].sum()}
     if "loss_scale" in ms:
         out["loss_scale"] = ms["loss_scale"][-1].clone()
+    if "bad_steps" in ms:
+        # the sentinel's verdicts, one 0/1 a step
+        out["bad_steps"] = ms["bad_steps"].sum()
     return out
 
 
@@ -124,12 +138,21 @@ class FusedDispatch:
                          cfg.batch_size // world))
         self.image = cfg.model != "transformer"
         self.fp16 = cfg.precision == "fp16"
+        # a step the sentinel's guard skips applies no optimizer update
+        self.guard = (cfg.sentinel or "none") != "none"
+        from faster_distributed_training_tpu_torch.resilience.faults import (
+            graph_nan_at)
+        # the NaN fault compares the device step: a table of the steps
+        self.step_table = graph_nan_at() is not None
         self.alpha = mixup_alpha(cfg)
         # looked up when built: a wrapper set on train.steps then is used
         self.step_fn = train_steps.make_train_step(cfg)
         dev = self.device
         self.cursor = torch.zeros((), dtype=torch.int64, device=dev)
-        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        # the optimizer steps applied: the body's scalars are its row
+        self.count = AppliedCount(max(train_steps.SETTLE_EVERY,
+                                      SETTLE_DISPATCHES * self.k), dev,
+                                  skips=self.fp16 or self.guard)
         self.start = torch.zeros((), dtype=torch.int64, device=dev)
         self.tables: Dict[str, torch.Tensor] = {}
         self.staged: Dict[tuple, Dict[str, torch.Tensor]] = {}
@@ -138,6 +161,9 @@ class FusedDispatch:
         self.order_epoch: Optional[int] = None
         self.graphs: Dict[tuple, "torch.cuda.CUDAGraph"] = {}
         self.replays: Dict[tuple, int] = {}
+        # seconds spent capturing graphs (a restore copies into the
+        # tensors they read, so an in-process restart captures none)
+        self.capture_s = 0.0
         self.eager_steps = 0
         self._warm: set = set()
         self._told_ngd = False
@@ -145,11 +171,11 @@ class FusedDispatch:
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
 
     # -- host tables ----------------------------------------------------
-    def _host_tables(self, state: TrainState, kk: int, c0: int,
+    def _host_tables(self, state: TrainState, kk: int,
                      draws: Optional[List[StepDraws]] = None
                      ) -> Dict[str, np.ndarray]:
-        """The draws and optimizer scalars of the next ``kk`` steps, as
-        the K=1 step computes them (or ``draws``), stacked [kk, ...]."""
+        """The draws of the next ``kk`` steps, as the K=1 step computes
+        them (or ``draws``), stacked [kk, ...]."""
         B, g0 = self.cfg.batch_size, int(state.step)
         if draws is None and self.image:
             draws = [image_draws(state.seed, g0 + j, B, self.cfg.alpha)
@@ -169,9 +195,8 @@ class FusedDispatch:
         else:
             tab["seeds"] = np.array([list(d.seeds) for d in draws],
                                     np.int64).reshape(kk, -1)
-        sc = [state.tx.host_scalars(c0 + j) for j in range(kk)]
-        for name in sc[0]:
-            tab["sc_" + name] = np.array([s[name] for s in sc], np.float32)
+        if self.step_table:
+            tab["step"] = np.arange(g0, g0 + kk, dtype=np.int64)
         return tab
 
     def _upload(self, host: Dict[str, np.ndarray], dst: Dict[str, torch.Tensor]
@@ -206,19 +231,17 @@ class FusedDispatch:
     def _body(self, state: TrainState, key: tuple) -> None:
         """One training step reading slot ``cursor`` of every table; its
         metrics go to their slots; ``cursor`` (and the applied optimizer
-        steps ``count``) advance on the device."""
+        steps, ``count.applied``) advance on the device."""
         slot = self.cursor.reshape(1)
         tab = self.tables
         draws = StepDraws(
             seeds=_slot(tab["seeds"], slot) if "seeds" in tab else (),
             lam=_slot(tab["lam"], slot), perm=_slot(tab["perm"], slot),
             crop=_slot(tab["crop"], slot) if self.image else None,
-            flip=_slot(tab["flip"], slot) if self.image else None)
-        opt = self.count.reshape(1)
-        scalars = {n[3:]: _slot(t, opt) for n, t in tab.items()
-                   if n.startswith("sc_")}
+            flip=_slot(tab["flip"], slot) if self.image else None,
+            step=_slot(tab["step"], slot) if "step" in tab else None)
         state, m = self.step_fn(state, self._batch(key, slot), draws,
-                                scalars)
+                                self.count.scalars())
         finite = m.pop("finite", None)
         for name, v in m.items():
             if name not in self.metric_buf:
@@ -226,7 +249,8 @@ class FusedDispatch:
                     self.k, dtype=torch.float32, device=self.device)
             self.metric_buf[name].index_copy_(
                 0, slot, v.detach().reshape(1).to(torch.float32))
-        self.count.add_(1 if finite is None else finite.to(torch.int64))
+        self.count.applied.add_(1 if finite is None
+                                else finite.to(torch.int64))
         self.cursor.add_(1)
 
     # -- counters the body's host code would otherwise move --------------
@@ -240,9 +264,11 @@ class FusedDispatch:
 
     def _capture(self, state: TrainState, key: tuple) -> None:
         """Capture the body on the dispatch stream (it runs nothing)."""
+        t0 = time.monotonic()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             self._body(state, key)
+        self.capture_s += time.monotonic() - t0
         self.graphs[key] = graph
         self.replays[key] = 0
 
@@ -278,14 +304,26 @@ class FusedDispatch:
     def _run(self, state: TrainState, kk: int, batches, start: int,
              draws) -> Metrics:
         ngd = "ngd" in state.opt_state
-        if ngd and self.fp16:
+        if ngd and (self.fp16 or self.guard):
             raise NotImplementedError(
-                "not ported yet: --precision fp16 with NGD and "
-                "--steps_per_dispatch > 1 (the factor-refresh gate would "
-                "depend on the device's skipped steps)")
+                "not ported yet: "
+                + ("--precision fp16" if self.fp16 else "--sentinel "
+                   + self.cfg.sentinel)
+                + " with NGD and --steps_per_dispatch > 1 (the "
+                "factor-refresh gate would depend on the device's skipped "
+                "steps)")
+        count = self.count
+        if state.applied is not count:
+            # the steps another count holds are read into the host count
+            # first
+            if state.applied is not None:
+                state.applied.settle(state)
+            count.discard()
+            state.applied = count
+        count.reserve(state, kk)
         g0, c0 = int(state.step), int(state.opt_state["step"])
         t0 = int(state.opt_state["ngd"]["t"]) if ngd else None
-        self._upload(self._host_tables(state, kk, c0, draws), self.tables)
+        self._upload(self._host_tables(state, kk, draws), self.tables)
         if self.resident is None:
             stacked = stack_host_batches(batches)
             stacked["label"] = stacked["label"].astype(np.int64)
@@ -296,7 +334,6 @@ class FusedDispatch:
             key = ("resident",)
             self.start.fill_(int(start))
         self.cursor.zero_()
-        self.count.zero_()
         for j in range(kk):
             self._set_counters(state, g0 + j, c0 + j,
                                None if t0 is None else t0 + j)
@@ -321,7 +358,9 @@ class FusedDispatch:
                                    None if t0 is None else t0 + j)
             self.graphs[key].replay()
             self.replays[key] += 1
-        applied = int(self.count) if self.fp16 else kk
-        self._set_counters(state, g0 + kk, c0 + applied,
+        self._set_counters(state, g0 + kk, c0,
                            None if t0 is None else t0 + kk)
+        # skipped steps (fp16 overflow, the sentinel's guard) applied no
+        # update: the host count waits for the device's (``settle``)
+        count.advance(state, kk)
         return reduce_metrics({n: b[:kk] for n, b in self.metric_buf.items()})

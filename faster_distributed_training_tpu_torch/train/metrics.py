@@ -1,6 +1,7 @@
 """Metric helpers, copied from the JAX package's ``train/metrics.py``:
-``percentiles``, ``perplexity`` and ``MetricAccumulator`` (device scalars
-summed, one host sync per epoch)."""
+``percentiles``, ``perplexity``, ``MetricAccumulator`` (device scalars
+summed, one host sync per epoch), and the goodput surface
+``attach_goodput`` / ``format_goodput``."""
 
 from __future__ import annotations
 
@@ -69,3 +70,40 @@ class MetricAccumulator:
             out["accuracy"] = (float(vals["correct"].sum()) / total
                                if total else 0.0)
         return out
+
+
+def attach_goodput(summary: Dict[str, float], tracker) -> Dict[str, float]:
+    """A GoodputTracker's summary merged into ``summary`` under
+    ``goodput_``-prefixed keys; ``tracker`` None leaves it as it is."""
+    if tracker is None:
+        return summary
+    for k, v in tracker.summary().items():
+        summary[f"goodput_{k}" if not k.startswith("goodput") else k] = v
+    return summary
+
+
+def format_goodput(tracker) -> str:
+    """The epoch's ``[goodput]`` line: ``96.2% goodput over 12.0s; ckpt
+    block 0.10s; 2 saves, 1 restore``."""
+    s = tracker.summary()
+    bits = [f"{s['goodput_pct']:.1f}% goodput over {s['wall_s']:.1f}s"]
+    for key, label in (("checkpoint_blocking_s", "ckpt block"),
+                       ("emergency_save_s", "emergency save"),
+                       ("restore_s", "restore"),
+                       ("restart_backoff_s", "backoff"),
+                       ("detect_s", "detect")):
+        if s.get(key):
+            bits.append(f"{label} {s[key]:.2f}s")
+    if s.get("restart_mttr_s"):
+        bits.append(f"mttr {s['restart_mttr_s']:.2f}s/restart")
+    counts = ", ".join(f"{int(s[k])} {k.rstrip('s') if s[k] == 1 else k}"
+                       for k in ("saves", "skipped_saves", "restores",
+                                 "restarts", "preemptions", "peer_failures",
+                                 "step_timeouts", "restart_generations",
+                                 "skipped_steps", "rollbacks",
+                                 "quarantined_batches",
+                                 "quarantined_shards")
+                       if s.get(k))
+    if counts:
+        bits.append(counts)
+    return "; ".join(bits)

@@ -22,6 +22,17 @@ metrics as device scalars and never waits on the card.
 Under ``--quant`` the training forward rolls every amax history once (the
 JAX step's mutable ``batch_stats``); the eval step's forward does not.
 
+``--sentinel guard|full`` arms the bad-step guard (JAX ``_sentinel_ok`` /
+``_sentinel_metrics``): a step whose loss, global gradient norm or fp16
+overflow check is not finite is skipped as the fp16 skip is (the step
+count advances, nothing else moves), its metrics are zeroed by a select
+and ``bad_steps`` counts it.  At K=1 the skip reads the verdict on the
+host, as fp16's does; under a dispatch it is a device select, inside the
+captured graph.  ``FDT_FAULT_NAN_AT_STEP=N`` multiplies the loss the
+gradients are taken of by NaN where the device step equals N (a
+dispatch's step table, or the state's step at K=1).  ``--sentinel
+none`` and no fault leave the step as it was.
+
 Under a dispatch the step takes ``scalars`` (the optimizer's per-step
 lr or lambda as 0-dim device tensors) and never branches on the device:
 the fp16 skip is a select (JAX's ``_tree_where``: parameters, optimizer
@@ -107,7 +118,8 @@ from faster_distributed_training_tpu_torch.train.losses import (
     cross_entropy, per_sample_cross_entropy)
 from faster_distributed_training_tpu_torch.train.mixup import (
     mixup_criterion, sample_lam)
-from faster_distributed_training_tpu_torch.train.state import TrainState
+from faster_distributed_training_tpu_torch.train.state import (
+    AppliedCount, TrainState, settle)
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -120,6 +132,12 @@ class StepDraws:
     crop: Optional[np.ndarray] = None   # images: (n, 2) offsets in [0, 8]
     flip: Optional[np.ndarray] = None   # images: (n,) horizontal flips
     b0: int = 0            # global index of this process's first row
+    # the global step as a device int64 (a dispatch's slot of its step
+    # table; None: the state's host step), read by the NaN fault
+    step: Optional[torch.Tensor] = None
+    # FDT_FAULT_NAN_AT_STEP's multiplier of the loss the gradients are
+    # taken of (NaN at the armed step, else 1), None when not armed
+    poison: Optional[torch.Tensor] = None
 
 
 def seeds_on(draws: StepDraws, device) -> StepDraws:
@@ -248,14 +266,18 @@ def lm_shift_metrics(logits: torch.Tensor, tokens: torch.Tensor,
     return loss_total, correct, valid.sum()
 
 
-def _grads(loss, params: Dict[str, torch.Tensor], loss_scale=None):
-    """Grads by name of ``loss``, scaled by ``loss_scale`` (fp16).  The
+def _grads(loss, params: Dict[str, torch.Tensor], loss_scale=None,
+           poison=None):
+    """Grads by name of ``loss``, scaled by ``loss_scale`` (fp16) and
+    multiplied by ``poison`` (the NaN fault, when armed).  The
     backward runs on this thread, not on autograd's worker thread for the
     card: cuDNN caches its autotuned plans per thread, so a ``--remat``
     replay there would pick its own forward algorithms (other bits than
     the forward's), and a rematted and a plain run would not share their
     backward's."""
     scaled = scale_loss(loss, loss_scale, loss_scale is not None)
+    if poison is not None:
+        scaled = scaled * poison
     with torch.autograd.set_multithreading_enabled(False):
         return dict(zip(params, torch.autograd.grad(scaled,
                                                     list(params.values()))))
@@ -287,7 +309,8 @@ def lm_loss_and_grads(model, batch: Dict[str, torch.Tensor],
         loss = loss_total * float(group.world) / torch.clamp(every, min=1.0)
     else:
         loss = loss_total / torch.clamp(total, min=1.0)
-    grads = _grads(loss, dict(model.named_parameters()), loss_scale)
+    grads = _grads(loss, dict(model.named_parameters()), loss_scale,
+                   draws.poison)
     return loss, grads, loss_total, correct, total
 
 
@@ -312,7 +335,8 @@ def loss_and_grads(model, batch: Dict[str, torch.Tensor], draws: StepDraws,
     y_b = (y if group is None else group.gather(y))[index]
     loss = mixup_criterion(cross_entropy, logits, y, y_b, lam)
     share = loss if sp is None else loss * (1.0 / sp.size)
-    grads = _grads(share, dict(model.named_parameters()), loss_scale)
+    grads = _grads(share, dict(model.named_parameters()), loss_scale,
+                   draws.poison)
     return loss, grads, logits, y_b, lam
 
 
@@ -382,7 +406,10 @@ def pipeline_forward_backward(state: TrainState,
             y_b = group.gather(y)[index]
             loss = mixup_criterion(cross_entropy, logits, y, y_b, lam)
             out = (loss, (logits, y_b, lam))
-        return scale_loss(loss, loss_scale, loss_scale is not None), out
+        scaled = scale_loss(loss, loss_scale, loss_scale is not None)
+        if draws.poison is not None:
+            scaled = scaled * draws.poison
+        return scaled, out
 
     params = dict(model.named_parameters())
     for p in params.values():
@@ -453,7 +480,7 @@ def image_loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
                                        y_a, y_b, lam)
     else:
         loss = mixup_criterion(cross_entropy, logits, y_a, y_b, lam)
-    grads = _grads(loss, state.params(), loss_scale)
+    grads = _grads(loss, state.params(), loss_scale, draws.poison)
     return loss, grads, logits, y_a, y_b, lam
 
 
@@ -488,38 +515,120 @@ def _update(state: TrainState, grads: Dict[str, torch.Tensor],
     pl.after_update(state)
 
 
+def sentinel_ok(loss: Optional[torch.Tensor], grads: Dict[str, torch.Tensor],
+                finite: Optional[torch.Tensor]) -> torch.Tensor:
+    """The sentinel's bad-step verdict on the device (JAX
+    ``train/steps.py::_sentinel_ok``): the loss, the global gradient
+    norm and (fp16) the overflow check all finite.  Across processes
+    (any mesh) the ranks vote: one bad rank makes every rank skip."""
+    import torch.distributed as dist
+
+    norms = torch._foreach_norm(list(grads.values()))
+    ok = torch.isfinite(torch.linalg.vector_norm(torch.stack(
+        [n.float() for n in norms])))
+    if loss is not None:
+        ok = ok & torch.isfinite(loss.detach()).reshape(())
+    if finite is not None:
+        ok = ok & finite
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        from faster_distributed_training_tpu_torch.parallel.collectives \
+            import _comm_device
+        bad = (~ok).to(torch.float32).reshape(1).to(_comm_device(None))
+        dist.all_reduce(bad, op=dist.ReduceOp.MAX)
+        ok = bad.to(ok.device)[0] == 0
+    return ok
+
+
+def sentinel_metrics(metrics: Metrics, ok: torch.Tensor) -> Metrics:
+    """A guarded step's metrics (JAX ``_sentinel_metrics``): ``loss``,
+    ``loss_total``, ``correct`` and ``total`` zeroed by a select (0 *
+    NaN is NaN) where the step was bad, so the epoch sums span the steps
+    that updated; ``bad_steps`` the verdict counted."""
+    out = dict(metrics)
+    if "loss_total" not in out:
+        out["loss_total"] = out["loss"] * out["total"].to(out["loss"].device)
+    for k in ("loss", "loss_total", "correct", "total"):
+        v = out[k].to(ok.device)
+        out[k] = torch.where(ok, v, torch.zeros_like(v))
+    out["bad_steps"] = 1.0 - ok.to(torch.float32)
+    return out
+
+
+# steps between two reads of a guarded K=1 run's applied count
+SETTLE_EVERY = 64
+
+
+def _selects(state: TrainState) -> bool:
+    """Whether a guarded K=1 step skips by a device select, as a
+    dispatch's step does: on the layouts a dispatch runs (one process,
+    or data parallel with every leaf whole and on the card) and without
+    NGD, whose factor-refresh gate is a host counter that a skipped step
+    must not move.  Elsewhere the verdict is read on the host."""
+    pl = state.placement
+    if "ngd" in state.opt_state:
+        return False
+    return pl is None or (pl.tp is None and pl.pipe is None
+                          and pl.group.seq is None and not pl.sharding
+                          and not pl.offload_params and pl.offload_opt is None)
+
+
 def apply_update(state: TrainState, grads: Dict[str, torch.Tensor],
-                 fp16: bool, buffers=None, scalars=None) -> torch.Tensor:
+                 fp16: bool, buffers=None, scalars=None, loss=None,
+                 guard: bool = False) -> torch.Tensor:
     """Clip and update (the optimizer), then advance the step.  Under
     fp16 the grads are unscaled and checked first and the loss scale
     moves; on a non-finite grad the update is skipped and the model's
     buffers go back to ``buffers`` (their values before the forward).
-    With ``scalars`` (a dispatch) the optimizer takes them, the skip is
-    a device select and the loss scale moves in place: nothing reads the
-    device.  ``grads`` are the reduced (global) gradients.  Returns the
-    device bool ``finite``.  Under pp every stage takes one decision:
-    each checked only the leaves it holds, so a non-finite grad on any
-    stage skips the step and backs the scale off on all of them."""
+    ``guard`` (``--sentinel guard|full``) generalizes the skip to every
+    precision: a step whose ``sentinel_ok`` verdict is false is skipped
+    the same way.  With ``scalars`` (a dispatch) the optimizer takes
+    them, the skip is a device select and the loss scale moves in place:
+    nothing reads the device.  ``grads`` are the reduced (global)
+    gradients.  ``guard`` without ``scalars`` (K=1) takes the same device
+    select where ``_selects``, its scalars from ``state.applied`` (the
+    optimizer steps applied, counted on the device and read every
+    ``SETTLE_EVERY`` steps).  Returns the device bool of an applied update
+    (fp16's ``finite``, or the guard's verdict).  Under pp every stage takes one
+    decision: each checked only the leaves it holds, so a non-finite grad
+    on any stage skips the step and backs the scale off on all of
+    them."""
     grads, finite = unscale_and_check(grads, state.loss_scale, fp16)
     pipe = state.placement.pipe if state.placement is not None else None
     if fp16 and pipe is not None and pipe.live:
         finite = pipe.sum_((~finite).float()) == 0
     new_scale = update_loss_scale(state.loss_scale, finite, fp16)
+    ok = (sentinel_ok(loss, grads, finite if fp16 else None) if guard
+          else finite)
+    skips = fp16 or guard
+    count = None
+    if scalars is None and guard and _selects(state):
+        count = state.applied
+        if count is None or not count.skips:
+            # (a dispatch's count without skips counts every step)
+            settle(state)
+            count = state.applied = AppliedCount(
+                SETTLE_EVERY, ok.device, skips=True)
+        count.reserve(state, 1)
+        scalars = count.scalars()
     if scalars is not None:
         live = old = ()
-        if fp16:
+        if skips:
             live = (list(state.params().values())
                     + _opt_tensors(state.opt_state))
             old = [t.detach().clone() for t in live]
         _update(state, grads, scalars)
-        if fp16:
-            _select_(finite, live + list(state.model.buffers()),
+        if skips:
+            _select_(ok, live + list(state.model.buffers()),
                      old + list(buffers))
+        if fp16:
             state.loss_scale.scale.copy_(new_scale.scale)
             state.loss_scale.growth_count.copy_(new_scale.growth_count)
+        if count is not None:
+            count.applied.add_(ok.to(torch.int64))
+            count.advance(state, 1)
         state.step += 1
-        return finite
-    if fp16 and not bool(finite):
+        return ok
+    if skips and not bool(ok):
         with torch.no_grad():
             for b, old in zip(state.model.buffers(), buffers):
                 b.copy_(old)
@@ -527,12 +636,13 @@ def apply_update(state: TrainState, grads: Dict[str, torch.Tensor],
         _update(state, grads)
     state.loss_scale = new_scale
     state.step += 1
-    return finite
+    return ok
 
 
-def _snapshot(state: TrainState, fp16: bool):
-    """The buffers' values before the forward, for an fp16 skip."""
-    if not fp16:
+def _snapshot(state: TrainState, skips: bool):
+    """The buffers' values before the forward, for a skipped step (fp16
+    or the sentinel's guard)."""
+    if not skips:
         return None
     return [b.detach().clone() for b in state.model.buffers()]
 
@@ -563,11 +673,18 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
     ``scalars``: a dispatch's device scalars for the optimizer (see the
     module docstring); its metrics then also hold ``finite`` (fp16).
     Updates the state in place and advances its step."""
+    from faster_distributed_training_tpu_torch.resilience.faults import (
+        graph_nan_at)
+
     alpha = mixup_alpha(cfg)
     lm = cfg.task == "lm"
     image = cfg.model != "transformer"
     mode = resolve_mixup_mode(cfg)
     fp16 = cfg.precision == "fp16"
+    # --sentinel guard|full: the in-graph bad-step guard; none leaves the
+    # step as it was
+    guard = (cfg.sentinel or "none") != "none"
+    nan_at = graph_nan_at()
 
     def forward_backward(state, batch, draws, group):
         """(draws, loss, grads, metric inputs) of this rank's rows."""
@@ -586,6 +703,12 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
                 batch["tokens"].device)
         if group is not None:
             draws = dataclasses.replace(draws, b0=group.origin(B))
+        if nan_at is not None:
+            dev = next(iter(batch.values())).device
+            at = (draws.step if draws.step is not None else torch.full(
+                (), int(state.step), dtype=torch.int64, device=dev))
+            draws = dataclasses.replace(draws, poison=torch.where(
+                at == nan_at, float("nan"), 1.0))
         if state.placement is not None and state.placement.pipe is not None:
             loss, grads, out = pipeline_forward_backward(state, batch, draws,
                                                          lm, ls)
@@ -611,14 +734,15 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
         if pl is not None:
             pl.unpark(state)
         group = _data_group(state)
-        buffers = _snapshot(state, fp16)
+        buffers = _snapshot(state, fp16 or guard)
         with (group.active() if group is not None
               else contextlib.nullcontext()):
             B, loss, grads, out = forward_backward(state, batch, draws,
                                                    group)
         if pl is not None:
             grads = pl.reduce_grads(grads)
-        finite = apply_update(state, grads, fp16, buffers, scalars)
+        finite = apply_update(state, grads, fp16, buffers, scalars,
+                              loss=loss, guard=guard)
         if out is None:
             # a pipeline stage before the last: the last stage's metrics
             # come to it in reduce_metrics
@@ -650,10 +774,12 @@ def make_train_step(cfg: TrainConfig) -> Callable[..., Tuple[TrainState,
         if pl is not None:
             metrics = pl.reduce_metrics(metrics)
             pl.park(state)
+        if guard:
+            metrics = sentinel_metrics(metrics, finite)
         if fp16:
             metrics["loss_scale"] = state.loss_scale.scale
-            if scalars is not None:
-                metrics["finite"] = finite
+        if (fp16 or guard) and scalars is not None:
+            metrics["finite"] = finite
         return state, metrics
 
     return step

@@ -1711,3 +1711,84 @@ def test_decode_engine_greedy_tokens_on_the_card_match_the_cpu(card):
     assert outs["cuda"] == outs["cpu"]
     err = np.abs(probes["cuda"] - probes["cpu"]).max()
     assert err <= 1e-4 * np.abs(probes["cpu"]).max()
+
+
+# -- resilience (slice 15) ---------------------------------------------------
+
+def _committed_leaves(ckdir):
+    """{step: leaves} of every committed step checkpoint (``state.pt``)."""
+    import os
+
+    from faster_distributed_training_tpu_torch.train import checkpoint as ck
+
+    out = {}
+    for step, name in ck.series_members(str(ckdir), "transformer_step"):
+        payload = torch.load(os.path.join(str(ckdir), name, "state.pt"),
+                             map_location="cpu", weights_only=True)
+        out[step] = ck._flat(payload)[0]
+    return out
+
+
+def test_k4_snapshot_is_bitwise_the_live_state(card, tmp_path, monkeypatch):
+    """``--steps_per_dispatch 4 --checkpoint_every 4`` (asynchronous
+    saves): every committed checkpoint equals the live state at its
+    dispatch boundary, read from the uninterrupted run, bitwise; the
+    snapshot finished before the next dispatch updated the tensors."""
+    from faster_distributed_training_tpu_torch.train import checkpoint as ck
+    from faster_distributed_training_tpu_torch.train import dispatch as dmod
+
+    at = {}
+    real = dmod.FusedDispatch.run
+
+    def run(self, state, kk, *a, **k):
+        out = real(self, state, kk, *a, **k)
+        at[int(state.step)] = {n: t.detach().to("cpu", copy=True) for n, t in
+                               ck._flat(ck.state_payload(state))[0].items()}
+        return out
+    monkeypatch.setattr(dmod.FusedDispatch, "run", run)
+    _k_run(tmp_path, ["--steps_per_dispatch", "4"])
+    monkeypatch.setattr(dmod.FusedDispatch, "run", real)
+    out, _ = _k_run(tmp_path, ["--steps_per_dispatch", "4",
+                               "--checkpoint_every", "4"])
+    got = _committed_leaves(out["cfg"].checkpoint_dir)
+    assert got and sum(out["trainer"].dispatch.replays.values()) >= 4
+    for step, leaves in got.items():
+        assert leaves.keys() == at[step].keys()
+        for name in leaves:
+            assert torch.equal(leaves[name], at[step][name]), (step, name)
+
+
+def test_in_process_restart_under_a_captured_graph(card, tmp_path,
+                                                   monkeypatch):
+    """``--supervise`` with ``FDT_FAULT_DIE_AT_STEP=6`` at K=4: the restore
+    copies into the tensors the captured graph reads, so the restarted
+    attempt replays the same graph (none captured again) and ends bitwise
+    the uninterrupted run."""
+    from faster_distributed_training_tpu_torch.resilience import faults
+
+    _, want = _k_run(tmp_path, ["--steps_per_dispatch", "4"])
+    monkeypatch.setenv(faults.ENV_DIE, "6")
+    out, got = _k_run(tmp_path, ["--steps_per_dispatch", "4",
+                                 "--checkpoint_every", "4", "--supervise"])
+    disp = out["trainer"].dispatch
+    assert out["goodput_restarts"] == 1 and len(disp.graphs) == 1
+    assert want.keys() == got.keys()
+    for key in want:
+        assert torch.equal(want[key], got[key]), key
+
+
+def test_nan_guard_inside_the_graph(card, tmp_path, monkeypatch):
+    """``--sentinel guard`` with ``FDT_FAULT_NAN_AT_STEP=2``: the NaN
+    compares the device step inside the replayed graph, the step is
+    skipped there, and K=4 ends bitwise K=1."""
+    from faster_distributed_training_tpu_torch.resilience import faults
+
+    monkeypatch.setenv(faults.ENV_NAN, "2")
+    one, want = _k_run(tmp_path, ["--sentinel", "guard"])
+    four, got = _k_run(tmp_path, ["--sentinel", "guard",
+                                  "--steps_per_dispatch", "4"])
+    assert one["goodput_skipped_steps"] == four["goodput_skipped_steps"] == 1
+    assert sum(four["trainer"].dispatch.replays.values()) >= 4
+    assert want.keys() == got.keys()
+    for key in want:
+        assert torch.equal(want[key], got[key]), key

@@ -1,7 +1,9 @@
 """The port against the JAX package where they used to part ways: the AG
 News reader and its synthetic fallback (``--dataset agnews``), ``--plot``,
 ``--mlp_impl naive``, step checkpoints kept by ``--checkpoint_keep`` and
-saved by ``--checkpoint_every_secs``, and flags that raise.
+saved by ``--checkpoint_every_secs``, and flags and resilience seams that
+raise (``--profile``, ``--warm_spares``, ``FDT_SLICE_COUNT`` > 1,
+``FDT_SLICE_SPARE``, ``FDT_FAULT_SLICE``).
 
 Token ids, lengths and batches are held byte-identical to JAX's
 (``data/agnews.py``, ``cli.load_dataset``); the naive classifier's
@@ -285,7 +287,7 @@ def test_checkpoint_every_secs_saves_on_its_cadence(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,name", [
     (["--profile"], "--profile"),
-    (["--storage_backend", "fake_object_store"], "--storage_backend"),
+    (["--warm_spares", "1"], "--warm_spares"),
 ])
 def test_flags_without_a_port_raise(tmp_path, flags, name):
     argv = ["--dataset", "synthetic", "--device", "cpu", "--no_plot",
@@ -315,3 +317,28 @@ def test_lookup_backward_matches_embedding(rows):
     want = torch.zeros(rows, 16, dtype=torch.float64).index_add_(
         0, idx.reshape(-1), g.reshape(-1, 16).double())
     torch.testing.assert_close(a.grad.double(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("env,name", [
+    ({"FDT_SLICE_COUNT": "2"}, "FDT_SLICE_COUNT"),
+    ({"FDT_SLICE_SPARE": "0"}, "FDT_SLICE_SPARE"),
+    ({"FDT_FAULT_SLICE": "1", "FDT_FAULT_DIE_AT_STEP": "3"},
+     "FDT_FAULT_SLICE"),
+])
+def test_unported_resilience_seams_raise(tmp_path, monkeypatch, env, name):
+    """Slices, warm spares and the slice-scoped fault are not ported: the
+    resilience bundle ``run_training`` builds raises NotImplementedError
+    naming the seam; ``FDT_SLICE_COUNT=1`` (one slice) does not."""
+    from faster_distributed_training_tpu_torch.resilience import (
+        build_resilience)
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = _cfg(tmp_path, checkpoint_every=2)
+    with pytest.raises(NotImplementedError, match=name):
+        build_resilience(cfg, log=print)
+    if name == "FDT_SLICE_COUNT":
+        monkeypatch.setenv("FDT_SLICE_COUNT", "1")
+        res = build_resilience(cfg, log=print)
+        assert res.manager is not None
+        res.close()

@@ -213,13 +213,17 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tmp_path):
     assert out["state"].step == out["steps_per_epoch"] == 4
     assert np.isfinite(hist["train_loss"]).all() and len(hist["test_acc"]) == 1
     for flags, name in ((["--ngd"], "--ngd"),
-                        (["--auto_recover"], "--auto_recover"),
+                        (["--warm_spares", "1"], "--warm_spares"),
                         (["--data_path", "stream"], "--data_path stream"),
                         (["--mesh", "dp=1,tp=3"], "--mesh"),
-                        (["--supervise"], "--supervise"),
+                        (["--profile"], "--profile"),
                         (["--dataset", "cifar10"], "--dataset cifar10")):
         with pytest.raises(NotImplementedError, match=name):
             cli.main(argv + flags, defaults=cli.TRANSFORMER_DEFAULTS)
+    # the resilience flags train (slice 15)
+    for flags in (["--auto_recover"], ["--supervise"]):
+        out = cli.main(argv + flags, defaults=cli.TRANSFORMER_DEFAULTS)
+        assert out["state"].step == 4 and not out.get("preempted"), flags
     # --lm_causal on --task cls does what JAX's does: nothing (JAX's
     # causal mask needs task lm)
     out = cli.main(argv + ["--lm_causal"], defaults=cli.TRANSFORMER_DEFAULTS)

@@ -483,6 +483,28 @@ def clock_skew(ckpt_root: str) -> dict:
         checkpoint.series_members(ckpt_root, "transformer_step"))}
 
 
+def cli_argv(argv, slow_write_s: float = 0.0) -> dict:
+    """``cli.main`` on ``argv`` (the transformer's defaults) joined to the
+    group: the steps trained and the goodput counters.  ``slow_write_s``:
+    each single-file checkpoint write sleeps that long first (a writer
+    slower than a step)."""
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.train import checkpoint
+
+    if slow_write_s:
+        write = checkpoint.write_payload
+
+        def slow(*args, **kwargs):
+            time.sleep(slow_write_s)
+            return write(*args, **kwargs)
+        checkpoint.write_payload = slow
+
+    out = cli.main(list(argv) + ["--distributed"],
+                   defaults=cli.TRANSFORMER_DEFAULTS)
+    return {"step": int(out["state"].step),
+            **{k: v for k, v in out.items() if k.startswith("goodput_")}}
+
+
 def many(cases: dict) -> dict:
     """Several cases in one group: name -> (case, kwargs)."""
     return {name: CASES[case](**kw) for name, (case, kw) in cases.items()}
@@ -492,4 +514,5 @@ CASES = {"run_steps": run_steps, "restore": restore, "cli_runs": cli_runs,
          "cli_tp_run": cli_tp_run, "cli_sp_run": cli_sp_run,
          "cli_pp_run": cli_pp_run, "eval_metrics": eval_metrics,
          "fp16_planted_inf": fp16_planted_inf,
-         "collectives": collectives, "clock_skew": clock_skew, "many": many}
+         "collectives": collectives, "clock_skew": clock_skew,
+         "cli_argv": cli_argv, "many": many}
