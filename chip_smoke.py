@@ -14,6 +14,7 @@ width.
     python3 chip_smoke.py --pp
     python3 chip_smoke.py --decode
     python3 chip_smoke.py --resilience
+    python3 chip_smoke.py --stream
 
 The second form prints only the device split of one record-width
 training step of the slice-2 path and paths B and C, and whether two
@@ -28,7 +29,10 @@ alone (no build: the decode path has no hand kernel), the tenth the
 build and phase F alone (``resilience_phase``: path B under the
 checkpoint manager, a supervised die, SIGTERM and its relaunch, the
 sentinel's NaN guard and spike rollback, a two-process fs-simulated pod;
-in the whole smoke it runs after phase M, before any process group).
+in the whole smoke it runs after phase W, before any process group), the
+eleventh the build and phase W alone (``stream_phase``: path E and
+ResNet-50 through the stream window, the sharded resident layout on two
+gloo ranks, the native host library; it shards path E's corpus itself).
 Needs one CUDA card and the repo checkout beside this file; without
 either it exits non-zero and prints no result.  Phases, in order (any
 failure raises and exits non-zero):
@@ -202,6 +206,31 @@ failure raises and exits non-zero):
                ``--remat`` at batch 512: peak, step ms, gradients and BN
                running statistics bitwise against no remat (cuDNN
                deterministic);
+  W. stream  — the rest of the data plane (slice 17), after phase M:
+               (a) path E (the LM at seq 8192, batch 4, the record's
+               widths) on path E's corpus under ``--data_path stream
+               --stream_window 4 --steps_per_dispatch 4``, 8 steps: every
+               parameter, buffer and optimizer leaf bitwise the
+               ``--data_path resident`` run at K=4, one graph
+               ("stream") serving both slots, rows 2 and 3 booked with
+               ``flash_rows`` (the wrappers' calls: 6 per eager step and
+               per capture; the replays' launches are phase K's), the
+               steady step ms, ``stream_stall_pct``, a refill's disk read
+               ms, its H2D copy (device ms on the side stream, GB/s) and
+               the window's bytes on the card against the resident
+               split's; (b) ResNet-50 with NGD and meta mixup on
+               synthetic CIFAR-shaped image shards (4096 + 1024 images,
+               ``shard.py --kind image --source synthetic``), 8 steps at
+               W = K = 4, bitwise the resident run, step ms and stall;
+               (c) two gloo ranks sharing the card (as P4), the record at
+               ``--mesh dp=2`` for 4 steps through ``cli.run_training``
+               under ``--resident_layout replicated`` and ``sharded``:
+               the states bitwise equal on both ranks, rows 1, 4 and 6
+               launched, the bytes at rest a rank and the re-shard's ms;
+               (d) the native host library loaded from the port's
+               ``_build/`` (the smoke fails without it): the hash and
+               WordPiece batch encoders on 4096 synthetic documents
+               byte-identical to the Python path, rows/s of each;
   P. mesh    — the data mesh (slice 10) on the one card.  P1, world 1
                over NCCL, joined by the entry point (``--distributed
                --mesh dp=1``, torchrun's variables): the record (8
@@ -6044,6 +6073,357 @@ def _leaves_of(out) -> dict:
     return dict(state_leaves(out["state"]))
 
 
+# -- slice 17: the rest of the data plane (phase W) --------------------------
+
+W_K = 4                  # W(a), W(b): the window and the dispatch length
+W_DOCS = 4096            # W(d): synthetic documents a native encode
+
+
+def w_stream_report(tag: str, out: dict, steps: int) -> dict:
+    """The stream run's window numbers: refill read and H2D a refill, the
+    copies' rate, the steady state's stall and step ms."""
+    src, trainer = out["stream"], out["trainer"]
+    r = max(src.refills, 1)
+    h2d_ms = src.h2d_device_ms / r
+    rep = {"refills": src.refills, "read_ms": src.read_s * 1e3 / r,
+           "h2d_ms": h2d_ms, "h2d_host_ms": src.h2d_s * 1e3 / r,
+           "h2d_gbps": (src.h2d_bytes / r) / max(h2d_ms * 1e-3, 1e-12) / 1e9,
+           "refill_bytes": src.h2d_bytes / r,
+           "stall_pct": out.get("stream_stall_pct"),
+           "steady_steps": trainer._stream_steps,
+           "steady_step_ms": (trainer._stream_wall_s * 1e3
+                              / max(trainer._stream_steps, 1)),
+           "run_step_ms": sum(trainer.history["epoch_time"]) * 1e3 / steps,
+           "window_bytes": src.device_bytes,
+           "pinned_bytes": src.pinned_bytes}
+    print(f"[stream {tag}] {src.refills} refills of {rep['refill_bytes']:.0f}"
+          f" B: disk read {rep['read_ms']:.3f} ms, H2D {rep['h2d_ms']:.3f} ms"
+          f" on the side stream ({rep['h2d_gbps']:.2f} GB/s; "
+          f"{rep['h2d_host_ms']:.3f} ms host wall with the pinned staging); "
+          f"steady-state stall {rep['stall_pct']}% of step time, step "
+          f"{rep['steady_step_ms']:.3f} ms over the {rep['steady_steps']} "
+          f"steady steps ({rep['run_step_ms']:.3f} ms over the run's "
+          f"epochs, warm-up and capture included); window on the card "
+          f"{src.device_bytes} B (2 slots x {src.window} batches), pinned "
+          f"staging {src.pinned_bytes} B", flush=True)
+    return rep
+
+
+def w_path_e(cli, corpus: str, build_dir: str) -> dict:
+    """W(a): path E streamed (W = K = 4, 8 steps) against the resident
+    split at K=4, in turns (resident, stream, stream, resident): every
+    leaf bitwise, rows 2 and 3 booked exactly, each run's step ms over
+    its epoch."""
+    argv = ["--task", "lm", "--dataset", "stream", "--stream_dir", corpus,
+            "--seq_len", str(LONG["L"]), "--bs", str(LONG["B"]),
+            "--steps_per_dispatch", str(W_K)]
+    runs = {"resident": [], "stream": []}
+    for i, path in enumerate(("resident", "stream", "stream", "resident")):
+        extra = ["--data_path", path] + (
+            ["--stream_window", str(W_K)] if path == "stream" else [])
+        out, leaves, counts = counted_run(cli, record_cfg(
+            cli, argv + extra, f"w_{path}{i}", build_dir),
+            f"W(a) path E {path} K={W_K} (run {i + 1} of 4)")
+        runs[path].append((out, leaves, counts,
+                           sum(out["trainer"].history["epoch_time"]) * 1e3
+                           / max(int(out["state"].step), 1)))
+        if len(runs[path]) == 2:
+            bitwise(f"W(a) path E {path}: run 2 vs run 1", runs[path][0][1],
+                    leaves)
+            runs[path][1] = (None, None, counts, runs[path][1][3])
+            del out, leaves
+    (a, want, ca, _), (b, got, cb, _) = runs["resident"][0], \
+        runs["stream"][0]
+    steps = int(b["state"].step)
+    check(steps == int(a["state"].step) == 8, f"W(a): {steps} steps")
+    n = bitwise("W(a) path E stream vs resident", want, got)
+    disp = b["trainer"].dispatch
+    check(list(disp.graphs) == [("stream",)], f"W(a): graphs "
+          f"{list(disp.graphs)}")
+    calls = disp.eager_steps + len(disp.graphs)
+    rows = flash_rows(cb, LONG["L"], LONG["D"])
+    n_eval = len(b["trainer"].history["test_loss"])
+    want_rows = {1: 6 * n_eval, 2: 6 * calls, 3: 6 * calls, 4: 0}
+    check(rows == want_rows and cb == ca,
+          f"W(a): rows {rows} != {want_rows} (a wrapper counts its calls: "
+          f"{disp.eager_steps} eager step(s), {len(disp.graphs)} "
+          f"capture(s); the {sum(disp.replays.values())} replays add none),"
+          f" or stream {cb} != resident {ca}")
+    res_bytes = a["trainer"].dispatch.resident.nbytes
+    rep = w_stream_report("W(a) path E", b, steps)
+    rep.update(leaves=n, rows=rows, replays=sum(disp.replays.values()),
+               resident_bytes=res_bytes,
+               stream_run_ms=[r[3] for r in runs["stream"]],
+               resident_run_ms=[r[3] for r in runs["resident"]])
+    print(f"[stream W(a)] step ms over each 8-step run (warm-up and capture "
+          f"included), in turns: resident {rep['resident_run_ms'][0]:.3f}, "
+          f"stream {rep['stream_run_ms'][0]:.3f}, stream "
+          f"{rep['stream_run_ms'][1]:.3f}, resident "
+          f"{rep['resident_run_ms'][1]:.3f}", flush=True)
+    print(f"[stream W(a)] path E at seq {LONG['L']}, batch {LONG['B']}, "
+          f"8 steps at K={W_K}: {n} leaves bitwise the resident run's; "
+          f"rows 2 / 3 {rows[2]} / {rows[3]} wrapper calls ({calls} x 6: "
+          f"{disp.eager_steps} eager + {len(disp.graphs)} capture, "
+          f"{rep['replays']} replays), row 1 {rows[1]} (eval); window "
+          f"{rep['window_bytes']} B on the card against the resident "
+          f"split's {res_bytes} B", flush=True)
+    del a, b, want, got, runs
+    return rep
+
+
+def w_resnet(cli, build_dir: str) -> dict:
+    """W(b): ResNet-50 with NGD and meta mixup on synthetic CIFAR-shaped
+    image shards (4096 / 1024 images), streamed at W = K = 4 against the
+    resident split at K=4, 2 epochs of 8 steps (NGD refreshes its factors
+    eagerly in the first ~10 steps; the rest replay the graph, and the
+    window reopens at the epoch turn): every leaf bitwise."""
+    import shutil
+
+    from faster_distributed_training_tpu_torch.data.stream import shard
+
+    d = os.path.join(build_dir, "smoke_w_images")
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.monotonic()
+    shard.main(["--out", d, "--kind", "image", "--source", "synthetic",
+                "--n", "4096", "--seed", "0"], log=lambda line: None)
+    print(f"[stream W(b)] image shards (4096 + 1024 synthetic CIFAR) in "
+          f"{time.monotonic() - t0:.1f}s", flush=True)
+    argv = ["--dataset", "stream", "--stream_dir", d, "--ngd",
+            "--meta_learning", "--epoch", "2", "--steps_per_dispatch",
+            str(W_K)]
+    out = {}
+    for path in ("resident", "stream"):
+        out[path] = counted_run(cli, resnet_cfg(cli, argv + [
+            "--data_path", path, "--stream_window", str(W_K),
+            "--checkpoint_dir", os.path.join(build_dir, f"smoke_w_{path}")]),
+            f"W(b) resnet50 {path} K={W_K}")
+    (a, want, _), (b, got, _) = out["resident"], out["stream"]
+    steps = int(b["state"].step)
+    check(steps == int(a["state"].step) == 16, f"W(b): {steps} steps")
+    disp = b["trainer"].dispatch
+    check(sum(disp.replays.values()) > 0 and list(disp.graphs) == [
+        ("stream",)], f"W(b): replays {disp.replays}")
+    n = bitwise("W(b) resnet50 stream vs resident", want, got)
+    rep = w_stream_report("W(b) resnet50", b, steps)
+    rep.update(leaves=n, resident_bytes=a["trainer"].dispatch.resident.nbytes)
+    shutil.rmtree(d, ignore_errors=True)
+    del out, a, b, want, got
+    return rep
+
+
+def w_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One W(c) rank: gloo on the one card, the record at dp=2 under each
+    resident layout, its result file."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.train.state import (
+        state_leaves)
+
+    out = {}
+    try:
+        for layout in ("replicated", "sharded"):
+            cfg = record_cfg(cli, ["--mesh", "dp=2", "--subset_stride",
+                                   "64", "--data_path", "resident",
+                                   "--resident_layout", layout],
+                             f"w_{layout}_{rank}", out_dir)
+            reset_counts()
+            t0 = time.monotonic()
+            res = cli.run_training(cfg, log=lambda line: None)
+            torch.cuda.synchronize()
+            src = res["trainer"].dispatch.resident
+            out[layout] = {
+                "step": int(res["state"].step), "s": time.monotonic() - t0,
+                "losses": list(res["history"]["train_loss"]),
+                "digest": f_digest(state_leaves(res["state"])),
+                "counts": read_counts(), "kind": type(src).__name__,
+                "bytes": src.nbytes,
+                "reshard_ms": list(getattr(src, "reshard_ms", [])),
+                "rows": getattr(src, "rows", src.n),
+                "view_bytes": getattr(src, "view_bytes", 0)}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"w_{rank}.pt"))
+
+
+def w_sharded(build_dir: str) -> dict:
+    """W(c): two gloo ranks share the card, the slice-2 record at dp=2
+    (4 steps): the sharded layout's state bitwise the replicated one's on
+    both ranks; rows 1, 4 and 6 launched; bytes at rest a rank and the
+    re-shard's ms."""
+    import multiprocessing as mp
+
+    import torch
+
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    t0 = time.monotonic()
+    procs = [ctx.Process(target=w_rank, args=(r, 2, port, build_dir))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    check(all(p.exitcode == 0 for p in procs),
+          f"W(c): ranks exited {[p.exitcode for p in procs]}")
+    ranks = [torch.load(os.path.join(build_dir, f"w_{r}.pt"))
+             for r in range(2)]
+    wall = time.monotonic() - t0
+    for r, got in enumerate(ranks):
+        rep, sh = got["replicated"], got["sharded"]
+        check(rep["kind"] == "DeviceResidentData"
+              and sh["kind"] == "ShardedDeviceResidentData",
+              f"W(c) rank {r}: layouts {rep['kind']}, {sh['kind']}")
+        check(rep["step"] == sh["step"] == 4, f"W(c) rank {r}: steps")
+        check(sh["digest"] == rep["digest"] and sh["losses"] == rep["losses"],
+              f"W(c) rank {r}: the sharded layout's state differs from the "
+              f"replicated one's")
+        c = sh["counts"]
+        check(c["flash_fwd_stats"] > 0 and c["flash_bwd_stats"] > 0
+              and c["fused_mlp"] > 0, f"W(c) rank {r}: launches {c}")
+    check(ranks[0]["sharded"]["digest"] == ranks[1]["sharded"]["digest"],
+          "W(c): the ranks' states differ")
+    sh = ranks[0]["sharded"]
+    rows = flash_rows(sh["counts"], 512, 64)
+    out = {"s": wall, "bytes_sharded": sh["bytes"],
+           "bytes_replicated": ranks[0]["replicated"]["bytes"],
+           "view_bytes": sh["view_bytes"], "reshard_ms": sh["reshard_ms"],
+           "rows": rows, "mlp": sh["counts"]["fused_mlp"],
+           "run_s": [g["sharded"]["s"] for g in ranks]}
+    print(f"[stream W(c)] dp=2 over gloo on one card, the record, 4 steps: "
+          f"--resident_layout sharded bitwise the replicated layout on both "
+          f"ranks; at rest a rank {sh['bytes']} B ({sh['rows']} rows) "
+          f"against {out['bytes_replicated']} B replicated, the epoch view "
+          f"{sh['view_bytes']} B; re-shard {sh['reshard_ms']} ms (one "
+          f"all_to_all_single, gloo through the host); rank 0's wrapper "
+          f"launches: rows 1 / 4 {rows[1]} / {rows[4]}, row 6 "
+          f"{out['mlp']} (gloo cannot be captured: the steps run eagerly); "
+          f"{wall:.1f}s wall with the ranks' start", flush=True)
+    return out
+
+
+def w_native() -> dict:
+    """W(d): the native host library, loaded from the port's _build/:
+    ``encode_batch`` and ``wp_encode_batch`` (through ``AGNewsDataset.
+    encode_batch``) on 4096 synthetic documents byte-identical to the
+    Python path, rows/s of each."""
+    import numpy as np
+
+    from faster_distributed_training_tpu_torch.data.agnews import (
+        AGNewsDataset)
+    from faster_distributed_training_tpu_torch.data.stream import (
+        synthetic_corpus)
+    from faster_distributed_training_tpu_torch.data.text import (
+        HashTokenizer)
+    from faster_distributed_training_tpu_torch.runtime import native_lib
+
+    check(native_lib.report(lambda line: print(line, flush=True)),
+          f"W(d): the native host library did not load "
+          f"({native_lib.failure()})")
+    texts = synthetic_corpus(W_DOCS, seed=5)
+    samples = [(t, i % 4) for i, t in enumerate(texts)]
+    out = {"lib": str(native_lib.lib_path())}
+    real = native_lib.load
+    for name, tk in (("hash", HashTokenizer()), ("wordpiece", None)):
+        ds = AGNewsDataset.from_samples(samples, tokenizer=tk)
+        idx = np.arange(len(ds))
+        got, want, t = {}, {}, {}
+        for path in ("native", "python"):
+            native_lib.load = real if path == "native" else (lambda: None)
+            try:
+                t0 = time.perf_counter()
+                res = ds.encode_batch(idx, 512)
+                t[path] = time.perf_counter() - t0
+            finally:
+                native_lib.load = real
+            (got if path == "native" else want).update(res)
+        for k in want:
+            check(got[k].dtype == want[k].dtype
+                  and got[k].tobytes() == want[k].tobytes(),
+                  f"W(d) {name}: leaf {k} differs from the Python path")
+        out[name] = {"native_rows_s": len(ds) / t["native"],
+                     "python_rows_s": len(ds) / t["python"],
+                     "width": int(got["tokens"].shape[1])}
+        print(f"[stream W(d)] {name} encode of {len(ds)} documents: native "
+              f"{out[name]['native_rows_s']:.0f} rows/s, Python "
+              f"{out[name]['python_rows_s']:.0f} rows/s, byte-identical "
+              f"({out[name]['width']} wide)", flush=True)
+    return out
+
+
+def stream_phase(cli, build_dir: str, corpus: str = None) -> dict:
+    """Phase W: (a) path E streamed, (b) ResNet-50 streamed, (c) the
+    sharded resident layout on two gloo ranks, (d) the native library.
+    ``corpus``: path E's corpus (written by the port's shard writer);
+    None shards one here."""
+    import shutil
+    import tempfile
+
+    t0 = time.monotonic()
+    tmp = None
+    if corpus is None:
+        from faster_distributed_training_tpu_torch.data.stream import shard
+
+        tmp = tempfile.mkdtemp(prefix="smoke_w_", dir=build_dir)
+        corpus = os.path.join(tmp, "corpus")
+        shard.main(["--out", corpus, "--source", "synthetic", "--seq_len",
+                    str(LONG["L"]), "--n_docs", "4096", "--seed", "0",
+                    "--data_dir", os.path.join(tmp, "data")],
+                   log=lambda line: print(line, flush=True))
+        print(f"[stream] path E's corpus in {time.monotonic() - t0:.1f}s "
+              f"(host CPU)", flush=True)
+    try:
+        out = {"a": w_path_e(cli, corpus, build_dir)}
+        out["b"] = w_resnet(cli, build_dir)
+        out["c"] = w_sharded(build_dir)
+        out["d"] = w_native()
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.monotonic() - t0
+    print(f"[stream] phase W took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def stream_main() -> int:
+    """``--stream``: the kernels' build, then phase W alone."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)} (torch "
+          f"{torch.__version__}, cuda {torch.version.cuda}); nvidia-smi: "
+          f"{card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_s, _ = _build.build()
+    print(f"[build] {build_s:.1f}s", flush=True)
+    ww = stream_phase(cli, str(_build.BUILD_DIR))
+    print(json.dumps(ww, default=str))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def resilience_main() -> int:
     """``--resilience``: the kernels' build, then phase F alone."""
     import torch
@@ -6329,8 +6709,16 @@ def main() -> int:
     two_step_check(cli, [])
     two_step_check(cli, ["--ffn_impl", "pallas", "--quant", "int8"])
     defaults_fallback_phase(cli, str(_build.BUILD_DIR))
-    lm = lm_phase(cli, str(_build.BUILD_DIR), then=lambda corpus: lm_dispatch(
-        cli, corpus, str(_build.BUILD_DIR)))
+    w_corpus = os.path.join(str(_build.BUILD_DIR), "smoke_w_corpus")
+
+    def path_e_then(corpus):
+        import shutil
+
+        # phase W reads path E's corpus again
+        shutil.rmtree(w_corpus, ignore_errors=True)
+        shutil.copytree(corpus, w_corpus)
+        return lm_dispatch(cli, corpus, str(_build.BUILD_DIR))
+    lm = lm_phase(cli, str(_build.BUILD_DIR), then=path_e_then)
 
     # -- 6. serving at full width ----------------------------------------------
     defaults = cli.TRANSFORMER_DEFAULTS
@@ -6437,6 +6825,9 @@ def main() -> int:
     kd["path_e"] = lm["then"]
     mr = remat_phase(cli, str(_build.BUILD_DIR))
     dispatch_summary(kd, mr)
+
+    # -- phase W: the rest of the data plane (slice 17) ---------------------
+    ww = stream_phase(cli, str(_build.BUILD_DIR), corpus=w_corpus)
 
     # -- phase F: resilience (slice 15), before any process group: its
     # relaunch is held against a run of this process ---------------------
@@ -6806,6 +7197,17 @@ def main() -> int:
         if entry["name"] in f_keys:
             entry["launches_phase_f"] = ff["a_device_launches"].get(
                 f_keys[entry["name"]], 0)
+    # slice 17: phase W's launches (W(a): path E streamed, the wrappers'
+    # calls of its 8 steps under K=4 and its eval; W(c): rank 0's sharded
+    # run at dp=2, eager under gloo)
+    w_keys = {"flash_fwd_kblocked": ("a", 2), "flash_bwd_kblocked": ("a", 3),
+              "flash_fwd": ("c", 1), "flash_bwd_stats": ("c", 4)}
+    for entry in kernels:
+        if entry["name"] in w_keys:
+            part, row = w_keys[entry["name"]]
+            entry[f"launches_phase_w_{part}"] = ww[part]["rows"][row]
+        elif entry["name"] == "fused_mlp":
+            entry["launches_phase_w_c"] = ww["c"]["mlp"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -6890,6 +7292,13 @@ if __name__ == "__main__":
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(2)
         sys.exit(mesh_main())
+    if sys.argv[1:2] == ["--stream"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(stream_main())
     if sys.argv[1:2] == ["--resilience"]:
         import torch
 

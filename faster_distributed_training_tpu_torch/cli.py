@@ -26,7 +26,10 @@ the LM with causal LM training (slice 14: ``run_decode_serving`` /
 ``--task lm --lm_causal``), and resilience for training (slice 15: the
 asynchronous checkpoint manager on ``--storage_backend``, preemption,
 ``--supervise``, the ``FDT_FAULT_*`` drills, goodput, ``--sentinel``,
-``--auto_recover`` and the pod coordinator; ``resilience/``).
+``--auto_recover`` and the pod coordinator; ``resilience/``), and the
+rest of the data plane (slice 17: ``--data_path stream``, a window of
+batches on the card refilled from disk, on text and image stream shards;
+``--resident_layout sharded``; the native host library).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
 ``resolve_attention``, ``build_model``, ``load_dataset`` (the agnews,
@@ -68,7 +71,7 @@ TRANSFORMER_DEFAULTS = TrainConfig(model="transformer", dataset="agnews",
 RESNET50_DEFAULTS = TrainConfig(model="resnet50", dataset="cifar10",
                                 num_classes=10, lr=0.1, batch_size=512,
                                 epochs=30, alpha=0.2)
-IMAGE_DATASETS = ("cifar10", "synthetic")
+IMAGE_DATASETS = ("cifar10", "synthetic", "stream")
 TEXT_DATASETS = ("agnews", "synthetic", "stream")
 
 
@@ -358,8 +361,7 @@ def unported_training_flags(cfg: TrainConfig) -> list:
     --ngd with --fsdp or --zero1 (NGD preconditions whole gradient
     leaves); --fsdp, --zero1 and the host tiers under a dispatch (K > 1
     or the resident split: their gathers and copies are not captured);
-    --resident_layout sharded; --warm_spares (warm spares are not
-    ported)."""
+    --warm_spares (warm spares are not ported)."""
     datasets = IMAGE_DATASETS if is_resnet(cfg) else TEXT_DATASETS
     k = max(int(cfg.steps_per_dispatch or 1), 1)
     tiers = [f for f, on in (("--fsdp", cfg.fsdp), ("--zero1", cfg.zero1),
@@ -372,8 +374,8 @@ def unported_training_flags(cfg: TrainConfig) -> list:
         # transformer's fused qkv kernel has no permutation onto it
         "--ngd on the transformer": (not is_resnet(cfg) and (
             cfg.use_ngd or cfg.optimizer == "ngd")),
-        f"--data_path {cfg.data_path}": cfg.data_path not in ("host",
-                                                              "resident"),
+        f"--data_path {cfg.data_path}": cfg.data_path not in (
+            "host", "resident", "stream"),
         f"--dataset {cfg.dataset} for {cfg.model}": (
             cfg.dataset not in datasets),
         **{bad: True for bad in tp_unported(cfg)},
@@ -384,10 +386,8 @@ def unported_training_flags(cfg: TrainConfig) -> list:
             cfg.fsdp or cfg.zero1),
         f"{' / '.join(tiers)} with --steps_per_dispatch {k}": bool(
             tiers) and k > 1,
-        f"{' / '.join(tiers)} with --data_path resident": bool(tiers) and (
-            cfg.data_path == "resident"),
-        "--resident_layout sharded": (cfg.data_path == "resident" and (
-            cfg.resident_layout or "auto") == "sharded"),
+        f"{' / '.join(tiers)} with --data_path {cfg.data_path}": bool(
+            tiers) and cfg.data_path in ("resident", "stream"),
         "--profile_steps": bool(cfg.profile_steps),
         "--profile": bool(cfg.profile),
         f"--warm_spares {cfg.warm_spares} (warm spares)": (
@@ -397,8 +397,10 @@ def unported_training_flags(cfg: TrainConfig) -> list:
 
 
 def load_dataset(cfg: TrainConfig, train: bool):
-    """A split of ``cfg.dataset``.  Text: ``stream``, the sharded on-disk
-    dataset under ``--stream_dir`` (its reader speaks ``encode_batch``);
+    """A split of ``cfg.dataset``.  ``stream``: the sharded on-disk
+    dataset under ``--stream_dir``, the reader itself for text (it speaks
+    ``encode_batch``), an ``(image, label)`` pair of its mmaps for images.
+    Text:
     ``agnews``, the CSVs under ``--data_dir/ag_news`` or, when they cannot
     be read, the synthetic split of the JAX package's fallback (12000 /
     2000 rows, seeds 0 and 1; nothing is downloaded); or ``synthetic``,
@@ -412,6 +414,12 @@ def load_dataset(cfg: TrainConfig, train: bool):
     from faster_distributed_training_tpu_torch.data.synthetic import (
         synthetic_agnews, synthetic_cifar)
 
+    if cfg.dataset == "stream":
+        if not cfg.stream_dir:
+            raise ValueError("--dataset stream requires --stream_dir (python "
+                             "-m faster_distributed_training_tpu_torch.data."
+                             "stream.shard writes one)")
+        return open_stream_split(cfg.stream_dir, train=train)
     if is_resnet(cfg):
         if cfg.dataset not in IMAGE_DATASETS:
             raise NotImplementedError(f"not ported yet: --dataset "
@@ -442,12 +450,6 @@ def load_dataset(cfg: TrainConfig, train: bool):
             return synthetic_agnews(n=12000 if train else 2000,
                                     seed=0 if train else 1,
                                     max_len=cfg.seq_len)
-    if cfg.dataset == "stream":
-        if not cfg.stream_dir:
-            raise ValueError("--dataset stream requires --stream_dir (python "
-                             "-m faster_distributed_training_tpu_torch.data."
-                             "stream.shard writes one)")
-        return open_stream_split(cfg.stream_dir, train=train)
     return synthetic_agnews(n=4096 if train else 1024,
                             seed=0 if train else 1, max_len=cfg.seq_len)
 
@@ -483,12 +485,17 @@ def apply_subset(ds, stride: int):
 
 
 def check_stream_corpus(cfg: TrainConfig, train_ds, log) -> TrainConfig:
-    """The JAX ``run_training``'s checks of a stream corpus: packed LM
-    rows carry no labels, so ``--task cls`` on one raises; and the rows
-    have one width, which overrides ``--seq_len``."""
-    if not train_ds.is_text:
-        raise NotImplementedError(f"not ported yet: image stream datasets "
-                                  f"({cfg.stream_dir})")
+    """The JAX ``run_training``'s checks of a stream dataset: the flavor
+    fits the model (image shards for a ResNet, text for the transformer);
+    packed LM rows carry no labels, so ``--task cls`` on one raises; and
+    the rows have one width, which overrides ``--seq_len``."""
+    is_text = not isinstance(train_ds, tuple)
+    if is_text == is_resnet(cfg):
+        raise ValueError(
+            f"{cfg.stream_dir} holds {'text' if is_text else 'image'} "
+            f"shards, which --model {cfg.model} does not train on")
+    if not is_text:
+        return cfg
     if train_ds.manifest.get("content") == "lm" and cfg.task != "lm":
         raise ValueError(
             f"{cfg.stream_dir} is an LM-content corpus (packed token rows, "
@@ -604,6 +611,20 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     missing = unported_training_flags(cfg)
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    if cfg.data_path == "stream":
+        # JAX's refusals: the window reads the on-disk format, over its
+        # whole index space
+        if cfg.dataset != "stream":
+            raise ValueError(
+                f"--data_path stream reads the sharded on-disk format; use "
+                f"--dataset stream --stream_dir <dir> (got dataset="
+                f"{cfg.dataset!r}; python -m faster_distributed_training_"
+                f"tpu_torch.data.stream.shard writes one)")
+        if cfg.subset_stride > 1:
+            raise ValueError("--subset_stride is not supported with "
+                             "--data_path stream (the window refill "
+                             "addresses the full on-disk index space); "
+                             "shard a smaller dataset instead")
     # pp: JAX's refusals (a model with no staged form) before anything
     # is built
     pipeline = build_pipeline_spec(cfg, (cfg.mesh_axes, cfg.mesh_shape))
@@ -620,6 +641,8 @@ def run_training(cfg: TrainConfig, params=None, device=None,
         log = _silent
     world = dp_size(mesh)
     resnet = is_resnet(cfg)
+    from faster_distributed_training_tpu_torch.runtime import native_lib
+    native_lib.report(log)
     if cfg.dataset == "stream" and cfg.stream_dir:
         # the damage is on disk before the reader first touches the shard
         apply_corrupt_shard_fault(cfg.stream_dir, log=log)
@@ -664,7 +687,13 @@ def run_training(cfg: TrainConfig, params=None, device=None,
         log(f"[resilience] --supervise without a checkpoint cadence: "
             f"defaulting --checkpoint_every to {steps_per_epoch} "
             f"(one save per epoch)")
-    cfg, dispatch = build_dispatch(cfg, train_ds, dev, log, group)
+    cfg, dispatch = build_dispatch(cfg, train_ds, dev, log, group,
+                                   reader=reader)
+    stream = (dispatch.resident if dispatch is not None and getattr(
+        dispatch.resident, "program_key", None) == "stream" else None)
+    if stream is not None:
+        # the window's refills read (and screen) the stream's reader
+        reader = stream.dataset
     res = build_resilience(cfg, log=log,
                            clock=lambda: loop_mod.cadence_clock())
     if res is not None and reader is not None:
@@ -674,7 +703,7 @@ def run_training(cfg: TrainConfig, params=None, device=None,
             res.sentinel.quarantine_shard if res.sentinel is not None
             else lambda s, p: res.goodput.count("quarantined_shards"))
     if (dispatch is not None and dispatch.resident is not None
-            and dispatch.resident.upload_checksums
+            and getattr(dispatch.resident, "upload_checksums", None)
             and (cfg.sentinel or "none") == "full"):
         log("[sentinel] device-resident upload verified: post-upload "
             "readback matches the host-side encode checksums")
@@ -834,6 +863,15 @@ def run_training(cfg: TrainConfig, params=None, device=None,
         out["preempted"] = preempted
         out["resilience"] = res
         attach_goodput(out, res.goodput)
+    if stream is not None:
+        out["stream"] = stream
+        if trainer.stream_stall_pct is not None:
+            # the streamed input path's headline: the steady state's
+            # share of step time blocked on the window
+            out["stream_stall_pct"] = round(trainer.stream_stall_pct, 3)
+            log(f"[stream] steady-state stall: {out['stream_stall_pct']}% "
+                f"of step time ({stream.refills} refills, read "
+                f"{stream.read_s:.3f}s, H2D {stream.h2d_s:.3f}s)")
     return out
 
 
@@ -860,29 +898,55 @@ def _silent(line: str) -> None:
     """The log of a rank other than 0."""
 
 
-def build_dispatch(cfg: TrainConfig, train_ds, dev, log, group=None):
+def build_dispatch(cfg: TrainConfig, train_ds, dev, log, group=None,
+                   reader=None):
     """(cfg, FusedDispatch or None): K steps a dispatch when
-    ``--steps_per_dispatch`` > 1 or ``--data_path resident`` (the
-    resident split uploaded here); None keeps the one-step loop.  Under
-    a data ``group`` the resident split is the replicated layout in the
-    global order."""
+    ``--steps_per_dispatch`` > 1, ``--data_path resident`` (the resident
+    split uploaded here, in the layout ``--resident_layout`` resolves to
+    over the data ``group``) or ``--data_path stream`` (the window over
+    ``reader``, the open stream dataset, allocated here); None keeps the
+    one-step loop."""
     from faster_distributed_training_tpu_torch.data.device_resident import (
-        build_device_resident)
+        ShardedDeviceResidentData, build_device_resident)
+    from faster_distributed_training_tpu_torch.data.stream import (
+        build_stream)
     from faster_distributed_training_tpu_torch.train.dispatch import (
         FusedDispatch)
 
     k = max(int(cfg.steps_per_dispatch or 1), 1)
     cfg = round_checkpoint_every(cfg, log)
     world = 1 if group is None else group.world
-    resident = build_device_resident(cfg, train_ds, dev, world)
+    rank = 0 if group is None else group.rank
+    resident = build_stream(cfg, dev, dataset=reader, process_index=rank,
+                            process_count=world)
     if resident is not None:
+        log(f"[data] streaming train split from disk: {resident.n} samples "
+            f"({resident.dataset.nbytes_on_disk / 1e6:.0f} MB on disk, "
+            f"{len(resident.dataset.manifest['shards'])} shard(s)), window "
+            f"2 x {resident.window} batches on {dev.type} "
+            f"({resident.device_bytes / 1e6:.1f} MB, pinned staging "
+            f"{resident.pinned_bytes / 1e6:.1f} MB), "
+            f"{resident.steps_per_epoch} steps/epoch"
+            + (f", seq_len={resident.seq_len}" if resident.is_text else ""))
+    else:
+        resident = build_device_resident(cfg, train_ds, dev, world, group)
+    if isinstance(resident, ShardedDeviceResidentData):
+        log(f"[data] device-resident train split (sharded): {resident.n} "
+            f"samples, {resident.rows} rows a rank "
+            f"({resident.nbytes / 1e6:.3f} MB at rest on rank "
+            f"{resident.pi} of {resident.pc}; the epoch view "
+            f"{resident.view_bytes / 1e6:.3f} MB, re-sharded once an "
+            f"epoch by one all-to-all), {resident.steps_per_epoch} "
+            f"steps/epoch"
+            + (f", seq_len={resident.seq_len}" if resident.is_text else ""))
+    elif resident is not None and not resident.batch_major:
         log(f"[data] device-resident train split (replicated): "
             f"{resident.n} samples, {resident.nbytes / 1e6:.0f} MB on "
             f"{dev.type}, {resident.steps_per_epoch} steps/epoch"
             + (f", seq_len={resident.seq_len}" if resident.is_text else ""))
-        if resident.verify_upload():
-            log("[data] device-resident upload verified against its "
-                "encode-time CRC32s")
+    if getattr(resident, "verify_upload", lambda: False)():
+        log("[data] device-resident upload verified against its "
+            "encode-time CRC32s")
     if k == 1 and resident is None:
         return cfg, None
     log(f"[dispatch] {k} step(s) a dispatch on {dev.type}"

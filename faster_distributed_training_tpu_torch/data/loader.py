@@ -224,8 +224,17 @@ class BatchLoader:
         if self.is_text:
             batch = dict(self.data.encode_batch(batch_idx, self.max_len))
         else:
+            from faster_distributed_training_tpu_torch.runtime import (
+                native_lib)
+
             x, y = self.data
-            batch = {"image": x[batch_idx], "label": y[batch_idx]}
+            # the uint8 rows by the native gather (JAX
+            # data/loader.py::BatchLoader._load), else numpy's
+            xb = (native_lib.gather_u8(x, batch_idx)
+                  if isinstance(x, np.ndarray) and x.dtype == np.uint8
+                  else None)
+            batch = {"image": xb if xb is not None else x[batch_idx],
+                     "label": y[batch_idx]}
         if valid is not None:
             batch["valid"] = valid
         return batch

@@ -208,9 +208,9 @@ def write_lm_corpus(out_dir: str, texts: Sequence[str], seq_len: int,
     ``<out_dir>/train`` and ``<out_dir>/test``.  Returns {"train":
     manifest, "test": manifest, "vocab_size": V}."""
     from faster_distributed_training_tpu_torch.data.text import (
-        _resolve_tokenizer, clean_text_py)
+        _resolve_tokenizer, clean_text)
 
-    docs = [clean_text_py(t) if clean else str(t) for t in texts]
+    docs = [clean_text(t) if clean else str(t) for t in texts]
     docs = [d for d in docs if d.strip()]
     if len(docs) < 2:
         raise ValueError(f"LM corpus needs >= 2 non-empty documents, got "

@@ -7,7 +7,10 @@ each file's size and header against the manifest; on the first gather
 that touches a shard it re-derives the shard's checksums, and a shard
 that fails is quarantined (a warning, and its rows remapped onto the
 first healthy shard, the same way on every process).  The text flavor (a
-``tokens`` leaf) speaks the host text pipeline's ``encode_batch``.
+``tokens`` leaf) speaks the host text pipeline's ``encode_batch``; the
+image flavor (``image`` and ``label`` leaves) is read as an ``(image,
+label)`` pair by the array pipelines and ``gather``ed by the stream
+window (``window.py``).
 """
 
 from __future__ import annotations
@@ -97,6 +100,12 @@ class ShardedStreamDataset:
 
     def num_classes(self) -> int:
         return int(self.manifest.get("num_classes") or 0)
+
+    def row_bytes(self) -> int:
+        """Bytes of one sample over every leaf."""
+        return sum(int(np.dtype(spec["dtype"]).itemsize
+                       * int(np.prod(spec["shape"] or [1])))
+                   for spec in self.leaf_spec.values())
 
     def _verify_shard(self, s: int) -> None:
         """First-touch checksum verification of shard ``s`` (all leaves);

@@ -5,9 +5,10 @@ Copies of what ``faster_distributed_training_tpu/data/agnews.py`` gives
 the stream corpus writer: the reference's cleaner (HTML tags and URLs
 stripped, lowercase word tokens, gensim's stopword list), the crc32
 ``HashTokenizer`` and the tokenizer ladder of ``_resolve_tokenizer``.
-The JAX ``clean_text`` prefers a native C++ cleaner held byte-equal to
-``clean_text_py`` by the JAX package's tests; the port runs the Python
-one.  The ladder's first step, HuggingFace's ``bert-base-uncased`` when
+``clean_text`` unescapes HTML entities in Python and runs the rest in the
+native host library (``runtime/native_lib.py``), byte-equal to
+``clean_text_py``, which runs where the library is not built.  The
+ladder's first step, HuggingFace's ``bert-base-uncased`` when
 cached locally, is not ported (it needs ``transformers``, which the port
 does not depend on): a real ``vocab.txt`` on disk comes first here, then
 the corpus-trained WordPiece vocab cached beside the data, then the hash
@@ -75,6 +76,16 @@ def clean_text_py(text: str) -> str:
     text = _URL_RE.sub(" ", text)
     words = _TOKEN_RE.findall(text.lower())
     return " ".join(w for w in words if w not in STOPWORDS)
+
+
+def clean_text(text: str) -> str:
+    """``clean_text_py``'s result, the entity unescaping in Python (the
+    whole HTML5 table) and the rest in the native library when it is
+    loaded (JAX ``data/agnews.py::clean_text``)."""
+    from faster_distributed_training_tpu_torch.runtime import native_lib
+
+    out = native_lib.clean_text(html.unescape(text))
+    return out if out is not None else clean_text_py(text)
 
 
 class HashTokenizer:

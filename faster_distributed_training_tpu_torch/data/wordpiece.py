@@ -7,14 +7,15 @@ continuations, so that over the same ``vocab.txt`` the ids equal HF's and
 the JAX package's bit for bit.  ``build_wordpiece_vocab`` trains the
 deterministic corpus vocabulary (every character bare and as a ``##``
 continuation, then the most frequent whole words), laid out with BERT's
-special ids ([PAD]=0, [UNK]=100, [CLS]=101, [SEP]=102, [MASK]=103).  The
-JAX package also registers the vocab with its native C++ encoder; the
-port encodes in Python only.
+special ids ([PAD]=0, [UNK]=100, [CLS]=101, [SEP]=102, [MASK]=103).  A
+tokenizer registers its vocab once with the native host library
+(``native_handle``), whose batch encoder ``data/agnews.py`` calls.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import unicodedata
 from typing import Dict, Iterable, List, Optional
 
@@ -128,6 +129,20 @@ class WordPieceTokenizer:
         self.unk_id = vocab[UNK]
         self.cls_id = vocab[CLS]
         self.sep_id = vocab[SEP]
+        self._native_handle = -1          # -1: not registered yet
+        self._native_lock = threading.Lock()
+
+    def native_handle(self) -> Optional[int]:
+        """This vocab's handle in the native library's registry
+        (``fdt_wp_load``), registered once; None without the library.
+        Locked: the loader's worker threads reach the first batches
+        together."""
+        with self._native_lock:
+            if self._native_handle == -1:
+                from faster_distributed_training_tpu_torch.runtime import (
+                    native_lib)
+                self._native_handle = native_lib.wp_load(self.vocab_lines())
+            return self._native_handle
 
     def vocab_lines(self) -> List[str]:
         by_id = {i: t for t, i in self.vocab.items()}

@@ -10,9 +10,13 @@ by slot ``cursor``, which the graph advances itself:
 
   * the batch: slot ``cursor`` of the staged ``[K, B, ...]`` host batches
     (``--data_path host``: K loader batches stacked, text padded to the
-    group's widest bucket, uploaded in one pinned copy a leaf), or the
+    group's widest bucket, uploaded in one pinned copy a leaf), the
     gather ``arrays[order[(start + cursor) * B : ...]]`` from the
-    device-resident split (``--data_path resident``);
+    replicated device-resident split (``--data_path resident``), or, from
+    a batch-major source (``batch_major``: the sharded resident view
+    ``[steps, local_bs, ...]`` of ``--resident_layout sharded``, the
+    stream window ``[2W, local_bs, ...]`` of ``--data_path stream``), row
+    ``arrays[start + cursor]`` of its leading axis, with no order gather;
   * the draws: the dropout seeds ``[K, n_sites]``, the mixup lambda and
     permutation, the image crop and flip, computed on the host by the
     K=1 functions of (run seed, global step) and uploaded once a
@@ -50,8 +54,11 @@ Under a data mesh (dp) the body is the data-parallel step: its
 collectives (the gradient and metric all-reduces, BatchNorm's and the
 amaxes') are captured in the graph with the rest, NCCL's collectives
 being capturable; the draws are the global batch's, and the resident
-split is gathered at this rank's rows of each global batch.  fsdp, zero1
-and the host tiers run K=1 only (the cli raises).
+split is gathered at this rank's rows of each global batch (a
+batch-major source holds this rank's rows only).  gloo cannot capture its
+collectives: under a gloo group on the card (two ranks sharing one card)
+the body runs eagerly in its loop, as on the CPU, and the dispatch says
+so once.  fsdp, zero1 and the host tiers run K=1 only (the cli raises).
 """
 
 from __future__ import annotations
@@ -119,8 +126,10 @@ def _slot(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 class FusedDispatch:
     """The K-step dispatch of one run: ``run(state, kk, batches=None,
     start=0)`` trains ``kk <= K`` steps (host batches, or the resident
-    split from step-in-epoch ``start``) and returns the reduced
-    metrics.  ``resident``: a ``data.device_resident.DeviceResidentData``
+    split from step-in-epoch ``start``; from a batch-major source, its row
+    ``start``) and returns the reduced metrics.  ``resident``: the
+    device-side source, a ``data.device_resident.DeviceResidentData``,
+    a ``ShardedDeviceResidentData`` or a ``data.stream.DiskStreamSource``,
     or None (the host path)."""
 
     def __init__(self, cfg: TrainConfig, k: int, device, resident=None,
@@ -131,6 +140,8 @@ class FusedDispatch:
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.resident = resident
+        self.batch_major = bool(getattr(resident, "batch_major", False))
+        self.key = (getattr(resident, "program_key", "resident"),)
         # this rank's rows of a global batch: (count, first)
         world = 1 if group is None else group.world
         self.rows = (cfg.batch_size // world,
@@ -167,6 +178,15 @@ class FusedDispatch:
         self.eager_steps = 0
         self._warm: set = set()
         self._told_ngd = False
+        # gloo's collectives run on the host: nothing to capture
+        import torch.distributed as dist
+
+        self.capture = self.cuda and not (
+            group is not None and getattr(group, "live", False)
+            and dist.get_backend(group.group) == "gloo")
+        if self.cuda and not self.capture:
+            log("[dispatch] gloo collectives cannot be captured in a CUDA "
+                "graph: the step body runs eagerly in its loop on the card")
         self.stream = torch.cuda.Stream(dev) if self.cuda else None
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
 
@@ -218,6 +238,11 @@ class FusedDispatch:
     def _batch(self, key: tuple, slot: torch.Tensor) -> Dict[str, torch.Tensor]:
         if self.resident is None:
             return {n: _slot(t, slot) for n, t in self.staged[key].items()}
+        if self.batch_major:
+            row = (self.start + slot).reshape(1)
+            out = {n: _slot(t, row) for n, t in self.resident.arrays.items()}
+            out["label"] = out["label"].long()
+            return out
         B = self.cfg.batch_size
         n, r0 = self.rows
         pos = ((self.start + slot) * B + r0
@@ -274,21 +299,28 @@ class FusedDispatch:
 
     # -- a dispatch -----------------------------------------------------------
     def set_epoch(self, epoch: int) -> None:
-        """The resident path's epoch order into the persistent buffer a
-        captured graph reads."""
+        """The replicated resident split's epoch order into the persistent
+        buffer a captured graph reads; the sharded view re-sharded in
+        place (a collective: every rank calls it at the epoch's start).
+        The stream window needs neither (the loop refills it)."""
         if self.resident is None or self.order_epoch == epoch:
+            return
+        self.order_epoch = epoch
+        if self.batch_major:
+            if hasattr(self.resident, "epoch_arrays"):
+                self.resident.epoch_arrays(epoch)
             return
         order = self.resident.epoch_order(epoch)
         if self.order_buf is None:
             self.order_buf = torch.empty_like(order)
         self.order_buf.copy_(order)
-        self.order_epoch = epoch
 
     def run(self, state: TrainState, kk: int, batches=None, start: int = 0,
             draws: Optional[List[StepDraws]] = None) -> Metrics:
         """``kk`` steps from ``state`` (updated in place): ``batches``, a
         list of kk host batches (host path), or the resident split from
-        step-in-epoch ``start`` of the epoch ``set_epoch`` selected.
+        step-in-epoch ``start`` of the epoch ``set_epoch`` selected (a
+        batch-major source: from its row ``start``).
         ``draws``: the kk steps' draws, in place of (run seed, step)'s
         (the parity tests hand in another package's)."""
         if not 1 <= kk <= self.k:
@@ -331,14 +363,14 @@ class FusedDispatch:
                                     for n, a in sorted(stacked.items()))
             self._upload(stacked, self.staged.setdefault(key, {}))
         else:
-            key = ("resident",)
+            key = self.key
             self.start.fill_(int(start))
         self.cursor.zero_()
         for j in range(kk):
             self._set_counters(state, g0 + j, c0 + j,
                                None if t0 is None else t0 + j)
-            eager = not self.cuda or state.tx.updating(state.opt_state)
-            if eager and self.cuda and not self._told_ngd:
+            eager = not self.capture or state.tx.updating(state.opt_state)
+            if eager and self.capture and not self._told_ngd:
                 self.log("[dispatch] NGD factor refreshes (eigh, host "
                          "syncs) run eagerly in their slot of the "
                          "dispatch; the other steps replay the captured "

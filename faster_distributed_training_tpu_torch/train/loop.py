@@ -22,12 +22,14 @@ skipped steps, keeps ``--auto_recover``'s rolling last-good snapshot and
 rolls back to it after a non-finite epoch, and logs a ``[goodput]``
 line an epoch.
 
-``--steps_per_dispatch K > 1`` (or ``--data_path resident``, at any K)
-trains through ``train.dispatch.FusedDispatch``: ``_run_epoch_fused_host``
-groups K loader batches into one dispatch, ``_run_epoch_resident``
-gathers them from the device-resident split (a mid-epoch resume is a
-seek: no host batch is built).  An epoch tail shorter than K runs fewer
-steps on the same graph.  Checkpoints land on dispatch boundaries (the
+``--steps_per_dispatch K > 1`` (or ``--data_path resident`` or
+``stream``, at any K) trains through ``train.dispatch.FusedDispatch``:
+``_run_epoch_fused_host`` groups K loader batches into one dispatch,
+``_run_epoch_resident`` gathers them from the device-resident split
+(either layout), ``_run_epoch_stream`` reads them from the stream's
+window on the card while its producer refills the other slot (in both,
+a mid-epoch resume is a seek: no host batch is built).  An epoch tail
+shorter than K runs fewer steps on the same graph.  Checkpoints land on dispatch boundaries (the
 cli rounds ``--checkpoint_every`` up to a multiple of K), and the live
 log line reads the loss at a dispatch boundary.  K=1 on the host path is
 the one-step loop above, unchanged.
@@ -81,6 +83,12 @@ class Trainer:
         self.resilience = resilience
         self.best_acc = 0.0
         self.global_step = 0
+        # --data_path stream: the steady state's seconds blocked on the
+        # window and its wall seconds (stream_stall_pct)
+        self._stream_stall_s = 0.0
+        self._stream_wall_s = 0.0
+        self._stream_steps = 0
+        self._stream_warm = False
         self.recoveries = 0
         # the last emergency save's seconds (None: none yet)
         self.emergency_save_s: Optional[float] = None
@@ -322,6 +330,76 @@ class Trainer:
             float(metrics["loss"])
         return state, acc.summary(), time.monotonic() - t0
 
+    def _run_epoch_stream(self, state: TrainState, epoch: int,
+                          start_step: int = 0) -> tuple:
+        """The streamed epoch (JAX ``_run_epoch_stream``): the split stays
+        on disk, the dispatches read their batches from the window's slot
+        on the card (row ``slot * W + n - base``) while its producer
+        refills the other slot.  A mid-epoch resume is a seek (the refills
+        start at ``start_step``); the window is closed on every exit,
+        normal or not (a fault, a preemption), which joins the producer.
+
+        Stall accounting: a dispatch that swapped slots waited
+        ``window.last_wait`` for the refill; the steady state (neither the
+        run's first dispatch, which captures the graph, nor an epoch's
+        first, the cold fill) adds it to the stalled seconds and the
+        dispatch's wall, up to the resilience hooks, to the wall seconds
+        of ``stream_stall_pct``."""
+        disp = self.dispatch
+        src = disp.resident
+        acc = MetricAccumulator()
+        t0 = time.monotonic()
+        n_steps = src.steps_per_epoch
+        if start_step:
+            self.log(f"[resume] epoch {epoch}: stream seek to batch "
+                     f"{start_step} (window refills start there; no host "
+                     f"replay)")
+        res = self.resilience
+        sent = res.sentinel if res is not None else None
+        window = src.epoch_window(epoch, start_step)
+        n, last, metrics = start_step, (t0, start_step), None
+        epoch_cold = True
+        try:
+            while n < n_steps:
+                t_rec = time.monotonic()
+                base, hi, slot = window.buffer_for(n)
+                row0 = slot * src.window - base
+                kk = min(disp.k, n_steps - n, hi - n)
+                segs = (sent.plan(epoch, n, kk) if sent is not None
+                        else [(n, kk)])
+                if not segs:
+                    n += kk
+                    continue
+                first = not self._stream_warm
+                for s0, length in segs[:-1]:
+                    acc.add(disp.run(state, length, start=row0 + s0))
+                    self.global_step += length
+                s0, length = segs[-1]
+                metrics = disp.run(state, length, start=row0 + s0)
+                self._stream_warm = True
+                t_step = time.monotonic()
+                if not first and not epoch_cold:
+                    self._stream_stall_s += window.last_wait
+                    self._stream_wall_s += t_step - t_rec
+                    self._stream_steps += kk
+                epoch_cold = False
+                n += kk
+                last = self._dispatch_done(state, acc, metrics, epoch, n,
+                                           length, last, (n - kk, kk))
+        finally:
+            window.close()
+        if metrics is not None:
+            float(metrics["loss"])
+        return state, acc.summary(), time.monotonic() - t0
+
+    @property
+    def stream_stall_pct(self) -> Optional[float]:
+        """The steady state's percent of streamed step time blocked on the
+        window (None before a steady-state streamed dispatch)."""
+        if self._stream_wall_s <= 0:
+            return None
+        return 100.0 * self._stream_stall_s / self._stream_wall_s
+
     def evaluate(self, state: TrainState, loader: Iterable
                  ) -> Dict[str, float]:
         acc = MetricAccumulator()
@@ -371,7 +449,11 @@ class Trainer:
             with (res.coordinator.watch_steps()
                   if res is not None and res.coordinator is not None
                   else contextlib.nullcontext()):
-                if disp is not None and disp.resident is not None:
+                if (disp is not None and getattr(
+                        disp.resident, "program_key", None) == "stream"):
+                    state, train_m, elapsed = self._run_epoch_stream(
+                        state, epoch, resume_step)
+                elif disp is not None and disp.resident is not None:
                     state, train_m, elapsed = self._run_epoch_resident(
                         state, epoch, resume_step)
                 elif disp is not None:

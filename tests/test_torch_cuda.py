@@ -1792,3 +1792,100 @@ def test_nan_guard_inside_the_graph(card, tmp_path, monkeypatch):
     assert want.keys() == got.keys()
     for key in want:
         assert torch.equal(want[key], got[key]), key
+
+
+# -- slice 17: the stream window and the sharded resident view on the card ----
+
+def _lm_corpus(root):
+    """A tiny LM corpus (seq 64) written by the port's shard writer."""
+    from faster_distributed_training_tpu_torch.data.stream import shard
+
+    shard.main(["--out", str(root / "corpus"), "--source", "synthetic",
+                "--seq_len", "64", "--n_docs", "200", "--rows_per_shard",
+                "24", "--data_dir", str(root / "dd")], log=lambda _: None)
+    return str(root / "corpus")
+
+
+def _lm_k_run(root, corpus, extra):
+    from faster_distributed_training_tpu_torch.train.state import (
+        state_leaves)
+
+    argv = ["--task", "lm", "--dataset", "stream", "--stream_dir", corpus,
+            "--epoch", "2", "--n_layers", "2", "--d_model", "64",
+            "--n_heads", "4", "--d_ff", "128", "--bs", "8",
+            "--steps_per_dispatch", "4", "--log_every", "0", "--no_plot",
+            "--checkpoint_dir", str(root / "_".join(extra)), *extra]
+    out = cli.main(argv, defaults=cli.TRANSFORMER_DEFAULTS)
+    torch.cuda.synchronize()
+    return out, state_leaves(out["state"])
+
+
+def test_stream_k4_replays_are_bitwise_the_resident_replays(card, tmp_path):
+    """--data_path stream at K=4, W=4 (each window one dispatch: the
+    refill of one slot runs on the side stream while the replays read
+    the other) over two epochs against --data_path resident at K=4: every
+    parameter, buffer and optimizer leaf bitwise equal; one graph served
+    both slots; every refill was copied on the side stream."""
+    corpus = _lm_corpus(tmp_path)
+    res, want = _lm_k_run(tmp_path, corpus, ["--data_path", "resident"])
+    out, got = _lm_k_run(tmp_path, corpus, ["--data_path", "stream",
+                                            "--stream_window", "4"])
+    src = out["stream"]
+    disp = out["trainer"].dispatch
+    assert src.cuda and src.refills >= 6
+    assert list(disp.graphs) == [("stream",)]
+    assert disp.replays[("stream",)] >= 4 * (src.refills - 2)
+    assert src.h2d_device_ms > 0 and src.h2d_bytes > 0
+    assert out["state"].step == res["state"].step
+    assert want.keys() == got.keys()
+    for key in want:
+        assert torch.equal(want[key], got[key]), key
+
+
+def test_stream_slots_and_pinned_staging_are_reused(card, tmp_path):
+    """Every refill writes the same two slots through the same pinned
+    staging (their addresses never change), and each slot handed out
+    holds exactly ``host_buffer``'s bytes for its batches."""
+    from faster_distributed_training_tpu_torch.data.stream import (
+        DiskStreamSource, ShardedStreamDataset)
+
+    corpus = _lm_corpus(tmp_path)
+    src = DiskStreamSource(ShardedStreamDataset(f"{corpus}/train"), 8,
+                           device="cuda", window_batches=3, max_len=64)
+    slots = {k: t.data_ptr() for k, t in src.slots.items()}
+    staging = {k: t.data_ptr() for k, t in src.staging.items()}
+    assert all(t.is_pinned() for t in src.staging.values())
+    for epoch in (0, 1):
+        order = src.epoch_order(epoch)
+        win = src.epoch_window(epoch)
+        try:
+            for n in range(src.steps_per_epoch):
+                base, hi, slot = win.buffer_for(n)
+                if n == base:
+                    want = src.host_buffer(order, base, hi)
+                    torch.cuda.current_stream().synchronize()
+                    for k, t in src.slots.items():
+                        assert t[slot].cpu().numpy().tobytes() == \
+                            want[k].tobytes(), (k, base)
+        finally:
+            win.close()
+    assert {k: t.data_ptr() for k, t in src.slots.items()} == slots
+    assert {k: t.data_ptr() for k, t in src.staging.items()} == staging
+    assert src.refills == 2 * -(-src.steps_per_epoch // 3)
+
+
+def test_sharded_resident_k4_is_bitwise_the_replicated(card, tmp_path):
+    """--resident_layout sharded in one process (the view rebuilt in
+    place each epoch, read by the captured graph at row n) against the
+    replicated layout, K=4: bitwise."""
+    _, want = _k_run(tmp_path, ["--steps_per_dispatch", "4", "--data_path",
+                                "resident", "--resident_layout",
+                                "replicated", "--epoch", "2"])
+    out, got = _k_run(tmp_path, ["--steps_per_dispatch", "4", "--data_path",
+                                 "resident", "--resident_layout", "sharded",
+                                 "--epoch", "2"])
+    src = out["trainer"].dispatch.resident
+    assert type(src).__name__ == "ShardedDeviceResidentData"
+    assert len(src.reshard_ms) == 2
+    for key in want:
+        assert torch.equal(want[key], got[key]), key

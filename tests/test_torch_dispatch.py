@@ -125,15 +125,25 @@ def test_resident_text_rows_equal_loader_batches_and_small_split_raises():
 
 
 def test_stream_and_sharded_layout_raise(tmp_path):
+    """Both layers are ported (slice 17); what JAX refuses, the port
+    refuses by name: the window off the on-disk format (a synthetic
+    dataset) or over a subset."""
     argv = ["--dataset", "synthetic", "--epoch", "1", "--device", "cpu",
             "--n_layers", "1", "--d_model", "16", "--n_heads", "2",
             "--d_ff", "32", "--seq_len", "32", "--subset_stride", "64",
             "--bs", "8", "--checkpoint_dir", str(tmp_path), "--no_plot"]
-    for flags, name in ((["--data_path", "stream"], "--data_path stream"),
-                        (["--data_path", "resident", "--resident_layout",
-                          "sharded"], "--resident_layout sharded")):
-        with pytest.raises(NotImplementedError, match=name):
+    for flags, name in ((["--data_path", "stream"],
+                         "--data_path stream reads the sharded on-disk"),
+                        (["--data_path", "stream", "--dataset", "stream",
+                          "--stream_dir", str(tmp_path)],
+                         "--subset_stride is not supported with "
+                         "--data_path stream")):
+        with pytest.raises(ValueError, match=name):
             cli.main(argv + flags, defaults=cli.TRANSFORMER_DEFAULTS)
+    assert not cli.unported_training_flags(cli.config_from_args(
+        cli.build_parser(defaults=cli.TRANSFORMER_DEFAULTS).parse_args(
+            argv + ["--data_path", "resident", "--resident_layout",
+                    "sharded"]), defaults=cli.TRANSFORMER_DEFAULTS))
 
 
 # -- K against K=1, bitwise ---------------------------------------------------

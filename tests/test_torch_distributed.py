@@ -362,7 +362,8 @@ def _run_groups(tmp, groups) -> dict:
             futs = {n: ex.submit(_jax_transformer, f, bt, w, axis=ax, **kw)
                     for n, (f, bt, w, ax, kw) in jobs.items()}
             futs["resnet"] = ex.submit(_jax_resnet)
-            jax_runs = {n: f.result() for n, f in futs.items()}
+            jax_runs = {n: f.result(timeout=TIMEOUT)
+                        for n, f in futs.items()}
     init, draws = jax_runs["cls"][0], jax_runs["cls"][1]
     single, metrics = _single_process(init, cls, draws)
     ck = str(tmp / "ck")
@@ -619,8 +620,8 @@ def test_host_value_collectives_keep_int64_and_fp64(runs):
      "--zero1 / --host_offload with --steps_per_dispatch 4"),
     (["--offload_opt_state", "--data_path", "resident"],
      "--offload_opt_state with --data_path resident"),
-    (["--data_path", "resident", "--resident_layout", "sharded"],
-     "--resident_layout sharded"),
+    (["--data_path", "resident", "--resident_layout", "sharded", "--fsdp"],
+     "--fsdp with --data_path resident"),
 ])
 def test_unported_mesh_flags_raise_by_name(tmp_path, flags, name):
     argv = ["--dataset", "synthetic", "--device", "cpu", "--no_plot",

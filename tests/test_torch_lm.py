@@ -384,10 +384,14 @@ def test_cli_trains_the_lm_on_cpu_and_rejects_what_is_not_ported(
                         (["--ffn_impl", "pallas"],
                          "--task lm with --ffn_impl pallas"),
                         (["--lm_causal", "--mesh", "pp=2"],
-                         "--lm_causal under --mesh pp=2"),
-                        (["--data_path", "stream"], "--data_path stream")):
+                         "--lm_causal under --mesh pp=2")):
         with pytest.raises(NotImplementedError, match=name):
             cli.main(cpu + flags, defaults=cli.TRANSFORMER_DEFAULTS)
+    # the stream window (slice 17) addresses the whole on-disk split:
+    # a subset is refused, as JAX refuses it
+    with pytest.raises(ValueError, match="--subset_stride is not supported"):
+        cli.main(cpu + ["--data_path", "stream"],
+                 defaults=cli.TRANSFORMER_DEFAULTS)
     # --lm_causal trains (dense attention, the causal mask in the model);
     # an explicit kernel that cannot take the mask raises, naming both
     # flags, and so do the sequence and tensor meshes

@@ -100,11 +100,15 @@ def test_port_and_jax_hosts_share_one_pod_directory(tmp_path):
     assert (jaxh.begin_attempt(), port.begin_attempt()) == (2, 2)
     # the restore barrier: both enter, both see both steps
     out = {}
+    # a daemon: a barrier that never returns fails this test, and cannot
+    # keep the worker process from exiting
     t = threading.Thread(target=lambda: out.setdefault(
-        "jax", jaxh.gather_restored_step(6, phase="agree").tolist()))
+        "jax", jaxh.gather_restored_step(6, phase="agree").tolist()),
+        daemon=True)
     t.start()
     out["port"] = port.gather_restored_step(6, phase="agree").tolist()
     t.join(30)
+    assert not t.is_alive(), "the JAX host's restore barrier hung past 30 s"
     assert out == {"port": [6, 6], "jax": [6, 6]}
     port.close(), jaxh.close()
 

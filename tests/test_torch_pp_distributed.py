@@ -240,7 +240,8 @@ def _run_groups(tmp, groups) -> dict:
         with ThreadPoolExecutor(len(jobs)) as ex:
             futs = {n: ex.submit(jax_pp_run, *job)
                     for n, job in jobs.items()}
-            jax_runs = {n: f.result() for n, f in futs.items()}
+            jax_runs = {n: f.result(timeout=TIMEOUT)
+                        for n, f in futs.items()}
     init = jax_runs["cls"][0]
     # the port's own draws for flash + the fused FFN (dropout 0.1), and
     # its world-1 run

@@ -249,11 +249,13 @@ def test_hang_blocks_until_released_then_fires_once():
     plan = FaultPlan.from_env({faults.ENV_HANG: "3"})
     plan.on_step(2)
     t = threading.Timer(0.15, plan.hang_release.set)
+    t.daemon = True
     t.start()
     t0 = time.monotonic()
     plan.on_step(3)
     assert time.monotonic() - t0 >= 0.1
-    t.join()
+    t.join(10)
+    assert not t.is_alive()
     t0 = time.monotonic()
     plan.on_step(3)
     assert time.monotonic() - t0 < 0.1
@@ -379,6 +381,19 @@ def _assert_equal(a, b):
         assert torch.equal(a[k], b[k]), k
 
 
+def _settle(*mgrs, timeout: float = 60.0) -> None:
+    """``mgr.wait()`` of each manager, bounded: a write that never ends
+    fails the test (on a daemon thread, it cannot keep the worker process
+    from exiting)."""
+    import threading
+
+    t = threading.Thread(target=lambda: [m.wait() for m in mgrs],
+                         daemon=True)
+    t.start()
+    t.join(timeout)
+    assert not t.is_alive(), f"a checkpoint write ran past {timeout} s"
+
+
 def _run_saves(mgr, n, wait=True):
     state, snaps = _tiny_state(), {}
     for step in range(1, n + 1):
@@ -386,8 +401,8 @@ def _run_saves(mgr, n, wait=True):
         if mgr.maybe_save(state, step, epoch=0, step_in_epoch=step):
             snaps[step] = _leaves(state)
             if wait:
-                mgr.wait()
-    mgr.wait()
+                _settle(mgr)
+    _settle(mgr)
     return state, snaps
 
 
@@ -441,7 +456,7 @@ def test_inflight_save_skips_not_queues(tmp_path, monkeypatch):
         _bump(state, step)
         took.append(mgr.maybe_save(state, step))
     gate.set()
-    mgr.wait()
+    _settle(mgr)
     s = g.summary()
     assert took == [True, False, False, False]
     assert s["saves"] == 1 and s["skipped_saves"] == 3
@@ -509,7 +524,7 @@ def test_two_managers_commit_one_sharded_checkpoint(tmp_path):
     want = _leaves(state)
     m1.save(state, 1)
     m0.save(state, 1)
-    m0.wait(), m1.wait()
+    _settle(m0, m1)
     assert m0.committed_steps() == [1]
     path = os.path.join(str(tmp_path), "transformer_step_000000001",
                         "shards")

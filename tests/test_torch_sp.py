@@ -27,6 +27,7 @@ package, in one process.
 """
 
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -61,6 +62,8 @@ from faster_distributed_training_tpu_torch.parallel.mesh import (
     ordered_axes, parse_mesh, seq_parallel_axis)
 
 DP, SP = 2, 4
+# a rank thread's longest wait at a barrier, and the whole grid's run
+BARRIER_S, RANKS_S = 60.0, 120.0
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -76,7 +79,8 @@ class _Hub:
 
     def __init__(self, n):
         self.n, self.slots = n, [None] * n
-        self.bar = threading.Barrier(n)
+        # a rank that never arrives breaks the barrier for the others
+        self.bar = threading.Barrier(n, timeout=BARRIER_S)
 
     def exchange(self, rank, obj):
         self.slots[rank] = obj
@@ -132,14 +136,23 @@ def run_ranks(fn, n_dp=DP, n_sp=SP):
             for h in hubs:
                 h.bar.abort()
 
-    threads = [threading.Thread(target=body, args=(d, s))
+    # daemons: a hung rank fails the test below and cannot keep the worker
+    # process from exiting
+    threads = [threading.Thread(target=body, args=(d, s), daemon=True)
                for d in range(n_dp) for s in range(n_sp)]
     for t in threads:
         t.start()
+    t0 = time.monotonic()
     for t in threads:
-        t.join(120)
+        t.join(max(RANKS_S - (time.monotonic() - t0), 0.0))
     if errs:
         raise errs[0]
+    late = sum(t.is_alive() for t in threads)
+    if late:
+        for h in hubs:
+            h.bar.abort()
+        raise TimeoutError(f"{late} of {len(threads)} rank threads still "
+                           f"running after {RANKS_S} s")
     return out
 
 

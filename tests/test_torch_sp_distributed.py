@@ -241,7 +241,8 @@ def _run_groups(tmp, groups) -> dict:
         with ThreadPoolExecutor(len(jobs)) as ex:
             futs = {n: ex.submit(jax_sp_run, *job)
                     for n, job in jobs.items()}
-            jax_runs = {n: f.result() for n, f in futs.items()}
+            jax_runs = {n: f.result(timeout=TIMEOUT)
+                        for n, f in futs.items()}
     init, draws = jax_runs["ring"][0], jax_runs["ring"][1]
     ck = str(tmp / "ck")
     one = single_process(init, cls[:2], draws[:2])

@@ -11,17 +11,35 @@
   * Each package's reader reads the other's directory; ``encode_batch``
     and the batch order of the host loader (shuffled train, padded eval)
     are equal; a corrupted shard is quarantined and remapped alike.
+  * The image flavor: ``write_array_dataset`` and ``shard.py --kind image
+    --source synthetic`` write byte-identical shards and manifests to the
+    JAX writer's and ``scripts/shard_dataset.py``'s; ``row_bytes`` and the
+    lazy multi-shard view (``_LazyShardRows``) equal JAX's; the batches the
+    stream window serves a tiny ResNet-18 with NGD and meta mixup (16 x 16
+    images, ``--ngd_rank 1``) train two steps held to JAX
+    ``make_train_step`` on the same batches and mixup draws (loss 3e-5
+    rel, parameters, statistics and lambda 1e-4, the ResNet tolerances),
+    and ``--data_path stream`` trains the ResNet (3 steps, an epoch tail
+    shorter than K) bitwise as ``--data_path resident`` at the same K.
+  * AG News: a small CSV in the test's data_dir (nothing downloaded) is
+    sharded by ``shard.py --source agnews`` and by the JAX script into
+    byte-identical corpora through the WordPiece vocab both ladders train
+    offline.
 
 The JAX ladder's HuggingFace step is switched off here (the port does not
 have it); every data_dir is a temporary directory of the test's own.
 """
 
+import csv
 import json
 import os
 import runpy
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import faster_distributed_training_tpu.data.agnews as j_agnews
 from faster_distributed_training_tpu.data import wordpiece as j_wordpiece
@@ -46,6 +64,16 @@ TEXTS = [
     "The and of a an is was were it its  12 3.14 don't won't O'Neil",
     "",
 ]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: under the suite's parallel workers torch's
+    thread-a-core default oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -260,3 +288,227 @@ def test_corrupt_shard_is_quarantined_like_jax(tmp_path, corpora):
         b = theirs.gather(idx)
     np.testing.assert_array_equal(a["tokens"], b["tokens"])
     assert mine._bad_shards == {1}
+
+
+# -- the image flavor -----------------------------------------------------------
+
+
+def _script_main():
+    script = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "shard_dataset.py")
+    return runpy.run_path(script)["main"]
+
+
+def test_image_writers_are_byte_identical_to_jax(tmp_path):
+    from faster_distributed_training_tpu_torch.data.synthetic import (
+        synthetic_cifar)
+
+    x, y = synthetic_cifar(70, seed=3)
+    meta = {"content": "image", "num_classes": 10, "split": "train"}
+    mine = p_format.write_array_dataset(str(tmp_path / "p" / "train"),
+                                        {"image": x, "label": y},
+                                        rows_per_shard=25, meta=meta)
+    theirs = j_format.write_array_dataset(str(tmp_path / "j" / "train"),
+                                          {"image": x, "label": y},
+                                          rows_per_shard=25, meta=meta)
+    assert mine == theirs and len(mine["shards"]) == 3
+    flags = ["--kind", "image", "--source", "synthetic", "--n", "96",
+             "--rows_per_shard", "40", "--seed", "2"]
+    got = shard.main(["--out", str(tmp_path / "sp")] + flags,
+                     log=lambda _: None)
+    assert _script_main()(["--out", str(tmp_path / "sj")] + flags) == 0
+    _same_dirs(str(tmp_path / "sp"), str(tmp_path / "sj"))
+    assert got["train"]["n"] == 96 and got["test"]["n"] == 24
+    for d in (tmp_path / "sp" / "train", tmp_path / "p" / "train"):
+        a = p_reader.ShardedStreamDataset(str(d))
+        b = j_reader.ShardedStreamDataset(str(d))
+        assert not a.is_text and a.row_bytes() == b.row_bytes() == 3076
+    img, lab = p_reader.open_stream_split(str(tmp_path / "sp"), train=True)
+    jimg, jlab = j_reader.open_stream_split(str(tmp_path / "sj"), train=True)
+    assert isinstance(img, p_reader._LazyShardRows)
+    idx = np.array([95, 0, 39, 40, 41, 80])
+    np.testing.assert_array_equal(img[idx], jimg[idx])
+    np.testing.assert_array_equal(lab[::7], jlab[::7])
+    np.testing.assert_array_equal(np.asarray(img), np.asarray(jimg))
+
+
+HW, B = 16, 8
+RN = dict(model="resnet18", dataset="stream", num_classes=10, lr=0.1,
+          batch_size=B, epochs=1, use_ngd=True, meta_learning=True,
+          ngd_rank=1, telemetry=False, plot=False, precision="fp32")
+
+
+@pytest.fixture(scope="module")
+def image_shards(tmp_path_factory):
+    """24 train / 8 test CIFAR-like 16 x 16 images, 10 rows a shard."""
+    rng = np.random.default_rng(5)
+    root = tmp_path_factory.mktemp("img16")
+    for split, n in (("train", 24), ("test", 8)):
+        p_format.write_array_dataset(
+            str(root / split),
+            {"image": rng.integers(0, 256, (n, HW, HW, 3)).astype(np.uint8),
+             "label": rng.integers(0, 10, n).astype(np.int32)},
+            rows_per_shard=10, meta={"content": "image", "num_classes": 10})
+    return str(root)
+
+
+def test_resnet_ngd_on_the_window_s_batches_matches_jax(image_shards):
+    """The batches the port's stream window serves (its slot rows, equal
+    to JAX's ``host_buffer``) through JAX ``make_train_step`` and the
+    port's step: two NGD + meta mixup steps from one init, JAX's mixup
+    permutations handed to the port.  The steps take the window's uint8
+    batches normalized to float (both packages skip the in-step augment
+    for float images, whose draws come from different generators)."""
+    from faster_distributed_training_tpu.config import TrainConfig as JConf
+    from faster_distributed_training_tpu.data.stream import (
+        DiskStreamSource as JSource)
+    from faster_distributed_training_tpu.optim import (
+        build_optimizer as j_build_optimizer)
+    from faster_distributed_training_tpu.train.amp import fresh_loss_scale
+    from faster_distributed_training_tpu.train.mixup import (
+        init_meta_lambda as j_init_meta_lambda)
+    from faster_distributed_training_tpu.train.state import (
+        TrainState as JTrainState)
+    from faster_distributed_training_tpu.train.steps import (
+        make_train_step as j_make_train_step)
+    from faster_distributed_training_tpu import cli as jcli
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.config import TrainConfig
+    from faster_distributed_training_tpu_torch.data.stream import (
+        DiskStreamSource)
+    from faster_distributed_training_tpu_torch.interop import (
+        flatten, resnet_from_jax, resnet_to_jax)
+    from faster_distributed_training_tpu_torch.optim import (
+        build_optimizer, layouts_of)
+    from faster_distributed_training_tpu_torch.train.state import (
+        create_train_state)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        StepDraws, make_train_step, to_device)
+
+    train = os.path.join(image_shards, "train")
+    src = DiskStreamSource(p_reader.ShardedStreamDataset(train), B, seed=0,
+                           window_batches=2)
+    jsrc = JSource(j_reader.ShardedStreamDataset(train), B, seed=0,
+                   window_batches=2)
+    order = src.epoch_order(0)
+    win = src.epoch_window(0)
+    batches = []
+    try:
+        base, hi, slot = win.buffer_for(0)
+        want = jsrc.host_buffer(jsrc.epoch_order(0), base, hi)
+        for n in (0, 1):
+            row = {k: t[slot * src.window + n - base].numpy()
+                   for k, t in src.arrays.items()}
+            for k in row:
+                assert row[k].tobytes() == want[k][n - base].tobytes(), k
+            batches.append(row)
+    finally:
+        win.close()
+    np.testing.assert_array_equal(order, jsrc.epoch_order(0))
+
+    jcfg = JConf(device="cpu", **RN)
+    jtx, _ = j_build_optimizer(jcfg, steps_per_epoch=6)
+    rng = jax.random.PRNGKey(0)
+    jmodel = jcli.build_model(jcfg)
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda k, x: jmodel.init({"params": k, "dropout": jax.random.fold_in(
+            k, 1), "mixup": jax.random.fold_in(k, 2)}, x, train=True))(
+        rng, jnp.zeros((B, HW, HW, 3), jnp.float32)))
+    lam0 = np.asarray(j_init_meta_lambda(rng, B))
+    jparams = {"model": jax.tree_util.tree_map(jnp.asarray,
+                                               variables["params"]),
+               "mixup_lambda": jnp.asarray(lam0)}
+    jstate = JTrainState(
+        step=jnp.asarray(0, jnp.int32), params=jparams,
+        batch_stats=jax.tree_util.tree_map(jnp.asarray,
+                                           variables["batch_stats"]),
+        opt_state=jtx.init(jparams), loss_scale=fresh_loss_scale(),
+        rng=jax.random.PRNGKey(0), apply_fn=jmodel.apply, tx=jtx)
+    jstep = jax.jit(j_make_train_step(jcfg))
+
+    cfg = TrainConfig(device="cpu", **RN)
+    model = cli.build_model(cfg, device="cpu")
+    model.load_state_dict(resnet_from_jax(variables["params"],
+                                          variables["batch_stats"]))
+    tx, _ = build_optimizer(cfg, steps_per_epoch=6,
+                            layouts=layouts_of(model))
+    state = create_train_state(model, tx, 0,
+                               extra={"mixup_lambda": torch.tensor(lam0)})
+    step = make_train_step(cfg)
+    mean = np.asarray([0.4914, 0.4822, 0.4465], np.float32)
+    std = np.asarray([0.2470, 0.2435, 0.2616], np.float32)
+    for i, row in enumerate(batches):
+        batch = {"image": ((row["image"].astype(np.float32) / 255.0 - mean)
+                           / std).astype(np.float32),
+                 "label": row["label"]}
+        k_mix, _ = jax.random.split(jax.random.fold_in(jstate.rng, i))
+        perm = np.asarray(jax.random.permutation(k_mix, B))
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        state, m = step(state, to_device(batch, "cpu"),
+                        StepDraws(seeds=(), lam=1.0, perm=perm))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=3e-5, atol=0, err_msg=f"step {i}")
+    params, stats = resnet_to_jax(model.state_dict())
+    for mine, theirs in ((params, jstate.params["model"]),
+                         (stats, jstate.batch_stats)):
+        got = flatten(mine)
+        want = flatten(jax.tree_util.tree_map(np.asarray, theirs))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4,
+                                       err_msg=k)
+    np.testing.assert_allclose(
+        state.extra["mixup_lambda"].detach().numpy(),
+        np.asarray(jstate.params["mixup_lambda"]), rtol=0, atol=1e-4)
+
+
+def test_resnet_streams_bitwise_as_resident(image_shards, tmp_path):
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.resnet50_test import DEFAULTS
+
+    argv = ["--device", "cpu", "--model", "resnet18", "--dataset", "stream",
+            "--stream_dir", image_shards, "--bs", str(B), "--epoch", "1",
+            "--ngd", "--meta_learning", "--precision",
+            "fp32", "--log_every", "0", "--no_plot", "--no_telemetry",
+            "--steps_per_dispatch", "2", "--stream_window", "4"]
+    out = {}
+    for path in ("stream", "resident"):
+        res = cli.main(argv + ["--data_path", path, "--checkpoint_dir",
+                               str(tmp_path / path)], defaults=DEFAULTS)
+        assert int(res["state"].step) == 3, path
+        out[path] = {k: v.clone() for k, v in
+                     res["state"].model.state_dict().items()}
+    assert type(res["trainer"].dispatch.resident).__name__ == \
+        "DeviceResidentData"
+    for k, v in out["stream"].items():
+        assert torch.equal(v, out["resident"][k]), k
+
+
+# -- AG News ------------------------------------------------------------------
+
+
+def test_agnews_csv_shards_are_byte_identical_to_jax(tmp_path):
+    rows = [(1 + i % 4, f"Title {i}: " + t, TEXTS[i % 4] + " " + t)
+            for i, t in enumerate(p_format.synthetic_corpus(60, seed=6))]
+    for d in ("pd", "jd"):
+        os.makedirs(tmp_path / d / "ag_news")
+        with open(tmp_path / d / "ag_news" / "train.csv", "w", newline="",
+                  encoding="utf-8") as f:
+            csv.writer(f).writerows(rows)
+    flags = ["--source", "agnews", "--seq_len", "24", "--rows_per_shard",
+             "16", "--seed", "3"]
+    logs = []
+    got = shard.main(["--out", str(tmp_path / "p"), "--data_dir",
+                      str(tmp_path / "pd")] + flags, log=logs.append)
+    assert not any("unavailable" in x for x in logs)
+    assert _script_main()(["--out", str(tmp_path / "j"), "--data_dir",
+                           str(tmp_path / "jd")] + flags) == 0
+    _same_dirs(str(tmp_path / "p"), str(tmp_path / "j"))
+    assert got["train"]["tokenizer"] == "WordPieceTokenizer"
+    assert got["train"]["docs"] == 54 and len(got["train"]["shards"]) > 1
+    cache = f"wordpiece_vocab_{text.cleaner_fingerprint()}.txt"
+    with open(tmp_path / "pd" / "ag_news" / cache) as f:
+        mine = f.read()
+    with open(tmp_path / "jd" / "ag_news" / cache) as f:
+        assert mine == f.read()

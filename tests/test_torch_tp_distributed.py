@@ -212,7 +212,8 @@ def _run_groups(tmp, groups) -> dict:
                                      (2,)),
                     "dp2tp2": ex.submit(jax_tp_run, CLS_FLAGS, cls,
                                         ("dp", "tp"), (2, 2))}
-            jax_runs = {n: f.result() for n, f in futs.items()}
+            jax_runs = {n: f.result(timeout=TIMEOUT)
+                        for n, f in futs.items()}
     init, draws = jax_runs["tp2"][0], jax_runs["tp2"][1]
     # a vocabulary tp=2 does not divide: one more token row, and batches
     # that look it up (it lands on rank 1's padded shard)

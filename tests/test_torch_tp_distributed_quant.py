@@ -62,7 +62,8 @@ def runs(tmp_path_factory):
             with ThreadPoolExecutor(len(PATHS)) as ex:
                 futs = {p: ex.submit(jax_tp_run, f, batches[p], ("tp",),
                                      (2,)) for p, f in PATHS.items()}
-                jax_runs = {p: f.result() for p, f in futs.items()}
+                jax_runs = {p: f.result(timeout=TIMEOUT)
+                            for p, f in futs.items()}
         W.feed(group, cases={p: ("run_steps", dict(
             cfg_kw={**TP_SMALL, **f}, init=jax_runs[p][0],
             batches=batches[p], draws=jax_runs[p][1],

@@ -214,12 +214,15 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tmp_path):
     assert np.isfinite(hist["train_loss"]).all() and len(hist["test_acc"]) == 1
     for flags, name in ((["--ngd"], "--ngd"),
                         (["--warm_spares", "1"], "--warm_spares"),
-                        (["--data_path", "stream"], "--data_path stream"),
                         (["--mesh", "dp=1,tp=3"], "--mesh"),
                         (["--profile"], "--profile"),
                         (["--dataset", "cifar10"], "--dataset cifar10")):
         with pytest.raises(NotImplementedError, match=name):
             cli.main(argv + flags, defaults=cli.TRANSFORMER_DEFAULTS)
+    # the stream window (slice 17) reads the on-disk format only
+    with pytest.raises(ValueError, match="--data_path stream reads"):
+        cli.main(argv + ["--data_path", "stream"],
+                 defaults=cli.TRANSFORMER_DEFAULTS)
     # the resilience flags train (slice 15)
     for flags in (["--auto_recover"], ["--supervise"]):
         out = cli.main(argv + flags, defaults=cli.TRANSFORMER_DEFAULTS)

@@ -101,11 +101,16 @@ def wait(handle, timeout: float = 120.0) -> list:
 
 
 def _rank_main(rank, world, case, out_dir, patience: float = 600.0):
+    import datetime
+
     torch.set_num_threads(1)
     try:
+        # the FileStore rendezvous and every collective give up after
+        # ``patience``: a peer that never comes fails this rank
         dist.init_process_group(
             "gloo", rank=rank, world_size=world,
-            init_method=f"file://{os.path.join(out_dir, 'rendezvous')}")
+            init_method=f"file://{os.path.join(out_dir, 'rendezvous')}",
+            timeout=datetime.timedelta(seconds=patience))
         try:
             path = os.path.join(out_dir, "kwargs.pt")
             t0 = time.monotonic()
@@ -505,6 +510,38 @@ def cli_argv(argv, slow_write_s: float = 0.0) -> dict:
             **{k: v for k, v in out.items() if k.startswith("goodput_")}}
 
 
+def resident_layouts(argv, ckpt_root: str) -> dict:
+    """``cli.main`` on ``argv`` (the transformer's defaults) joined to the
+    group with ``--data_path resident`` under each ``--resident_layout``:
+    per layout the steps, the train losses and the digest of the final
+    whole state; for the sharded layout also the rows and bytes at rest a
+    rank, the view's address after every epoch and the re-shards."""
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.train.state import (
+        state_leaves)
+
+    out = {}
+    for layout in ("replicated", "sharded"):
+        res = cli.main(list(argv) + [
+            "--distributed", "--data_path", "resident", "--resident_layout",
+            layout, "--checkpoint_dir", os.path.join(ckpt_root, layout)],
+            defaults=cli.TRANSFORMER_DEFAULTS)
+        src = res["trainer"].dispatch.resident
+        out[layout] = {
+            "step": int(res["state"].step),
+            "train_loss": list(res["history"]["train_loss"]),
+            "digest": digest({k: v.detach().cpu().numpy() for k, v in
+                              state_leaves(res["state"]).items()}),
+            "kind": type(src).__name__}
+        if layout == "sharded":
+            out[layout].update(rows=src.rows, nbytes=src.nbytes, n=src.n,
+                               reshards=len(src.reshard_ms),
+                               view_ptr=src._view.data_ptr(),
+                               arrays_ptr={k: t.data_ptr() for k, t in
+                                           src.arrays.items()})
+    return out
+
+
 def many(cases: dict) -> dict:
     """Several cases in one group: name -> (case, kwargs)."""
     return {name: CASES[case](**kw) for name, (case, kw) in cases.items()}
@@ -515,4 +552,5 @@ CASES = {"run_steps": run_steps, "restore": restore, "cli_runs": cli_runs,
          "cli_pp_run": cli_pp_run, "eval_metrics": eval_metrics,
          "fp16_planted_inf": fp16_planted_inf,
          "collectives": collectives, "clock_skew": clock_skew,
-         "cli_argv": cli_argv, "many": many}
+         "cli_argv": cli_argv, "resident_layouts": resident_layouts,
+         "many": many}
