@@ -15,6 +15,7 @@ width.
     python3 chip_smoke.py --decode
     python3 chip_smoke.py --resilience
     python3 chip_smoke.py --stream
+    python3 chip_smoke.py --telemetry
 
 The second form prints only the device split of one record-width
 training step of the slice-2 path and paths B and C, and whether two
@@ -32,7 +33,10 @@ sentinel's NaN guard and spike rollback, a two-process fs-simulated pod;
 in the whole smoke it runs after phase W, before any process group), the
 eleventh the build and phase W alone (``stream_phase``: path E and
 ResNet-50 through the stream window, the sharded resident layout on two
-gloo ranks, the native host library; it shards path E's corpus itself).
+gloo ranks, the native host library; it shards path E's corpus itself),
+the twelfth the build and phase O (a) and (b) alone (``telemetry_phase``:
+the run record; in the whole smoke it runs after phase F, and O(c) after
+phase D).
 Needs one CUDA card and the repo checkout beside this file; without
 either it exits non-zero and prints no result.  Phases, in order (any
 failure raises and exits non-zero):
@@ -322,6 +326,24 @@ failure raises and exits non-zero):
                residency beside world 1's (printed, not a claim); (c)
                path B: launches, amax histories against world 1 (1e-3
                relative); (d) path E: peak a rank beside world 1's;
+  O. record  — the run record (slice 18), after phase F: (a) path B at
+               K=4, 16 steps, ``--checkpoint_every 8``, telemetry on with
+               ``--profile_steps 5:8`` against the same run under
+               ``--no_telemetry``: the state bitwise, the wrappers'
+               launches equal; the JSONL valid against
+               ``TELEMETRY_SCHEMA``, one step record a dispatch, the first
+               dispatch of the program compile-marked; the manifest
+               names the card; ``ckpt_snapshot``, ``ckpt_commit``,
+               ``eval`` and ``first_dispatch_compile`` with host time
+               above 0; the window's Chrome trace holds the six hand
+               kernels beside ``fdt/`` labels, and device events (none
+               fails); (b) telemetry on against off through the Trainer's
+               epoch loops in 3 alternated pairs of 8-step blocks at K=1
+               and K=4 (medians and ranges printed), the hand kernels'
+               device launches and the wrappers' equal; (c) after phase
+               D: phase F(b)'s flight dump (one, naming the injected
+               fault), and the serving runs' ``serve_*`` and D(d)'s
+               ``decode_*`` events counted against the requests served;
   D. decode  — decode serving of the LM (slice 14), which launches no
                hand kernel (the counts, set to 0 before each serving run,
                must stay 0), at the record's widths (6 layers, d_model
@@ -1602,12 +1624,18 @@ def serve_quant_phase(cli, state) -> dict:
 
     from faster_distributed_training_tpu_torch.interop import (
         batch_stats_to_jax, params_to_jax)
+    from faster_distributed_training_tpu_torch.ops import _build
     from faster_distributed_training_tpu_torch.serve import pad_batch
 
     defaults = cli.TRANSFORMER_DEFAULTS
+    import shutil
+
+    tdir = os.path.join(str(_build.BUILD_DIR), "o_serve_d")
+    shutil.rmtree(tdir, ignore_errors=True)
     cfg = cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
         ["--device", "cuda", "--serve_requests", "32", "--serve_batch_size",
-         "8", "--quant", "int8", "--ffn_impl", "pallas"]), defaults=defaults)
+         "8", "--quant", "int8", "--ffn_impl", "pallas", "--telemetry_dir",
+         tdir]), defaults=defaults)
     sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
     bundle = {"params": params_to_jax(sd, cfg.n_heads),
               "batch_stats": batch_stats_to_jax(sd)}
@@ -1615,6 +1643,7 @@ def serve_quant_phase(cli, state) -> dict:
     reset_counts()
     res = cli.run_serving(cfg, requests=requests, params=bundle)
     launches = read_counts()
+    events = o_serve_events(res)
     engine = res["engines"][0]
     batches_run = sum(e.calls for e in res["engines"])
     results = res["results"]
@@ -1672,7 +1701,7 @@ def serve_quant_phase(cli, state) -> dict:
     kern = device_kernels(lambda: engine.predict_batch(batch), n)
     print(profile_split(kern, n, wall_ms, f"serve path D bucket {top} "
                         "(per batch)"))
-    return {"launches": launches}
+    return {"launches": launches, "events": events}
 
 
 # -- slice 4: long context (TPU rows 2 and 3) -------------------------------
@@ -5051,14 +5080,17 @@ def mesh_main() -> int:
 DECODE_PROMPTS = (7, 40, 100, 250)
 
 
-def decode_cfg(cli, ckpt: str, *flags):
+def decode_cfg(cli, ckpt: str, *flags, telemetry_dir: str = ""):
     """The record-width LM served from ``ckpt`` on the card: 6 layers,
     d_model 512, 8 heads, d_ff 1024, tied head, seq 512, buckets 64-512,
-    page 16, 4 slots, bf16, greedy (the defaults), and ``flags``."""
+    page 16, 4 slots, bf16, greedy (the defaults), and ``flags``; its
+    telemetry in ``telemetry_dir`` (off without one)."""
     d = cli.TRANSFORMER_DEFAULTS
+    tel = (["--telemetry_dir", telemetry_dir] if telemetry_dir
+           else ["--no_telemetry"])
     return cli.config_from_args(cli.build_parser(defaults=d).parse_args(
         ["--task", "lm", "--device", "cuda", "--checkpoint_dir", ckpt,
-         "--no_telemetry", "--no_plot", *flags]), defaults=d)
+         *tel, "--no_plot", *flags]), defaults=d)
 
 
 def decode_drive(eng, prompts, n_new: int, at=None, ids=None) -> list:
@@ -5208,7 +5240,9 @@ def decode_phase(cli, build_dir: str) -> dict:
 
     t_phase = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="smoke_decode_", dir=build_dir)
-    out = {}
+    # D(d)'s decode_* counts by run (phase O(c) reads them)
+    events: dict = {}
+    out = {"events": events}
     silent = lambda s: None                                 # noqa: E731
     try:
         cfg = decode_cfg(cli, tmp)
@@ -5342,10 +5376,12 @@ def decode_phase(cli, build_dir: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
             t0 = time.monotonic()
-            res = cli.run_decode_serving(decode_cfg(cli, tmp, *flags),
-                                         log=silent)
+            res = cli.run_decode_serving(decode_cfg(
+                cli, tmp, *flags, telemetry_dir=os.path.join(
+                    tmp, f"telemetry_{len(runs)}")), log=silent)
             wall = time.monotonic() - t0
             counts = read_counts()
+            events[f"decode {tag}"] = o_decode_events(res)
             check(all(v == 0 for v in counts.values()),
                   f"D(d) decode launched a hand kernel: {counts}")
             e = res["engines"][0]
@@ -5921,10 +5957,25 @@ def resilience_phase(cli, build_dir: str) -> dict:
         os.environ.pop(faults.ENV_DIE, None)
     bitwise("F(b) supervised die run vs the uninterrupted run",
             at4[n_steps], f_state(out["state"]))
+    # the flight recorder's dump of the failure (phase O(c) reports it,
+    # from res["b"]["flight"])
+    from faster_distributed_training_tpu_torch.telemetry import flight
+    dumps = flight.read_flights(out["telemetry_dir"])
+    check(len(dumps) == 1 and dumps[0][1]["reason"] == "supervisor_failure"
+          and dumps[0][1]["exception"]["type"] == "InjectedFault",
+          f"F(b): flight dumps {[(p, d.get('reason')) for p, d in dumps]}")
+    fl = dumps[0][1]
+    flight_rec = {
+        "reason": fl["reason"], "step": fl.get("step"),
+        "exception": f"{fl['exception']['type']}: "
+                     f"{fl['exception']['message']}",
+        "ring": len(fl.get("recent_records", ())),
+        "open_spans": [x["name"] for x in fl.get("active_spans", ())]}
     disp = out["trainer"].dispatch
     g = {k[len("goodput_"):] if k != "goodput_pct" else k: v
          for k, v in out.items() if k.startswith("goodput")}
-    res["b"] = {"restarts": g["restarts"], "restores": g["restores"],
+    res["b"] = {"flight": flight_rec,
+                "restarts": g["restarts"], "restores": g["restores"],
                 "mttr_s": g.get("restart_mttr_s"),
                 "mttr_restore_s": g.get("restart_mttr_restore_s"),
                 "detect_s": g["detect_s"], "backoff_s": g["restart_backoff_s"],
@@ -6063,6 +6114,332 @@ def resilience_phase(cli, build_dir: str) -> dict:
           f"{r1['wall_s']:.1f} s wall)", flush=True)
     shutil.rmtree(cke, ignore_errors=True)
     return res
+
+
+O_PAIRS = 3              # O(b): alternated blocks of telemetry on and off
+O_BLOCK = 8              # steps a timed block
+O_WINDOW = "5:8"         # O(a)'s --profile_steps
+O_KERNELS = ("flash_fwd_kernel_sm90", "dkdv_kernel_sm90", "dq_kernel_sm90",
+             "ffn_kernel_sm90", "qmm_kernel_sm90", "mlp_fwd_kernel_mma")
+
+
+def o_validate(tag: str, recs: list) -> None:
+    """Every record of a stream against ``TELEMETRY_SCHEMA``: a registered
+    kind, and a closed kind's fields registered."""
+    from faster_distributed_training_tpu_torch.telemetry.recorder import (
+        TELEMETRY_SCHEMA)
+
+    for r in recs:
+        allowed = TELEMETRY_SCHEMA.get(r.get("kind"), -1)
+        check(allowed != -1, f"{tag}: unregistered kind {r.get('kind')!r}")
+        if allowed is not None:
+            extra = set(r) - {"kind"} - allowed
+            check(not extra, f"{tag}: kind {r['kind']!r} carries "
+                  f"unregistered fields {sorted(extra)}")
+
+
+def o_kinds(directory: str) -> dict:
+    """{kind: records} over every host file of a telemetry directory,
+    each validated."""
+    from faster_distributed_training_tpu_torch.telemetry import (
+        read_host_records)
+
+    out: dict = {}
+    for pi, recs in read_host_records(directory).items():
+        o_validate(f"O {directory} host {pi}", recs)
+        for r in recs:
+            out.setdefault(r["kind"], []).append(r)
+    return out
+
+
+def o_record(cli, build_dir: str) -> dict:
+    """O(a): path B at K=4, 16 steps, ``--checkpoint_every 8``, telemetry
+    on with ``--profile_steps 5:8`` against the same run under
+    ``--no_telemetry``: the state bitwise and the wrappers' launches
+    equal; the stream valid against the schema, one step record a
+    dispatch, the first dispatch of the one program compile-marked; the
+    manifest names the card; the spans' host times above 0; the window's
+    trace holds the six hand kernels beside ``fdt/`` labels and device
+    events."""
+    import shutil
+
+    import torch
+
+    from faster_distributed_training_tpu_torch.telemetry import (
+        span_breakdown)
+
+    path_b = ["--ffn_impl", "pallas", "--quant", "int8", "--subset_stride",
+              str(F_STRIDE), "--steps_per_dispatch", "4",
+              "--checkpoint_every", "8"]
+    on_cfg = record_cfg(cli, path_b + ["--profile_steps", O_WINDOW], "o_on",
+                        build_dir)
+    off_cfg = record_cfg(cli, path_b + ["--no_telemetry"], "o_off",
+                         build_dir)
+    out_on, leaves_on, counts_on = counted_run(cli, on_cfg, "O(a) on")
+    out_off, leaves_off, counts_off = counted_run(cli, off_cfg, "O(a) off")
+    n = bitwise("O(a) telemetry + window vs --no_telemetry, final state",
+                leaves_off, leaves_on)
+    check(counts_on == counts_off, f"O(a): wrapper launches with telemetry "
+          f"{counts_on} != without {counts_off}")
+    check("telemetry_dir" not in out_off and not os.path.exists(
+        os.path.join(off_cfg.checkpoint_dir, "telemetry")),
+          "O(a): --no_telemetry wrote a telemetry directory")
+    td = out_on["telemetry_dir"]
+    kinds = o_kinds(td)
+    steps = kinds.get("step", [])
+    disp = out_on["trainer"].dispatch
+    check([(r["step"], r["k"]) for r in steps]
+          == [(4, 4), (8, 4), (12, 4), (16, 4)],
+          f"O(a): step records {[(r['step'], r['k']) for r in steps]}")
+    marks = [r["step"] for r in steps if r.get("compile")]
+    check(marks[:1] == [4] and len(marks) == disp.builds,
+          f"O(a): compile marks at {marks}, {disp.builds} program(s) built")
+    with open(os.path.join(td, "manifest.json")) as f:
+        man = json.load(f)
+    check(man.get("device_kind") == torch.cuda.get_device_name(0)
+          and man.get("backend") == "cuda",
+          f"O(a): manifest device {man.get('device_kind')} / "
+          f"{man.get('backend')}")
+    sp = span_breakdown(kinds.get("span", []))
+    for name in ("ckpt_snapshot", "ckpt_commit", "eval",
+                 "first_dispatch_compile"):
+        check(sp.get(name, {}).get("total_ms", 0) > 0,
+              f"O(a): span {name} host time {sp.get(name)}")
+    prof = out_on["profiler"]
+    path = os.path.join(td, f"trace_steps_{O_WINDOW.replace(':', '_')}",
+                        "trace.json")
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kern = {k: sorted(x for x in names if k in x) for k in O_KERNELS}
+    labels = sorted(x for x in names if x.startswith("fdt/"))
+    check(prof.device_events and all(kern.values()) and labels,
+          f"O(a): the window's trace holds {prof.device_events} device "
+          f"events, kernels {kern}, labels {labels}")
+    res = {"state_leaves": n, "wrapper_launches": counts_on,
+           "steps": [r["step"] for r in steps], "compile_marks": marks,
+           "spans": sp, "trace_device_events": prof.device_events,
+           "trace_labels": labels,
+           "trace_window": [prof.started_at, prof.stopped_at],
+           "kinds": {k: len(v) for k, v in sorted(kinds.items())},
+           "device_kind": man["device_kind"]}
+    print(f"[telemetry O(a)] path B K=4, 16 steps: state bitwise --no_"
+          f"telemetry ({n} leaves), wrapper launches equal; "
+          f"{len(steps)} step records (steps {res['steps']}), compile "
+          f"marks {marks} ({disp.builds} program built); kinds "
+          f"{res['kinds']}; spans (count, host ms): "
+          + ", ".join(f"{k} {v['count']} / {v['total_ms']:.3f}"
+                      for k, v in sorted(sp.items()))
+          + f"; window {O_WINDOW} (started after step {prof.started_at}, "
+          f"stopped after {prof.stopped_at}): {prof.device_events} device "
+          f"events, the six hand kernels, labels {labels}", flush=True)
+    for c in (on_cfg, off_cfg):
+        shutil.rmtree(c.checkpoint_dir, ignore_errors=True)
+    return res
+
+
+def o_cost(cli, build_dir: str) -> dict:
+    """O(b): the telemetry's cost, on against off through the Trainer's
+    own epoch loops, in ``O_PAIRS`` pairs of ``O_BLOCK``-step blocks
+    alternated (their order swapped every pair), at K=1 and K=4 on path
+    B: one state, 8 host batches; a block's host wall from a synchronized
+    card to a synchronized card, the optimizer's count settled before it.
+    The hand kernels' device launches of one profiled block, and the
+    wrappers' of a block, held equal on and off."""
+    import shutil
+
+    import torch
+
+    from faster_distributed_training_tpu_torch.data.loader import BatchLoader
+    from faster_distributed_training_tpu_torch.telemetry import (
+        build_telemetry)
+    from faster_distributed_training_tpu_torch.train.dispatch import (
+        FusedDispatch)
+    from faster_distributed_training_tpu_torch.train.loop import Trainer
+    from faster_distributed_training_tpu_torch.train.state import settle
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_eval_step, make_train_step)
+
+    t_start = time.monotonic()
+    tdir = os.path.join(build_dir, "o_cost_telemetry")
+    shutil.rmtree(tdir, ignore_errors=True)
+    c = record_cfg(cli, ["--ffn_impl", "pallas", "--quant", "int8",
+                         "--subset_stride", str(F_STRIDE), "--telemetry_dir",
+                         tdir], "o_cost", build_dir)
+    data = cli.load_dataset(c.replace(dataset="synthetic"), True)
+    host = list(itertools.islice(iter(BatchLoader(
+        data, c.batch_size, epoch=0, seed=c.seed, max_len=c.seq_len)),
+        O_BLOCK))
+    state = record_state(cli, c)
+    tel = build_telemetry(c, log=lambda *_: None)
+    disp = FusedDispatch(c, 4, "cuda", log=lambda *_: None)
+    modes = ("on", "off")
+    trainers = {(k, m): Trainer(c, make_train_step(c), make_eval_step(c),
+                                "cuda", log=lambda *_: None,
+                                dispatch=disp if k == 4 else None)
+                for k in (1, 4) for m in modes}
+    for (k, m), tr in trainers.items():
+        tr.telemetry = tel if m == "on" else None
+
+    def run(k, m):
+        tr = trainers[(k, m)]
+        if k == 1:
+            tr.run_epoch(state, host, epoch=0)
+        else:
+            tr._run_epoch_fused_host(state, host, 0)
+
+    def block(k, m):
+        settle(state)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        run(k, m)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / O_BLOCK, read_counts()
+
+    for key in trainers:
+        run(*key)                   # warm: the K=4 graph captured here
+    times = {key: [] for key in trainers}
+    counts = {}
+    for pair in range(O_PAIRS):
+        for k in (1, 4):
+            for m in (modes if pair % 2 == 0 else modes[::-1]):
+                ms, cnt = block(k, m)
+                times[(k, m)].append(ms)
+                counts.setdefault((k, m), cnt)
+    hand = {}
+    for key in sorted(trainers):
+        settle(state)
+        hand[key] = hand_launches(device_kernels(lambda: run(*key), 1))
+    for k in (4,):
+        # the profiler can lose records of a graph's replays and never
+        # adds any: up to two more profiles while on and off differ
+        for _ in range(2):
+            if hand[(k, "on")] == hand[(k, "off")]:
+                break
+            for m in modes:
+                more = hand_launches(device_kernels(lambda: run(k, m), 1))
+                hand[(k, m)] = {n: max(hand[(k, m)].get(n, 0),
+                                       more.get(n, 0))
+                                for n in hand[(k, m)].keys() | more.keys()}
+    tel.close()
+    out = {}
+    for k in (1, 4):
+        med = {m: statistics.median(times[(k, m)]) for m in modes}
+        out[f"k{k}"] = {**{f"{m}_ms": med[m] for m in modes},
+                        **{f"{m}_ms_each": times[(k, m)] for m in modes},
+                        "on_over_off": med["on"] / med["off"],
+                        "hand_launches": hand[(k, "on")],
+                        "wrapper_launches": counts[(k, "on")]}
+        check(hand[(k, "on")] == hand[(k, "off")]
+              and all(hand[(k, "on")].get(n) for n in HAND_KERNELS),
+              f"O(b) K={k}: hand kernels' device launches with telemetry "
+              f"{hand[(k, 'on')]} != without {hand[(k, 'off')]}")
+        check(counts[(k, "on")] == counts[(k, "off")],
+              f"O(b) K={k}: wrapper launches of a block with telemetry "
+              f"{counts[(k, 'on')]} != without {counts[(k, 'off')]}")
+        print(f"[telemetry O(b)] K={k}: telemetry on vs off, host wall a "
+              f"step over {O_PAIRS} alternated pairs of {O_BLOCK}-step "
+              f"blocks: on median {med['on']:.3f} ms "
+              f"({min(times[(k, 'on')]):.3f}-{max(times[(k, 'on')]):.3f}), "
+              f"off median {med['off']:.3f} ms ({min(times[(k, 'off')]):.3f}"
+              f"-{max(times[(k, 'off')]):.3f}), ratio "
+              f"{med['on'] / med['off']:.4f}; hand kernels' device launches "
+              f"a block {hand[(k, 'on')]} both", flush=True)
+    recs = o_kinds(tdir)
+    out["records"] = {k: len(v) for k, v in sorted(recs.items())}
+    del state, trainers
+    shutil.rmtree(tdir, ignore_errors=True)
+    print(f"[telemetry O(b)] took {time.monotonic() - t_start:.1f} s",
+          flush=True)
+    return out
+
+
+def o_events(fl: dict, events: dict) -> dict:
+    """O(c): what the earlier phases left: phase F(b)'s flight dump
+    ``fl`` (one, naming the injected fault), and ``events``, the serving
+    runs' ``serve_*`` and phase D(d)'s ``decode_*`` counts by run
+    (``o_serve_events`` / ``o_decode_events``), against the requests
+    served."""
+    got = {}
+    check(fl is not None, "O(c): phase F(b) left no flight dump record")
+    got["flight"] = fl
+    for tag in sorted(k for k in events if k.startswith("serve")):
+        ev = events[tag]
+        check(ev["serve_request"] == ev["requests"]
+              and ev["serve_batch"] == ev["batches"],
+              f"O(c) {tag}: {ev}")
+        got[tag] = ev
+    for tag in sorted(k for k in events if k.startswith("decode")):
+        ev = events[tag]
+        check(ev["decode_admit"] == ev["slot_evict"] == ev["requests"]
+              and ev["decode_step"] == ev["steps"], f"O(c) {tag}: {ev}")
+        got[tag] = ev
+    check(any(k.startswith("serve") for k in got)
+          and any(k.startswith("decode") for k in got),
+          f"O(c): serving and decode events missing: {sorted(got)}")
+    print(f"[telemetry O(c)] F(b)'s flight dump: {fl['reason']} at step "
+          f"{fl['step']}, {fl['exception']}, ring {fl['ring']} records, "
+          f"open spans {fl['open_spans']}; events per run: "
+          + "; ".join(f"{k} {v}" for k, v in sorted(got.items())
+                      if k != "flight"), flush=True)
+    return got
+
+
+def o_serve_events(res: dict) -> dict:
+    """A serving run's ``serve_batch`` / ``serve_request`` counts beside
+    its own (O(c))."""
+    kinds = o_kinds(res["telemetry_dir"])
+    return {"requests": res["requests"], "batches": res["batches"],
+            **{k: len(kinds.get(k, ())) for k in (
+                "serve_batch", "serve_request")}}
+
+
+def o_decode_events(res: dict) -> dict:
+    """A decode run's ``decode_*`` counts beside its own (O(c))."""
+    kinds = o_kinds(res["telemetry_dir"])
+    return {"requests": res["requests"], "steps": res["steps"],
+            **{k: len(kinds.get(k, ())) for k in (
+                "decode_admit", "decode_step", "slot_evict")}}
+
+
+def telemetry_phase(cli, build_dir: str) -> dict:
+    """Phase O (a) and (b): the run record on the card (``o_record``,
+    ``o_cost``); the whole smoke adds (c), ``o_events``, after phase D."""
+    t0 = time.monotonic()
+    out = {"a": o_record(cli, build_dir), "b": o_cost(cli, build_dir)}
+    out["phase_s"] = time.monotonic() - t0
+    print(f"[telemetry] phase O took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def telemetry_main() -> int:
+    """``--telemetry``: the kernels' build, then phase O alone."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)} (torch "
+          f"{torch.__version__}, cuda {torch.version.cuda}); nvidia-smi: "
+          f"{card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_s, _ = _build.build()
+    print(f"[build] {build_s:.1f}s", flush=True)
+    oo = telemetry_phase(cli, str(_build.BUILD_DIR))
+    print("[telemetry O(c)] reads phases F(b), D(d) and the serving runs: "
+          "the whole smoke only", flush=True)
+    print(json.dumps(oo, default=str))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def _leaves_of(out) -> dict:
@@ -6722,9 +7099,14 @@ def main() -> int:
 
     # -- 6. serving at full width ----------------------------------------------
     defaults = cli.TRANSFORMER_DEFAULTS
+    import shutil
+
+    o_serve = os.path.join(str(_build.BUILD_DIR), "o_serve")
+    shutil.rmtree(o_serve, ignore_errors=True)
     cfg = cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
         ["--device", "cuda", "--serve_requests", "64",
-         "--serve_batch_size", "8"]), defaults=defaults)
+         "--serve_batch_size", "8", "--telemetry_dir", o_serve]),
+        defaults=defaults)
     model = cli.build_model(cfg, vocab_size=30522, device="cpu")
     model.init_weights(torch.Generator().manual_seed(cfg.seed))
     params = params_to_jax(model.state_dict(), cfg.n_heads)
@@ -6734,6 +7116,7 @@ def main() -> int:
     res = cli.run_serving(cfg, requests=requests, params=params)
     serve_s = time.monotonic() - t0
     counts = read_counts()
+    serve_events = o_serve_events(res)
     launches = {"flash_fwd": counts["flash_fwd"],
                 "fused_mlp": counts["fused_mlp"]}
     check(counts["flash_bwd_stats"] == counts["flash_bwd_recompute"]
@@ -6836,6 +7219,10 @@ def main() -> int:
     print(f"[resilience] phase F took {time.monotonic() - t_f:.1f} s",
           flush=True)
 
+    # -- phase O: the run record (slice 18), before any process group;
+    # O(c) reads phases F(b), D(d) and the serving runs at the end --------
+    oo = telemetry_phase(cli, str(_build.BUILD_DIR))
+
     # -- phase P: the data mesh (slice 10) ---------------------------------
     pm = mesh_phase(cli, str(_build.BUILD_DIR))
 
@@ -6850,6 +7237,10 @@ def main() -> int:
 
     # -- phase D: decode serving (slice 14) ----------------------------------
     dd = decode_phase(cli, str(_build.BUILD_DIR))
+
+    # -- phase O(c): the flight dump and the serving / decode events ------
+    oo["c"] = o_events(ff["b"]["flight"], {
+        "serve": serve_events, "serve path D": sq["events"], **dd["events"]})
 
     # -- 7. output -----------------------------------------------------------
     print(f"[mesh] P1 step ms (dp=1 over NCCL / no group): record "
@@ -7299,6 +7690,13 @@ if __name__ == "__main__":
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(2)
         sys.exit(stream_main())
+    if sys.argv[1:2] == ["--telemetry"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(telemetry_main())
     if sys.argv[1:2] == ["--resilience"]:
         import torch
 

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -388,8 +389,6 @@ def unported_training_flags(cfg: TrainConfig) -> list:
             tiers) and k > 1,
         f"{' / '.join(tiers)} with --data_path {cfg.data_path}": bool(
             tiers) and cfg.data_path in ("resident", "stream"),
-        "--profile_steps": bool(cfg.profile_steps),
-        "--profile": bool(cfg.profile),
         f"--warm_spares {cfg.warm_spares} (warm spares)": (
             int(cfg.warm_spares or 0) > 0),
     }
@@ -608,9 +607,16 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     from faster_distributed_training_tpu_torch.train.metrics import (
         attach_goodput)
 
+    from faster_distributed_training_tpu_torch.telemetry import (
+        build_telemetry, flight, resolve_telemetry_dir, spans, write_manifest)
+    from faster_distributed_training_tpu_torch.utils.profiling import (
+        StepWindowProfiler, parse_profile_steps, trace_profile)
+
     missing = unported_training_flags(cfg)
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    # a malformed --profile_steps fails before anything is built
+    window = parse_profile_steps(cfg.profile_steps)
     if cfg.data_path == "stream":
         # JAX's refusals: the window reads the on-disk format, over its
         # whole index space
@@ -752,12 +758,9 @@ def run_training(cfg: TrainConfig, params=None, device=None,
         if cfg.debug:
             log("[pipeline] rules "
                 + json.dumps(pipeline_rules(pipeline, cfg), sort_keys=True))
+    ckpt_name = "resnet" if resnet else "transformer"
     trainer = Trainer(cfg, make_train_step(cfg), make_eval_step(cfg), dev,
                       log=log, dispatch=dispatch, resilience=res)
-    if cfg.telemetry:
-        log("[telemetry] not ported yet: this run records no telemetry "
-            "(per-step JSONL, manifest, spans come with the telemetry "
-            "slice)")
     if resnet:
         from faster_distributed_training_tpu_torch.train.steps import (
             resolve_mixup_mode)
@@ -777,7 +780,6 @@ def run_training(cfg: TrainConfig, params=None, device=None,
                    if (cfg.quant_grad or "none") != "none" else ""))
     log(f"[train] {what}, {steps_per_epoch} steps/epoch x {cfg.epochs} "
         f"epochs, batch {cfg.batch_size}")
-    ckpt_name = "resnet" if resnet else "transformer"
     manager = res.manager if res is not None else None
     state, start_epoch = trainer.maybe_resume(state, ckpt_name)
     # the epoch checkpoint --resume restored: a step checkpoint replaces
@@ -826,6 +828,40 @@ def run_training(cfg: TrainConfig, params=None, device=None,
                            ckpt_name=ckpt_name, start_epoch=ep,
                            start_step_in_epoch=sie)
 
+    # telemetry (None under --no_telemetry / FDT_TELEMETRY=0), set up
+    # where the try below gives the sinks back: the span sink, the flight
+    # recorder's target, the manifest (process 0), the pipeline's
+    # schedule events and goodput's event sink
+    telemetry = build_telemetry(cfg, log=log)
+    prev_span_recorder = prev_flight = None
+    if telemetry is not None:
+        if telemetry.pi == 0:
+            write_manifest(telemetry.directory, cfg, mesh_sizes(cfg, mesh),
+                           device=dev, process_count=telemetry.pc,
+                           extra={"steps_per_epoch": steps_per_epoch,
+                                  "workload": ckpt_name,
+                                  "pipeline": pipeline_rules(pipeline,
+                                                             cfg)})
+        prev_span_recorder = spans.set_recorder(telemetry.recorder)
+        prev_flight = flight.configure(
+            telemetry.directory,
+            backend=res.backend if res is not None else None,
+            goodput=res.goodput if res is not None else None, log=log)
+        if pipeline is not None:
+            record_pipeline(telemetry.recorder, pipeline)
+        if res is not None:
+            res.goodput.set_event_sink(telemetry.recorder.goodput_event_sink)
+        log(f"[telemetry] recording to {telemetry.directory} "
+            f"(host {telemetry.pi}/{telemetry.pc}; disable with "
+            f"--no_telemetry or FDT_TELEMETRY=0)")
+    profiler = None
+    if window is not None:
+        trace_dir = os.path.join(resolve_telemetry_dir(cfg),
+                                 f"trace_steps_{window[0]}_{window[1]}")
+        profiler = StepWindowProfiler(trace_dir, *window, log=log)
+        log(f"[profile] windowed capture armed: global steps "
+            f"{window[0]}..{window[1]} -> {trace_dir}")
+    trainer.telemetry, trainer.profiler = telemetry, profiler
     cudnn = torch.backends.cudnn
     flags = (cudnn.deterministic, cudnn.benchmark)
     if resnet and dev.type == "cuda":
@@ -834,24 +870,42 @@ def run_training(cfg: TrainConfig, params=None, device=None,
         cudnn.deterministic, cudnn.benchmark = True, True
     preempted = False
     try:
-        if res is not None and cfg.supervise:
-            sup = Supervisor(max_restarts=cfg.max_restarts,
-                             goodput=res.goodput, log=log,
-                             coordinator=res.coordinator)
-            state = sup.run(attempt, progress=lambda: trainer.global_step)
-        else:
-            state = attempt(0)
+        # --profile: the whole run's trace under the telemetry directory
+        with trace_profile(os.path.join(resolve_telemetry_dir(cfg), "profile")
+                           if cfg.profile else None, log=log):
+            if res is not None and cfg.supervise:
+                sup = Supervisor(max_restarts=cfg.max_restarts,
+                                 goodput=res.goodput, log=log,
+                                 coordinator=res.coordinator)
+                state = sup.run(attempt,
+                                progress=lambda: trainer.global_step)
+            else:
+                state = attempt(0)
     except Preempted as p:
         preempted = True
         if p.state is not None:
             state = p.state
         log(f"[preempt] training stopped cleanly at step {p.step}; "
             f"re-launch with the same --checkpoint_dir to resume")
+    except BaseException as e:
+        # the run dies for good: the flight dump first (one an exception:
+        # one the supervisor already wrote is not written again)
+        flight.emergency_dump("unhandled_exception", exc=e,
+                              step=trainer.global_step)
+        raise
     finally:
         cudnn.deterministic, cudnn.benchmark = flags
         if res is not None:
             # the write in flight drains, the signal handlers go back
             res.close()
+        if profiler is not None:
+            profiler.close()   # an open window is still captured
+        if telemetry is not None:
+            # the tail flushed, pod_summary.json refreshed, the process's
+            # sinks given back
+            telemetry.close()
+            spans.set_recorder(prev_span_recorder)
+            flight.restore(prev_flight)
     if state.placement is not None:
         state.placement.unshard(state)     # the caller gets the whole state
     if cfg.plot and trainer.history["test_acc"] and rank0:
@@ -863,6 +917,10 @@ def run_training(cfg: TrainConfig, params=None, device=None,
         out["preempted"] = preempted
         out["resilience"] = res
         attach_goodput(out, res.goodput)
+    if telemetry is not None:
+        out["telemetry_dir"] = telemetry.directory
+    if profiler is not None:
+        out["profiler"] = profiler
     if stream is not None:
         out["stream"] = stream
         if trainer.stream_stall_pct is not None:
@@ -873,6 +931,41 @@ def run_training(cfg: TrainConfig, params=None, device=None,
                 f"of step time ({stream.refills} refills, read "
                 f"{stream.read_s:.3f}s, H2D {stream.h2d_s:.3f}s)")
     return out
+
+
+def mesh_sizes(cfg: TrainConfig, mesh) -> dict:
+    """The run's mesh as ``{axis: size}`` (the manifest's ``mesh``): the
+    process group's mesh, or without a group the axes ``--mesh`` names at
+    the sizes one process gives them."""
+    from faster_distributed_training_tpu_torch.parallel.mesh import (
+        canonical_axes, ordered_axes)
+
+    if mesh is not None:
+        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    axes = canonical_axes(cfg.mesh_axes)
+    shape = tuple(cfg.mesh_shape) or (1,) * len(axes)
+    return dict(zip(*ordered_axes(axes, shape)))
+
+
+def record_pipeline(recorder, spec) -> None:
+    """The pipeline's schedule into the stream (JAX ``cli.py:1097-1117``):
+    one ``pp_bubble`` with the schedule's bubble, one ``pp_stage`` a
+    stage with its layers and its idle / active slot-ticks."""
+    from faster_distributed_training_tpu_torch.parallel.pipeline import (
+        stage_idle_ticks)
+
+    recorder.record_event(
+        "pp_bubble", n_stages=spec.n_stages,
+        n_microbatches=spec.n_microbatches, n_ticks=spec.n_ticks,
+        schedule=spec.schedule, bubble_pct=round(spec.bubble_pct, 3))
+    for s, idle in enumerate(stage_idle_ticks(spec)):
+        recorder.record_event(
+            "pp_stage", stage=s,
+            layers=[f"layer_{i}" for i in spec.stage_layers[s]],
+            idle_ticks=idle,
+            # slot-ticks, as idle_ticks: M a slot x V / S slots a stage
+            active_ticks=spec.n_microbatches
+            * (spec.n_virtual // spec.n_stages))
 
 
 def round_checkpoint_every(cfg: TrainConfig, log) -> TrainConfig:
@@ -1031,6 +1124,7 @@ def run_serving(cfg: TrainConfig, requests=None, params=None, device=None,
     from faster_distributed_training_tpu_torch.serve import (
         BatchScheduler, InferenceEngine, Replica, ReplicaSet, RequestQueue,
         load_serving_state)
+    from faster_distributed_training_tpu_torch.telemetry import spans
 
     dev = resolve_device(device if device is not None else cfg.device)
     devs = ([torch.device("cuda", i)
@@ -1038,53 +1132,87 @@ def run_serving(cfg: TrainConfig, requests=None, params=None, device=None,
             if dev.type == "cuda" else [dev])
     if dev.index is not None:
         devs = [dev]
-    model, sstate, meta = load_serving_state(cfg, devs[0], params=params,
-                                             log=log)
-    q = RequestQueue(cfg.seq_buckets, max_len=cfg.seq_len)
-    buckets = q.buckets
-    n_rep = int(cfg.serve_replicas) or len(devs)
-    models = {devs[0]: model}
-    engines = []
-    for i in range(n_rep):
-        d = devs[i % len(devs)]
-        if d not in models:
-            models[d] = copy.deepcopy(model).to(d)
-        engines.append(InferenceEngine(models[d], cfg.serve_batch_size,
-                                       buckets, device=d,
-                                       name=f"replica{i}"))
-    chips_serving = min(n_rep, len(devs)) if dev.type == "cuda" else 0
-    warm_s = sum(e.warmup() for e in engines)
-    log(f"[serve] {len(engines)} replica(s) x {len(buckets)} bucket(s) "
-        f"warmed in {warm_s:.1f}s on {dev.type} (buckets {list(buckets)}, "
-        f"batch {cfg.serve_batch_size})")
-    replicas = [Replica(e.name, e, log=log) for e in engines]
-    rset = ReplicaSet(replicas,
-                      heartbeat_timeout_s=cfg.serve_heartbeat_timeout_s,
-                      readmit_after_s=cfg.serve_readmit_s, log=log)
-    sched = BatchScheduler(q, rset, batch_size=cfg.serve_batch_size,
-                           max_delay_ms=cfg.serve_max_delay_ms, log=log)
-    sched.start()
+    recorder, prev_rec = _serving_telemetry(cfg, "serve", log)
     try:
-        if requests is None:
-            requests = synth_requests(cfg.serve_requests, meta["vocab"],
-                                      buckets, seed=cfg.seed)
-        handles = [q.submit(t) for t in requests]
-        results = [h.wait(timeout=300.0) for h in handles]
+        model, sstate, meta = load_serving_state(cfg, devs[0], params=params,
+                                                 log=log)
+        q = RequestQueue(cfg.seq_buckets, max_len=cfg.seq_len)
+        buckets = q.buckets
+        n_rep = int(cfg.serve_replicas) or len(devs)
+        models = {devs[0]: model}
+        engines = []
+        for i in range(n_rep):
+            d = devs[i % len(devs)]
+            if d not in models:
+                models[d] = copy.deepcopy(model).to(d)
+            engines.append(InferenceEngine(models[d], cfg.serve_batch_size,
+                                           buckets, device=d,
+                                           name=f"replica{i}"))
+        chips_serving = min(n_rep, len(devs)) if dev.type == "cuda" else 0
+        with spans.span("serve_warmup"):
+            warm_s = sum(e.warmup() for e in engines)
+        log(f"[serve] {len(engines)} replica(s) x {len(buckets)} bucket(s) "
+            f"warmed in {warm_s:.1f}s on {dev.type} (buckets {list(buckets)}, "
+            f"batch {cfg.serve_batch_size})")
+        replicas = [Replica(e.name, e, log=log) for e in engines]
+        rset = ReplicaSet(replicas,
+                          heartbeat_timeout_s=cfg.serve_heartbeat_timeout_s,
+                          readmit_after_s=cfg.serve_readmit_s, log=log)
+        sched = BatchScheduler(q, rset, batch_size=cfg.serve_batch_size,
+                               max_delay_ms=cfg.serve_max_delay_ms,
+                               recorder=recorder, log=log)
+        sched.start()
+        try:
+            if requests is None:
+                requests = synth_requests(cfg.serve_requests, meta["vocab"],
+                                          buckets, seed=cfg.seed)
+            handles = [q.submit(t) for t in requests]
+            results = [h.wait(timeout=300.0) for h in handles]
+        finally:
+            sched.close()
+        summary = sched.summary()
+        out = {"results": results, "meta": meta, "cfg": cfg, "state": sstate,
+               "engines": engines, "replicas": rset.stats(), **summary,
+               "buckets": [h.bucket for h in handles],
+               "warmup_s": round(warm_s, 3), "device": dev.type,
+               "chips_serving": chips_serving,
+               "qps_per_chip": round(summary["qps"] / max(chips_serving, 1),
+                                     2)}
+        if recorder is not None:
+            out["telemetry_dir"] = recorder.directory
+        log(f"[serve] served {summary['requests']} requests in "
+            f"{summary['batches']} batches ({summary['padded_rows']} pad "
+            f"rows): p50 {summary['p50_ms']} ms, p99 {summary['p99_ms']} "
+            f"ms, {summary['qps']} qps")
+        return out
     finally:
-        sched.close()
-    summary = sched.summary()
-    out = {"results": results, "meta": meta, "cfg": cfg, "state": sstate,
-           "engines": engines, "replicas": rset.stats(), **summary,
-           "buckets": [h.bucket for h in handles],
-           "warmup_s": round(warm_s, 3), "device": dev.type,
-           "chips_serving": chips_serving,
-           "qps_per_chip": round(summary["qps"] / max(chips_serving, 1),
-                                 2)}
-    log(f"[serve] served {summary['requests']} requests in "
-        f"{summary['batches']} batches ({summary['padded_rows']} pad rows): "
-        f"p50 {summary['p50_ms']} ms, p99 {summary['p99_ms']} ms, "
-        f"{summary['qps']} qps")
-    return out
+        if recorder is not None:
+            spans.set_recorder(prev_rec)
+            recorder.close()
+
+
+def _serving_telemetry(cfg: TrainConfig, section: str, log):
+    """(recorder, the span sink it replaces) of a serving entry point, or
+    (None, None) with telemetry off: the recorder in the run's telemetry
+    directory, installed as the span sink, and ``section`` (this run's
+    config) merged into the manifest, never replacing a training run's
+    (JAX ``cli.py:1366-1392``)."""
+    import time as time_mod
+
+    from faster_distributed_training_tpu_torch.telemetry import (
+        TelemetryRecorder, enabled, resolve_telemetry_dir, spans,
+        update_manifest)
+
+    if not enabled(cfg):
+        return None, None
+    tdir = resolve_telemetry_dir(cfg)
+    recorder = TelemetryRecorder(tdir, log=log)
+    update_manifest(tdir, {section: {
+        "unix_time": round(time_mod.time(), 3),
+        "config": dataclasses.asdict(cfg)}}, log=log)
+    prev = spans.set_recorder(recorder)
+    log(f"[{section.split('_')[0]}] telemetry recording to {tdir}")
+    return recorder, prev
 
 
 def main_serve(argv=None, defaults: Optional[TrainConfig] = None,
@@ -1127,6 +1255,7 @@ def run_decode_serving(cfg: TrainConfig, prompts=None, params=None,
         RequestQueue, load_serving_state)
     from faster_distributed_training_tpu_torch.serve.decode import (
         DecodeEngine, DecodeScheduler)
+    from faster_distributed_training_tpu_torch.telemetry import spans
     from faster_distributed_training_tpu_torch.train.metrics import (
         percentiles)
 
@@ -1141,92 +1270,105 @@ def run_decode_serving(cfg: TrainConfig, prompts=None, params=None,
         raise ValueError(QUANTIZED)
     if cfg.tricks == "off":
         raise ValueError(UNFUSED)
-    dev = resolve_device(device if device is not None else cfg.device)
-    devs = ([torch.device("cuda", i)
-             for i in range(torch.cuda.device_count())]
-            if dev.type == "cuda" else [dev])
-    if dev.index is not None:
-        devs = [dev]
-    model, sstate, meta = load_serving_state(cfg, devs[0], params=params,
-                                             log=log)
-    q = RequestQueue(cfg.seq_buckets, max_len=cfg.seq_len)
-    buckets = q.buckets
-    sampling = SamplingCfg(method=cfg.decode_sample,
-                           temperature=cfg.decode_temperature,
-                           top_k=cfg.decode_top_k, seed=cfg.seed)
-    n_rep = int(cfg.decode_replicas) or len(devs)
-    models = {devs[0]: model}
-    engines = []
-    for i in range(n_rep):
-        d = devs[i % len(devs)]
-        if d not in models:
-            models[d] = copy.deepcopy(model).to(d)
-        engines.append(DecodeEngine(models[d], buckets,
-                                    batch_size=cfg.decode_batch_size,
-                                    page=cfg.decode_page,
-                                    max_pages=cfg.decode_max_pages,
-                                    sampling=sampling, name=f"decode{i}"))
-    chips_serving = min(n_rep, len(devs)) if dev.type == "cuda" else 0
-    warm_s = sum(e.warmup() for e in engines)
-    log(f"[decode] {len(engines)} replica(s) x ({len(buckets)} prefill "
-        f"bucket(s) + {engines[0].max_pages} decode page counts"
-        + (", a CUDA graph each" if dev.type == "cuda" else ", eager")
-        + f") warmed in {warm_s:.1f}s on {dev.type} (buckets "
-        f"{list(buckets)}, page {cfg.decode_page}, "
-        f"{cfg.decode_batch_size} slots, {cfg.decode_sample})")
-    scheds = [DecodeScheduler(q, e, max_delay_ms=cfg.serve_max_delay_ms,
-                              max_new_tokens=cfg.decode_max_new_tokens,
-                              name=e.name) for e in engines]
-    for s in scheds:
-        s.start()
+    recorder, prev_rec = _serving_telemetry(cfg, "decode_serve", log)
     try:
-        if prompts is None:
-            prompts = synth_requests(cfg.decode_requests, meta["vocab"],
-                                     buckets, seed=cfg.seed)
-        handles = [q.submit(t, max_new_tokens=cfg.decode_max_new_tokens)
-                   for t in prompts]
-        results = [h.wait(timeout=300.0) for h in handles]
-    finally:
-        q.close()
+        dev = resolve_device(device if device is not None else cfg.device)
+        devs = ([torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+                if dev.type == "cuda" else [dev])
+        if dev.index is not None:
+            devs = [dev]
+        model, sstate, meta = load_serving_state(cfg, devs[0], params=params,
+                                                 log=log)
+        q = RequestQueue(cfg.seq_buckets, max_len=cfg.seq_len)
+        buckets = q.buckets
+        sampling = SamplingCfg(method=cfg.decode_sample,
+                               temperature=cfg.decode_temperature,
+                               top_k=cfg.decode_top_k, seed=cfg.seed)
+        n_rep = int(cfg.decode_replicas) or len(devs)
+        models = {devs[0]: model}
+        engines = []
+        for i in range(n_rep):
+            d = devs[i % len(devs)]
+            if d not in models:
+                models[d] = copy.deepcopy(model).to(d)
+            engines.append(DecodeEngine(models[d], buckets,
+                                        batch_size=cfg.decode_batch_size,
+                                        page=cfg.decode_page,
+                                        max_pages=cfg.decode_max_pages,
+                                        sampling=sampling, name=f"decode{i}"))
+        chips_serving = min(n_rep, len(devs)) if dev.type == "cuda" else 0
+        with spans.span("decode_warmup"):
+            warm_s = sum(e.warmup() for e in engines)
+        log(f"[decode] {len(engines)} replica(s) x ({len(buckets)} prefill "
+            f"bucket(s) + {engines[0].max_pages} decode page counts"
+            + (", a CUDA graph each" if dev.type == "cuda" else ", eager")
+            + f") warmed in {warm_s:.1f}s on {dev.type} (buckets "
+            f"{list(buckets)}, page {cfg.decode_page}, "
+            f"{cfg.decode_batch_size} slots, {cfg.decode_sample})")
+        scheds = [DecodeScheduler(q, e, max_delay_ms=cfg.serve_max_delay_ms,
+                                  max_new_tokens=cfg.decode_max_new_tokens,
+                                  recorder=recorder, name=e.name)
+                  for e in engines]
         for s in scheds:
-            s.close()
-    # one summary over the union of the schedulers' samples (percentiles
-    # of the whole population, not a mean of per-replica percentiles)
-    ttft, total = [], []
-    n_req = toks = steps = prefills = 0
-    t_first, t_last = None, None
-    for s in scheds:
-        ttft += [t for t in s.ttft_ms if t is not None]
-        total += [t for t in s.total_ms if t is not None]
-        n_req += s.completed_requests
-        toks += s.generated_tokens
-        steps += s.engine.steps
-        prefills += s.engine.prefills
-        if s._t_first is not None:
-            t_first = s._t_first if t_first is None \
-                else min(t_first, s._t_first)
-        if s._t_last is not None:
-            t_last = s._t_last if t_last is None else max(t_last, s._t_last)
-    wall = ((t_last - t_first) if (t_first is not None
-                                    and t_last is not None
-                                    and t_last > t_first) else 0.0)
-    pt = percentiles(ttft, qs=(50, 99))
-    pl = percentiles(total, qs=(50, 99))
-    tps = round(toks / wall, 2) if wall else 0.0
-    out = {"results": results, "meta": meta, "cfg": cfg, "state": sstate,
-           "engines": engines, "requests": n_req, "tokens": toks,
-           "steps": steps, "prefills": prefills,
-           "ttft_p50_ms": pt.get(50, 0.0), "ttft_p99_ms": pt.get(99, 0.0),
-           "latency_p50_ms": pl.get(50, 0.0),
-           "latency_p99_ms": pl.get(99, 0.0), "tokens_per_sec": tps,
-           "chips_serving": chips_serving,
-           "tokens_per_sec_per_chip": round(tps / max(chips_serving, 1), 2),
-           "warmup_s": round(warm_s, 3), "device": dev.type}
-    log(f"[decode] generated {toks} tokens for {n_req} requests in {steps} "
-        f"steps ({prefills} prefills): TTFT p50 {out['ttft_p50_ms']} ms / "
-        f"p99 {out['ttft_p99_ms']} ms, {tps} tok/s "
-        f"({out['tokens_per_sec_per_chip']}/chip)")
-    return out
+            s.start()
+        try:
+            if prompts is None:
+                prompts = synth_requests(cfg.decode_requests, meta["vocab"],
+                                         buckets, seed=cfg.seed)
+            handles = [q.submit(t, max_new_tokens=cfg.decode_max_new_tokens)
+                       for t in prompts]
+            results = [h.wait(timeout=300.0) for h in handles]
+        finally:
+            q.close()
+            for s in scheds:
+                s.close()
+        # one summary over the union of the schedulers' samples (percentiles
+        # of the whole population, not a mean of per-replica percentiles)
+        ttft, total = [], []
+        n_req = toks = steps = prefills = 0
+        t_first, t_last = None, None
+        for s in scheds:
+            ttft += [t for t in s.ttft_ms if t is not None]
+            total += [t for t in s.total_ms if t is not None]
+            n_req += s.completed_requests
+            toks += s.generated_tokens
+            steps += s.engine.steps
+            prefills += s.engine.prefills
+            if s._t_first is not None:
+                t_first = s._t_first if t_first is None \
+                    else min(t_first, s._t_first)
+            if s._t_last is not None:
+                t_last = (s._t_last if t_last is None
+                          else max(t_last, s._t_last))
+        wall = ((t_last - t_first) if (t_first is not None
+                                        and t_last is not None
+                                        and t_last > t_first) else 0.0)
+        pt = percentiles(ttft, qs=(50, 99))
+        pl = percentiles(total, qs=(50, 99))
+        tps = round(toks / wall, 2) if wall else 0.0
+        out = {"results": results, "meta": meta, "cfg": cfg, "state": sstate,
+               "engines": engines, "requests": n_req, "tokens": toks,
+               "steps": steps, "prefills": prefills,
+               "ttft_p50_ms": pt.get(50, 0.0), "ttft_p99_ms": pt.get(99, 0.0),
+               "latency_p50_ms": pl.get(50, 0.0),
+               "latency_p99_ms": pl.get(99, 0.0), "tokens_per_sec": tps,
+               "chips_serving": chips_serving,
+               "tokens_per_sec_per_chip": round(
+                   tps / max(chips_serving, 1), 2),
+               "warmup_s": round(warm_s, 3), "device": dev.type}
+        if recorder is not None:
+            out["telemetry_dir"] = recorder.directory
+        log(f"[decode] generated {toks} tokens for {n_req} requests in "
+            f"{steps} steps ({prefills} prefills): TTFT p50 "
+            f"{out['ttft_p50_ms']} ms / p99 {out['ttft_p99_ms']} ms, {tps} "
+            f"tok/s "
+            f"({out['tokens_per_sec_per_chip']}/chip)")
+        return out
+    finally:
+        if recorder is not None:
+            spans.set_recorder(prev_rec)
+            recorder.close()
 
 
 def main_decode(argv=None, defaults: Optional[TrainConfig] = None,

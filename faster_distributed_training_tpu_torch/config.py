@@ -293,7 +293,7 @@ class TrainConfig:
                                       # resnet50_test.py:560-566, at 1/N the
                                       # sync cost; 0 disables)
     profile: bool = False
-    profile_steps: str = ""           # "A:B": start/stop jax.profiler
+    profile_steps: str = ""           # "A:B": start/stop torch.profiler
                                       # around global train steps A..B
                                       # (1-indexed, inclusive) MID-RUN —
                                       # the whole-run --profile is
@@ -675,9 +675,11 @@ def build_parser(prog: str = "fdt",
                    help="take every Nth sample (tuning harness uses 10)")
     p.add_argument("--seed", default=d.seed, type=int)
     p.add_argument("--checkpoint_dir", default=d.checkpoint_dir, type=str)
-    p.add_argument("--profile", action="store_true", help="capture a jax.profiler trace")
+    p.add_argument("--profile", action="store_true",
+                   help="capture a torch.profiler trace of the whole run "
+                        "(<telemetry_dir>/profile/trace.json)")
     p.add_argument("--profile_steps", default=d.profile_steps, type=str,
-                   help="capture a jax.profiler trace around global train "
+                   help="capture a torch.profiler trace around global train "
                         "steps A:B only (1-indexed, inclusive; quantized "
                         "to dispatch boundaries under --steps_per_dispatch)"
                         " — the mid-run window --profile can't give")

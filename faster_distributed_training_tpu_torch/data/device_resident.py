@@ -94,9 +94,10 @@ class DeviceResidentData:
         host, self.is_text, self.seq_len, _ = _encode_split(data, max_len)
         self.upload_checksums = _checksums(host) if checksum else {}
         self.nbytes = sum(a.nbytes for a in host.values())
-        self.arrays: Dict[str, torch.Tensor] = {
-            k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-            for k, v in host.items()}
+        with spans.span("h2d_upload"):
+            self.arrays: Dict[str, torch.Tensor] = {
+                k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in host.items()}
 
     def host_order(self, epoch: int) -> np.ndarray:
         """The epoch's global sample order on the host, int32, whole
@@ -108,7 +109,9 @@ class DeviceResidentData:
     def epoch_order(self, epoch: int) -> torch.Tensor:
         """The epoch's order on the device: ``BatchLoader.plan()``'s
         indices for the same (seed, epoch), concatenated, drop-last."""
-        return torch.from_numpy(self.host_order(epoch)).to(self.device)
+        # the replicated layout's one device work an epoch
+        with spans.span("epoch_reshard"):
+            return torch.from_numpy(self.host_order(epoch)).to(self.device)
 
     def verify_upload(self) -> bool:
         """Read the resident tensors back and compare their CRC32 with
@@ -193,7 +196,8 @@ class ShardedDeviceResidentData:
         for k, o, nb, _dt, _sh in self._layout:
             packed[:, o:o + nb] = local[k].reshape(self.rows, -1).view(
                 np.uint8)
-        self._packed = torch.from_numpy(packed).to(self.device)
+        with spans.span("h2d_upload"):
+            self._packed = torch.from_numpy(packed).to(self.device)
         self.shards = self._leaves(self._packed, (self.rows,))
         steps, lbs = self.steps_per_epoch, self.local_bs
         self._view = torch.zeros((steps * lbs, self.row_bytes),

@@ -265,11 +265,19 @@ class _Refills:
             t1 = time.monotonic()
             src._upload(host, slot)
         t2 = time.monotonic()
+        nbytes = int(sum(v.nbytes for v in host.values()))
         src.read_s += t1 - t0
         src.h2d_s += t2 - t1
-        src.h2d_bytes += int(sum(v.nbytes for v in host.values()))
+        src.h2d_bytes += nbytes
         src.refills += 1
         win.refills += 1
+        rec = spans.get_recorder()
+        if rec is not None:
+            rec.record_event(
+                "stream_refill", epoch=win.epoch, base=base,
+                batches=hi - base, bytes=nbytes,
+                read_ms=round((t1 - t0) * 1e3, 3),
+                h2d_ms=round((t2 - t1) * 1e3, 3))
         src.slot_range[slot] = (base, hi)
         return base, hi, slot
 
@@ -331,6 +339,10 @@ class _EpochWindow:
         self.last_wait = wait
         self.stall_s += wait
         self.stalls += 1
+        rec = spans.get_recorder()
+        if rec is not None:
+            rec.record_event("stream_stall", epoch=self.epoch, step=n,
+                             wait_ms=round(wait * 1e3, 3))
         self._cur = nxt
         return nxt
 

@@ -65,6 +65,8 @@ class Resilience:
     pod_count: int = 1
     pod_simulated: bool = False
     sentinel: Optional[Sentinel] = None
+    # the storage backend of every durable write (the flight dump's too)
+    backend: Optional[StorageBackend] = None
 
     def close(self) -> None:
         if self.manager is not None:
@@ -172,4 +174,5 @@ def build_resilience(cfg, log: Callable[[str], None] = print,
     return Resilience(manager=manager, preemption=preemption,
                       faults=faults, goodput=goodput,
                       coordinator=coordinator, pod_index=pi, pod_count=pc,
-                      pod_simulated=simulated, sentinel=sentinel)
+                      pod_simulated=simulated, sentinel=sentinel,
+                      backend=backend)

@@ -53,6 +53,8 @@ ENV_POD_INDEX = "FDT_POD_INDEX"
 ENV_POD_COUNT = "FDT_POD_COUNT"
 ENV_SLICE_COUNT = "FDT_SLICE_COUNT"
 ENV_SLICE_SPARE = "FDT_SLICE_SPARE"
+# the watchdog's bound on the flight dump before its abort (seconds)
+FLIGHT_JOIN_S = 2.0
 
 _GEN_DIR = re.compile(r"^gen_(?P<gen>\d{6})$")
 # strict: the atomic writer stages `FAIL_<pi>.tmp<pid>` beside a marker
@@ -460,6 +462,23 @@ class PodCoordinator:
             self._goodput.count("step_timeouts")
         self._log(f"[pod] host {self.pi}: WATCHDOG: {reason}; FAIL marker "
                   f"written, aborting so the pod converges on a restart")
+        # the flight dump before the kill destroys the ring and the open
+        # spans: from a side thread with a bounded join, so a wedged
+        # filesystem (perhaps what hung the step) cannot hold back the
+        # abort the peers wait for
+        from faster_distributed_training_tpu_torch.telemetry import flight
+        if flight.configured():
+            t = threading.Thread(
+                target=flight.emergency_dump, args=("watchdog_abort",),
+                kwargs={"step": self._step,
+                        "extra": {"watchdog_reason": reason}},
+                daemon=True)
+            t.start()
+            t.join(timeout=FLIGHT_JOIN_S)
+            if t.is_alive():
+                self._log(f"[pod] host {self.pi}: the flight dump did not "
+                          f"finish within {FLIGHT_JOIN_S:.0f}s; aborting "
+                          f"without it")
         self._abort(reason)
 
     @staticmethod

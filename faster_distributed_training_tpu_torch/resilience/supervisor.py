@@ -74,6 +74,12 @@ class Supervisor:
                     # publish to the pod BEFORE the backoff so the peers'
                     # next poll observes it while this host sleeps
                     self._coordinator.record_failure(e, step=step)
+                # the flight dump before the restart replaces the
+                # evidence (a no-op with telemetry off; one an exception)
+                from faster_distributed_training_tpu_torch.telemetry import (
+                    flight)
+                flight.emergency_dump("supervisor_failure", exc=e,
+                                      step=step)
                 # PeerFailure never participates in the deterministic-
                 # crash check: its step is the OBSERVATION point (poll-
                 # boundary-quantized, typically the restored step), not

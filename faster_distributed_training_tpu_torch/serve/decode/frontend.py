@@ -129,6 +129,9 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
         import DecodeScheduler
     from faster_distributed_training_tpu_torch.serve.engine import (
         load_serving_state)
+    from faster_distributed_training_tpu_torch.telemetry import (
+        TelemetryRecorder, enabled, resolve_telemetry_dir, spans,
+        update_manifest)
 
     p = argparse.ArgumentParser(prog="fdt-decode-worker")
     p.add_argument("--cfg", required=True)
@@ -150,6 +153,17 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
             args=(os.path.join(args.hb_dir, f"HB_{name}"), hb_stop),
             daemon=True).start()
 
+    # the worker's own telemetry directory (the front door sets
+    # telemetry_dir per worker): one file a process
+    recorder = None
+    if enabled(cfg):
+        tdir = resolve_telemetry_dir(cfg)
+        recorder = TelemetryRecorder(tdir, process_index=0, process_count=1,
+                                     log=log)
+        update_manifest(tdir, {"decode_worker": {
+            "name": name, "port": args.port,
+            "config": dataclasses.asdict(cfg)}}, log=log)
+        spans.set_recorder(recorder)
     model, _sstate, _meta = load_serving_state(
         cfg, resolve_device(cfg.device), log=log)
     q = RequestQueue(cfg.seq_buckets, max_len=cfg.seq_len)
@@ -160,13 +174,14 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
                              temperature=cfg.decode_temperature,
                              top_k=cfg.decode_top_k, seed=cfg.seed),
         name=name)
-    warm_s = engine.warmup()
+    with spans.span("decode_warmup"):
+        warm_s = engine.warmup()
     log(f"decode engine warmed in {warm_s:.2f}s on {engine.device} "
         f"({len(engine.buckets)} prefill bucket(s), {engine.captures} "
         f"decode graph(s))")
     sched = DecodeScheduler(q, engine, max_delay_ms=cfg.serve_max_delay_ms,
                             max_new_tokens=cfg.decode_max_new_tokens,
-                            name=name)
+                            recorder=recorder, name=name)
     sched.start()
 
     srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -225,6 +240,9 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
         q.close()
         sched.close(drain_s=5.0)
         hb_stop.set()
+        if recorder is not None:
+            spans.set_recorder(None)
+            recorder.close()
         log("worker stopped")
     return 0
 
@@ -415,7 +433,9 @@ class FrontDoor:
     """The parent's assembly: N worker processes, a queue and a
     GenScheduler.  ``cfg`` is the serving TrainConfig (its
     ``checkpoint_dir`` holds the ``.npz`` to serve); each worker logs to
-    ``<run_dir>/<name>.log``."""
+    ``<run_dir>/<name>.log`` and records its telemetry in its own
+    directory (``telemetry_dir=<run_dir>/telemetry_<name>``: one file a
+    process, JAX ``frontend.py:497``)."""
 
     def __init__(self, cfg, n_workers: int = 2, run_dir: str = "",
                  heartbeat_timeout_s: float = 60.0,
@@ -441,8 +461,10 @@ class FrontDoor:
             name = f"decode{i}"
             port = free_port()
             cfg_path = os.path.join(self.run_dir, f"cfg_{name}.json")
+            worker_cfg = cfg.replace(telemetry_dir=os.path.join(
+                self.run_dir, f"telemetry_{name}"))
             with open(cfg_path, "w") as f:
-                json.dump(dataclasses.asdict(cfg), f)
+                json.dump(dataclasses.asdict(worker_cfg), f)
             cmd = (sys.executable, "-m",
                    "faster_distributed_training_tpu_torch.serve.decode"
                    ".worker", "--cfg", cfg_path, "--port", str(port),

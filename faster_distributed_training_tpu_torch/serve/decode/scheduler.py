@@ -14,8 +14,9 @@ loop schedules at slot granularity, between every decode step:
   3. RECLAIM: a request that reached its token budget, or the cache's or
      the position table's end, is fulfilled and its slot freed.
 
-The JAX scheduler's telemetry events (``decode_admit``, ``decode_step``,
-``slot_evict``) come with the telemetry port.
+With a recorder, each admission is one ``decode_admit`` record, each
+step one ``decode_step`` and each reclaimed slot one ``slot_evict`` (JAX
+``serve/decode/scheduler.py:106, 139, 176``).
 """
 
 from __future__ import annotations
@@ -38,8 +39,10 @@ class DecodeScheduler:
 
     def __init__(self, queue: RequestQueue, engine: DecodeEngine,
                  max_delay_ms: float = 20.0, max_new_tokens: int = 32,
-                 name: str = "decode0"):
+                 recorder=None, name: str = "decode0"):
         self.queue = queue
+        # a telemetry.TelemetryRecorder, or None
+        self.recorder = recorder
         self.engine = engine
         self.max_delay_s = float(max_delay_ms) / 1e3
         self.max_new_tokens = int(max_new_tokens)
@@ -93,7 +96,14 @@ class DecodeScheduler:
             self._admit(block=not running)
             if self.engine.active_count() == 0:
                 continue
-            tokens, _pages = self.engine.step()
+            t0 = time.monotonic()
+            tokens, pages = self.engine.step()
+            if self.recorder is not None:
+                self.recorder.record_event(
+                    "decode_step", replica=self.name, pages=pages,
+                    active=len(self._slots),
+                    batch=self.engine.batch_size,
+                    step_ms=round((time.monotonic() - t0) * 1e3, 3))
             self._reclaim(tokens)
 
     def _admit(self, block: bool) -> None:
@@ -121,6 +131,11 @@ class DecodeScheduler:
                 self._slots[slot] = req
                 if self._t_first is None:
                     self._t_first = now
+            if self.recorder is not None:
+                self.recorder.record_event(
+                    "decode_admit", replica=self.name, slot=slot,
+                    bucket=bucket, len=req.raw_len,
+                    queue_ms=round((now - req.t_submit) * 1e3, 3))
             # a 1-token budget is met by the prefill's token alone
             self._maybe_finish(slot, req)
 
@@ -134,8 +149,11 @@ class DecodeScheduler:
 
     def _maybe_finish(self, slot: int, req: GenRequest) -> None:
         budget = min(req.max_new, self.max_new_tokens)
-        done = (len(req.out) >= budget
-                or self.engine.cache.headroom(slot) <= 0)
+        done = len(req.out) >= budget
+        reason = "budget"
+        if not done and self.engine.cache.headroom(slot) <= 0:
+            done = True
+            reason = "capacity"
         if not done:
             return
         n = len(req.out)
@@ -150,6 +168,10 @@ class DecodeScheduler:
                     time.monotonic())
         with self._lock:
             self.total_ms.append(req.latency_ms())
+        if self.recorder is not None:
+            self.recorder.record_event(
+                "slot_evict", replica=self.name, slot=slot, tokens=n,
+                reason=reason)
 
     # -- reporting ---------------------------------------------------------
 

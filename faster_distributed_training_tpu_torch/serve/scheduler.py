@@ -15,7 +15,9 @@ requests, stamp latency); the scheduler thread never blocks on a device.
 Work rescued from a detached replica re-enters through
 :meth:`_redispatch` with a bounded attempt budget — a batch that fails
 on every replica fails its requests with the last error instead of
-cycling forever.  Telemetry events come with the telemetry slice.
+cycling forever.  With a recorder, each completed batch is one
+``serve_batch`` record and each of its requests one ``serve_request``
+(JAX ``serve/scheduler.py:291-305``).
 """
 
 from __future__ import annotations
@@ -93,6 +95,7 @@ class BatchScheduler:
 
     def __init__(self, queue: RequestQueue, replicas: ReplicaSet,
                  batch_size: int, max_delay_ms: float = 20.0,
+                 recorder=None,
                  request_deadline_s: Optional[float] = None,
                  retry_backoff_s: float = 0.05,
                  retry_backoff_cap_s: float = 2.0,
@@ -101,6 +104,8 @@ class BatchScheduler:
         self.replicas = replicas
         self.batch_size = int(batch_size)
         self.max_delay_s = float(max_delay_ms) / 1e3
+        # a telemetry.TelemetryRecorder, or None
+        self.recorder = recorder
         # per-request deadline (None = wait forever): work whose oldest request has been in the system
         # longer than this fails with TimeoutError at its next dispatch
         # or parked-retry tick — a dead/respawning engine process makes
@@ -264,6 +269,7 @@ class BatchScheduler:
         # response
         for i, req in enumerate(work.requests):
             req.fulfill(logits[i], replica.name, now)
+        dispatch_ms = (now - work.t_created) * 1e3
         with self._lock:
             self.completed_batches += 1
             self.completed_requests += work.n_real
@@ -275,6 +281,19 @@ class BatchScheduler:
                     else min(self._t_first, t0)
             self._t_last = now if self._t_last is None \
                 else max(self._t_last, now)
+        if self.recorder is not None:
+            self.recorder.record_event(
+                "serve_batch", bucket=work.bucket, size=self.batch_size,
+                real=work.n_real, pad=self.batch_size - work.n_real,
+                replica=replica.name,
+                dispatch_ms=round(dispatch_ms, 3),
+                attempts=work.attempts)
+            for req in work.requests:
+                self.recorder.record_event(
+                    "serve_request", bucket=req.bucket, len=req.raw_len,
+                    queue_ms=round((work.t_created - req.t_submit) * 1e3, 3),
+                    total_ms=round(req.latency_ms(), 3),
+                    replica=replica.name)
 
     # -- reporting ---------------------------------------------------------
 

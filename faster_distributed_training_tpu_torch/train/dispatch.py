@@ -50,6 +50,14 @@ counts the replays; the kernels a replay runs are seen on the device,
 by a profiler).  On the CPU (the tests) the same body runs in a Python
 loop over the same tables.
 
+The port's "compile", the moment the telemetry marks ``compile`` on a
+step record (JAX marks a program's first execution): a dispatch that
+met a graph key for the first time (its warm-up step ran eagerly) or
+captured that key's graph.  ``builds`` counts such dispatches; the
+Trainer compares it before and after each dispatch.  A key first met in
+a one-step dispatch captures in its next, so that one is marked too; on
+the CPU, where nothing is captured, only a key's first dispatch is.
+
 Under a data mesh (dp) the body is the data-parallel step: its
 collectives (the gradient and metric all-reduces, BatchNorm's and the
 amaxes') are captured in the graph with the rest, NCCL's collectives
@@ -176,6 +184,9 @@ class FusedDispatch:
         # tensors they read, so an in-process restart captures none)
         self.capture_s = 0.0
         self.eager_steps = 0
+        # dispatches that built a program: a key's first, or a capture
+        self.builds = 0
+        self._seen: set = set()
         self._warm: set = set()
         self._told_ngd = False
         # gloo's collectives run on the host: nothing to capture
@@ -366,6 +377,8 @@ class FusedDispatch:
             key = self.key
             self.start.fill_(int(start))
         self.cursor.zero_()
+        built = key not in self._seen
+        self._seen.add(key)
         for j in range(kk):
             self._set_counters(state, g0 + j, c0 + j,
                                None if t0 is None else t0 + j)
@@ -386,10 +399,12 @@ class FusedDispatch:
                 continue
             if key not in self.graphs:
                 self._capture(state, key)
+                built = True
                 self._set_counters(state, g0 + j, c0 + j,
                                    None if t0 is None else t0 + j)
             self.graphs[key].replay()
             self.replays[key] += 1
+        self.builds += built
         self._set_counters(state, g0 + kk, c0,
                            None if t0 is None else t0 + kk)
         # skipped steps (fp16 overflow, the sentinel's guard) applied no

@@ -38,7 +38,22 @@ Under a data mesh (``state.placement``) every rank runs this loop on its
 rows; the step's and the eval's metrics come back summed over the ranks,
 the eval pass runs with the parameters whole (``Placement.materialized``),
 rank 0 writes the checkpoints (``train.checkpoint``), and the caller
-logs on rank 0 only."""
+logs on rank 0 only.
+
+Telemetry (``telemetry.RunTelemetry``, None under ``--no_telemetry``):
+every epoch loop records one ``step`` record a dispatch (its host wall,
+the dispatch call, the data wait and the resilience hooks' time, all
+host clock reads: nothing reads the card for it), the first dispatch of
+a program marked ``compile`` with a ``first_dispatch_compile`` span (K=1:
+the eager first step; under a dispatch: ``FusedDispatch.builds``), the
+``memory`` event of scope ``state`` after the run's first dispatch, an
+``eval`` span, and at each epoch's end the ``epoch``, ``memory`` (scope
+``epoch``, on a card) and ``goodput`` events before the pod fold
+(``end_epoch``).  ``--profile_steps A:B`` (``utils.profiling.
+StepWindowProfiler``) starts and stops its trace at dispatch boundaries,
+the stop after the last dispatch's resilience hooks (JAX stops before
+them; the decisions are the same); the window's close reads that
+dispatch's loss once."""
 
 from __future__ import annotations
 
@@ -52,12 +67,15 @@ import torch
 from faster_distributed_training_tpu_torch.config import TrainConfig
 from faster_distributed_training_tpu_torch.resilience.sentinel import (
     host_finite)
+from faster_distributed_training_tpu_torch.telemetry import spans
 from faster_distributed_training_tpu_torch.train import checkpoint as ckpt
 from faster_distributed_training_tpu_torch.train.metrics import (
     MetricAccumulator, format_goodput, perplexity)
 from faster_distributed_training_tpu_torch.train.state import (TrainState,
                                                               settle)
 from faster_distributed_training_tpu_torch.train.steps import to_device
+from faster_distributed_training_tpu_torch.utils.profiling import (
+    memory_watermarks, peak_memory_bytes)
 
 # the wall clock of the --checkpoint_every_secs cadence
 cadence_clock = time.monotonic
@@ -81,6 +99,17 @@ class Trainer:
         self.dispatch = dispatch
         # a resilience.Resilience bundle, or None (no per-dispatch work)
         self.resilience = resilience
+        # a telemetry.RunTelemetry, or None (no telemetry work at all);
+        # the entry point sets it once telemetry is built
+        self.telemetry = None
+        # a utils.profiling.StepWindowProfiler (--profile_steps), or None;
+        # set by the entry point as telemetry is
+        self.profiler = None
+        # whether the K=1 step ran yet (its first dispatch is "compile")
+        self._stepped = False
+        self._state_seen = False
+        # the epoch positions the last epoch loop reached (epoch events)
+        self._last_epoch_steps = 0
         self.best_acc = 0.0
         self.global_step = 0
         # --data_path stream: the steady state's seconds blocked on the
@@ -153,6 +182,69 @@ class Trainer:
                                        step_in_epoch=step_in_epoch,
                                        best_acc=self.best_acc)
 
+    # -- telemetry ---------------------------------------------------------
+    def _keep_dispatch_times(self) -> bool:
+        """Whether a K=1 dispatch takes its telemetry-only clock reads:
+        with telemetry on, for the first step and for the dispatches
+        ``--telemetry_every`` keeps (JAX ``_keep_dispatch_times``)."""
+        tel = self.telemetry
+        if tel is None:
+            return False
+        return not self._stepped or tel.recorder.next_step_kept()
+
+    def _record_dispatch(self, epoch: int, n: int, kk: int, wall_s: float,
+                         dispatch_s: float, data_s: float, block_s: float,
+                         first: bool) -> None:
+        """One ``step`` record of a dispatch into the recorder's ring (no
+        device work); ``first`` marks a program's first dispatch, also
+        recorded as a ``first_dispatch_compile`` span (JAX
+        ``_record_dispatch``)."""
+        tel = self.telemetry
+        if tel is None:
+            return
+        rec = tel.recorder
+        rec.record_step(self.global_step, epoch, n, kk, wall_s * 1e3,
+                        dispatch_s * 1e3, kk * self.cfg.batch_size,
+                        data_ms=data_s * 1e3, block_ms=block_s * 1e3,
+                        compile_=first)
+        if first:
+            rec.record_span("first_dispatch_compile", dispatch_s * 1e3,
+                            step=self.global_step)
+
+    def _prof_before(self, kk: int) -> None:
+        prof = self.profiler
+        if prof is not None and not prof.done:
+            prof.before_dispatch(self.global_step, kk)
+
+    def _prof_after(self, metrics) -> None:
+        """After a dispatch and its resilience hooks (a checkpoint at the
+        window's last step is in the trace): the window's close, with
+        its fence (one loss readback) then only."""
+        prof = self.profiler
+        if prof is not None and prof.active:
+            prof.after_dispatch(self.global_step,
+                                fence=lambda: float(metrics["loss"]))
+
+    def _observe_state(self, state: TrainState) -> None:
+        """After the run's first dispatch: the state's bytes a card
+        (``telemetry.programs.state_bytes_table``) as the ``memory`` event
+        of scope ``state``, and a ``[memory]`` line when the optimizer
+        state is not all replicated."""
+        self._state_seen = True
+        from faster_distributed_training_tpu_torch.telemetry import programs
+
+        tiers = programs.state_bytes_table(state).get("opt_state_tiers") or {}
+        if set(tiers) - {"replicated"}:
+            self.log("[memory] opt state per chip: " + ", ".join(
+                f"{t}={v['bytes_per_chip'] / 1e6:.1f}MB"
+                f"/{v['leaves']} leaves" for t, v in sorted(tiers.items())))
+        if self.telemetry is not None:
+            # a second walk of the leaves' metadata, once a run: the
+            # splat stays a direct state_bytes_table call, the one form
+            # scripts/check_telemetry_schema.py resolves the fields of
+            self.telemetry.recorder.record_event(
+                "memory", **programs.state_bytes_table(state))
+
     def _save_epoch_checkpoint(self, name: str, state: TrainState,
                                epoch: int) -> None:
         """An epoch checkpoint (best accuracy, or ``--auto_recover``'s
@@ -191,18 +283,31 @@ class Trainer:
         last_t, last_n = t0, n
         metrics = None
         log_every = int(cfg.log_every or 0)
+        it = iter(loader)
         try:
-            for batch in loader:
+            while True:
+                # the data wait is its own field: next() under the clock
+                want = self._keep_dispatch_times()
+                t_rec = time.monotonic() if want else 0.0
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
                 if sent is not None and sent.quarantined(epoch, n):
                     # built, never trained: the replay is the epoch that
                     # never saw this batch
                     n += 1
                     continue
+                t_disp = time.monotonic() if want else 0.0
+                self._prof_before(1)
                 state, metrics = self.train_step(
                     state, to_device(batch, self.device))
+                t_done = time.monotonic() if want else 0.0
                 acc.add(metrics)
                 n += 1
                 self.global_step += 1
+                if not self._state_seen:
+                    self._observe_state(state)
                 if log_every and n % log_every == 0:
                     now = time.monotonic()
                     loss = float(metrics["loss"])
@@ -216,24 +321,39 @@ class Trainer:
                 if res is not None:
                     self._resilience_hooks(state, epoch, n, 1, metrics,
                                            (n - 1, 1))
+                self._prof_after(metrics)
+                first, self._stepped = not self._stepped, True
+                # a record a dispatch (--telemetry_every counts them all);
+                # one sampled out took no clock reads and is dropped
+                t_end = time.monotonic() if want else 0.0
+                self._record_dispatch(epoch, n, 1, t_end - t_rec,
+                                      t_done - t_disp, t_disp - t_rec,
+                                      t_end - t_done, first)
         finally:
             if closer is not None:
                 closer()
         if metrics is not None:
             float(metrics["loss"])     # the card finishes the epoch here
+        self._last_epoch_steps = n
         elapsed = time.monotonic() - t0
         return state, acc.summary(), elapsed
 
     def _dispatch_done(self, state: TrainState, acc: MetricAccumulator,
                        metrics, epoch: int, n: int, kk: int, last: tuple,
-                       group: tuple) -> tuple:
+                       group: tuple, times: tuple, first: bool) -> tuple:
         """After a dispatch of kk steps ending at batch n (it covered the
-        epoch positions ``group``: (start, count)): accumulate, log when a
-        ``--log_every`` boundary was crossed, then the resilience
-        hooks."""
+        epoch positions ``group``: (start, count)): accumulate, the state
+        table after the run's first dispatch, the profiler's window, a
+        live line when a ``--log_every`` boundary was crossed, the
+        resilience hooks, then the dispatch's ``step`` record.  ``times``:
+        the host clock before the data wait, before and after the
+        dispatch call (0s without telemetry); ``first``: the dispatch
+        built a program (``FusedDispatch.builds`` moved)."""
         cfg = self.cfg
         acc.add(metrics)
         self.global_step += kk
+        if not self._state_seen:
+            self._observe_state(state)
         log_every = int(cfg.log_every or 0)
         if log_every and n // log_every > (n - kk) // log_every:
             last_t, last_n = last
@@ -247,7 +367,18 @@ class Trainer:
             last = (now, n)
         if self.resilience is not None:
             self._resilience_hooks(state, epoch, n, kk, metrics, group)
+        self._prof_after(metrics)
+        t_rec, t_disp, t_done = times
+        t_end = time.monotonic() if self.telemetry is not None else 0.0
+        self._record_dispatch(epoch, n, kk, t_end - t_rec, t_done - t_disp,
+                              t_disp - t_rec, t_end - t_done, first)
         return last
+
+    def _clock(self) -> float:
+        """The host clock when telemetry is on (a dispatch's compile is
+        known only after it ran, so under a dispatch every one takes its
+        reads, K steps sharing them), else 0."""
+        return time.monotonic() if self.telemetry is not None else 0.0
 
     def _run_epoch_fused_host(self, state: TrainState, loader: Iterable,
                               epoch: int, start_step: int = 0) -> tuple:
@@ -255,6 +386,7 @@ class Trainer:
         loader batches a dispatch, stacked and staged in one pinned copy
         a leaf; the loader starts at ``start_step`` (a mid-epoch resume,
         a whole number of dispatches)."""
+        disp = self.dispatch
         acc = MetricAccumulator()
         t0 = time.monotonic()
         res = self.resilience
@@ -269,7 +401,8 @@ class Trainer:
         it = iter(loader)
         try:
             while True:
-                group = list(itertools.islice(it, self.dispatch.k))
+                t_rec = self._clock()
+                group = list(itertools.islice(it, disp.k))
                 if not group:
                     break
                 full = len(group)
@@ -282,15 +415,22 @@ class Trainer:
                         n += full
                         continue
                 kk = len(group)
-                metrics = self.dispatch.run(state, kk, batches=group)
+                built = disp.builds
+                t_disp = self._clock()
+                self._prof_before(kk)
+                metrics = disp.run(state, kk, batches=group)
+                t_done = self._clock()
                 n += full
                 last = self._dispatch_done(state, acc, metrics, epoch, n,
-                                           kk, last, (n - full, full))
+                                           kk, last, (n - full, full),
+                                           (t_rec, t_disp, t_done),
+                                           disp.builds > built)
         finally:
             if closer is not None:
                 closer()
         if metrics is not None:
             float(metrics["loss"])     # the card finishes the epoch here
+        self._last_epoch_steps = n
         return state, acc.summary(), time.monotonic() - t0
 
     def _run_epoch_resident(self, state: TrainState, epoch: int,
@@ -318,16 +458,24 @@ class Trainer:
             if not segs:
                 n += kk
                 continue
+            built = disp.builds
+            t_rec = self._clock()
             for s0, length in segs[:-1]:
+                self._prof_before(length)
                 acc.add(disp.run(state, length, start=s0))
                 self.global_step += length
             s0, length = segs[-1]
+            self._prof_before(length)
             metrics = disp.run(state, length, start=s0)
+            t_done = self._clock()
             n += kk
             last = self._dispatch_done(state, acc, metrics, epoch, n, length,
-                                       last, (n - kk, kk))
+                                       last, (n - kk, kk),
+                                       (t_rec, t_rec, t_done),
+                                       disp.builds > built)
         if metrics is not None:
             float(metrics["loss"])
+        self._last_epoch_steps = n
         return state, acc.summary(), time.monotonic() - t0
 
     def _run_epoch_stream(self, state: TrainState, epoch: int,
@@ -344,7 +492,8 @@ class Trainer:
         run's first dispatch, which captures the graph, nor an epoch's
         first, the cold fill) adds it to the stalled seconds and the
         dispatch's wall, up to the resilience hooks, to the wall seconds
-        of ``stream_stall_pct``."""
+        of ``stream_stall_pct``.  The step record's ``data_ms`` is the
+        wait in ``buffer_for``."""
         disp = self.dispatch
         src = disp.resident
         acc = MetricAccumulator()
@@ -363,6 +512,7 @@ class Trainer:
             while n < n_steps:
                 t_rec = time.monotonic()
                 base, hi, slot = window.buffer_for(n)
+                t_disp = self._clock()
                 row0 = slot * src.window - base
                 kk = min(disp.k, n_steps - n, hi - n)
                 segs = (sent.plan(epoch, n, kk) if sent is not None
@@ -371,10 +521,13 @@ class Trainer:
                     n += kk
                     continue
                 first = not self._stream_warm
+                built = disp.builds
                 for s0, length in segs[:-1]:
+                    self._prof_before(length)
                     acc.add(disp.run(state, length, start=row0 + s0))
                     self.global_step += length
                 s0, length = segs[-1]
+                self._prof_before(length)
                 metrics = disp.run(state, length, start=row0 + s0)
                 self._stream_warm = True
                 t_step = time.monotonic()
@@ -385,11 +538,14 @@ class Trainer:
                 epoch_cold = False
                 n += kk
                 last = self._dispatch_done(state, acc, metrics, epoch, n,
-                                           length, last, (n - kk, kk))
+                                           length, last, (n - kk, kk),
+                                           (t_rec, t_disp, t_step),
+                                           disp.builds > built)
         finally:
             window.close()
         if metrics is not None:
             float(metrics["loss"])
+        self._last_epoch_steps = n
         return state, acc.summary(), time.monotonic() - t0
 
     @property
@@ -405,12 +561,13 @@ class Trainer:
         acc = MetricAccumulator()
         t0 = time.monotonic()
         pl = state.placement
-        with (contextlib.nullcontext() if pl is None
-              else pl.materialized(state)):
-            for batch in loader:
-                acc.add(self.eval_step(state, to_device(batch,
-                                                        self.device)))
-        summary = acc.summary()
+        with spans.span("eval", step=self.global_step):
+            with (contextlib.nullcontext() if pl is None
+                  else pl.materialized(state)):
+                for batch in loader:
+                    acc.add(self.eval_step(state, to_device(batch,
+                                                            self.device)))
+            summary = acc.summary()   # the host read ends the span
         elapsed = time.monotonic() - t0
         total = summary.get("total_sum")
         if total:
@@ -493,6 +650,13 @@ class Trainer:
                 self.log(f"[recover] non-finite loss at epoch {epoch}; "
                          f"restored last-good state from epoch "
                          f"{meta.get('epoch')}, retrying")
+                if self.telemetry is not None:
+                    # a rolled-back epoch has no epoch event; the
+                    # rollback is in the stream
+                    self.telemetry.recorder.record_event(
+                        "rollback", epoch=epoch,
+                        restored_epoch=int(meta.get("epoch", -1)),
+                        step=self.global_step)
                 self.recoveries += 1
                 # the retry takes the next epoch's order; the restored
                 # step puts the schedule back where the snapshot was
@@ -507,8 +671,7 @@ class Trainer:
                     if host_finite(m.get("loss")):
                         m["perplexity"] = perplexity(m["loss"])
                     self.history[key].append(m.get("perplexity", 0.0))
-            peak = (torch.cuda.max_memory_allocated(self.device) if cuda
-                    else None)
+            peak = peak_memory_bytes(self.device)
             self.history["train_acc"].append(train_m.get("accuracy", 0.0))
             self.history["train_loss"].append(train_m.get("loss", 0.0))
             self.history["test_acc"].append(test_m.get("accuracy", 0.0))
@@ -529,11 +692,53 @@ class Trainer:
                 self._save_epoch_checkpoint(ckpt_name, state, epoch)
             if res is not None:
                 self.log("[goodput] " + format_goodput(res.goodput))
+            if self.telemetry is not None:
+                self._epoch_events(epoch, train_m, test_m, elapsed, peak,
+                                   resumed_mid_epoch)
             epoch += 1
+        if self.profiler is not None:
+            # a window the run never reached the end of is still captured
+            self.profiler.close()
         if res is not None and res.manager is not None:
             # no uncommitted newest checkpoint after a clean exit
             res.manager.wait()
         return state
+
+    def _epoch_events(self, epoch: int, train_m: dict, test_m: dict,
+                      elapsed: float, peak: Optional[int],
+                      resumed_mid_epoch: int) -> None:
+        """The epoch's ``epoch``, ``memory`` (scope ``epoch``, on a card)
+        and ``goodput`` events, then the flush, the marker and (process
+        0) the pod fold (JAX ``train/loop.py:1180-1210``)."""
+        rec = self.telemetry.recorder
+        trained = self._last_epoch_steps - resumed_mid_epoch
+        ev = {"epoch": epoch, "steps": self._last_epoch_steps,
+              "trained_steps": trained, "wall_s": round(elapsed, 3)}
+        if "loss" in train_m:
+            ev["loss"] = train_m["loss"]
+        if "accuracy" in train_m:
+            ev["accuracy"] = train_m["accuracy"]
+        if trained and elapsed:
+            ev["ex_s"] = round(trained * self.cfg.batch_size / elapsed, 1)
+        if "loss" in test_m:
+            ev["eval_loss"] = test_m["loss"]
+        if "accuracy" in test_m:
+            ev["eval_accuracy"] = test_m["accuracy"]
+        if "perplexity" in train_m:
+            ev["perplexity"] = train_m["perplexity"]
+        if "perplexity" in test_m:
+            ev["eval_perplexity"] = test_m["perplexity"]
+        if peak:
+            ev["peak_mem_bytes"] = int(peak)
+        rec.record_event("epoch", **ev)
+        stats = memory_watermarks(self.device)
+        if stats is not None:
+            rec.record_event("memory", scope="epoch", epoch=epoch,
+                             peak_bytes=stats["peak_bytes"],
+                             bytes_in_use=stats["bytes_in_use"])
+        if self.resilience is not None:
+            rec.record_event("goodput", **self.resilience.goodput.summary())
+        self.telemetry.end_epoch(epoch)
 
     def maybe_resume(self, state: TrainState, ckpt_name: str = "ckpt"
                      ) -> tuple:

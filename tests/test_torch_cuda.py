@@ -429,11 +429,12 @@ def test_mlp_rejects_unaligned_rows(card):
         fused_mlp(x, w1, None, w2, None)
 
 
-def test_serving_on_card_counts_launches_and_is_batch_invariant(card):
+def test_serving_on_card_counts_launches_and_is_batch_invariant(card,
+                                                               tmp_path):
     cfg = cli.TRANSFORMER_DEFAULTS.replace(
         n_layers=2, d_model=64, n_heads=4, d_ff=128, seq_len=64,
         seq_buckets=(16, 32, 64), serve_batch_size=4, serve_requests=12,
-        device="cuda")
+        device="cuda", checkpoint_dir=str(tmp_path))
     model = cli.build_model(cfg, vocab_size=100, device="cpu")
     model.init_weights(torch.Generator().manual_seed(1))
     requests = cli.synth_requests(12, 100, (16, 32, 64), seed=5)
@@ -1889,3 +1890,42 @@ def test_sharded_resident_k4_is_bitwise_the_replicated(card, tmp_path):
     assert len(src.reshard_ms) == 2
     for key in want:
         assert torch.equal(want[key], got[key]), key
+
+
+def test_profiler_window_captures_a_hand_kernel(card, tmp_path):
+    """``utils.profiling.StepWindowProfiler`` (the default
+    ``TorchTrace``) around a launch of the flash forward: the exported
+    trace names ``flash_fwd_kernel_sm90`` beside the ``fdt/`` label, and
+    the capture counts its device events."""
+    import json
+    import os
+
+    from faster_distributed_training_tpu_torch.telemetry import spans
+    from faster_distributed_training_tpu_torch.utils.profiling import (
+        StepWindowProfiler)
+
+    q, k, v = _qkv(card, 2, 4, 128, 64, torch.bfloat16)
+    prof = StepWindowProfiler(str(tmp_path / "w"), 1, 1,
+                              log=lambda *_: None)
+    prof.before_dispatch(0, 1)
+    with spans.span("probe"):
+        out = flash_attention(q, k, v)
+    prof.after_dispatch(1, fence=lambda: float(out.float().sum()))
+    assert prof.done and prof.device_events > 0
+    with open(os.path.join(str(tmp_path / "w"), "trace.json")) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("flash_fwd_kernel_sm90" in n for n in names)
+    assert "fdt/probe" in names
+
+
+def test_memory_watermarks_on_the_card(card):
+    """``memory_watermarks`` / ``peak_memory_bytes`` read the allocator
+    on the card (not None), peak >= in use."""
+    from faster_distributed_training_tpu_torch.utils.profiling import (
+        memory_watermarks, peak_memory_bytes)
+
+    x = torch.empty(1 << 20, device="cuda")
+    got = memory_watermarks()
+    assert got is not None and got["bytes_in_use"] >= x.numel() * 4
+    assert got["peak_bytes"] >= got["bytes_in_use"]
+    assert peak_memory_bytes("cuda") == got["peak_bytes"]

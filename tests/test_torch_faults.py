@@ -2,7 +2,7 @@
 News reader and its synthetic fallback (``--dataset agnews``), ``--plot``,
 ``--mlp_impl naive``, step checkpoints kept by ``--checkpoint_keep`` and
 saved by ``--checkpoint_every_secs``, and flags and resilience seams that
-raise (``--profile``, ``--warm_spares``, ``FDT_SLICE_COUNT`` > 1,
+raise (``--optimizer adamw``, ``--warm_spares``, ``FDT_SLICE_COUNT`` > 1,
 ``FDT_SLICE_SPARE``, ``FDT_FAULT_SLICE``).
 
 Token ids, lengths and batches are held byte-identical to JAX's
@@ -286,7 +286,7 @@ def test_checkpoint_every_secs_saves_on_its_cadence(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--profile"], "--profile"),
+    (["--optimizer", "adamw"], "adamw"),
     (["--warm_spares", "1"], "--warm_spares"),
 ])
 def test_flags_without_a_port_raise(tmp_path, flags, name):

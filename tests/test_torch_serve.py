@@ -85,9 +85,10 @@ def jax_model():
             os.environ["FDT_FORCE_PALLAS_INTERPRET"] = old
 
 
-def test_serving_slice_matches_jax_per_request(jax_model):
+def test_serving_slice_matches_jax_per_request(jax_model, tmp_path):
     params, jax_predict = jax_model
-    pcfg, _ = _cfgs(["--attention", "flash", "--mlp_impl", "pallas"])
+    pcfg, _ = _cfgs(["--attention", "flash", "--mlp_impl", "pallas",
+                     "--checkpoint_dir", str(tmp_path)])
     requests = cli.synth_requests(10, VOCAB, (16, 32, 64), seed=3)
     out = cli.run_serving(pcfg, requests=requests,
                           params={"params": {"model": params}},

@@ -215,7 +215,6 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tmp_path):
     for flags, name in ((["--ngd"], "--ngd"),
                         (["--warm_spares", "1"], "--warm_spares"),
                         (["--mesh", "dp=1,tp=3"], "--mesh"),
-                        (["--profile"], "--profile"),
                         (["--dataset", "cifar10"], "--dataset cifar10")):
         with pytest.raises(NotImplementedError, match=name):
             cli.main(argv + flags, defaults=cli.TRANSFORMER_DEFAULTS)
@@ -231,9 +230,10 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tmp_path):
     # causal mask needs task lm)
     out = cli.main(argv + ["--lm_causal"], defaults=cli.TRANSFORMER_DEFAULTS)
     assert out["state"].step == 4 and not out["state"].model.causal
-    # the one-card performance layers train (slice 9)
+    # the one-card performance layers train (slice 9), and --profile
+    # traces the run (slice 18)
     for flags in (["--remat"], ["--steps_per_dispatch", "2"],
-                  ["--data_path", "resident"]):
+                  ["--data_path", "resident"], ["--profile"]):
         out = cli.main(argv + flags, defaults=cli.TRANSFORMER_DEFAULTS)
         assert out["state"].step == 4, flags
     # fp16 loss scaling (fp32 compute) trains the transformer too

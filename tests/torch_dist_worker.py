@@ -510,6 +510,23 @@ def cli_argv(argv, slow_write_s: float = 0.0) -> dict:
             **{k: v for k, v in out.items() if k.startswith("goodput_")}}
 
 
+def cli_logged(argv) -> dict:
+    """``cli.run_training`` on ``argv`` (the transformer's defaults)
+    joined to the group, with its log lines: the steps trained, the
+    lines (rank 0's; the others log nothing) and the telemetry
+    directory."""
+    from faster_distributed_training_tpu_torch import cli
+
+    lines = []
+    parser = cli.build_parser(defaults=cli.TRANSFORMER_DEFAULTS)
+    cfg = cli.config_from_args(
+        parser.parse_args(list(argv) + ["--distributed"]),
+        defaults=cli.TRANSFORMER_DEFAULTS)
+    out = cli.run_training(cfg, log=lines.append)
+    return {"step": int(out["state"].step), "lines": lines,
+            "telemetry_dir": out.get("telemetry_dir")}
+
+
 def resident_layouts(argv, ckpt_root: str) -> dict:
     """``cli.main`` on ``argv`` (the transformer's defaults) joined to the
     group with ``--data_path resident`` under each ``--resident_layout``:
@@ -552,5 +569,6 @@ CASES = {"run_steps": run_steps, "restore": restore, "cli_runs": cli_runs,
          "cli_pp_run": cli_pp_run, "eval_metrics": eval_metrics,
          "fp16_planted_inf": fp16_planted_inf,
          "collectives": collectives, "clock_skew": clock_skew,
-         "cli_argv": cli_argv, "resident_layouts": resident_layouts,
+         "cli_argv": cli_argv, "cli_logged": cli_logged,
+         "resident_layouts": resident_layouts,
          "many": many}
