@@ -16,6 +16,7 @@ width.
     python3 chip_smoke.py --resilience
     python3 chip_smoke.py --stream
     python3 chip_smoke.py --telemetry
+    python3 chip_smoke.py --programs
 
 The second form prints only the device split of one record-width
 training step of the slice-2 path and paths B and C, and whether two
@@ -36,7 +37,9 @@ ResNet-50 through the stream window, the sharded resident layout on two
 gloo ranks, the native host library; it shards path E's corpus itself),
 the twelfth the build and phase O (a) and (b) alone (``telemetry_phase``:
 the run record; in the whole smoke it runs after phase F, and O(c) after
-phase D).
+phase D), the thirteenth the build and phase X alone (``programs_phase``:
+the program table and the executable cache; in the whole smoke it runs
+after phase O, and its check of phase D's decode rows after phase D).
 Needs one CUDA card and the repo checkout beside this file; without
 either it exits non-zero and prints no result.  Phases, in order (any
 failure raises and exits non-zero):
@@ -344,6 +347,28 @@ failure raises and exits non-zero):
                D: phase F(b)'s flight dump (one, naming the injected
                fault), and the serving runs' ``serve_*`` and D(d)'s
                ``decode_*`` events counted against the requests served;
+  X. programs — the program table and the executable cache (slice 19),
+               after phase O: (a) path B at K=4, 16 steps,
+               ``--checkpoint_every 8``, the table on against
+               ``FDT_PROGRAM_OBS=0``: the state bitwise, the wrappers'
+               launches equal, the table ``train:host:k4`` (its capture,
+               warm-up, ``temp_bytes`` and replays) and ``eval``, no
+               retrace, goodput's ``compile_s`` the table's acquisition
+               total; after phase D, D(d)'s decode run holds 32
+               ``:decode:P*`` rows, its engine's captures; (b) a fresh
+               process on the repo's package with ``--executable_cache
+               on``: each library it loads ``persistent_dir`` and stored;
+               a fresh process on a copy of the package without
+               ``_build/`` on that cache: each ``deserialized``, no nvcc
+               or g++ build, its state bitwise the first's after 8 steps,
+               each library's acquisition ms printed beside the 65.5 s
+               build; (c) ``lib:quant_matmul``'s entry truncated and a
+               byte of ``lib:fused_mlp``'s flipped: a third process on a
+               fresh copy rebuilds both with nvcc (``corrupt`` 2, stored
+               again), the state bitwise; then, in this process,
+               ``FDT_EXEC_CACHE_MAX_ENTRIES=3`` over a copy of the cache:
+               the GC evicts 3 of its 6 entries and an 8-step run goes
+               on, bitwise;
   D. decode  — decode serving of the LM (slice 14), which launches no
                hand kernel (the counts, set to 0 before each serving run,
                must stay 0), at the record's widths (6 layers, d_model
@@ -5398,6 +5423,11 @@ def decode_phase(cli, build_dir: str) -> dict:
                       for r in res["results"]), "D(d) token out of range")
             check(e.captures == e.max_pages,
                   f"D(d) {tag}: {e.captures} captures after the run")
+            with open(os.path.join(res["telemetry_dir"],
+                                   "manifest.json")) as f:
+                table = json.load(f).get("decode_compile", {})
+            decode_rows = [p for p in table.get("programs", ())
+                           if ":decode:P" in p["name"]]
             runs[tag] = dict(
                 {k: res[k] for k in ("requests", "tokens", "steps",
                                      "prefills", "ttft_p50_ms",
@@ -5405,7 +5435,13 @@ def decode_phase(cli, build_dir: str) -> dict:
                                      "latency_p99_ms", "tokens_per_sec")},
                 wall_s=wall, kv_bytes=e.cache.nbytes,
                 peak_bytes=torch.cuda.max_memory_allocated(),
-                pages=dict(sorted(e.page_counts.items())))
+                pages=dict(sorted(e.page_counts.items())),
+                programs={"decode_rows": sorted(p["name"]
+                                                for p in decode_rows),
+                          "captures": e.captures,
+                          "capture_ms": sum(v["compile_ms"]
+                                            for p in decode_rows
+                                            for v in p["variants"])})
             print(f"[decode D(d)] {tag}: {res['requests']} requests, "
                   f"{res['tokens']} tokens, {e.batch_size} slots, "
                   f"{res['steps']} steps: "
@@ -6442,6 +6478,383 @@ def telemetry_main() -> int:
     return 0
 
 
+# -- slice 19: the program table and the executable cache (phase X) ---------
+
+X_STRIDE = 32            # X(b), X(c): the record on 128 rows: 8 steps of 16
+X_BUILD_S = 65.5         # the five libraries' parallel nvcc build (PR 18)
+X_PATH_B = ["--ffn_impl", "pallas", "--quant", "int8",
+            "--steps_per_dispatch", "4"]
+X_HOST = r"""
+import hashlib, json, os, subprocess, sys
+sys.path.insert(0, sys.argv[1])
+builds = []
+real_init = subprocess.Popen.__init__
+
+def guard(self, args, *a, **kw):
+    argv = [str(x) for x in (args if isinstance(args, (list, tuple))
+                             else [args])]
+    if (os.path.basename(argv[0]) in ("nvcc", "g++")
+            and "--version" not in argv):
+        builds.append(os.path.basename(argv[0]))
+    return real_init(self, args, *a, **kw)
+
+subprocess.Popen.__init__ = guard
+import torch
+from faster_distributed_training_tpu_torch import cli
+from faster_distributed_training_tpu_torch.ops import _build
+from faster_distributed_training_tpu_torch.resilience import (
+    executable_cache as ec)
+from faster_distributed_training_tpu_torch.train.state import state_leaves
+assert _build.__file__.startswith(sys.argv[1]), _build.__file__
+caches = []
+real_build = ec.build_executable_cache
+
+def keep(*a, **kw):
+    caches.append(real_build(*a, **kw))
+    return caches[-1]
+
+ec.build_executable_cache = keep
+defaults = cli.TRANSFORMER_DEFAULTS
+cfg = cli.config_from_args(cli.build_parser(defaults=defaults).parse_args(
+    sys.argv[2:]), defaults=defaults)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+out = cli.run_training(cfg, log=lambda line: print(line, flush=True))
+h = hashlib.sha256()
+for k, v in sorted(state_leaves(out["state"]).items()):
+    h.update(k.encode()); h.update(v.detach().cpu().contiguous().numpy().tobytes())
+with open(os.path.join(out["telemetry_dir"], "manifest.json")) as f:
+    table = json.load(f)["compile"]
+print("RESULT " + json.dumps({"step": int(out["state"].step),
+                              "digest": h.hexdigest(), "compile": table,
+                              "builds": builds,
+                              "stats": caches[0].stats}), flush=True)
+"""
+
+
+def x_table(directory: str) -> dict:
+    """A telemetry directory's ``compile`` table as {name: [variants]}."""
+    with open(os.path.join(directory, "manifest.json")) as f:
+        table = json.load(f)["compile"]
+    return {p["name"]: p["variants"] for p in table["programs"]}, table
+
+
+def x_argv(build_dir: str, tag: str, cache: str) -> list:
+    import shutil
+
+    ckdir = os.path.join(build_dir, f"smoke_ckpt_x_{tag}")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return ["--device", "cuda", "--dataset", "synthetic", "--epoch", "1",
+            "--checkpoint_dir", ckdir, "--log_every", "0", "--no_plot",
+            "--subset_stride", str(X_STRIDE), "--executable_cache", cache,
+            *X_PATH_B]
+
+
+def x_host(root: str, argv: list, tag: str, build_dir: str,
+           env: dict = None) -> dict:
+    """One fresh training process on the card over the package under
+    ``root`` (``X_HOST``): its digest, its compile table, the compilers
+    it started."""
+    import tempfile
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryFile("w+", dir=build_dir) as log:
+        proc = subprocess.run([sys.executable, "-c", X_HOST, root] + argv,
+                              env=dict(os.environ, **(env or {})),
+                              stdout=log, stderr=subprocess.STDOUT,
+                              text=True, timeout=600)
+        log.seek(0)
+        text = log.read()
+    lines = [x for x in text.splitlines() if x.startswith("RESULT ")]
+    check(proc.returncode == 0 and bool(lines),
+          f"X {tag}: exit {proc.returncode}; log tail:\n{text[-3000:]}")
+    got = json.loads(lines[-1][len("RESULT "):])
+    got["wall_s"] = time.monotonic() - t0
+    got["rows"] = {p["name"]: p["variants"][0]
+                   for p in got["compile"]["programs"]
+                   if p["name"].startswith("lib:")}
+    got["log"] = text
+    return got
+
+
+def x_copy(build_dir: str, tag: str) -> str:
+    """A copy of the package without ``_build/`` (a fresh host's
+    checkout); returns the directory to put on ``sys.path``."""
+    import shutil
+
+    from faster_distributed_training_tpu_torch.ops import _build
+
+    root = os.path.join(build_dir, f"x_copy_{tag}")
+    shutil.rmtree(root, ignore_errors=True)
+    pkg = str(_build.PKG_DIR)
+    shutil.copytree(pkg, os.path.join(root, os.path.basename(pkg)),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    return root
+
+
+def x_entry(cache: str, lib: str) -> str:
+    """The cache entry of library ``lib`` (``lib:quant_matmul``)."""
+    safe = "".join(c if c.isalnum() else "-" for c in lib)
+    got = [n for n in os.listdir(cache)
+           if n.startswith(f"exec_{safe}_") and not n.endswith(".last_used")]
+    check(len(got) == 1, f"X: entries of {lib} in the cache: {got}")
+    return os.path.join(cache, got[0])
+
+
+def x_record(cli, build_dir: str) -> dict:
+    """X(a): path B at K=4, 16 steps, ``--checkpoint_every 8``, in this
+    process (its libraries were loaded before any observatory: no
+    ``lib:*`` rows), telemetry on against ``FDT_PROGRAM_OBS=0``: the
+    state bitwise, the wrappers' launches equal; the table
+    ``train:host:k4`` and ``eval`` with no retrace; goodput's
+    ``compile_s`` the table's acquisition total; no placement drift at
+    the epoch's end (the captured graph's addresses included)."""
+    import shutil
+
+    flags = X_PATH_B + ["--subset_stride", str(F_STRIDE),
+                        "--checkpoint_every", "8"]
+    on_cfg = record_cfg(cli, flags, "x_on", build_dir)
+    off_cfg = record_cfg(cli, flags, "x_off", build_dir)
+    out_on, leaves_on, counts_on = counted_run(cli, on_cfg, "X(a) on")
+    os.environ["FDT_PROGRAM_OBS"] = "0"
+    try:
+        out_off, leaves_off, counts_off = counted_run(cli, off_cfg,
+                                                      "X(a) off")
+    finally:
+        os.environ.pop("FDT_PROGRAM_OBS", None)
+    n = bitwise("X(a) program table on vs FDT_PROGRAM_OBS=0, final state",
+                leaves_off, leaves_on)
+    check(counts_on == counts_off, f"X(a): wrapper launches with the table "
+          f"{counts_on} != without {counts_off}")
+    rows, table = x_table(out_on["telemetry_dir"])
+    drifts = [r for r in o_kinds(out_on["telemetry_dir"]).get("memory", [])
+              if r.get("scope") == "sharding_drift"]
+    check(not drifts, f"X(a): a clean run's placement drifted: {drifts}")
+    with open(os.path.join(out_off["telemetry_dir"], "manifest.json")) as f:
+        check("compile" not in json.load(f),
+              "X(a): FDT_PROGRAM_OBS=0 wrote a compile table")
+    check(sorted(rows) == ["eval", "train:host:k4"]
+          and len(rows["train:host:k4"]) == 1 and not table["retraces"],
+          f"X(a): table {sorted(rows)}, retraces {table['retraces']}")
+    disp = out_on["trainer"].dispatch
+    k4 = rows["train:host:k4"][0]
+    check(k4.get("replays") == sum(disp.replays.values())
+          and k4.get("temp_bytes", 0) > 0 and k4["compile_ms"] > 0
+          and k4["lower_ms"] > 0,
+          f"X(a): train:host:k4 row {k4}, replays {disp.replays}")
+    gp = out_on["goodput_compile_s"]
+    total = table["total_acquisition_ms"]
+    check(gp > 0 and abs(gp * 1e3 - total) <= 1.0,
+          f"X(a): goodput compile_s {gp} vs the table's {total} ms")
+    res = {"state_leaves": n, "wrapper_launches": counts_on,
+           "k4": k4, "eval": rows["eval"], "goodput_compile_s": gp,
+           "total_acquisition_ms": total}
+    print(f"[programs X(a)] path B K=4, 16 steps: state bitwise "
+          f"FDT_PROGRAM_OBS=0 ({n} leaves), wrapper launches equal; table "
+          f"{sorted(rows)}, no retrace; train:host:k4: warm-up {k4['lower_ms']}"
+          f" ms, capture {k4['compile_ms']} ms, temp_bytes "
+          f"{k4.get('temp_bytes')}, argument_bytes "
+          f"{k4.get('argument_bytes')}, alias_bytes {k4.get('alias_bytes')}, "
+          f"replays {k4.get('replays')}; eval "
+          + ", ".join(f"{v['avals'][:40]} {v['compile_ms']} ms"
+                      for v in rows["eval"])
+          + f"; goodput compile_s {gp} = table {total} ms; no placement "
+          f"drift at the epoch's end", flush=True)
+    for c in (on_cfg, off_cfg):
+        shutil.rmtree(c.checkpoint_dir, ignore_errors=True)
+    return res
+
+
+def x_restart(cli, build_dir: str) -> dict:
+    """X(b): process 1, the repo's package with ``--executable_cache on``:
+    every library it loads ``persistent_dir`` and stored; process 2, a
+    copy of the package without ``_build/`` on the same cache: each
+    ``deserialized``, no nvcc or g++ build, the state bitwise process
+    1's after 8 steps.  X(c): ``lib:quant_matmul``'s entry truncated and
+    a byte of ``lib:fused_mlp``'s flipped: a fresh copy rebuilds both
+    with nvcc (``compiled``, ``corrupt`` 2, stored again), the state
+    bitwise process 2's; then, in this process, ``FDT_EXEC_CACHE_MAX_
+    ENTRIES=3`` over a copy of the cache: the GC evicts three entries
+    and the run goes on, bitwise."""
+    import shutil
+
+    from faster_distributed_training_tpu_torch.ops import _build
+
+    repo = os.path.dirname(str(_build.PKG_DIR))
+    p1 = x_host(repo, x_argv(build_dir, "p1", "on"), "X(b) process 1",
+                build_dir)
+    cache = os.path.join(build_dir, "smoke_ckpt_x_p1", "_exec_cache")
+    libs = sorted(p1["rows"])
+    want = {f"lib:{n}" for n in _build.KERNELS}
+    check(want <= set(libs) and all(
+        r["cache_source"] == "persistent_dir" for r in p1["rows"].values()),
+        f"X(b) process 1 rows {p1['rows']}")
+    stored = sorted(n for n in os.listdir(cache)
+                    if not n.endswith(".last_used"))
+    check(len(stored) == len(libs) and p1["step"] == 8,
+          f"X(b) process 1: {len(stored)} entries for {libs}, step "
+          f"{p1['step']}")
+    print(f"[programs X(b)] process 1 (repo package, _build/ present): "
+          f"{len(libs)} libraries loaded {libs}, each persistent_dir and "
+          f"stored ({len(stored)} entries); {p1['wall_s']:.1f}s", flush=True)
+    p2 = x_host(x_copy(build_dir, "p2"), x_argv(build_dir, "p2", cache),
+                "X(b) process 2", build_dir)
+    check(sorted(p2["rows"]) == libs and all(
+        r["cache_source"] == "deserialized" for r in p2["rows"].values())
+        and p2["builds"] == [] and p2["stats"]["hits"] == len(libs),
+        f"X(b) process 2 rows {p2['rows']}, compilers {p2['builds']}")
+    check(p2["digest"] == p1["digest"],
+          "X(b): process 2's state differs from process 1's")
+    print("[programs X(b)] process 2 (a copy without _build/, same cache): "
+          "every library deserialized, no nvcc / g++ build, state bitwise "
+          f"process 1's after {p2['step']} steps; acquisition ms (the "
+          f"five libraries' parallel nvcc build took {X_BUILD_S} s, PR 18): "
+          + ", ".join(f"{n} {r['compile_ms']} ms (process 1: "
+                      f"{p1['rows'][n]['compile_ms']} ms)"
+                      for n, r in sorted(p2["rows"].items()))
+          + f"; {p2['wall_s']:.1f}s", flush=True)
+    qmm, mlp = x_entry(cache, "lib:quant_matmul"), x_entry(cache,
+                                                           "lib:fused_mlp")
+    with open(qmm, "rb") as f:
+        raw = f.read()
+    with open(qmm, "wb") as f:
+        f.write(raw[:len(raw) // 2])
+    with open(mlp, "rb") as f:
+        raw = bytearray(f.read())
+    raw[-1000] ^= 0x10
+    with open(mlp, "wb") as f:
+        f.write(bytes(raw))
+    p3 = x_host(x_copy(build_dir, "p3"), x_argv(build_dir, "p3", cache),
+                "X(c) process 3", build_dir)
+    rebuilt = {n for n, r in p3["rows"].items()
+               if r["cache_source"] == "compiled"}
+    check(rebuilt == {"lib:quant_matmul", "lib:fused_mlp"}
+          and sorted(p3["builds"]) == ["nvcc", "nvcc"]
+          and all(r["cache_source"] == "deserialized"
+                  for n, r in p3["rows"].items() if n not in rebuilt),
+          f"X(c) rows {p3['rows']}, compilers {p3['builds']}")
+    check(p3["stats"]["corrupt"] == 2 and p3["stats"]["stores"] == 2,
+          f"X(c) cache stats {p3['stats']}")
+    check(p3["digest"] == p2["digest"],
+          "X(c): process 3's state differs from process 2's")
+    for path in (qmm, mlp):
+        from faster_distributed_training_tpu_torch.resilience import (
+            executable_cache as ec)
+        with open(path, "rb") as f:
+            ec.unframe(f.read())          # stored again, whole
+    print("[programs X(c)] quant_matmul's entry truncated, a byte of "
+          "fused_mlp's flipped: a fresh copy rebuilt both with nvcc ("
+          + ", ".join(f"{n} {p3['rows'][n]['compile_ms']} ms"
+                      for n in sorted(rebuilt))
+          + "), stored them again, the other libraries deserialized; "
+          f"state bitwise process 2's; {p3['wall_s']:.1f}s", flush=True)
+    # the retention GC's bound over a copy of the cache, in this process
+    gc_cache = os.path.join(build_dir, "x_gc_cache")
+    shutil.rmtree(gc_cache, ignore_errors=True)
+    shutil.copytree(cache, gc_cache)
+    before = len([n for n in os.listdir(gc_cache)
+                  if not n.endswith(".last_used")])
+    lines = []
+    argv = x_argv(build_dir, "gc", gc_cache)
+    defaults = cli.TRANSFORMER_DEFAULTS
+    cfg = cli.config_from_args(cli.build_parser(defaults=defaults)
+                               .parse_args(argv), defaults=defaults)
+    os.environ["FDT_EXEC_CACHE_MAX_ENTRIES"] = "3"
+    try:
+        out = cli.run_training(cfg, log=lines.append)
+    finally:
+        os.environ.pop("FDT_EXEC_CACHE_MAX_ENTRIES", None)
+    after = len([n for n in os.listdir(gc_cache)
+                 if not n.endswith(".last_used")])
+    evicted = [x for x in lines if "retention GC evicted" in x]
+    digest = f_digest(_leaves_of(out))
+    check(before == len(libs) and after == 3 and evicted
+          and "evicted 3 " in evicted[0] and int(out["state"].step) == 8
+          and digest == p2["digest"],
+          f"X(c) GC: {before} -> {after} entries, {evicted}, step "
+          f"{out['state'].step}, bitwise {digest == p2['digest']}")
+    print(f"[programs X(c)] FDT_EXEC_CACHE_MAX_ENTRIES=3: the GC evicted 3 "
+          f"of {before} entries at arm ({after} left) and the run went on "
+          f"(8 steps, state bitwise process 2's)", flush=True)
+    for tag in ("p1", "p2", "p3", "gc"):
+        shutil.rmtree(os.path.join(build_dir, f"smoke_ckpt_x_{tag}"),
+                      ignore_errors=True)
+    for tag in ("p2", "p3"):
+        shutil.rmtree(os.path.join(build_dir, f"x_copy_{tag}"),
+                      ignore_errors=True)
+    shutil.rmtree(gc_cache, ignore_errors=True)
+
+    def ms(p):
+        return {n: r["compile_ms"] for n, r in sorted(p["rows"].items())}
+    return {"b": {"libraries": libs, "p1_ms": ms(p1), "p2_ms": ms(p2),
+                  "p1_s": p1["wall_s"], "p2_s": p2["wall_s"]},
+            "c": {"rebuilt": sorted(rebuilt), "p3_ms": ms(p3),
+                  "p3_s": p3["wall_s"], "gc_entries": [before, after]}}
+
+
+def programs_phase(cli, build_dir: str) -> dict:
+    """Phase X (a)-(c): the program table and the executable cache on the
+    card (``x_record``, ``x_restart``); the whole smoke checks phase D's
+    decode rows after it (``x_decode``)."""
+    t0 = time.monotonic()
+    out = {"a": x_record(cli, build_dir)}
+    out.update(x_restart(cli, build_dir))
+    out["phase_s"] = time.monotonic() - t0
+    print(f"[programs] phase X took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def x_decode(dd: dict) -> dict:
+    """X(a)'s decode part: phase D's default run's ``decode_compile``
+    table (returned in D's dict) holds one ``:decode:P*`` row a captured
+    graph."""
+    got = dd["d"]["default"]["programs"]
+    check(len(got["decode_rows"]) == got["captures"] == 32,
+          f"X(a) decode rows {len(got['decode_rows'])}, captures "
+          f"{got['captures']}")
+    print(f"[programs X(a)] phase D's decode run: {len(got['decode_rows'])} "
+          f":decode:P* rows = the engine's {got['captures']} captures "
+          f"(capture ms sum {got['capture_ms']:.1f})", flush=True)
+    return got
+
+
+def programs_main() -> int:
+    """``--programs``: the kernels' build, then phase X alone."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from faster_distributed_training_tpu_torch import cli
+    from faster_distributed_training_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)} (torch "
+          f"{torch.__version__}, cuda {torch.version.cuda}); nvidia-smi: "
+          f"{card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_s, _ = _build.build()
+    print(f"[build] {build_s:.1f}s", flush=True)
+    # as in the whole smoke, this process has loaded every library before
+    # any observatory exists (X(a) then has no lib:* rows)
+    from faster_distributed_training_tpu_torch.runtime import native_lib
+    for name in _build.KERNELS:
+        _build.load(name)
+    check(native_lib.load() is not None,
+          f"the native library did not load: {native_lib.failure()}")
+    xx = programs_phase(cli, str(_build.BUILD_DIR))
+    print("[programs X(a)] phase D's decode rows: the whole smoke only",
+          flush=True)
+    print(json.dumps(xx, default=str))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def _leaves_of(out) -> dict:
     """The final state of a run as ``F_HOST`` digests it."""
     from faster_distributed_training_tpu_torch.train.state import (
@@ -7223,6 +7636,10 @@ def main() -> int:
     # O(c) reads phases F(b), D(d) and the serving runs at the end --------
     oo = telemetry_phase(cli, str(_build.BUILD_DIR))
 
+    # -- phase X: the program table and the executable cache (slice 19);
+    # its decode rows are read from phase D's run below ---------------------
+    xx = programs_phase(cli, str(_build.BUILD_DIR))
+
     # -- phase P: the data mesh (slice 10) ---------------------------------
     pm = mesh_phase(cli, str(_build.BUILD_DIR))
 
@@ -7237,10 +7654,17 @@ def main() -> int:
 
     # -- phase D: decode serving (slice 14) ----------------------------------
     dd = decode_phase(cli, str(_build.BUILD_DIR))
+    xx["a"]["decode"] = x_decode(dd)
 
     # -- phase O(c): the flight dump and the serving / decode events ------
     oo["c"] = o_events(ff["b"]["flight"], {
         "serve": serve_events, "serve path D": sq["events"], **dd["events"]})
+    print(f"[programs] phase X {xx['phase_s']:.1f}s: train:host:k4 capture "
+          f"{xx['a']['k4']['compile_ms']} ms, warm-up "
+          f"{xx['a']['k4']['lower_ms']} ms, temp_bytes "
+          f"{xx['a']['k4']['temp_bytes']}; library acquisition ms from the "
+          f"cache {xx['b']['p2_ms']} (the parallel nvcc build: {X_BUILD_S} "
+          f"s); rebuilt after corruption {xx['c']['p3_ms']}", flush=True)
 
     # -- 7. output -----------------------------------------------------------
     print(f"[mesh] P1 step ms (dp=1 over NCCL / no group): record "
@@ -7690,6 +8114,13 @@ if __name__ == "__main__":
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(2)
         sys.exit(stream_main())
+    if sys.argv[1:2] == ["--programs"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(programs_main())
     if sys.argv[1:2] == ["--telemetry"]:
         import torch
 

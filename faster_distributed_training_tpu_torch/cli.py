@@ -29,7 +29,12 @@ asynchronous checkpoint manager on ``--storage_backend``, preemption,
 ``--auto_recover`` and the pod coordinator; ``resilience/``), and the
 rest of the data plane (slice 17: ``--data_path stream``, a window of
 batches on the card refilled from disk, on text and image stream shards;
-``--resident_layout sharded``; the native host library).
+``--resident_layout sharded``; the native host library), and the run
+record (slice 18: ``telemetry/``), and the program table with the
+executable cache (slice 19: every entry point installs a
+``ProgramObservatory`` before anything loads a kernel library, arms
+``--executable_cache`` on it and bills goodput; the Trainer's
+placement-drift guard).
 
 Counterparts of ``faster_distributed_training_tpu/cli.py``'s
 ``resolve_attention``, ``build_model``, ``load_dataset`` (the agnews,
@@ -579,38 +584,24 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     ``Supervisor.run`` (a restore point is saved first, so a crash before
     the first cadence save is recoverable: the live state, updated in
     place, cannot serve as one).  The result then also holds
-    ``preempted`` and the ``goodput_*`` keys."""
-    from faster_distributed_training_tpu_torch.interop import load_jax_tree
-    from faster_distributed_training_tpu_torch.optim import (build_optimizer,
-                                                             layouts_of)
+    ``preempted`` and the ``goodput_*`` keys.
+
+    Telemetry (``telemetry.build_telemetry``) and its program table are
+    set up before anything loads a kernel library, so the table's
+    ``lib:*`` rows and the executable cache (``--executable_cache``) see
+    every library the run loads; they close when the run ends, however
+    it ends."""
     import torch.distributed as dist
 
     from faster_distributed_training_tpu_torch.parallel import (
-        DataGroup, Placement, dp_size, initialize_distributed, local_device,
-        make_mesh, mesh_groups, shard_train_state)
-    from faster_distributed_training_tpu_torch.train.checkpoint import (
-        restore_newest)
-    from faster_distributed_training_tpu_torch.train.loop import Trainer
-    from faster_distributed_training_tpu_torch.train.state import (
-        create_train_state)
-    from faster_distributed_training_tpu_torch.train.steps import (
-        make_eval_step, make_train_step, mixup_alpha, step_draws)
-
+        DataGroup, initialize_distributed, local_device, make_mesh,
+        mesh_groups)
     from faster_distributed_training_tpu_torch.parallel.pipeline import (
-        build_pipeline_spec, pipeline_rules)
-
-    from faster_distributed_training_tpu_torch.resilience import (
-        Preempted, Supervisor, build_resilience)
-    from faster_distributed_training_tpu_torch.resilience.faults import (
-        apply_corrupt_shard_fault)
-    from faster_distributed_training_tpu_torch.train import loop as loop_mod
-    from faster_distributed_training_tpu_torch.train.metrics import (
-        attach_goodput)
-
+        build_pipeline_spec)
     from faster_distributed_training_tpu_torch.telemetry import (
-        build_telemetry, flight, resolve_telemetry_dir, spans, write_manifest)
+        build_telemetry, programs)
     from faster_distributed_training_tpu_torch.utils.profiling import (
-        StepWindowProfiler, parse_profile_steps, trace_profile)
+        parse_profile_steps)
 
     missing = unported_training_flags(cfg)
     if missing:
@@ -645,6 +636,61 @@ def run_training(cfg: TrainConfig, params=None, device=None,
     rank0 = not group.live or dist.get_rank() == 0
     if not rank0:
         log = _silent
+    # telemetry (None under --no_telemetry / FDT_TELEMETRY=0) and its
+    # program table, with the executable cache armed on it through the
+    # run's storage backend: the process-global observatory every library
+    # loader reads
+    telemetry = build_telemetry(cfg, log=log)
+    prev_observatory = None
+    if telemetry is not None and telemetry.observatory is not None:
+        prev_observatory = programs.set_observatory(telemetry.observatory)
+    try:
+        return _train(cfg, params, dev, mesh, group, tp, rank0, pipeline,
+                      window, telemetry, log)
+    finally:
+        if telemetry is not None:
+            # the program table merged into the manifest, the tail
+            # flushed, pod_summary.json refreshed; the observatory given
+            # back
+            telemetry.close()
+            programs.set_observatory(prev_observatory)
+
+
+def _train(cfg: TrainConfig, params, dev, mesh, group, tp, rank0: bool,
+           pipeline, window, telemetry, log) -> dict:
+    """``run_training``'s run, from the data on: the model, the state,
+    the resilience bundle, the Trainer and its attempts."""
+    from faster_distributed_training_tpu_torch.interop import load_jax_tree
+    from faster_distributed_training_tpu_torch.optim import (build_optimizer,
+                                                             layouts_of)
+    import torch.distributed as dist
+
+    from faster_distributed_training_tpu_torch.parallel import (
+        Placement, dp_size, shard_train_state)
+    from faster_distributed_training_tpu_torch.train.checkpoint import (
+        restore_newest)
+    from faster_distributed_training_tpu_torch.train.loop import Trainer
+    from faster_distributed_training_tpu_torch.train.state import (
+        create_train_state)
+    from faster_distributed_training_tpu_torch.train.steps import (
+        make_eval_step, make_train_step, mixup_alpha, step_draws)
+
+    from faster_distributed_training_tpu_torch.parallel.pipeline import (
+        pipeline_rules)
+
+    from faster_distributed_training_tpu_torch.resilience import (
+        Preempted, Supervisor, build_resilience)
+    from faster_distributed_training_tpu_torch.resilience.faults import (
+        apply_corrupt_shard_fault)
+    from faster_distributed_training_tpu_torch.train import loop as loop_mod
+    from faster_distributed_training_tpu_torch.train.metrics import (
+        attach_goodput)
+
+    from faster_distributed_training_tpu_torch.telemetry import (
+        flight, resolve_telemetry_dir, spans, write_manifest)
+    from faster_distributed_training_tpu_torch.utils.profiling import (
+        StepWindowProfiler, trace_profile)
+
     world = dp_size(mesh)
     resnet = is_resnet(cfg)
     from faster_distributed_training_tpu_torch.runtime import native_lib
@@ -828,11 +874,11 @@ def run_training(cfg: TrainConfig, params=None, device=None,
                            ckpt_name=ckpt_name, start_epoch=ep,
                            start_step_in_epoch=sie)
 
-    # telemetry (None under --no_telemetry / FDT_TELEMETRY=0), set up
-    # where the try below gives the sinks back: the span sink, the flight
-    # recorder's target, the manifest (process 0), the pipeline's
-    # schedule events and goodput's event sink
-    telemetry = build_telemetry(cfg, log=log)
+    # the telemetry's sinks, set up where the try below gives them back:
+    # the span sink, the flight recorder's target, the manifest (process
+    # 0), the pipeline's schedule events, goodput's event sink and the
+    # program table's goodput (billed every acquisition, those before
+    # this too)
     prev_span_recorder = prev_flight = None
     if telemetry is not None:
         if telemetry.pi == 0:
@@ -851,6 +897,8 @@ def run_training(cfg: TrainConfig, params=None, device=None,
             record_pipeline(telemetry.recorder, pipeline)
         if res is not None:
             res.goodput.set_event_sink(telemetry.recorder.goodput_event_sink)
+            if telemetry.observatory is not None:
+                telemetry.observatory.goodput = res.goodput
         log(f"[telemetry] recording to {telemetry.directory} "
             f"(host {telemetry.pi}/{telemetry.pc}; disable with "
             f"--no_telemetry or FDT_TELEMETRY=0)")
@@ -901,9 +949,8 @@ def run_training(cfg: TrainConfig, params=None, device=None,
         if profiler is not None:
             profiler.close()   # an open window is still captured
         if telemetry is not None:
-            # the tail flushed, pod_summary.json refreshed, the process's
-            # sinks given back
-            telemetry.close()
+            # the process's sinks given back (run_training closes the
+            # telemetry itself)
             spans.set_recorder(prev_span_recorder)
             flight.restore(prev_flight)
     if state.placement is not None:
@@ -1132,7 +1179,8 @@ def run_serving(cfg: TrainConfig, requests=None, params=None, device=None,
             if dev.type == "cuda" else [dev])
     if dev.index is not None:
         devs = [dev]
-    recorder, prev_rec = _serving_telemetry(cfg, "serve", log)
+    tel = _serving_telemetry(cfg, "serve", log)
+    recorder = tel[0]
     try:
         model, sstate, meta = load_serving_state(cfg, devs[0], params=params,
                                                  log=log)
@@ -1186,33 +1234,55 @@ def run_serving(cfg: TrainConfig, requests=None, params=None, device=None,
             f"ms, {summary['qps']} qps")
         return out
     finally:
-        if recorder is not None:
-            spans.set_recorder(prev_rec)
-            recorder.close()
+        _close_serving_telemetry(*tel, log=log)
 
 
-def _serving_telemetry(cfg: TrainConfig, section: str, log):
-    """(recorder, the span sink it replaces) of a serving entry point, or
-    (None, None) with telemetry off: the recorder in the run's telemetry
-    directory, installed as the span sink, and ``section`` (this run's
-    config) merged into the manifest, never replacing a training run's
-    (JAX ``cli.py:1366-1392``)."""
+def _serving_telemetry(cfg: TrainConfig, section: str, log) -> tuple:
+    """(recorder, the span sink it replaces, the program table, the
+    observatory it replaces, section) of a serving entry point, all None
+    but ``section`` with telemetry off: the recorder in the run's
+    telemetry directory, installed as the span sink, ``section`` (this
+    run's config) merged into the manifest, never replacing a training
+    run's (JAX ``cli.py:1366-1392``), and the serving run's own
+    observatory with ``--executable_cache`` armed, installed before the
+    weights load (JAX ``cli.py:1383-1407``)."""
     import time as time_mod
 
     from faster_distributed_training_tpu_torch.telemetry import (
-        TelemetryRecorder, enabled, resolve_telemetry_dir, spans,
-        update_manifest)
+        TelemetryRecorder, build_observatory, enabled, programs,
+        resolve_telemetry_dir, spans, update_manifest)
 
     if not enabled(cfg):
-        return None, None
+        return None, None, None, None, section
     tdir = resolve_telemetry_dir(cfg)
     recorder = TelemetryRecorder(tdir, log=log)
     update_manifest(tdir, {section: {
         "unix_time": round(time_mod.time(), 3),
         "config": dataclasses.asdict(cfg)}}, log=log)
     prev = spans.set_recorder(recorder)
+    obs = build_observatory(cfg, recorder, log)
+    prev_obs = programs.set_observatory(obs) if obs is not None else None
     log(f"[{section.split('_')[0]}] telemetry recording to {tdir}")
-    return recorder, prev
+    return recorder, prev, obs, prev_obs, section
+
+
+def _close_serving_telemetry(recorder, prev_rec, obs, prev_obs, section: str,
+                             log) -> None:
+    """Give the sinks back; the program table goes into the manifest
+    under its own key (``serve_compile``, ``decode_compile``: a training
+    run's ``compile`` stays), then the recorder closes."""
+    from faster_distributed_training_tpu_torch.telemetry import (
+        programs, spans, update_manifest)
+
+    if recorder is None:
+        return
+    spans.set_recorder(prev_rec)
+    if obs is not None:
+        programs.set_observatory(prev_obs)
+        key = ("decode_compile" if section.startswith("decode")
+               else "serve_compile")
+        update_manifest(recorder.directory, {key: obs.summary()}, log=log)
+    recorder.close()
 
 
 def main_serve(argv=None, defaults: Optional[TrainConfig] = None,
@@ -1270,7 +1340,8 @@ def run_decode_serving(cfg: TrainConfig, prompts=None, params=None,
         raise ValueError(QUANTIZED)
     if cfg.tricks == "off":
         raise ValueError(UNFUSED)
-    recorder, prev_rec = _serving_telemetry(cfg, "decode_serve", log)
+    tel = _serving_telemetry(cfg, "decode_serve", log)
+    recorder = tel[0]
     try:
         dev = resolve_device(device if device is not None else cfg.device)
         devs = ([torch.device("cuda", i)
@@ -1366,9 +1437,7 @@ def run_decode_serving(cfg: TrainConfig, prompts=None, params=None,
             f"({out['tokens_per_sec_per_chip']}/chip)")
         return out
     finally:
-        if recorder is not None:
-            spans.set_recorder(prev_rec)
-            recorder.close()
+        _close_serving_telemetry(*tel, log=log)
 
 
 def main_decode(argv=None, defaults: Optional[TrainConfig] = None,

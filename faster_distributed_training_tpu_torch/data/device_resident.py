@@ -27,7 +27,8 @@ Two layouts (``--resident_layout``):
     allocated once and rewritten in place (a captured CUDA graph holds
     its address; the peak stays at the shards plus one view), and the
     dispatch reads row ``n`` of it: no gather through an order, no batch
-    bytes across ranks between epochs.
+    bytes across ranks between epochs.  Its first re-shard is the
+    program table's ``epoch_reshard`` row (``telemetry/programs.py``).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import torch
 
 from faster_distributed_training_tpu_torch.data.loader import (
     dataset_len, pod_epoch_order)
-from faster_distributed_training_tpu_torch.telemetry import spans
+from faster_distributed_training_tpu_torch.telemetry import programs, spans
 
 
 def _encode_split(data, max_len: int) -> Tuple[Dict[str, np.ndarray], bool,
@@ -278,12 +279,21 @@ class ShardedDeviceResidentData:
         place once (a collective: every rank calls it)."""
         if self.epoch != epoch:
             t0 = time.monotonic()
+            obs = programs.get_observatory() if not self.reshard_ms else None
+            watch = programs.Stopwatch(self.device) if obs else None
             with spans.span("epoch_reshard"):
                 send, ss, rs = self.send_buffer(epoch)
                 self.receive(epoch, self._exchange(send, ss, rs))
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             self.reshard_ms.append((time.monotonic() - t0) * 1e3)
+            if watch is not None:
+                # the first re-shard is the program's acquisition
+                obs.observe("epoch_reshard",
+                            programs.args_signature((self.shards,), (0,)),
+                            compile_ms=watch.ms(), mem=watch.memory(
+                                argument=self.nbytes,
+                                output=self.view_bytes))
         return self.arrays
 
     def verify_upload(self) -> bool:

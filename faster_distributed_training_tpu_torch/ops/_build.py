@@ -9,6 +9,14 @@ a hash of the source, the shared headers (``csrc/*.cuh``) and the flags:
 an edited source rebuilds, an unchanged one is reused.  ``build`` starts
 one ``nvcc`` per stale source, all at once.  The build runs at first use,
 never at import.
+
+``load`` acquires a library through three tiers (``acquire``, which
+``runtime/native_lib.py`` shares): the local ``_build/`` directory, then
+the active observatory's executable cache (``resilience/
+executable_cache.py``: the verified bytes are written into ``_build/``),
+then the compiler (its output then stored in the cache).  A compiler
+failure raises.  Each library a process loads is one ``lib:<name>`` row
+of the program table (``telemetry/programs.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -89,16 +97,62 @@ def build(names: Iterable[str] = KERNELS) -> Tuple[float, Dict[str, str]]:
     return time.monotonic() - t0, logs
 
 
+def digest_of(path: Path) -> str:
+    """The build digest a library's file name carries."""
+    return path.stem.rsplit("-", 1)[1]
+
+
+def acquire(name: str, out: Path, build_fn: Callable[[], None],
+            tool: str) -> Tuple[str, bool]:
+    """Make library ``name``'s file ``out`` exist: the local ``_build/``
+    (``persistent_dir``), else the active observatory's executable cache
+    (``deserialized``), else ``build_fn`` with ``tool`` (``compiled``;
+    raises when the compiler fails).  With a cache armed, a library it
+    does not hold yet is stored.  Returns (source, cache armed)."""
+    from faster_distributed_training_tpu_torch.telemetry import programs
+
+    obs = programs.get_observatory()
+    cache = getattr(obs, "executable_cache", None)
+    key = (cache.key_for(f"lib:{name}", digest_of(out), tool)
+           if cache is not None else None)
+    if out.exists():
+        if cache is not None and not cache.backend.exists(key):
+            cache.store(key, out.read_bytes())
+        return "persistent_dir", cache is not None
+    if cache is not None:
+        payload = cache.load(key)
+        if payload is not None:
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(
+                f".{os.getpid()}.{threading.get_ident()}.tmp")
+            tmp.write_bytes(payload)
+            os.replace(tmp, out)
+            return "deserialized", True
+    build_fn()
+    if cache is not None:
+        cache.store(key, out.read_bytes())
+    return "compiled", cache is not None
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel ``name``, built first if needed."""
+    """The loaded library for kernel ``name``, acquired first if needed
+    (``acquire``)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(lib_path(name)))
+            from faster_distributed_training_tpu_torch.telemetry import (
+                programs)
+
+            t0 = time.monotonic()
+            out = lib_path(name)
+            source, armed = acquire(name, out, lambda: build([name]), "nvcc")
+            lib = ctypes.CDLL(str(out))
             lib.fdt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.fdt_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
+            programs.library_loaded(name, digest_of(out), str(out),
+                                    (time.monotonic() - t0) * 1e3, source,
+                                    armed)
         return lib
 
 

@@ -6,9 +6,11 @@ accounting (``goodput``), the anomaly sentinel (``sentinel``) and the pod
 coordinator's whole-pod restart and watchdog (``coordinator``).
 
 ``Resilience`` bundles them for the Trainer; ``build_resilience`` builds
-the bundle from a TrainConfig.  Slice-granular re-admission, warm spares
-and the executable cache are not ported yet: their seams raise
-NotImplementedError naming themselves."""
+the bundle from a TrainConfig.  ``executable_cache`` holds the built
+kernel libraries for a fresh host (``ExecutableCache``,
+``build_executable_cache``; the program table carries it).
+Slice-granular re-admission and warm spares are not ported yet: their
+seams raise NotImplementedError naming themselves."""
 
 from __future__ import annotations
 
@@ -47,6 +49,8 @@ from faster_distributed_training_tpu_torch.resilience.supervisor import (  # noq
     Supervisor)
 from faster_distributed_training_tpu_torch.resilience.faults import (  # noqa: E402,F401,E501
     FaultPlan, InjectedFault, corrupt_newest_checkpoint)
+from faster_distributed_training_tpu_torch.resilience.executable_cache import (  # noqa: E402,F401,E501
+    ExecutableCache, build_executable_cache)
 
 
 @dataclasses.dataclass

@@ -8,7 +8,10 @@ The library compiles at first use with ``g++ -O3 -std=c++17 -shared
 through ctypes.  Every entry point has a Python path in ``data/`` that
 returns the same bytes; where g++ or the build is missing the callers
 take it, and ``report`` says once a process which path runs (the card
-machine's smoke fails when the library did not load).
+machine's smoke fails when the library did not load).  The library is
+acquired through ``ops/_build.py::acquire``'s tiers (the local
+``_build/``, the executable cache, g++) and is the program table's
+``lib:fdt_native`` row.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Callable, List, Optional, Tuple
 
@@ -84,10 +88,19 @@ def load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _failure is not None:
             return _lib
         try:
+            from faster_distributed_training_tpu_torch.ops._build import (
+                acquire, digest_of)
+            from faster_distributed_training_tpu_torch.telemetry import (
+                programs)
+
+            t0 = time.monotonic()
             out = lib_path()
-            if not out.exists():
-                _build(out)
+            source, armed = acquire("fdt_native", out,
+                                    lambda: _build(out), "g++")
             _lib = _bind(ctypes.CDLL(str(out)))
+            programs.library_loaded("fdt_native", digest_of(out), str(out),
+                                    (time.monotonic() - t0) * 1e3, source,
+                                    armed)
         except Exception as e:              # no g++, a refused build, ...
             _failure = f"{type(e).__name__}: {e}"
     return _lib

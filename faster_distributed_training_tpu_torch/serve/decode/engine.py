@@ -22,6 +22,14 @@ A decode step is some 150 small launches for one token a slot, so on the
 card the host's launch cost is the step's; the graph replays them as one.
 On the CPU the same ``decode_step`` runs eagerly.
 
+Each bucket's first prefill is the program table's
+``{name}:prefill:L{bucket}`` row and each captured graph its
+``{name}:decode:P{pages}`` row (``telemetry/programs.py``: the two eager
+runs before the captures are the ``lower_ms`` of the widest); on the CPU,
+with an observatory active, warmup runs the eager step once a page count
+for those rows.  JAX's ``:insert:L{bucket}`` program is not observed in
+JAX either (its engine passes it no name).
+
 Request length picks a bucket (``data.loader.select_bucket``) and the
 longest live slot picks a page count, both finite sets, so ragged
 traffic never needs a shape the warmup did not see.
@@ -42,6 +50,7 @@ from faster_distributed_training_tpu_torch.models.decode import (
     SamplingCfg, decode_spec, decode_step, prefill)
 from faster_distributed_training_tpu_torch.serve.decode.cache import (
     PagedKVCache)
+from faster_distributed_training_tpu_torch.telemetry import programs
 
 
 class DecodeEngine:
@@ -80,6 +89,10 @@ class DecodeEngine:
         # ran (all of them in warmup)
         self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
         self.captures = 0
+        # the buckets whose first prefill the program table has, and
+        # whether it has the decode rows
+        self._prefilled: set = set()
+        self._decode_rows = False
         self.on_card = self.device.type == "cuda"
         if self.on_card:
             B = self.batch_size
@@ -117,11 +130,45 @@ class DecodeEngine:
         with self._ctx():
             for b in self.buckets:
                 self._prefill(np.zeros((1, b), np.int64), 1, 0)
+            obs = programs.get_observatory()
             if self.on_card and not self.graphs:
-                self._capture()
+                self._capture(obs)
+            elif not self.on_card and obs is not None and \
+                    not self._decode_rows:
+                self._eager_rows(obs)
         return time.monotonic() - t0
 
-    def _capture(self) -> None:
+    def _decode_sig(self) -> tuple:
+        z = torch.zeros(self.batch_size, dtype=torch.int64)
+        return programs.args_signature((z, z, z.bool(), z), (0, 1, 2, 3))
+
+    def _observe_decode(self, obs, pages: int, watch, lower_ms: float,
+                        compile_ms: float) -> None:
+        cache = programs.tensor_bytes(self.cache.k, self.cache.v)
+        params = programs.tensor_bytes(dict(self.model.named_parameters()))
+        obs.observe(f"{self.name}:decode:P{pages}", self._decode_sig(),
+                    lower_ms, compile_ms, mem=watch.memory(
+                        argument=params + cache + 4 * 8 * self.batch_size,
+                        output=8 * self.batch_size, alias=cache),
+                    replays=((lambda: self.page_counts.get(pages, 0))
+                             if self.on_card else None))
+
+    def _eager_rows(self, obs) -> None:
+        """The CPU's decode rows: the eager step once a page count (zero
+        operands: every slot's column 0 is written, which no admission
+        reads)."""
+        self._decode_rows = True
+        z = torch.zeros(self.batch_size, dtype=torch.int64,
+                        device=self.device)
+        for pages in range(1, self.max_pages + 1):
+            watch = programs.Stopwatch(self.device)
+            decode_step(self.model, self.spec, self.sampling,
+                        pages * self.page, self.cache.k, self.cache.v, z, z,
+                        z.bool(), z)
+            self._observe_decode(obs, pages, watch, 0.0, watch.ms())
+
+    def _capture(self, obs) -> None:
+        warm = programs.Stopwatch(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
@@ -130,24 +177,44 @@ class DecodeEngine:
             for _ in range(2):
                 self._graph_body(self.max_pages)
         torch.cuda.current_stream(self.device).wait_stream(side)
+        warm_ms = warm.ms()
         pool = torch.cuda.graph_pool_handle()
         for pages in range(1, self.max_pages + 1):
+            watch = programs.Stopwatch(self.device, pool)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=pool,
                                   capture_error_mode="thread_local"):
                 self._graph_body(pages)
             self.graphs[pages] = graph
             self.captures += 1
+            if obs is not None:
+                # the eager warm-up ran at the widest page count
+                self._observe_decode(
+                    obs, pages, watch,
+                    warm_ms if pages == self.max_pages else 0.0, watch.ms())
         torch.cuda.synchronize(self.device)
 
     # -- the hot path ------------------------------------------------------
 
     def _prefill(self, padded: np.ndarray, length: int, req_id: int):
         dev = self.device
-        return prefill(self.model, self.spec, self.sampling,
-                       torch.as_tensor(padded, dtype=torch.int64).to(dev),
-                       torch.tensor([length], dtype=torch.int64, device=dev),
-                       torch.tensor([req_id], dtype=torch.int64, device=dev))
+        bucket = padded.shape[1]
+        obs, watch = programs.get_observatory(), None
+        if obs is not None and bucket not in self._prefilled:
+            self._prefilled.add(bucket)
+            watch = programs.Stopwatch(dev)
+        args = (torch.as_tensor(padded, dtype=torch.int64).to(dev),
+                torch.tensor([length], dtype=torch.int64, device=dev),
+                torch.tensor([req_id], dtype=torch.int64, device=dev))
+        out = prefill(self.model, self.spec, self.sampling, *args)
+        if watch is not None:
+            obs.observe(f"{self.name}:prefill:L{bucket}",
+                        programs.args_signature(args, (0, 1, 2)),
+                        compile_ms=watch.ms(), mem=watch.memory(
+                            argument=programs.tensor_bytes(
+                                dict(self.model.named_parameters()), args),
+                            output=programs.tensor_bytes(out)))
+        return out
 
     @staticmethod
     def _pad(tokens, bucket: int) -> Tuple[np.ndarray, int]:

@@ -130,8 +130,8 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
     from faster_distributed_training_tpu_torch.serve.engine import (
         load_serving_state)
     from faster_distributed_training_tpu_torch.telemetry import (
-        TelemetryRecorder, enabled, resolve_telemetry_dir, spans,
-        update_manifest)
+        TelemetryRecorder, build_observatory, enabled, programs,
+        resolve_telemetry_dir, spans, update_manifest)
 
     p = argparse.ArgumentParser(prog="fdt-decode-worker")
     p.add_argument("--cfg", required=True)
@@ -154,8 +154,9 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
             daemon=True).start()
 
     # the worker's own telemetry directory (the front door sets
-    # telemetry_dir per worker): one file a process
-    recorder = None
+    # telemetry_dir per worker): one file a process, and the worker's own
+    # program table and executable cache
+    recorder = obs = prev_obs = None
     if enabled(cfg):
         tdir = resolve_telemetry_dir(cfg)
         recorder = TelemetryRecorder(tdir, process_index=0, process_count=1,
@@ -164,6 +165,8 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
             "name": name, "port": args.port,
             "config": dataclasses.asdict(cfg)}}, log=log)
         spans.set_recorder(recorder)
+        obs = build_observatory(cfg, recorder, log)
+        prev_obs = programs.set_observatory(obs)
     model, _sstate, _meta = load_serving_state(
         cfg, resolve_device(cfg.device), log=log)
     q = RequestQueue(cfg.seq_buckets, max_len=cfg.seq_len)
@@ -242,6 +245,10 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
         hb_stop.set()
         if recorder is not None:
             spans.set_recorder(None)
+            if obs is not None:
+                programs.set_observatory(prev_obs)
+                update_manifest(recorder.directory,
+                                {"decode_compile": obs.summary()}, log=log)
             recorder.close()
         log("worker stopped")
     return 0

@@ -10,7 +10,9 @@ serving step does not reuse any training machinery:
     (batch_size, bucket), so the kernels and cuBLAS see a fixed set of
     shapes; :meth:`InferenceEngine.warmup` runs one batch per bucket
     before the queue opens (kernel builds, cuBLAS handles and the
-    allocator's growth happen there, never under a request);
+    allocator's growth happen there, never under a request); a bucket's
+    first batch is the program table's ``{name}:predict:L{bucket}`` row
+    (``telemetry/programs.py``);
   * **per-row independence** — no operation mixes rows, and every
     kernel reduces in a fixed order, so a request's logits are bitwise
     the same whatever shares its batch.
@@ -25,11 +27,14 @@ checkpoints comes with the checkpoint slice.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from faster_distributed_training_tpu_torch.telemetry import programs
 
 
 class ServingState:
@@ -78,6 +83,9 @@ class InferenceEngine:
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.calls = 0
+        # the buckets whose first batch the program table has
+        self._observed: set = set()
+        self._lock = threading.Lock()
 
     def _dummy_batch(self, bucket: int) -> Dict[str, np.ndarray]:
         z = np.zeros((self.batch_size, bucket), np.int32)
@@ -97,10 +105,16 @@ class InferenceEngine:
         Runs on a replica worker thread: inference mode is thread-local,
         so it is entered here, inside the call."""
         tokens = batch["tokens"]
-        bs, _ = tokens.shape
+        bs, bucket = tokens.shape
         if bs != self.batch_size:
             raise ValueError(f"batch rows {bs} != engine batch_size "
                              f"{self.batch_size} (the scheduler pads)")
+        obs, watch = programs.get_observatory(), None
+        if obs is not None:
+            with self._lock:
+                if bucket not in self._observed:
+                    self._observed.add(bucket)
+                    watch = programs.Stopwatch(self.device)
 
         def put(name):
             return torch.from_numpy(np.ascontiguousarray(
@@ -111,6 +125,14 @@ class InferenceEngine:
                                 mask=put("mask"), train=False)
             out = logits.float().cpu().numpy()
         self.calls += 1
+        if watch is not None:
+            held = programs.tensor_bytes(dict(self.model.named_parameters()))
+            obs.observe(f"{self.name}:predict:L{bucket}",
+                        programs.args_signature((batch,), (0,)),
+                        compile_ms=watch.ms(), mem=watch.memory(
+                            argument=held + int(sum(
+                                np.asarray(v).nbytes for v in batch.values())),
+                            output=int(out.nbytes)))
         return out
 
 

@@ -14,13 +14,18 @@ Every training run, not only a benchmark, records itself:
     percentiles at each epoch's end (marker files) and flags stragglers
     in a ``[telemetry]`` line and ``pod_summary.json``;
   * ``flight``    the crash flight recorder;
-  * ``programs``  the train state's bytes a card (the ``memory`` event);
+  * ``programs``  the program table (:class:`ProgramObservatory`: CUDA
+    graphs, eager programs' first dispatches and kernel libraries, with
+    the retrace detector; merged into the manifest's ``compile`` at
+    close), the train state's bytes a card (the ``memory`` event) and the
+    placement-drift guard;
   * windowed profiler capture beside it: ``--profile_steps A:B``
     (``utils/profiling.StepWindowProfiler``).
 
 ``--no_telemetry`` or ``FDT_TELEMETRY=0`` turns it all off:
 :func:`build_telemetry` returns None and the Trainer's loop does no
-telemetry work.
+telemetry work.  ``FDT_PROGRAM_OBS=0`` turns off the program table alone
+(and the executable cache that rides it).
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from faster_distributed_training_tpu_torch.telemetry.aggregate import (  # noqa:
     SUMMARY, RunFold, aggregate_run, pod_epoch_aggregate,
     publish_epoch_marker, read_host_records, span_breakdown, step_time_ms)
 from faster_distributed_training_tpu_torch.telemetry.programs import (  # noqa: F401,E501
-    state_bytes_table)
+    ProgramObservatory, observatory_enabled, state_bytes_table)
 from faster_distributed_training_tpu_torch.telemetry.recorder import (  # noqa: F401,E501
     ENV_KILL, MANIFEST, SCHEMA_VERSION, TELEMETRY_SCHEMA, TelemetryRecorder,
     _write_json_atomic, update_manifest, write_manifest)
@@ -58,19 +63,41 @@ def enabled(cfg) -> bool:
             and bool(getattr(cfg, "telemetry", True)))
 
 
+def build_observatory(cfg, recorder=None, log: Callable[[str], None] = print
+                      ) -> Optional[ProgramObservatory]:
+    """A ProgramObservatory writing to ``recorder``, with the executable
+    cache ``--executable_cache`` asks for armed on it through the run's
+    storage backend (``--storage_backend``); None under
+    ``FDT_PROGRAM_OBS=0``."""
+    if not observatory_enabled():
+        return None
+    from faster_distributed_training_tpu_torch.resilience.executable_cache \
+        import build_executable_cache
+    from faster_distributed_training_tpu_torch.resilience.storage import (
+        build_backend)
+
+    obs = ProgramObservatory(recorder=recorder, log=log)
+    backend = build_backend(getattr(cfg, "storage_backend", "posix"),
+                            getattr(cfg, "checkpoint_dir", "."),
+                            log=lambda _line: None)
+    obs.executable_cache = build_executable_cache(cfg, backend=backend,
+                                                  log=log)
+    return obs
+
+
 class RunTelemetry:
-    """The recorder and the pod fold's policy: the Trainer writes to
-    ``self.recorder``; this object owns the epoch boundary and the
-    lifecycle.  It has no program table yet: the JAX bundle's compile
-    observatory becomes a table of CUDA graphs (captures, capture ms,
-    replays, pool bytes) merged into the manifest at close, in a later
-    slice."""
+    """The recorder, the program table (``observatory``: a
+    ProgramObservatory, None under ``FDT_PROGRAM_OBS=0``) and the pod
+    fold's policy: the Trainer writes to ``self.recorder``; this object
+    owns the epoch boundary and the lifecycle."""
 
     def __init__(self, recorder: TelemetryRecorder,
                  straggler_ratio: float = 2.0,
                  aggregate_wait_s: float = 2.0,
-                 log: Callable[[str], None] = print):
+                 log: Callable[[str], None] = print,
+                 observatory: Optional[ProgramObservatory] = None):
         self.recorder = recorder
+        self.observatory = observatory
         self.directory = recorder.directory
         self.pi, self.pc = recorder.pi, recorder.pc
         self.straggler_ratio = float(straggler_ratio)
@@ -96,12 +123,21 @@ class RunTelemetry:
             fold=self._fold, newer_than=self._created_t)
 
     def close(self) -> None:
-        """Flush the tail and join the writer; process 0 then refreshes
-        ``pod_summary.json`` from the whole directory (a write that fails
-        is logged)."""
+        """Process 0 merges the program table into the manifest
+        (``compile``), then the tail is flushed and the writer joined;
+        process 0 then refreshes ``pod_summary.json`` from the whole
+        directory (a write that fails is logged)."""
         if self._closed:
             return
         self._closed = True
+        if self.observatory is not None and self.pi == 0:
+            try:
+                update_manifest(self.directory,
+                                {"compile": self.observatory.summary()},
+                                log=self._log)
+            except Exception as e:      # a report, not the run's outcome
+                self._log(f"[telemetry] could not merge the program table "
+                          f"into {MANIFEST}: {e!r}")
         self.recorder.close()
         if self.pi == 0:
             summary = aggregate_run(self.directory,
@@ -117,8 +153,9 @@ class RunTelemetry:
 
 def build_telemetry(cfg, log: Callable[[str], None] = print
                     ) -> Optional[RunTelemetry]:
-    """RunTelemetry for a TrainConfig, or None when it is off
-    (``--no_telemetry`` / ``FDT_TELEMETRY=0``)."""
+    """RunTelemetry for a TrainConfig (its program table armed with the
+    executable cache ``--executable_cache`` asks for), or None when it is
+    off (``--no_telemetry`` / ``FDT_TELEMETRY=0``)."""
     if not enabled(cfg):
         return None
     recorder = TelemetryRecorder(
@@ -128,4 +165,4 @@ def build_telemetry(cfg, log: Callable[[str], None] = print
         recorder,
         straggler_ratio=float(getattr(cfg, "straggler_ratio", 2.0) or 2.0),
         aggregate_wait_s=float(getattr(cfg, "aggregate_grace_s", 2.0) or 0.0),
-        log=log)
+        log=log, observatory=build_observatory(cfg, recorder, log))

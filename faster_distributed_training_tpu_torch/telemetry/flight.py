@@ -8,8 +8,9 @@ this module writes, durably, what the process knows about itself:
   * the recorder's ring of recent records, flushed or not;
   * the spans open right now, on any thread (a process that dies inside
     ``restore`` or ``ckpt_commit`` names the phase, with its elapsed ms);
-  * the goodput snapshot, the exception with its traceback, and the
-    count of dropped records.
+  * the goodput snapshot, the program table (the active observatory's
+    ``summary()``, under ``programs``), the exception with its traceback,
+    and the count of dropped records.
 
 The dump goes through the resilience bundle's storage backend when it has
 one (``<telemetry_dir>/flight_<pi>_<ms>.json``: on a pod the shared
@@ -35,6 +36,8 @@ import os
 import time
 import traceback
 from typing import Callable, List, Optional, Tuple
+
+from faster_distributed_training_tpu_torch.telemetry import programs
 
 FLIGHT_PREFIX = "flight_"
 
@@ -147,6 +150,9 @@ def build_payload(reason: str, exc: Optional[BaseException] = None,
         payload["dropped_records"] = rec.dropped_records
     if goodput is not None:
         payload["goodput"] = goodput.summary()
+    obs = programs.get_observatory()
+    if obs is not None:
+        payload["programs"] = obs.summary()
     if extra:
         payload.update(extra)
     return payload

@@ -49,7 +49,8 @@ JAX package's so that its ``scripts/telemetry_report.py`` and
                   record was dropped or failed to write)
   ``memory``     {scope, ...}: scope "state", the state's bytes per card
                  (telemetry/programs.py); scope "epoch", the card's
-                 memory watermarks
+                 memory watermarks; scope "sharding_drift", the
+                 placement-drift guard (train/loop.py)
   ``flight``     {path, reason}                  (telemetry/flight.py)
   ``serve_batch`` / ``serve_request``            (serve/scheduler.py)
   ``stream_refill`` / ``stream_stall``           (data/stream/window.py)
@@ -57,8 +58,15 @@ JAX package's so that its ``scripts/telemetry_report.py`` and
                                                  (serve/decode/scheduler.py)
   ``pp_bubble`` / ``pp_stage``                   (cli.run_training, pp)
 
-Registered and not emitted by the port yet: ``program`` and ``retrace``
-(the table of CUDA graphs, slice 19) and ``spare`` (warm spares).
+  ``program``    {name, variant, lowerings, compile_ms, lower_ms,
+                  fingerprint, cache, cache_method, cache_source, avals,
+                  argument_bytes?, output_bytes?, temp_bytes?,
+                  generated_code_bytes?, alias_bytes?}
+                 (telemetry/programs.py: a CUDA graph, an eager program's
+                 first dispatch or a kernel library)
+  ``retrace``    {name, reason, lowerings, avals, prev_avals}
+
+Registered and not emitted by the port yet: ``spare`` (warm spares).
 
 The host file is opened in append mode: a supervised relaunch of the
 same run (same checkpoint_dir) continues the same story.  A fresh run

@@ -58,6 +58,13 @@ Trainer compares it before and after each dispatch.  A key first met in
 a one-step dispatch captures in its next, so that one is marked too; on
 the CPU, where nothing is captured, only a key's first dispatch is.
 
+Each graph key is a program of the table (``telemetry/programs.py``),
+``train:{path}:k{K}`` (``host``, ``resident`` or ``stream``), recorded
+with the active observatory at its capture: ``lower_ms`` its warm-up
+step, ``compile_ms`` the capture, ``temp_bytes`` the graph pool's
+reserved growth over both, ``replays`` in the table's summary.  Where nothing is
+captured (the CPU, gloo) the key's first step is its ``lower_ms``.
+
 Under a data mesh (dp) the body is the data-parallel step: its
 collectives (the gradient and metric all-reduces, BatchNorm's and the
 amaxes') are captured in the graph with the rest, NCCL's collectives
@@ -78,6 +85,7 @@ import numpy as np
 import torch
 
 from faster_distributed_training_tpu_torch.config import TrainConfig
+from faster_distributed_training_tpu_torch.telemetry import programs
 from faster_distributed_training_tpu_torch.train import steps as train_steps
 from faster_distributed_training_tpu_torch.train.state import (
     AppliedCount, TrainState)
@@ -188,6 +196,10 @@ class FusedDispatch:
         self.builds = 0
         self._seen: set = set()
         self._warm: set = set()
+        # the program table: a warm-up's stopwatch and ms until its key's
+        # capture; the keys recorded without a capture
+        self._warm_watch: Dict[tuple, tuple] = {}
+        self._timed: set = set()
         self._told_ngd = False
         # gloo's collectives run on the host: nothing to capture
         import torch.distributed as dist
@@ -298,15 +310,43 @@ class FusedDispatch:
         if ngd_t is not None:
             state.opt_state["ngd"]["t"] = ngd_t
 
-    def _capture(self, state: TrainState, key: tuple) -> None:
-        """Capture the body on the dispatch stream (it runs nothing)."""
+    def _capture(self, state: TrainState, key: tuple) -> float:
+        """Capture the body on the dispatch stream (it runs nothing);
+        returns the capture's ms."""
         t0 = time.monotonic()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             self._body(state, key)
-        self.capture_s += time.monotonic() - t0
+        took = time.monotonic() - t0
+        self.capture_s += took
         self.graphs[key] = graph
         self.replays[key] = 0
+        return took * 1e3
+
+    def _observe(self, obs, state: TrainState, key: tuple,
+                 watch: programs.Stopwatch, lower_ms: float,
+                 compile_ms: float) -> None:
+        """Key ``key``'s row of the program table: what the body reads
+        from outside its pool (the state, the tables, the staged batch or
+        the resident arrays), its metric buffers, the state it updates in
+        place."""
+        if self.resident is None:
+            data = self.staged[key]
+            sig = programs.args_signature((data,), (0,))
+        else:
+            data = (self.resident.arrays, self.order_buf)
+            sig = programs.args_signature(
+                (self.resident.arrays, self.order_buf, self.start),
+                (0, 1, 2))
+        alias = programs.state_bytes(state)
+        obs.observe(f"train:{key[0]}:k{self.k}", sig, lower_ms, compile_ms,
+                    mem=watch.memory(
+                        argument=alias + programs.tensor_bytes(self.tables,
+                                                               data),
+                        output=programs.tensor_bytes(self.metric_buf),
+                        alias=alias),
+                    replays=((lambda: self.replays.get(key, 0))
+                             if self.capture else None))
 
     # -- a dispatch -----------------------------------------------------------
     def set_epoch(self, epoch: int) -> None:
@@ -379,6 +419,7 @@ class FusedDispatch:
         self.cursor.zero_()
         built = key not in self._seen
         self._seen.add(key)
+        obs = programs.get_observatory()
         for j in range(kk):
             self._set_counters(state, g0 + j, c0 + j,
                                None if t0 is None else t0 + j)
@@ -389,17 +430,37 @@ class FusedDispatch:
                          "dispatch; the other steps replay the captured "
                          "step graph")
                 self._told_ngd = True
+            warm = False
             if not eager and key not in self.graphs and key not in self._warm:
                 # the warm-up: this slot's real step, eagerly
                 self._warm.add(key)
-                eager = True
+                eager = warm = True
             if eager:
+                # the program's row: at the capture after a warm-up, or
+                # (nothing captured) at the key's first step
+                first = (obs is not None and not self.capture
+                         and key not in self._timed)
+                watch = None
+                if obs is not None and (warm or first):
+                    watch = programs.Stopwatch(
+                        self.device, self.pool if self.capture else None)
                 self._body(state, key)
                 self.eager_steps += 1
+                if watch is not None and warm:
+                    self._warm_watch[key] = (watch, watch.ms())
+                elif watch is not None:
+                    self._timed.add(key)
+                    self._observe(obs, state, key, watch, watch.ms(), 0.0)
                 continue
             if key not in self.graphs:
-                self._capture(state, key)
+                capture_ms = self._capture(state, key)
                 built = True
+                if obs is not None:
+                    watch, warm_ms = self._warm_watch.pop(
+                        key, (programs.Stopwatch(self.device, self.pool),
+                              0.0))
+                    self._observe(obs, state, key, watch, warm_ms,
+                                  capture_ms)
                 self._set_counters(state, g0 + j, c0 + j,
                                    None if t0 is None else t0 + j)
             self.graphs[key].replay()

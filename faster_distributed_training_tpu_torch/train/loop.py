@@ -49,7 +49,20 @@ the eager first step; under a dispatch: ``FusedDispatch.builds``), the
 ``memory`` event of scope ``state`` after the run's first dispatch, an
 ``eval`` span, and at each epoch's end the ``epoch``, ``memory`` (scope
 ``epoch``, on a card) and ``goodput`` events before the pod fold
-(``end_epoch``).  ``--profile_steps A:B`` (``utils.profiling.
+(``end_epoch``).  With an observatory active (``telemetry/programs.py``,
+the entry points install it) the first dispatch of each input signature
+of the K=1 step and of the eval step is a row of the program table
+(``train:host:k1``, ``eval``; the dispatch records its graph keys).
+
+The placement-drift guard (JAX ``_check_sharding_drift``), on with or
+without telemetry: after the first dispatch (and the first after a
+restore) the state's placement is fingerprinted
+(``programs.sharding_fingerprint``: each leaf's device, dtype, shape,
+stride and tier, and its storage address while a captured graph reads
+it; with ``--debug`` the per-leaf table too), and at every epoch's end
+checked: a drift warns, logs a ``[memory] WARNING`` line, emits a
+``memory`` event of scope ``sharding_drift`` (the changed leaves under
+``--debug``) and re-anchors.  Nothing reads a tensor on the host for it.  ``--profile_steps A:B`` (``utils.profiling.
 StepWindowProfiler``) starts and stops its trace at dispatch boundaries,
 the stop after the last dispatch's resilience hooks (JAX stops before
 them; the decisions are the same); the window's close reads that
@@ -67,7 +80,7 @@ import torch
 from faster_distributed_training_tpu_torch.config import TrainConfig
 from faster_distributed_training_tpu_torch.resilience.sentinel import (
     host_finite)
-from faster_distributed_training_tpu_torch.telemetry import spans
+from faster_distributed_training_tpu_torch.telemetry import programs, spans
 from faster_distributed_training_tpu_torch.train import checkpoint as ckpt
 from faster_distributed_training_tpu_torch.train.metrics import (
     MetricAccumulator, format_goodput, perplexity)
@@ -108,6 +121,13 @@ class Trainer:
         # whether the K=1 step ran yet (its first dispatch is "compile")
         self._stepped = False
         self._state_seen = False
+        # the program table: the input signatures each program has seen
+        self._sigs: Dict[str, set] = {}
+        # the drift guard's anchor: the placement fingerprint, the
+        # per-leaf table (--debug), the captured graphs it was taken with
+        self._sharding_expect: Optional[str] = None
+        self._sharding_detail: Optional[Dict[str, str]] = None
+        self._anchor_graphs = 0
         # the epoch positions the last epoch loop reached (epoch events)
         self._last_epoch_steps = 0
         self.best_acc = 0.0
@@ -225,14 +245,98 @@ class Trainer:
             prof.after_dispatch(self.global_step,
                                 fence=lambda: float(metrics["loss"]))
 
-    def _observe_state(self, state: TrainState) -> None:
-        """After the run's first dispatch: the state's bytes a card
-        (``telemetry.programs.state_bytes_table``) as the ``memory`` event
-        of scope ``state``, and a ``[memory]`` line when the optimizer
-        state is not all replicated."""
-        self._state_seen = True
-        from faster_distributed_training_tpu_torch.telemetry import programs
+    def _watch(self, name: str, batch) -> tuple:
+        """(signature, Stopwatch) when an observatory is active and
+        ``batch``'s signature is new for program ``name``, else (None,
+        None)."""
+        if programs.get_observatory() is None:
+            return None, None
+        sig = programs.args_signature((batch,), (0,))
+        seen = self._sigs.setdefault(name, set())
+        if sig in seen:
+            return None, None
+        seen.add(sig)
+        return sig, programs.Stopwatch(self.device)
 
+    def _observed(self, name: str, sig, watch, state: TrainState, batch,
+                  out, in_place: bool) -> None:
+        """Program ``name``'s row after its first dispatch of ``sig``:
+        the state and the batch in, ``out`` out, the state updated in
+        place by a train step."""
+        obs = programs.get_observatory()
+        if obs is None or watch is None:
+            return
+        ms = watch.ms()
+        held = programs.state_bytes(state)
+        obs.observe(name, sig, compile_ms=ms, mem=watch.memory(
+            argument=held + programs.tensor_bytes(batch),
+            output=programs.tensor_bytes(out),
+            alias=held if in_place else 0))
+
+    def _graphs(self) -> int:
+        """The captured graphs that read the state."""
+        return len(self.dispatch.graphs) if self.dispatch is not None else 0
+
+    def _anchor_placement(self, state: TrainState) -> None:
+        """The drift guard's anchor: the state's placement fingerprint now
+        (with the storage addresses while a captured graph reads them),
+        and with ``--debug`` its per-leaf table."""
+        self._anchor_graphs = self._graphs()
+        addresses = self._anchor_graphs > 0
+        self._sharding_expect = programs.sharding_fingerprint(state,
+                                                              addresses)
+        self._sharding_detail = (programs.sharding_table(state, addresses)
+                                 if self.cfg.debug else None)
+
+    def _check_sharding_drift(self, state: TrainState, epoch: int) -> None:
+        """An epoch's end: the placement against the anchor.  A capture
+        since the anchor reads the addresses as they are (a new program,
+        not a drift): re-anchor.  A drift warns, logs, emits a ``memory``
+        event of scope ``sharding_drift`` and re-anchors (one incident,
+        one warning)."""
+        if self._sharding_expect is None:
+            return
+        if self._graphs() != self._anchor_graphs:
+            self._anchor_placement(state)
+            return
+        addresses = self._anchor_graphs > 0
+        got = programs.sharding_fingerprint(state, addresses)
+        if got == self._sharding_expect:
+            return
+        changed: list = []
+        if self._sharding_detail is not None:
+            now = programs.sharding_table(state, addresses)
+            before = self._sharding_detail
+            changed = sorted(p for p in set(now) | set(before)
+                             if now.get(p) != before.get(p))[:8]
+        import warnings
+
+        msg = (f"train-state placement DRIFT at epoch {epoch}: fingerprint "
+               f"{self._sharding_expect} -> {got}"
+               + (f"; changed leaves (first 8): {changed}" if changed
+                  else " (re-run with --debug for the per-leaf diff)")
+               + " — a leaf was re-placed (device, dtype, layout, tier) or"
+                 " its storage swapped where a captured graph reads it; "
+                 "state is restored by copying into the live tensors")
+        warnings.warn(msg, stacklevel=2)
+        self.log("[memory] WARNING: " + msg)
+        if self.telemetry is not None:
+            self.telemetry.recorder.record_event(
+                "memory", scope="sharding_drift", epoch=epoch,
+                expected=self._sharding_expect, got=got,
+                changed_leaves=changed)
+        self._anchor_placement(state)
+
+    def _observe_state(self, state: TrainState) -> None:
+        """After the run's first dispatch, and the first after a restore:
+        the drift guard's anchor; once a Trainer, the state's bytes a
+        card (``telemetry.programs.state_bytes_table``) as the ``memory``
+        event of scope ``state``, and a ``[memory]`` line when the
+        optimizer state is not all replicated."""
+        self._anchor_placement(state)
+        if self._state_seen:
+            return
+        self._state_seen = True
         tiers = programs.state_bytes_table(state).get("opt_state_tiers") or {}
         if set(tiers) - {"replicated"}:
             self.log("[memory] opt state per chip: " + ", ".join(
@@ -300,13 +404,17 @@ class Trainer:
                     continue
                 t_disp = time.monotonic() if want else 0.0
                 self._prof_before(1)
-                state, metrics = self.train_step(
-                    state, to_device(batch, self.device))
+                dev_batch = to_device(batch, self.device)
+                sig, watch = self._watch("train:host:k1", dev_batch)
+                state, metrics = self.train_step(state, dev_batch)
+                if watch is not None:
+                    self._observed("train:host:k1", sig, watch, state,
+                                   dev_batch, metrics, True)
                 t_done = time.monotonic() if want else 0.0
                 acc.add(metrics)
                 n += 1
                 self.global_step += 1
-                if not self._state_seen:
+                if self._sharding_expect is None:
                     self._observe_state(state)
                 if log_every and n % log_every == 0:
                     now = time.monotonic()
@@ -352,7 +460,7 @@ class Trainer:
         cfg = self.cfg
         acc.add(metrics)
         self.global_step += kk
-        if not self._state_seen:
+        if self._sharding_expect is None:
             self._observe_state(state)
         log_every = int(cfg.log_every or 0)
         if log_every and n // log_every > (n - kk) // log_every:
@@ -565,8 +673,13 @@ class Trainer:
             with (contextlib.nullcontext() if pl is None
                   else pl.materialized(state)):
                 for batch in loader:
-                    acc.add(self.eval_step(state, to_device(batch,
-                                                            self.device)))
+                    dev_batch = to_device(batch, self.device)
+                    sig, watch = self._watch("eval", dev_batch)
+                    m = self.eval_step(state, dev_batch)
+                    if watch is not None:
+                        self._observed("eval", sig, watch, state, dev_batch,
+                                       m, False)
+                    acc.add(m)
             summary = acc.summary()   # the host read ends the span
         elapsed = time.monotonic() - t0
         total = summary.get("total_sum")
@@ -582,6 +695,9 @@ class Trainer:
         cfg = self.cfg
         res = self.resilience
         self.global_step = int(state.step)
+        # a restored state (a resume, a supervisor restart) re-anchors
+        # the drift guard after its next dispatch, never compared across
+        self._sharding_expect = None
         # a supervisor restart re-enters fit from the restored epoch: the
         # history of the epochs it replays goes
         for series in self.history.values():
@@ -647,6 +763,7 @@ class Trainer:
                 state, meta = ckpt.restore_checkpoint(
                     cfg.checkpoint_dir, recover_name, state)
                 self.global_step = int(state.step)
+                self._sharding_expect = None
                 self.log(f"[recover] non-finite loss at epoch {epoch}; "
                          f"restored last-good state from epoch "
                          f"{meta.get('epoch')}, retrying")
@@ -663,6 +780,7 @@ class Trainer:
                 epoch += 1
                 continue
             failures = 0
+            self._check_sharding_drift(state, epoch)
             if cfg.auto_recover:
                 self._save_epoch_checkpoint(recover_name, state, epoch)
             test_m = self.evaluate(state, eval_loader(epoch))

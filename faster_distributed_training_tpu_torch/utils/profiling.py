@@ -213,6 +213,20 @@ def memory_watermarks(device=None) -> Optional[dict]:
             "bytes_in_use": int(torch.cuda.memory_allocated(dev))}
 
 
+def compiled_memory_bytes(variant: dict) -> Optional[int]:
+    """A program's static peak from its row of the program table
+    (``telemetry.programs``, a variant of ``summary()``): temp + argument
+    + output - alias (state updated in place is both an argument and an
+    output), or None when the row has no memory fields (the CPU) or the
+    sum is not positive (JAX ``compiled_memory_bytes``)."""
+    if "temp_bytes" not in variant:
+        return None
+    total = sum(int(variant.get(f, 0) or 0) for f in (
+        "temp_bytes", "argument_bytes", "output_bytes"))
+    total -= int(variant.get("alias_bytes", 0) or 0)
+    return total if total > 0 else None
+
+
 def _card(device):
     import torch
 

@@ -1929,3 +1929,106 @@ def test_memory_watermarks_on_the_card(card):
     assert got is not None and got["bytes_in_use"] >= x.numel() * 4
     assert got["peak_bytes"] >= got["bytes_in_use"]
     assert peak_memory_bytes("cuda") == got["peak_bytes"]
+
+
+# -- the program table and the executable cache (slice 19) ----------------
+
+def test_program_table_k4_graph_row_on_the_card(card, tmp_path):
+    """A K=4 tiny run: one ``train:host:k4`` row (its warm-up the
+    lower_ms, its capture the compile_ms), its ``replays`` equal to the
+    dispatch's, the graph pool's growth ``temp_bytes`` > 0, and
+    ``compiled_memory_bytes`` positive."""
+    import json
+    import os
+
+    from faster_distributed_training_tpu_torch.config import TrainConfig
+    from faster_distributed_training_tpu_torch.utils.profiling import (
+        compiled_memory_bytes)
+
+    cfg = TrainConfig(model="transformer", dataset="synthetic",
+                      num_classes=4, batch_size=8, seq_len=16, n_layers=1,
+                      d_model=16, d_ff=32, n_heads=2, epochs=2,
+                      subset_stride=64, optimizer="sgd", precision="fp32",
+                      plot=False, workers=0, log_every=0, device="cuda",
+                      steps_per_dispatch=4, checkpoint_dir=str(tmp_path))
+    out = cli.run_training(cfg, log=lambda *_: None)
+    with open(os.path.join(out["telemetry_dir"], "manifest.json")) as f:
+        table = json.load(f)["compile"]
+    rows = {p["name"]: p for p in table["programs"]}
+    disp = out["trainer"].dispatch
+    k4 = rows["train:host:k4"]
+    assert k4["lowerings"] == 1 and len(disp.graphs) == 1
+    v = k4["variants"][0]
+    assert v["replays"] == sum(disp.replays.values()) > 0
+    assert v["temp_bytes"] > 0 and v["lower_ms"] > 0 and v["compile_ms"] > 0
+    assert v["alias_bytes"] > 0 and compiled_memory_bytes(v) > 0
+    assert rows["eval"]["lowerings"] == 1 and table["retraces"] == []
+
+
+_TIERS = r"""
+import json, os, subprocess, sys
+sys.path.insert(0, sys.argv[1])
+from faster_distributed_training_tpu_torch.ops import _build
+from faster_distributed_training_tpu_torch.resilience.executable_cache \
+    import ExecutableCache
+from faster_distributed_training_tpu_torch.runtime import native_lib
+from faster_distributed_training_tpu_torch.telemetry import programs
+
+assert _build.__file__.startswith(sys.argv[1]), _build.__file__
+builds = []
+real = subprocess.Popen.__init__
+
+def guard(self, args, *a, **kw):
+    argv = [str(x) for x in (args if isinstance(args, (list, tuple))
+                             else [args])]
+    if (os.path.basename(argv[0]) in ("nvcc", "g++")
+            and "--version" not in argv):
+        builds.append(argv[0])
+    return real(self, args, *a, **kw)
+
+subprocess.Popen.__init__ = guard
+obs = programs.ProgramObservatory(log=lambda *_: None)
+obs.executable_cache = ExecutableCache(sys.argv[2], log=lambda *_: None)
+programs.set_observatory(obs)
+for name in _build.KERNELS:
+    _build.load(name)
+assert native_lib.load() is not None, native_lib.failure()
+print(json.dumps({"rows": {n: e[0]["cache_source"]
+                           for n, e in obs.programs.items()},
+                  "stats": obs.executable_cache.stats, "builds": builds}))
+"""
+
+
+def test_build_tiers_on_a_copy_of_the_package(card, tmp_path):
+    """``ops/_build.py::acquire`` on two copies of the package: with the
+    built ``_build/`` each library is ``persistent_dir`` and stored; a
+    copy without it loads every library ``deserialized`` from the same
+    cache, starting no nvcc or g++ build; a ``lib:*`` row for each."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from faster_distributed_training_tpu_torch.ops import _build
+    from faster_distributed_training_tpu_torch.runtime import native_lib
+
+    _build.build()
+    assert native_lib.load() is not None
+    pkg = os.path.dirname(os.path.dirname(_build.__file__))
+    want = {f"lib:{n}" for n in _build.KERNELS} | {"lib:fdt_native"}
+    got = []
+    for tag, keep in (("warm", True), ("fresh", False)):
+        root = tmp_path / tag
+        shutil.copytree(pkg, root / os.path.basename(pkg), ignore=(
+            None if keep else shutil.ignore_patterns("_build")))
+        proc = subprocess.run(
+            [sys.executable, "-c", _TIERS, str(root), str(tmp_path / "c")],
+            capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        got.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    warm, fresh = got
+    assert warm["rows"] == {n: "persistent_dir" for n in want}
+    assert warm["stats"]["stores"] == len(want)
+    assert fresh["rows"] == {n: "deserialized" for n in want}
+    assert fresh["stats"]["hits"] == len(want) and fresh["builds"] == []

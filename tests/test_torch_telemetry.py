@@ -19,8 +19,7 @@ consumers (``scripts/telemetry_report.py``,
     the port's run directory as it reads JAX's;
   * the schema lint: JAX's ``scan_emissions`` over the port's package
     finds every emitted kind and field registered; registered and never
-    emitted are exactly ``program`` and ``retrace`` (the table of CUDA
-    graphs, slice 19) and ``spare`` (warm spares, ROADMAP item 10);
+    emitted is exactly ``spare`` (warm spares, ROADMAP item 10);
   * end to end, a 2-layer next-token LM on the CPU against JAX's run of
     the same config and data: the same kinds and counts of records, step
     numbers and compile marks, the epoch loss within 1e-5,
@@ -415,7 +414,6 @@ def test_schema_lint_of_the_port_package():
     """JAX ``scripts/check_telemetry_schema.py::scan_emissions`` over the
     port's package: every emitted kind registered, every closed kind's
     fields registered and resolvable; registered and never emitted:
-    ``program`` and ``retrace`` (slice 19's table of CUDA graphs) and
     ``spare`` (warm spares, ROADMAP item 10)."""
     lint = _script("check_telemetry_schema")
     pkg = os.path.join(ROOT, "faster_distributed_training_tpu_torch")
@@ -429,8 +427,7 @@ def test_schema_lint_of_the_port_package():
             continue
         assert em.fields <= allowed, (em.where, em.fields - allowed)
         assert not em.unresolved, em.where
-    assert set(prec.TELEMETRY_SCHEMA) - emitted == {
-        "program", "retrace", "spare"}
+    assert set(prec.TELEMETRY_SCHEMA) - emitted == {"spare"}
 
 
 # -- end to end ------------------------------------------------------------
@@ -463,16 +460,24 @@ def init(tmp_path_factory):
 
 
 def _profile(recs):
-    """The kinds and their counts (JAX's ``program`` and ``retrace``
-    events aside: the port's program table is slice 19's), the span names
-    and counts, and the step records' (step, epoch, n, k, compile)."""
+    """The kinds and their counts, the set of program names, the span
+    names and counts, and the step records' (step, epoch, n, k, compile).
+    Programs are compared by name, not by count, and retraces not at all:
+    under the suite's 64-bit types JAX lowers ``train:host:k1`` a second
+    time after its first step (a ``duplicate-avals`` retrace, its state's
+    avals moving), which the port's eager step has no counterpart of.
+    The port's ``lib:*`` rows are left out: JAX has no kernel libraries,
+    and whether this process loads one first depends on the tests run
+    before it."""
     kinds = collections.Counter(r["kind"] for r in recs
                                 if r["kind"] not in ("program", "retrace"))
+    programs = {r["name"] for r in recs if r["kind"] == "program"
+                and not r["name"].startswith("lib:")}
     names = collections.Counter(r["name"] for r in recs
                                 if r["kind"] == "span")
     steps = [(r["step"], r["epoch"], r["n"], r["k"], bool(r.get("compile")))
              for r in recs if r["kind"] == "step"]
-    return kinds, names, steps
+    return kinds, names, steps, programs
 
 
 @pytest.fixture(scope="module")
